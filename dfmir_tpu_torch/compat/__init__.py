@@ -1,0 +1,1 @@
+"""The weight bridge from the JAX package's parameter trees."""

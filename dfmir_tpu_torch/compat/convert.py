@@ -1,0 +1,117 @@
+"""The weight bridge: JAX package parameter trees -> the port's state_dicts,
+and the layout helpers the parity tests share.
+
+The input is a JAX param tree as nested dicts of numpy arrays, e.g.
+``jax.tree.map(np.asarray, state.params)``.  Layout maps: flax conv kernel
+(*k, in, out) -> torch Conv (out, in, *k); flax transposed-conv kernel
+(*k, in, out) -> torch ConvTranspose (in, out, *k).  Keys are the reference
+state_dict's: netG ``model.<i>.*``, netR
+``unet_model.{downarm,uparm,extras}.<i>.main.*`` and ``flow.*``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def to_nchw(a) -> np.ndarray:
+    """(B, *spatial, C) -> (B, C, *spatial), as a numpy array."""
+    return np.ascontiguousarray(np.moveaxis(np.asarray(a), -1, 1))
+
+
+def to_nhwc(a) -> np.ndarray:
+    """(B, C, *spatial) -> (B, *spatial, C); takes numpy or torch."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.ascontiguousarray(np.moveaxis(np.asarray(a), 1, -1))
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _conv_w(x) -> torch.Tensor:
+    x = np.asarray(x)
+    nd = x.ndim - 2
+    return _t(np.transpose(x, (nd + 1, nd) + tuple(range(nd))))
+
+
+def _convT_w(x) -> torch.Tensor:
+    x = np.asarray(x)
+    nd = x.ndim - 2
+    return _t(np.transpose(x, (nd, nd + 1) + tuple(range(nd))))
+
+
+def _conv(p) -> Dict[str, torch.Tensor]:
+    out = {"weight": _conv_w(p["kernel"])}
+    if "bias" in p:
+        out["bias"] = _t(p["bias"])
+    return out
+
+
+def netG_state_from_jax(params: Mapping[str, Any], specs, use_dropout=False,
+                        padding_type="reflect") -> Dict[str, torch.Tensor]:
+    """JAX ResnetGenerator params -> the port's netG state_dict (weights
+    only; the blur layers' ``filt`` buffers are the module's own)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, s in enumerate(specs):
+        kind = s["kind"]
+        if kind == "conv":
+            for k, v in _conv(params[f"layer_{i}"]["Conv_0"]).items():
+                sd[f"model.{i}.{k}"] = v
+        elif kind == "convT":
+            p = params[f"layer_{i}"]
+            sd[f"model.{i}.weight"] = _convT_w(p["kernel"])
+            if "bias" in p:
+                sd[f"model.{i}.bias"] = _t(p["bias"])
+        elif kind == "resblock":
+            if padding_type == "zero":
+                convs = (0, 4 if use_dropout else 3)
+            else:
+                convs = (1, 6 if use_dropout else 5)
+            for j, c in enumerate(convs):
+                p = params[f"layer_{i}"][f"ConvND_{j}"]["Conv_0"]
+                for k, v in _conv(p).items():
+                    sd[f"model.{i}.conv_block.{c}.{k}"] = v
+    return sd
+
+
+def netR_state_from_jax(params: Mapping[str, Any], enc_nf,
+                        dec_nf) -> Dict[str, torch.Tensor]:
+    """JAX VxmDense params -> the port's netR state_dict."""
+    unet = params["unet"]
+    n_enc = len(enc_nf)
+    arms = ([("downarm", f"down_{i}", i) for i in range(n_enc)]
+            + [("uparm", f"up_{i}", i) for i in range(n_enc)]
+            + [("extras", f"extra_{i}", i) for i in range(len(dec_nf) - n_enc)])
+    sd: Dict[str, torch.Tensor] = {}
+    for arm, name, i in arms:
+        for k, v in _conv(unet[name]["ConvND_0"]["Conv_0"]).items():
+            sd[f"unet_model.{arm}.{i}.main.{k}"] = v
+    for k, v in _conv(params["flow"]).items():
+        sd[f"flow.{k}"] = v
+    return sd
+
+
+def load_jax_params(model, params: Mapping[str, Any]) -> None:
+    """Load a JAX ``{"G": ..., "R": ...}`` param tree (numpy leaves) into a
+    ``RegistrationModel``'s netG and netR, strictly: every weight of both
+    networks must be given."""
+    cfg = model.cfg
+    for net, sd in (
+        (model.netG, netG_state_from_jax(
+            params["G"], model.netG.specs, use_dropout=not cfg.no_dropout)),
+        (model.netR, netR_state_from_jax(params["R"], cfg.vxm_enc,
+                                         cfg.vxm_dec)),
+    ):
+        full = net.state_dict()
+        missing = [k for k in full if k not in sd and not k.endswith(".filt")]
+        extra = [k for k in sd if k not in full]
+        if missing or extra:
+            raise KeyError(f"{type(net).__name__}: missing {missing}, "
+                           f"unexpected {extra}")
+        full.update(sd)
+        net.load_state_dict(full, strict=True)

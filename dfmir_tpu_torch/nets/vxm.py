@@ -1,0 +1,148 @@
+"""VoxelMorph-style dense registration network (2-D).
+
+The reference VxmDense + Unet: a strided-conv encoder (LeakyReLU 0.2), a
+nearest-upsample decoder with skip concats, extra full-resolution convs, a
+3x3 flow head initialised N(0, 1e-5) with zero bias, half-resolution
+scaling-and-squaring integration (int_downsize=2, int_steps=7), a resize to
+full size and the dense warps.  Parameter names are the reference's
+(``unet_model.{downarm,uparm,extras}.<i>.main.*``, ``flow.*``).
+
+The UNet convs use torch's default init, as the reference does (it never
+passes netR through init_net).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+from torch.nn.utils import skip_init
+
+from dfmir_tpu_torch.nets.layers import conv_nd, upsample_nearest
+from dfmir_tpu_torch.ops.integrate import resize_flow, vecint
+from dfmir_tpu_torch.ops.warp import warp
+
+
+class VxmConvBlock(nn.Module):
+    """3x3 conv (torch default init) + LeakyReLU(0.2)."""
+
+    def __init__(self, in_ch: int, out_ch: int, stride: int = 1, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.main = conv_nd(in_ch, out_ch, 3, stride, 1, True,
+                            init_type="torch_default", generator=generator)
+
+    def forward(self, x):
+        return F.leaky_relu(self.main(x), negative_slope=0.2)
+
+
+class VxmUnet(nn.Module):
+    def __init__(self, enc_nf: Sequence[int], dec_nf: Sequence[int],
+                 in_ch: int = 2, *, generator: torch.Generator):
+        super().__init__()
+        n_enc = len(enc_nf)
+        self.downarm = nn.ModuleList()
+        prev = in_ch
+        for nf in enc_nf:
+            self.downarm.append(VxmConvBlock(prev, nf, 2, generator=generator))
+            prev = nf
+        skips = [in_ch] + list(enc_nf[:-1])      # popped from the end
+        self.uparm = nn.ModuleList()
+        for nf in dec_nf[:n_enc]:
+            self.uparm.append(VxmConvBlock(prev, nf, generator=generator))
+            prev = nf + skips.pop()
+        self.extras = nn.ModuleList()
+        for nf in dec_nf[n_enc:]:
+            self.extras.append(VxmConvBlock(prev, nf, generator=generator))
+            prev = nf
+        self.out_channels = prev
+
+    def forward(self, x):
+        x_enc = [x]
+        for layer in self.downarm:
+            x_enc.append(layer(x_enc[-1]))
+        h = x_enc.pop()
+        for layer in self.uparm:
+            h = upsample_nearest(layer(h))
+            h = torch.cat([h, x_enc.pop()], dim=1)
+        for layer in self.extras:
+            h = layer(h)
+        return h
+
+
+class VxmDense(nn.Module):
+    """Returns (bidir, training): (y_source, y_target, pos_flow_fullres);
+    (registration=True): (y_source, pos_flow_fullres);
+    (unidir, training): (y_source, preint_flow).
+    ``return_preint`` appends the pre-integration flow."""
+
+    def __init__(self, ndims: int = 2,
+                 nb_features: Tuple[Sequence[int], Sequence[int]] = (
+                     (16, 32, 32, 64, 64, 64), (64, 64, 64, 32, 32, 32, 16)),
+                 int_steps: int = 7, int_downsize: int = 2, bidir: bool = True,
+                 compute_dtype: str = "float32", *,
+                 generator: torch.Generator):
+        super().__init__()
+        if ndims != 2:
+            raise NotImplementedError(
+                "3-D VxmDense is not ported yet (ROADMAP A11, the 3-D slice)")
+        if compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype={compute_dtype!r}: only float32 is ported")
+        enc_nf, dec_nf = nb_features
+        self.ndims = ndims
+        self.int_steps, self.int_downsize, self.bidir = (int_steps,
+                                                         int_downsize, bidir)
+        self.unet_model = VxmUnet(enc_nf, dec_nf, generator=generator)
+        self.flow = skip_init(nn.Conv2d, self.unet_model.out_channels, ndims,
+                              3, padding=1)
+        with torch.no_grad():
+            self.flow.weight.normal_(0.0, 1e-5, generator=generator)
+            self.flow.bias.zero_()
+
+    def forward(self, source, target, registration: bool = False,
+                return_preint: bool = False):
+        x = self.unet_model(torch.cat([source, target], dim=1))
+        flow_field = self.flow(x).float()
+
+        do_resize = self.int_steps > 0 and self.int_downsize > 1
+        pos_flow = flow_field
+        if do_resize:
+            pos_flow = resize_flow(pos_flow, 1.0 / self.int_downsize)
+        preint_flow = pos_flow
+
+        y_target = None
+        if self.int_steps > 0 and self.bidir and not registration:
+            # pos and neg SVFs integrate as one batch: every op in the chain
+            # is per-sample, so this is exact and halves the serial warps
+            b = source.shape[0]
+            both = vecint(torch.cat([pos_flow, -pos_flow], dim=0),
+                          self.int_steps)
+            if do_resize:
+                both = resize_flow(both, float(self.int_downsize))
+            pos_flow = both[:b]
+            warped = warp(torch.cat([source, target], dim=0), both)
+            y_source, y_target = warped[:b], warped[b:]
+        else:
+            # registration=True computes the pos chain only: its outputs
+            # never use the neg one
+            if self.int_steps > 0:
+                pos_flow = vecint(pos_flow, self.int_steps)
+                if do_resize:
+                    pos_flow = resize_flow(pos_flow, float(self.int_downsize))
+            y_source = warp(source, pos_flow)
+            if self.bidir and not registration:
+                # int_steps == 0 here, so the neg flow is -preint_flow
+                y_target = warp(target, -preint_flow)
+
+        if registration:
+            out = (y_source, pos_flow)
+        elif self.bidir:
+            out = (y_source, y_target, pos_flow)
+        else:
+            out = (y_source, preint_flow)
+        if return_preint:
+            out = out + (preint_flow,)
+        return out

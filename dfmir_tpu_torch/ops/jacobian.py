@@ -1,0 +1,45 @@
+"""Jacobian-determinant maps for deformation fields.
+
+``flow`` is a displacement field (B, nd, *spatial) in pixel units; the map
+is ``phi(p) = p + flow(p)``.  Derivatives are central differences inside
+and one-sided at the edges (the numpy.gradient convention).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _gradient(u, axis):
+    """d u / d axis with unit spacing; central interior, one-sided edges."""
+    n = u.shape[axis]
+    if n < 2:
+        return torch.zeros_like(u)
+    interior = (u.narrow(axis, 2, n - 2) - u.narrow(axis, 0, n - 2)) * 0.5
+    first = u.narrow(axis, 1, 1) - u.narrow(axis, 0, 1)
+    last = u.narrow(axis, n - 1, 1) - u.narrow(axis, n - 2, 1)
+    return torch.cat([first, interior, last], dim=axis)
+
+
+def jacobian_det(flow):
+    """Pointwise determinant of the deformation Jacobian, (B, *spatial)."""
+    nd = flow.shape[1]
+    # J[i][j] = d phi_i / d axis_j = d flow_i / d axis_j + delta_ij; the
+    # spatial axes of flow[:, i] are 1..nd
+    J = [[_gradient(flow[:, i], 1 + j) + (1.0 if i == j else 0.0)
+          for j in range(nd)] for i in range(nd)]
+    if nd == 1:
+        return J[0][0]
+    if nd == 2:
+        return J[0][0] * J[1][1] - J[0][1] * J[1][0]
+    if nd == 3:
+        return (J[0][0] * (J[1][1] * J[2][2] - J[1][2] * J[2][1])
+                - J[0][1] * (J[1][0] * J[2][2] - J[1][2] * J[2][0])
+                + J[0][2] * (J[1][0] * J[2][1] - J[1][1] * J[2][0]))
+    raise ValueError(f"unsupported ndims={nd}")
+
+
+def folding_fraction(flow):
+    """%|J|<0: the fraction of pixels where the deformation folds, (B,)."""
+    det = jacobian_det(flow)
+    return (det < 0).float().mean(dim=tuple(range(1, det.ndim)))

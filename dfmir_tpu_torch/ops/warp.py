@@ -1,0 +1,141 @@
+"""Dense-flow spatial-transformer warps.
+
+The reference SpatialTransformer (``identity + flow`` in pixel units,
+normalised to [-1, 1] and sampled by ``grid_sample(align_corners=True,
+padding_mode='zeros')``) is exactly a sample of the source at the absolute
+pixel coordinates ``identity + flow`` with zero padding outside the image;
+that is what is computed here, corner by corner, without ``grid_sample``.
+
+Layout: NCHW.  ``src (B, C, *spatial)``, ``flow (B, nd, *spatial)`` where
+``flow[:, i]`` displaces spatial axis ``i``.
+
+``impl``: ``"torch"`` is the plain version below (differentiable by
+autograd); ``"cuda"`` is the hand-written 2-D bilinear kernel
+(``ops/warp_cuda.py``); ``"auto"`` sends 2-D bilinear float32 CUDA tensors
+to the kernel and everything else (nearest, 1-D, 3-D, CPU tensors) to the
+plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dfmir_tpu_torch.ops import warp_cuda
+
+
+def identity_grid(spatial, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Pixel-coordinate identity grid, shape (nd, *spatial)."""
+    axes = [torch.arange(s, dtype=dtype, device=device) for s in spatial]
+    return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=0)
+
+
+def _gather(src, lin):
+    """src (B, C, N) flat; lin (B, n) int64 -> (B, C, n)."""
+    return torch.gather(src, 2, lin[:, None, :].expand(-1, src.shape[1], -1))
+
+
+def _corner(src_flat, spatial, idx):
+    """Values of src at integer coords ``idx`` (one (B, n) tensor per axis),
+    zero where any coordinate falls outside the image."""
+    valid = None
+    lin = None
+    for size, i in zip(spatial, idx):
+        ok = (i >= 0) & (i <= size - 1)
+        valid = ok if valid is None else valid & ok
+        ic = i.clamp(0, size - 1)
+        lin = ic if lin is None else lin * size + ic
+    v = _gather(src_flat, lin)
+    return v * valid[:, None, :].to(src_flat.dtype)
+
+
+def _sample_linear(src, coords):
+    """1/2/3-D (bi/tri)linear sample; coords (B, nd, n) absolute pixels."""
+    B, C = src.shape[:2]
+    spatial = src.shape[2:]
+    nd = len(spatial)
+    flat = src.reshape(B, C, -1)
+    lo = [torch.floor(coords[:, i]) for i in range(nd)]
+    w = [(coords[:, i] - lo[i])[:, None, :] for i in range(nd)]
+    lo = [l.long() for l in lo]
+    one = torch.ones((), dtype=src.dtype, device=src.device)
+    if nd == 2:
+        # the XLA path's association order (dfmir_tpu/ops/warp.py:111-116)
+        (y0, x0), (wy, wx) = lo, w
+        v00 = _corner(flat, spatial, (y0, x0))
+        v01 = _corner(flat, spatial, (y0, x0 + 1))
+        v10 = _corner(flat, spatial, (y0 + 1, x0))
+        v11 = _corner(flat, spatial, (y0 + 1, x0 + 1))
+        return (v00 * (one - wy) * (one - wx) + v01 * (one - wy) * wx
+                + v10 * wy * (one - wx) + v11 * wy * wx)
+    if nd == 1:
+        (x0,), (wx,) = lo, w
+        return (_corner(flat, spatial, (x0,)) * (one - wx)
+                + _corner(flat, spatial, (x0 + 1,)) * wx)
+    out = 0.0
+    (z0, y0, x0), (wz, wy, wx) = lo, w
+    for dz, fz in ((0, one - wz), (1, wz)):
+        for dy, fy in ((0, one - wy), (1, wy)):
+            for dx, fx in ((0, one - wx), (1, wx)):
+                v = _corner(flat, spatial, (z0 + dz, y0 + dy, x0 + dx))
+                out = out + v * fz * fy * fx
+    return out
+
+
+def _sample_nearest(src, coords):
+    """Nearest sample; rounds half to even (torch.round), like jnp.rint and
+    grid_sample's nearbyint."""
+    B, C = src.shape[:2]
+    spatial = src.shape[2:]
+    idx = [torch.round(coords[:, i]).long() for i in range(len(spatial))]
+    return _corner(src.reshape(B, C, -1), spatial, idx)
+
+
+_LINEAR_MODES = {1: ("bilinear", "linear"), 2: ("bilinear",),
+                 3: ("bilinear", "trilinear")}
+
+
+def grid_sample_pixel(src, coords, mode="bilinear"):
+    """Sample ``src`` at absolute pixel coordinates, zero padding outside.
+
+    src:    (B, C, *spatial)
+    coords: (B, nd, *out_spatial) absolute pixel position of each output point.
+    """
+    nd = coords.shape[1]
+    if nd not in _LINEAR_MODES or src.ndim != nd + 2:
+        raise ValueError(f"unsupported ndims={nd} for src of shape "
+                         f"{tuple(src.shape)}")
+    out_spatial = coords.shape[2:]
+    flat_coords = coords.reshape(coords.shape[0], nd, -1)
+    if mode in _LINEAR_MODES[nd]:
+        out = _sample_linear(src, flat_coords)
+    elif mode == "nearest":
+        out = _sample_nearest(src, flat_coords)
+    else:
+        raise ValueError(f"unsupported mode={mode!r} / ndims={nd}")
+    return out.reshape(src.shape[:2] + out_spatial)
+
+
+def _kernel_takes(src, flow, mode):
+    return (mode == "bilinear" and flow.shape[1] == 2 and src.is_cuda
+            and src.dtype == torch.float32 and flow.dtype == torch.float32)
+
+
+def warp(src, flow, mode="bilinear", impl="auto"):
+    """Warp ``src`` by the dense displacement ``flow`` (SpatialTransformer).
+
+    src:  (B, C, *spatial)
+    flow: (B, nd, *spatial) pixel-unit displacements, flow[:, i] along axis i.
+    impl: 'auto' | 'torch' | 'cuda'.
+    """
+    if impl == "auto":
+        impl = "cuda" if _kernel_takes(src, flow, mode) else "torch"
+    if impl == "cuda":
+        if mode != "bilinear" or flow.shape[1] != 2:
+            raise ValueError(f"the CUDA warp kernel is 2-D bilinear only, "
+                             f"got mode={mode!r} ndims={flow.shape[1]}")
+        return warp_cuda.Warp2dFunction.apply(src.contiguous(),
+                                              flow.contiguous())
+    if impl != "torch":
+        raise ValueError(f"impl must be 'auto', 'torch' or 'cuda', got {impl!r}")
+    grid = identity_grid(flow.shape[2:], dtype=flow.dtype, device=flow.device)
+    return grid_sample_pixel(src, grid[None] + flow, mode=mode)
