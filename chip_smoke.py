@@ -8,9 +8,11 @@ Phases, each printing one JSON line:
               convs and matmuls, so every comparison is float32 to float32
   2. build    nvcc builds every kernel from dfmir_tpu_torch/csrc/
   3. kernel   each kernel against its plain PyTorch version on the card at
-              the main path's shapes and a few hard ones (max-abs <= 1e-5),
-              timed with CUDA events beside its byte/op bound and the one
-              PyTorch call that computes the same function
+              the main paths' shapes and a few hard ones (forward max-abs
+              <= 1e-5; backward dflow <= 1e-5, dsrc <= 1e-5 * max(1,
+              max|dsrc|), the atomics' order), timed with CUDA events beside
+              its byte/op bound and the one PyTorch call that computes the
+              same function
   4. register the paper's model at full width (RegistrationConfig
               defaults: crop 256, ngf 64, resnet_9blocks, VxmDense
               (16,32,32,64,64,64)/(64,64,64,32,32,32,16), 7 integration
@@ -20,9 +22,19 @@ Phases, each printing one JSON line:
               launches counted over that run, one pair against the same
               weights on the CPU (max-abs <= 1e-3), then ms/pair at B=1 and
               pairs/s at B=8
-  5. profile  (--profile only) device time by kernel and by conv shape
-              over register calls, netG / netR times, and the same calls
-              with cuDNN's autotuner on
+  5. train    the joint translate-and-register step at the same full width
+              (mlp_sample netF, 256 patches, nce_layers 0,4,8,12,16): one
+              loss_fn on the card against the same weights and patch ids on
+              the CPU (metrics within 1e-3 relative), then 1 warm-up and 5
+              timed train_step calls at B=1, kernel launches counted over
+              them (exactly 9 forward + 9 backward a step), every metric
+              finite and every parameter moved; a reduced-width step (crop
+              64, ngf 8) card against CPU (metrics 1e-3 relative; gradients
+              within 1e-2 * the network's max |g| of the CPU in float32 and
+              1e-3 of the CPU in float64); then ms/step at B=1 and B=8
+  6. profile  (--profile only) device time by kernel and by conv shape
+              over register calls and over train steps, netG / netR times,
+              and register calls with cuDNN's autotuner on
 Then the kernels line, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA card.  Every failure
@@ -45,7 +57,7 @@ from dfmir_tpu_torch import infer
 from dfmir_tpu_torch.engine.config import RegistrationConfig
 from dfmir_tpu_torch.engine.registration import RegistrationModel
 from dfmir_tpu_torch.ops import _build, warp_cuda
-from dfmir_tpu_torch.ops.warp import identity_grid, warp
+from dfmir_tpu_torch.ops.warp import identity_grid, warp, warp2d_bwd_plain
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
 # (non-tensor-core) FLOP/s
@@ -56,6 +68,18 @@ PATH_TOL = 1e-3
 FLOW_GAIN = 1e5          # flow head N(0, 1e-5) -> N(0, 1)
 N_PAIRS = 4
 WARPS_PER_REGISTER = 8   # 7 VecInt steps + the y_source warp
+# 7 VecInt steps + the stacked source/target warp + registered, each
+# forward and backward
+WARPS_PER_STEP = 9
+TRAIN_STEPS = 5          # timed, after one warm-up step
+# card vs CPU gradients: within GRAD_ENV * the network's max |g|, the JAX
+# suite's cross-program bar: the CPU's own float32 gradient is ~5e-3 of
+# netG's max |g| from float64 on this loss (the NCE's T = 0.07 softmax and
+# netF's normalisation of near-zero projections amplify rounding).  The
+# card against the CPU in float64: within GRAD_ENV_F64 (measured ~2e-5)
+GRAD_ENV = 1e-2
+GRAD_ENV_F64 = 1e-3
+FWD, BWD = warp_cuda.FWD, warp_cuda.BWD
 DEVICE = "cuda"
 
 
@@ -184,6 +208,99 @@ def phase_kernel(seed):
     return rows
 
 
+BWD_CASES = [
+    # name, (B, C, H, W), flow scale (px), flow shift (px), dsrc wanted,
+    # src is flow
+    ("vecint_step", (2, 2, 128, 128), 5.0, 0.0, True, True),
+    ("data_warp", (2, 1, 256, 256), 5.0, 0.0, False, False),
+    ("registered", (1, 1, 256, 256), 5.0, 0.0, True, False),
+    ("mostly_outside", (2, 1, 128, 128), 40.0, 90.0, True, False),
+    ("odd_shape", (3, 3, 67, 45), 3.0, 0.0, True, False),
+]
+MAIN_BWD_CASE = "vecint_step"   # 7 of the 9 backward launches a step
+
+
+def warp2d_bwd_bound(B, C, H, W, need_dsrc, alias):
+    """Least time for the backward's work: flow, src (once, if it is not
+    the flow) and g read once, dflow and (if wanted) dsrc written once;
+    ~12 flops a pixel for coordinates and weights, 14 a channel for dflow
+    and 10 more for the dsrc scatter."""
+    px, vals = B * H * W, B * C * H * W
+    nbytes = 4 * (2 * px + (0 if alias else vals) + vals + 2 * px
+                  + (vals if need_dsrc else 0))
+    flops = px * 12 + vals * (14 + (10 if need_dsrc else 0))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def grid_sample_bwd_call(src, flow, g, need_dsrc):
+    """The one PyTorch call computing the same function: the backward of
+    grid_sample (aten::grid_sampler_2d_backward) on the flow's normalised
+    grid, built beforehand.  Returns (call, its dflow in pixel units)."""
+    H, W = flow.shape[2:]
+    locs = identity_grid((H, W), device=flow.device)[None] + flow
+    grid = torch.stack([2 * (locs[:, 1] / (W - 1) - 0.5),
+                        2 * (locs[:, 0] / (H - 1) - 0.5)], dim=-1)
+
+    def call():
+        return torch.ops.aten.grid_sampler_2d_backward(
+            g, src, grid, 0, 0, True, [need_dsrc, True])
+
+    dgrid = call()[1]
+    dflow = torch.stack([dgrid[..., 1] * (2 / (H - 1)),
+                         dgrid[..., 0] * (2 / (W - 1))], dim=1)
+    return call, dflow
+
+
+def phase_kernel_bwd(seed):
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    rows = {}
+    for name, (B, C, H, W), scale, shift, need_dsrc, alias in BWD_CASES:
+        flow = smooth_field((B, 2, H, W), scale, gen, dev) + shift
+        src = flow if alias else torch.randn((B, C, H, W), generator=gen,
+                                             device=dev)
+        g = torch.randn((B, C, H, W), generator=gen, device=dev)
+        dsrc, dflow = warp_cuda.warp2d_bwd_cuda(src, flow, g, need_dsrc)
+        torch.cuda.synchronize()
+        ref_dsrc, ref_dflow = warp2d_bwd_plain(src, flow, g, need_dsrc)
+        torch.cuda.synchronize()
+        err_dflow = float((dflow - ref_dflow).abs().max())
+        dsrc_scale = (max(1.0, float(ref_dsrc.abs().max())) if need_dsrc
+                      else 1.0)
+        err_dsrc = (float((dsrc - ref_dsrc).abs().max()) if need_dsrc
+                    else 0.0)
+        if not need_dsrc and dsrc is not None:
+            raise AssertionError(f"{name}: dsrc computed though not wanted")
+        library, lib_dflow = grid_sample_bwd_call(src, flow, g, need_dsrc)
+        bound_ms, bound_by = warp2d_bwd_bound(B, C, H, W, need_dsrc, alias)
+        row = {
+            "case": name, "shape": [B, C, H, W], "flow_px": scale,
+            "shift_px": shift, "need_dsrc": need_dsrc, "src_is_flow": alias,
+            "max_abs_err_dflow": err_dflow, "max_abs_err_dsrc": err_dsrc,
+            "dsrc_scale": dsrc_scale,
+            "max_abs_err": max(err_dflow, err_dsrc),
+            "ms": time_ms(lambda: warp_cuda.warp2d_bwd_cuda(
+                src, flow, g, need_dsrc)),
+            "plain_ms": time_ms(lambda: warp2d_bwd_plain(
+                src, flow, g, need_dsrc), reps=50),
+            "library_ms": time_ms(library),
+            "library_max_abs_err_dflow":
+                float((lib_dflow - ref_dflow).abs().max()),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        emit({"phase": "kernel", "kernel": BWD, **row})
+        if not (err_dflow <= KERNEL_TOL
+                and err_dsrc <= KERNEL_TOL * dsrc_scale):
+            raise AssertionError(
+                f"warp2d backward kernel disagrees with its plain version on "
+                f"{name}: dflow {err_dflow}, dsrc {err_dsrc} (scale "
+                f"{dsrc_scale}) > {KERNEL_TOL}")
+        rows[name] = row
+    return rows
+
+
 # ------------------------------------------------------------ phase 4
 def make_pairs(n, batch, size, seed, device):
     gen = torch.Generator().manual_seed(seed)
@@ -215,15 +332,16 @@ def phase_register(seed, smi):
     pairs = make_pairs(N_PAIRS, 1, S, seed, DEVICE)
 
     # the main path, counted
-    warp_cuda.LAUNCHES = 0
+    warp_cuda.reset_launches()
     outs = [infer.register_pair_outputs(model, a, b, label=lab)
             for a, b, lab in pairs]
     torch.cuda.synchronize()
-    launches = warp_cuda.LAUNCHES
-    if launches != WARPS_PER_REGISTER * N_PAIRS:
+    launches = dict(warp_cuda.LAUNCHES)
+    if launches != {FWD: WARPS_PER_REGISTER * N_PAIRS, BWD: 0}:
         raise AssertionError(f"{launches} warp kernel launches over "
                              f"{N_PAIRS} register calls, expected "
-                             f"{WARPS_PER_REGISTER * N_PAIRS}")
+                             f"{WARPS_PER_REGISTER * N_PAIRS} forward, 0 "
+                             f"backward")
     shapes = {"fake_B": (1, 1, S, S), "idt_B": (1, 1, S, S),
               "y_source": (1, 1, S, S), "pos_flow": (1, 2, S, S),
               "jac_det": (1, S, S), "folding_fraction": (1,),
@@ -262,7 +380,7 @@ def phase_register(seed, smi):
           "crop": S, "ngf": cfg.ngf, "netG": cfg.netG,
           "vxm": [list(cfg.vxm_enc), list(cfg.vxm_dec)],
           "pairs": N_PAIRS, "launches": launches,
-          "launches_per_register": launches / N_PAIRS,
+          "launches_per_register": launches[FWD] / N_PAIRS,
           "pos_flow_max_px": flow_max,
           "folding_fraction": [float(o["folding_fraction"][0]) for o in outs],
           "card_vs_cpu_max_abs": errs, "label_mismatch_fraction":
@@ -273,18 +391,210 @@ def phase_register(seed, smi):
 
 
 # ------------------------------------------------------------ phase 5
-def phase_profile(model, seed, ms_b1):
-    """Device time by kernel and by conv shape over register calls at B=1,
-    the split between netG and netR by CUDA events, and the same calls with
-    cuDNN's autotuner on (torch.backends.cudnn.benchmark), restored after."""
+SMALL = dict(crop_size=64, netG="resnet_4blocks", ngf=8,
+             vxm_enc=(8, 16, 16, 16), vxm_dec=(16, 16, 16, 16, 16, 8, 8),
+             netF_nc=16, num_patches=16)
+NETS = ("netG", "netF", "netR")
+
+
+def patch_gen(seed):
+    """A CPU generator for the patch ids: one seed, the same ids on the
+    card and on the CPU."""
+    return torch.Generator().manual_seed(seed)
+
+
+def rel_errs(card, cpu, tol, what):
+    """Relative difference of each metric; raises past ``tol``."""
+    errs = {k: abs(card[k] - v) / max(abs(v), 1e-12) for k, v in cpu.items()}
+    bad = {k: e for k, e in errs.items() if not e <= tol}
+    if bad:
+        raise AssertionError(f"{what}: card vs CPU metrics differ by {bad} "
+                             f"(relative) > {tol}")
+    return errs
+
+
+def loss_and_grads(model, a, b, seed):
+    """One loss_fn and backward; (metrics, {net: [grad, ...]}) on the CPU
+    in float64."""
+    model.optimizer.zero_grad(set_to_none=True)
+    total, metrics, _ = model.loss_fn(a, b, generator=patch_gen(seed))
+    total.backward()
+    return ({k: float(v.detach()) for k, v in metrics.items()},
+            {net: [p.grad.detach().cpu().double() for p in
+                   getattr(model, net).parameters()] for net in NETS})
+
+
+def small_step_vs_cpu(seed):
+    """A reduced-width loss and backward (the CPU tests' config) on the card
+    against the CPU: metrics 1e-3 relative; gradients within GRAD_ENV *
+    max|g| of the CPU in float32 and GRAD_ENV_F64 * max|g| of the CPU in
+    float64; 9 + 9 warp launches on the card."""
+    cfg = RegistrationConfig(**SMALL)
+    gen = torch.Generator().manual_seed(seed + 3)
+    a, b = (torch.tanh(2 * torch.randn((2, 1, 64, 64), generator=gen))
+            for _ in range(2))
+    out = {}
+    for run, dev, dtype in (("card", DEVICE, torch.float32),
+                            ("cpu", "cpu", torch.float32),
+                            ("cpu_f64", "cpu", torch.float64)):
+        model = build_model(cfg, seed, dev)
+        for net in NETS:
+            getattr(model, net).to(dtype)
+        warp_cuda.reset_launches()
+        out[run] = loss_and_grads(model, a.to(dev, dtype), b.to(dev, dtype),
+                                  seed)
+        if run == "card":
+            torch.cuda.synchronize()
+            launches = dict(warp_cuda.LAUNCHES)
+            if launches != {FWD: WARPS_PER_STEP, BWD: WARPS_PER_STEP}:
+                raise AssertionError(f"small step: {launches} warp launches,"
+                                     f" expected {WARPS_PER_STEP} each")
+    metric_errs = rel_errs(out["card"][0], out["cpu"][0], PATH_TOL,
+                           "small step")
+    grad_errs = {}
+    for net in NETS:
+        exact = out["cpu_f64"][1][net]
+        scale = max(float(g.abs().max()) for g in exact)
+
+        def rel(run):
+            return max(float((x - y).abs().max())
+                       for x, y in zip(out[run][1][net], exact)) / scale
+
+        card_cpu = max(float((x - y).abs().max()) for x, y in
+                       zip(out["card"][1][net], out["cpu"][1][net])) / scale
+        grad_errs[net] = {"net_scale": scale, "card_vs_cpu": card_cpu,
+                          "card_vs_f64": rel("card"),
+                          "cpu_vs_f64": rel("cpu")}
+        if not (card_cpu <= GRAD_ENV and rel("card") <= GRAD_ENV_F64):
+            raise AssertionError(f"small step {net}: card gradients off by "
+                                 f"{grad_errs[net]} (relative to max |g|): "
+                                 f"bars {GRAD_ENV} (CPU), {GRAD_ENV_F64} "
+                                 f"(float64)")
+    return metric_errs, grad_errs
+
+
+def time_steps(model, pairs, lr, seed):
+    """train_step over ``pairs``; host ms of each (ending in a
+    synchronize) and its metrics as floats."""
+    gen = patch_gen(seed)
+    ms, history = [], []
+    for a, b, _ in pairs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = model.train_step(a, b, lr, generator=gen)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        history.append({k: float(v) for k, v in metrics.items()})
+    return ms, history
+
+
+def phase_train(seed, smi):
+    cfg = RegistrationConfig()
+    S = cfg.crop_size
+    model = build_model(cfg, seed, DEVICE)
+    pairs = make_pairs(1 + TRAIN_STEPS, 1, S, seed + 2, DEVICE)
+
+    # full width: one loss_fn on the card and on the CPU, same weights and
+    # patch ids, before any step
+    a, b, _ = pairs[0]
+    cpu = build_model(cfg, seed, "cpu")
+    with torch.no_grad():
+        _, m_card, aux = model.loss_fn(a, b, generator=patch_gen(seed))
+        t0 = time.perf_counter()
+        _, m_cpu, _ = cpu.loss_fn(a.cpu(), b.cpu(), generator=patch_gen(seed))
+        cpu_s = time.perf_counter() - t0
+    del cpu
+    flow_max = float(aux["pos_flow"].abs().max())
+    if not flow_max > 0.5:
+        raise AssertionError(f"pos_flow max {flow_max} px: the field does "
+                             f"not deform, the warps test nothing")
+    full_errs = rel_errs({k: float(v) for k, v in m_card.items()},
+                         {k: float(v) for k, v in m_cpu.items()}, PATH_TOL,
+                         "full-width loss_fn")
+
+    # the main path, counted: 1 warm-up + TRAIN_STEPS timed steps
+    before = {(net, name): p.detach().clone() for net in NETS
+              for name, p in getattr(model, net).named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    warp_cuda.reset_launches()
+    step_ms, history = time_steps(model, pairs, cfg.lr, seed)
+    launches = dict(warp_cuda.LAUNCHES)
+    want = WARPS_PER_STEP * len(pairs)
+    if launches != {FWD: want, BWD: want}:
+        raise AssertionError(f"{launches} warp kernel launches over "
+                             f"{len(pairs)} train steps, expected {want} "
+                             f"forward and {want} backward")
+    peak_b1 = torch.cuda.max_memory_allocated()
+    bad = [(i, k) for i, m in enumerate(history) for k, v in m.items()
+           if not v == v or abs(v) == float("inf")]
+    if bad:
+        raise AssertionError(f"non-finite metrics (step, name): {bad}")
+    unmoved = [f"{net}.{name}" for net in NETS
+               for name, p in getattr(model, net).named_parameters()
+               if torch.equal(p.detach(), before[(net, name)])]
+    if unmoved:
+        raise AssertionError(f"{len(unmoved)} parameters did not move: "
+                             f"{unmoved[:8]}")
+    del before
+
+    small_metric_errs, small_grad_errs = small_step_vs_cpu(seed)
+
+    pairs8 = make_pairs(4, 8, S, seed + 4, DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    ms8, _ = time_steps(model, pairs8, cfg.lr, seed)
+    peak_b8 = torch.cuda.max_memory_allocated()
+    ms_b1 = statistics.median(step_ms[1:])
+    ms_b8 = statistics.median(ms8[1:])
+    emit({"phase": "train", "config": "RegistrationConfig() defaults",
+          "crop": S, "ngf": cfg.ngf, "netG": cfg.netG, "netF": cfg.netF,
+          "num_patches": cfg.num_patches, "nce_layers": list(cfg.nce_layers),
+          "vxm": [list(cfg.vxm_enc), list(cfg.vxm_dec)],
+          "steps": len(pairs), "launches": launches,
+          "launches_per_step": {k: v / len(pairs)
+                                for k, v in launches.items()},
+          "pos_flow_max_px": flow_max,
+          "full_width_card_vs_cpu_rel": full_errs, "cpu_loss_fn_s": cpu_s,
+          "small_step_card_vs_cpu_rel": small_metric_errs,
+          "small_step_grad_card_vs_cpu": small_grad_errs,
+          "metrics_first": history[0], "metrics_last": history[-1],
+          "step_ms_b1": step_ms, "ms_per_step_b1": ms_b1,
+          "train_pairs_per_s_b1": 1e3 / ms_b1,
+          "step_ms_b8": ms8, "ms_per_step_b8": ms_b8,
+          "train_pairs_per_s_b8": 8e3 / ms_b8,
+          "peak_mem_gb_b1": peak_b1 / 1e9, "peak_mem_gb_b8": peak_b8 / 1e9,
+          "card": smi})
+    return model, launches, ms_b1
+
+
+# ------------------------------------------------------------ phase 6
+CONV_OPS = ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose",
+            "aten::convolution_backward")
+
+
+def busy_us(prof):
+    """Time the card ran at least one kernel: the union of the kernels'
+    intervals (kernels that overlap count once), in microseconds."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, lo, hi = 0.0, None, None
+    for s0, s1 in spans:
+        if hi is None or s0 > hi:
+            busy += 0.0 if hi is None else hi - lo
+            lo, hi = s0, s1
+        else:
+            hi = max(hi, s1)
+    return busy + (0.0 if hi is None else hi - lo)
+
+
+def trace(call, calls):
+    """Device time by kernel and by conv op over ``calls`` calls (after 2
+    warm-up calls), with the span from CUDA events."""
     from torch.profiler import ProfilerActivity, profile
 
-    (a, b, lab), = make_pairs(1, 1, model.cfg.crop_size, seed, DEVICE)
-    call = lambda: infer.register_pair_outputs(model, a, b, lab)  # noqa: E731
-    for _ in range(3):
+    for _ in range(2):
         call()
     torch.cuda.synchronize()
-    calls = 3
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
@@ -298,13 +608,41 @@ def phase_profile(model, seed, ms_b1):
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.device_time_total > 0]
     device_ms = sum(e.device_time_total for e in kernels) / 1e3 / calls
-    warp_k = [e for e in kernels if "warp2d_bilinear_fwd" in e.key]
-    top = sorted(kernels, key=lambda e: -e.device_time_total)[:6]
+    busy_ms = busy_us(prof) / 1e3 / calls
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
     convs = [e for e in prof.key_averages(group_by_input_shape=True)
-             if e.key in ("aten::cudnn_convolution",
-                          "aten::cudnn_convolution_transpose")]
-    top_convs = sorted(convs, key=lambda e: -e.device_time_total)[:4]
+             if e.key in CONV_OPS]
+    top_convs = sorted(convs, key=lambda e: -e.device_time_total)[:6]
+    warps = {}
+    for name in (FWD, BWD):
+        hits = [e for e in kernels if name in e.key]
+        warps[name] = {
+            "device_us_per_launch": [e.device_time_total / e.count
+                                     for e in hits],
+            "launches_per_call": [e.count / calls for e in hits],
+            "ms_per_call": sum(e.device_time_total for e in hits) / 1e3
+            / calls}
+    return {"calls": calls, "device_ms_per_call": device_ms,
+            "busy_ms_per_call": busy_ms, "span_ms_per_call": span_ms,
+            "device_idle_share": 1 - busy_ms / span_ms,
+            "warp_kernels": warps,
+            "top_kernels": [{"name": e.key[:90],
+                             "ms_per_call": e.device_time_total / 1e3 / calls,
+                             "launches_per_call": e.count / calls}
+                            for e in top],
+            "top_convs": [{"op": e.key,
+                           "input_shapes": str(e.input_shapes)[:160],
+                           "ms_per_call": e.device_time_total / 1e3 / calls}
+                          for e in top_convs]}
 
+
+def phase_profile(model, seed, ms_b1):
+    """Register calls at B=1: device time by kernel and by conv shape, the
+    split between netG and netR by CUDA events, and the same calls with
+    cuDNN's autotuner on (torch.backends.cudnn.benchmark), restored after."""
+    (a, b, lab), = make_pairs(1, 1, model.cfg.crop_size, seed, DEVICE)
+    call = lambda: infer.register_pair_outputs(model, a, b, lab)  # noqa: E731
+    traced = trace(call, 3)
     with torch.no_grad():
         ab = torch.cat([a, b], dim=0)
         netG_ms = time_ms(lambda: model.netG(ab), reps=10, warmup=2)
@@ -315,30 +653,40 @@ def phase_profile(model, seed, ms_b1):
         tuned_ms = time_ms(call, reps=20, warmup=3)
     finally:
         torch.backends.cudnn.benchmark = False
-    emit({"phase": "profile", "calls": calls,
-          "device_ms_per_call": device_ms,
-          "span_ms_per_call": span_ms,
-          "device_idle_share": 1 - device_ms / span_ms,
-          "warp2d_device_us_per_launch":
-              [e.device_time_total / e.count for e in warp_k],
-          "warp2d_launches_per_call": [e.count / calls for e in warp_k],
-          "ms_per_pair_b1": ms_b1,
-          "netG_ms": netG_ms, "netR_ms": netR_ms,
-          "ms_per_pair_b1_cudnn_benchmark": tuned_ms,
-          "top_kernels": [{"name": e.key[:90],
-                           "ms_per_call": e.device_time_total / 1e3 / calls,
-                           "launches_per_call": e.count / calls}
-                          for e in top],
-          "top_convs": [{"op": e.key, "input_shapes": str(e.input_shapes)[:160],
-                         "ms_per_call": e.device_time_total / 1e3 / calls}
-                        for e in top_convs]})
+    emit({"phase": "profile", "path": "register", **traced,
+          "ms_per_pair_b1": ms_b1, "netG_ms": netG_ms, "netR_ms": netR_ms,
+          "ms_per_pair_b1_cudnn_benchmark": tuned_ms})
+
+
+def phase_profile_train(model, seed, ms_b1):
+    """Train steps at B=1: device time by kernel and by conv op, and the
+    idle share."""
+    (a, b, _), = make_pairs(1, 1, model.cfg.crop_size, seed + 5, DEVICE)
+    gen = patch_gen(seed)
+    traced = trace(lambda: model.train_step(a, b, model.cfg.lr,
+                                            generator=gen), 2)
+    emit({"phase": "profile", "path": "train", **traced,
+          "ms_per_step_b1": ms_b1})
+
+
+def kernel_row(name, replaces, launches, rows, main):
+    r = rows[main]
+    return {"name": name, "route": "cuda",
+            "source": "dfmir_tpu_torch/csrc/warp2d.cu",
+            "replaces": replaces, "launches": launches["train"],
+            "launches_by_path": launches,
+            "max_abs_err": max(x["max_abs_err"] for x in rows.values()),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"]}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace register calls with torch.profiler")
+                    help="also trace register calls and train steps with "
+                         "torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -347,22 +695,24 @@ def main(argv=None):
 
     smi = phase_device()
     phase_build()
-    rows = phase_kernel(args.seed)
-    model, launches, ms_b1 = phase_register(args.seed, smi)
+    fwd_rows = phase_kernel(args.seed)
+    bwd_rows = phase_kernel_bwd(args.seed)
+    model, reg_launches, reg_ms = phase_register(args.seed, smi)
     if args.profile:
-        phase_profile(model, args.seed, ms_b1)
+        phase_profile(model, args.seed, reg_ms)
+    del model
+    model, train_launches, train_ms = phase_train(args.seed, smi)
+    if args.profile:
+        phase_profile_train(model, args.seed, train_ms)
 
-    main_row = rows[MAIN_CASE]
-    emit({"kernels": [{
-        "name": "warp2d_bilinear_fwd", "route": "cuda",
-        "source": "dfmir_tpu_torch/csrc/warp2d.cu",
-        "replaces": "dfmir_tpu/ops/warp_pallas.py:143",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-    }]})
+    emit({"kernels": [
+        kernel_row(FWD, "dfmir_tpu/ops/warp_pallas.py:143",
+                   {"train": train_launches[FWD],
+                    "register": reg_launches[FWD]}, fwd_rows, MAIN_CASE),
+        kernel_row(BWD, "dfmir_tpu/ops/warp_pallas.py:972",
+                   {"train": train_launches[BWD],
+                    "register": reg_launches[BWD]}, bwd_rows, MAIN_BWD_CASE),
+    ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

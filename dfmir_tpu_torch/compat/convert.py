@@ -6,7 +6,9 @@ The input is a JAX param tree as nested dicts of numpy arrays, e.g.
 (*k, in, out) -> torch Conv (out, in, *k); flax transposed-conv kernel
 (*k, in, out) -> torch ConvTranspose (in, out, *k).  Keys are the reference
 state_dict's: netG ``model.<i>.*``, netR
-``unet_model.{downarm,uparm,extras}.<i>.main.*`` and ``flow.*``.
+``unet_model.{downarm,uparm,extras}.<i>.main.*`` and ``flow.*``, netF
+``mlp_<i>.{0,2}.*``.  A flax Dense kernel (in, out) becomes an nn.Linear
+weight (out, in).
 """
 
 from __future__ import annotations
@@ -96,14 +98,28 @@ def netR_state_from_jax(params: Mapping[str, Any], enc_nf,
     return sd
 
 
+def netF_state_from_jax(
+        params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX PatchSampleF params (``mlp_<i>_<j>`` Dense layers) -> the port's
+    netF state_dict; ``{}`` for the parameterless ``sample`` head."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        i, j = name[len("mlp_"):].split("_")
+        prefix = f"mlp_{i}.{2 * int(j)}"
+        sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+    return sd
+
+
 def load_jax_params(model, params: Mapping[str, Any]) -> None:
-    """Load a JAX ``{"G": ..., "R": ...}`` param tree (numpy leaves) into a
-    ``RegistrationModel``'s netG and netR, strictly: every weight of both
-    networks must be given."""
+    """Load a JAX ``{"G": ..., "F": ..., "R": ...}`` param tree (numpy
+    leaves) into a ``RegistrationModel``'s netG, netF and netR, strictly:
+    every weight of the three networks must be given."""
     cfg = model.cfg
     for net, sd in (
         (model.netG, netG_state_from_jax(
             params["G"], model.netG.specs, use_dropout=not cfg.no_dropout)),
+        (model.netF, netF_state_from_jax(params["F"])),
         (model.netR, netR_state_from_jax(params["R"], cfg.vxm_enc,
                                          cfg.vxm_dec)),
     ):

@@ -1,0 +1,6 @@
+from dfmir_tpu_torch.losses.nce import patch_nce_loss
+from dfmir_tpu_torch.losses.regularizers import grad_loss, smoothness_loss
+from dfmir_tpu_torch.losses.similarity import masked_l1, masked_l2, mse_loss
+
+__all__ = ["patch_nce_loss", "masked_l1", "masked_l2", "mse_loss",
+           "smoothness_loss", "grad_loss"]

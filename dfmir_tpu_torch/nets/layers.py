@@ -1,7 +1,7 @@
 """Shared building blocks, with the reference's semantics.
 
 - ``instance_norm``: InstanceNorm(affine=False, track_running_stats=False),
-  eps 1e-5, statistics in float32, biased variance.
+  eps 1e-5, statistics in float32 at least, biased variance.
 - ``pad_nd``: reflect / replicate / zero padding of every spatial axis.
 - ``upsample_nearest``: nn.Upsample(scale_factor=2, mode='nearest').
 - ``conv_nd`` / ``conv_transpose_nd``: nn.Conv{2,3}d and
@@ -29,8 +29,10 @@ _CONV_T = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
 
 def instance_norm(x, eps: float = 1e-5):
     """Per-sample, per-channel spatial normalisation, no affine parameters;
-    statistics in float32, the result cast back to the input dtype."""
-    return F.instance_norm(x.float(), eps=eps).to(x.dtype)
+    statistics in float32 at least (float64 stays float64), the result cast
+    back to the input dtype."""
+    stats = torch.promote_types(x.dtype, torch.float32)
+    return F.instance_norm(x.to(stats), eps=eps).to(x.dtype)
 
 
 def pad_nd(x, pad: int, mode: str = "reflect"):

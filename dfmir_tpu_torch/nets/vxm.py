@@ -105,7 +105,7 @@ class VxmDense(nn.Module):
     def forward(self, source, target, registration: bool = False,
                 return_preint: bool = False):
         x = self.unet_model(torch.cat([source, target], dim=1))
-        flow_field = self.flow(x).float()
+        flow_field = self.flow(x)
 
         do_resize = self.int_steps > 0 and self.int_downsize > 1
         pos_flow = flow_field

@@ -28,6 +28,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # (src, flow, out, B, C, H, W, stream) -> cudaError_t
     "dfmir_warp2d_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
+    # (src, flow, g, dsrc or NULL, dflow, B, C, H, W, stream) -> cudaError_t
+    "dfmir_warp2d_bwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 _lib = None

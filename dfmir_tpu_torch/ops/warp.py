@@ -10,10 +10,11 @@ Layout: NCHW.  ``src (B, C, *spatial)``, ``flow (B, nd, *spatial)`` where
 ``flow[:, i]`` displaces spatial axis ``i``.
 
 ``impl``: ``"torch"`` is the plain version below (differentiable by
-autograd); ``"cuda"`` is the hand-written 2-D bilinear kernel
-(``ops/warp_cuda.py``); ``"auto"`` sends 2-D bilinear float32 CUDA tensors
-to the kernel and everything else (nearest, 1-D, 3-D, CPU tensors) to the
-plain version.
+autograd); ``"cuda"`` is the hand-written 2-D bilinear kernels, forward and
+backward (``ops/warp_cuda.py``); ``"auto"`` sends 2-D bilinear float32 CUDA
+tensors to the kernels and everything else (nearest, 1-D, 3-D, CPU tensors)
+to the plain version.  ``warp2d_bwd_plain`` is the backward kernel's plain
+version.
 """
 
 from __future__ import annotations
@@ -139,3 +140,17 @@ def warp(src, flow, mode="bilinear", impl="auto"):
         raise ValueError(f"impl must be 'auto', 'torch' or 'cuda', got {impl!r}")
     grid = identity_grid(flow.shape[2:], dtype=flow.dtype, device=flow.device)
     return grid_sample_pixel(src, grid[None] + flow, mode=mode)
+
+
+def warp2d_bwd_plain(src, flow, g, need_dsrc: bool = True):
+    """The backward kernel's plain version: the gradients of
+    ``warp(src, flow, impl="torch")`` for the output cotangent ``g``, by
+    autograd.  Returns ``(dsrc, dflow)``, ``dsrc`` None unless
+    ``need_dsrc``.  ``src`` and ``flow`` may be one tensor; the two
+    gradients then come back apart, as the kernel returns them."""
+    with torch.enable_grad():
+        s = src.detach().requires_grad_(need_dsrc)
+        f = flow.detach().requires_grad_()
+        out = warp(s, f, impl="torch")
+        grads = torch.autograd.grad(out, (s, f) if need_dsrc else (f,), g)
+    return (grads[0], grads[1]) if need_dsrc else (None, grads[0])

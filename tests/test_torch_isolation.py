@@ -29,8 +29,10 @@ def test_import_loads_no_jax_or_reference_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     seen = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "dfmir_tpu_torch.ops.warp_cuda" in seen["modules"]
-    assert "dfmir_tpu_torch.engine.registration" in seen["modules"]
+    for name in ("ops.warp_cuda", "engine.registration", "engine.schedules",
+                 "nets.patch_sample", "losses.nce", "losses.similarity",
+                 "losses.regularizers"):
+        assert f"dfmir_tpu_torch.{name}" in seen["modules"], name
     assert seen["banned"] == []
 
 

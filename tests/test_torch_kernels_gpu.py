@@ -2,7 +2,13 @@
 
 Skips without a CUDA card.  On a machine with one (and no JAX), run:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_gpu.py
-Tolerance 1e-5 max-abs: the kernel rounds as the plain version does."""
+Tolerances: the forward 1e-5 max-abs (it rounds as the plain version
+does); the backward's dflow 1e-5 and dsrc 1e-5 * max(1, max|dsrc|) (dsrc
+is summed with atomics in an order that changes from run to run); a whole
+step card vs CPU 1e-3 relative on the metrics and 1e-2 * the network's max
+|g| on the gradients, the JAX suite's cross-program bar (cuDNN's
+convolutions and the atomics sum in another order than the CPU, and on
+this loss float32 itself is ~5e-3 of netG's max |g| from float64)."""
 
 import pytest
 import torch
@@ -11,9 +17,14 @@ from dfmir_tpu_torch import infer
 from dfmir_tpu_torch.engine.config import RegistrationConfig
 from dfmir_tpu_torch.engine.registration import RegistrationModel
 from dfmir_tpu_torch.ops import warp_cuda
-from dfmir_tpu_torch.ops.warp import warp
+from dfmir_tpu_torch.ops.warp import warp, warp2d_bwd_plain
 
 pytestmark = pytest.mark.gpu
+
+FWD, BWD = warp_cuda.FWD, warp_cuda.BWD
+SMALL = dict(crop_size=64, netG="resnet_4blocks", ngf=8,
+             vxm_enc=(8, 16, 16, 16), vxm_dec=(16, 16, 16, 16, 16, 8, 8),
+             netF_nc=16, num_patches=16)
 
 
 @pytest.fixture
@@ -25,23 +36,79 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape,scale,shift", [
-    ((1, 2, 128, 128), 5.0, 0.0),     # VecInt's self-warp shape
-    ((8, 1, 256, 256), 20.0, 0.0),    # full-resolution source warps
-    ((2, 1, 64, 64), 40.0, 50.0),     # most pixels sample outside
-    ((3, 3, 67, 45), 3.0, 0.0),       # odd shape
-])
-def test_warp2d_kernel_matches_plain(cuda, shape, scale, shift):
+def inputs(cuda, shape, scale, shift):
     g = torch.Generator(device=cuda).manual_seed(0)
     B, C, H, W = shape
     src = torch.randn(shape, device=cuda, generator=g)
     flow = torch.randn((B, 2, H, W), device=cuda, generator=g) * scale + shift
-    before = warp_cuda.LAUNCHES
+    return src, flow, torch.randn(shape, device=cuda, generator=g)
+
+
+def max_err(a, b):
+    return float((a - b).abs().max())
+
+
+CASES = [
+    ((1, 2, 128, 128), 5.0, 0.0),     # VecInt's self-warp shape
+    ((8, 1, 256, 256), 20.0, 0.0),    # full-resolution source warps
+    ((2, 1, 64, 64), 40.0, 50.0),     # most pixels sample outside
+    ((3, 3, 67, 45), 3.0, 0.0),       # odd shape
+]
+
+
+@pytest.mark.parametrize("shape,scale,shift", CASES)
+def test_warp2d_kernel_matches_plain(cuda, shape, scale, shift):
+    src, flow, _ = inputs(cuda, shape, scale, shift)
+    before = dict(warp_cuda.LAUNCHES)
     out = warp(src, flow)                         # auto -> the kernel
-    assert warp_cuda.LAUNCHES == before + 1
+    assert warp_cuda.LAUNCHES == {FWD: before[FWD] + 1, BWD: before[BWD]}
     ref = warp(src, flow, impl="torch")
     torch.cuda.synchronize()
-    assert float((out - ref).abs().max()) <= 1e-5
+    assert max_err(out, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("need_dsrc", [True, False])
+@pytest.mark.parametrize("shape,scale,shift", CASES)
+def test_warp2d_bwd_kernel_matches_plain(cuda, shape, scale, shift,
+                                         need_dsrc):
+    src, flow, g = inputs(cuda, shape, scale, shift)
+    before = warp_cuda.LAUNCHES[BWD]
+    dsrc, dflow = warp_cuda.warp2d_bwd_cuda(src, flow, g, need_dsrc)
+    assert warp_cuda.LAUNCHES[BWD] == before + 1
+    ref_dsrc, ref_dflow = warp2d_bwd_plain(src, flow, g, need_dsrc)
+    torch.cuda.synchronize()
+    assert max_err(dflow, ref_dflow) <= 1e-5
+    if need_dsrc:
+        scale = max(1.0, float(ref_dsrc.abs().max()))
+        assert max_err(dsrc, ref_dsrc) <= 1e-5 * scale
+    else:
+        assert dsrc is None
+
+
+def test_warp2d_autograd_launches_the_kernels(cuda):
+    """warp(...).sum().backward() on the card: one forward and one backward
+    launch; a data warp (src without grad) asks for dflow alone; a
+    self-warp (VecInt) gets the sum of both gradients."""
+    src, flow, _ = inputs(cuda, (2, 2, 32, 32), 3.0, 0.0)
+    s, f = src.clone().requires_grad_(), flow.clone().requires_grad_()
+    before = dict(warp_cuda.LAUNCHES)
+    warp(s, f).sum().backward()
+    assert warp_cuda.LAUNCHES == {FWD: before[FWD] + 1, BWD: before[BWD] + 1}
+    ref_dsrc, ref_dflow = warp2d_bwd_plain(src, flow, torch.ones_like(src))
+    assert max_err(s.grad, ref_dsrc) <= 1e-5 * max(1.0, float(
+        ref_dsrc.abs().max()))
+    assert max_err(f.grad, ref_dflow) <= 1e-5
+
+    f = flow.clone().requires_grad_()
+    warp(src, f).sum().backward()               # src needs no grad
+    assert max_err(f.grad, ref_dflow) <= 1e-5
+
+    v = flow.clone().requires_grad_()
+    g = torch.randn_like(flow)
+    warp(v, v).backward(g)
+    dsrc, dflow = warp2d_bwd_plain(flow, flow, g)
+    assert max_err(v.grad, dsrc + dflow) <= 1e-5 * max(1.0, float(
+        dsrc.abs().max()))
 
 
 def test_warp2d_wrapper_refuses(cuda):
@@ -53,21 +120,72 @@ def test_warp2d_wrapper_refuses(cuda):
         warp_cuda.warp2d_cuda(src.transpose(2, 3), flow)
     with pytest.raises(ValueError, match="does not match"):
         warp_cuda.warp2d_cuda(src, flow[:, :, :4])
-    with pytest.raises(NotImplementedError, match="training slice"):
-        warp(src.requires_grad_(), flow).sum().backward()
+    with pytest.raises(ValueError, match="g must be"):
+        warp_cuda.warp2d_bwd_cuda(src, flow, src[:, :, :4].contiguous())
+    with pytest.raises(TypeError, match="g must be"):
+        warp_cuda.warp2d_bwd_cuda(src, flow, src.cpu())
+    # the backward no longer refuses: it launches its kernel once
+    s = torch.randn_like(src).requires_grad_()
+    before = warp_cuda.LAUNCHES[BWD]
+    warp(s, flow).sum().backward()
+    assert warp_cuda.LAUNCHES[BWD] == before + 1
+    ref, _ = warp2d_bwd_plain(s, flow, torch.ones_like(src))
+    assert max_err(s.grad, ref) <= 1e-5
 
 
 def test_register_launches_eight_warps(cuda):
-    cfg = RegistrationConfig(crop_size=64, netG="resnet_4blocks", ngf=8,
-                             vxm_enc=(8, 16, 16, 16),
-                             vxm_dec=(16, 16, 16, 16, 16, 8, 8))
+    cfg = RegistrationConfig(**SMALL)
     gpu = RegistrationModel(cfg)
     cpu = RegistrationModel(cfg, device="cpu")
     g = torch.Generator().manual_seed(1)
     a, b = torch.randn(2, 1, 1, 64, 64, generator=g)
-    before = warp_cuda.LAUNCHES
+    warp_cuda.reset_launches()
     out = infer.register_pair_outputs(gpu, a.to(cuda), b.to(cuda))
-    assert warp_cuda.LAUNCHES == before + 8
+    assert warp_cuda.LAUNCHES == {FWD: 8, BWD: 0}
     ref = infer.register_pair_outputs(cpu, a, b)
     for k in ("fake_B", "y_source", "pos_flow"):
-        assert float((out[k].cpu() - ref[k]).abs().max()) <= 1e-3, k
+        assert max_err(out[k].cpu(), ref[k]) <= 1e-3, k
+
+
+def test_train_step_launches_nine_and_nine(cuda):
+    """A small-config train step on the card: 9 forward and 9 backward
+    warp launches, metrics and gradients as on the CPU."""
+    cfg = RegistrationConfig(**SMALL)
+    models = {}
+    for dev in ("cuda", "cpu"):
+        models[dev] = RegistrationModel(
+            cfg, device=dev, generator=torch.Generator().manual_seed(2))
+        with torch.no_grad():
+            models[dev].netR.flow.weight.mul_(1e5)
+    g = torch.Generator().manual_seed(3)
+    a, b = torch.tanh(2 * torch.randn(2, 2, 1, 64, 64, generator=g))
+    grads, metrics = {}, {}
+    for dev, m in models.items():
+        warp_cuda.reset_launches()
+        m.optimizer.zero_grad()
+        total, met, _ = m.loss_fn(a.to(dev), b.to(dev),
+                                  generator=torch.Generator().manual_seed(4))
+        total.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert warp_cuda.LAUNCHES == {FWD: 9, BWD: 9}
+        else:
+            assert warp_cuda.LAUNCHES == {FWD: 0, BWD: 0}
+        metrics[dev] = {k: float(v.detach()) for k, v in met.items()}
+        grads[dev] = {net: [p.grad.cpu() for p in getattr(m, net).parameters()]
+                      for net in ("netG", "netF", "netR")}
+    for k, v in metrics["cpu"].items():
+        assert abs(metrics["cuda"][k] - v) <= 1e-3 * abs(v), k
+    for net, ref in grads["cpu"].items():
+        scale = max(float(r.abs().max()) for r in ref)
+        err = max(max_err(o, r) for o, r in zip(grads["cuda"][net], ref))
+        assert err <= 1e-2 * scale, (net, err, scale)
+
+    warp_cuda.reset_launches()
+    before = [p.detach().clone() for p in models["cuda"].parameters()]
+    models["cuda"].train_step(a.to(cuda), b.to(cuda), 2e-4,
+                              generator=torch.Generator().manual_seed(4))
+    torch.cuda.synchronize()
+    assert warp_cuda.LAUNCHES == {FWD: 9, BWD: 9}
+    assert any(not torch.equal(p, q)
+               for p, q in zip(models["cuda"].parameters(), before))

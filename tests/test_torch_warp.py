@@ -121,7 +121,7 @@ def test_vecint_self_warp_gradient(rng):
 def test_cpu_dispatch_and_cuda_impl_refusal(rng):
     src = torch.from_numpy(rng.standard_normal((1, 1, 8, 8)).astype(np.float32))
     flow = torch.zeros(1, 2, 8, 8)
-    before = warp_cuda.LAUNCHES
+    before = dict(warp_cuda.LAUNCHES)
     np.testing.assert_array_equal(warp(src, flow).numpy(), src.numpy())
     assert warp_cuda.LAUNCHES == before       # the CPU never reaches the kernel
     with pytest.raises(ValueError, match="CUDA tensors"):
