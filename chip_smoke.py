@@ -32,10 +32,31 @@ Phases, each printing one JSON line:
               64, ngf 8) card against CPU (metrics 1e-3 relative; gradients
               within 1e-2 * the network's max |g| of the CPU in float32 and
               1e-3 of the CPU in float64); then ms/step at B=1 and B=8
-  6. profile  (--profile only) device time by kernel and by conv shape
-              over register calls and over train steps, netG / netR times,
-              and register calls with cuDNN's autotuner on
-Then the kernels line, and last {"ok": true, "device": {...}}.
+  6. kernel3d each 3-D trilinear kernel (forward, dflow, dsrc) against its
+              plain version on the card: VecInt's self-warp (1,3,80,80,80),
+              the 160^3 data warp (dflow only), an odd shape, a violent
+              flow (x25 N(0,1)) and a zero flow (an exact copy); bars
+              forward and dflow 1e-5, dsrc 1e-5 * max(1, max|dsrc|); timed
+              beside its byte/op bound, its plain version and
+              grid_sample / grid_sampler_3d_backward
+  7. vxm3d    the 3-D VoxelMorph engine at VxmConfig() defaults (160^3,
+              enc (16,32,32,32), dec (32,32,32,32,32,16,16), 7 integration
+              steps at half resolution, NCC 9^3), random weights from --seed
+              with the flow head scaled: 4 register calls counted (8
+              forward launches each), one register and one eval_step
+              against the same weights on the CPU (1e-3), 1 warm-up + 5
+              timed train steps counted (8 forward + 8 dflow + 7 dsrc each,
+              metrics finite, every parameter moved), 20 steps at lr 1e-3
+              on one pair (the loss falls), a 64^3 step's gradients card vs
+              CPU in float32 (1e-2 of each tensor's max |g|) and float64
+              (1e-3); ms per register and per step at B=1, peak memory
+  8. profile  (--profile only) device time by kernel and by conv shape
+              over register calls, 2-D and 3-D train steps, netG / netR
+              times, register calls with cuDNN's autotuner on, and each 3-D
+              kernel's device time a launch
+Each phase's wall seconds follow it.  Then the kernels line (all five
+kernels, their launches by path: register, train, register3d, train3d),
+and last {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA card.  Every failure
 propagates.
@@ -56,8 +77,9 @@ import torch.nn.functional as F
 from dfmir_tpu_torch import infer
 from dfmir_tpu_torch.engine.config import RegistrationConfig
 from dfmir_tpu_torch.engine.registration import RegistrationModel
+from dfmir_tpu_torch.engine.vxm_engine import VxmConfig, VxmEngine
 from dfmir_tpu_torch.ops import _build, warp_cuda
-from dfmir_tpu_torch.ops.warp import identity_grid, warp, warp2d_bwd_plain
+from dfmir_tpu_torch.ops.warp import identity_grid, warp, warp_bwd_plain
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
 # (non-tensor-core) FLOP/s
@@ -80,6 +102,8 @@ TRAIN_STEPS = 5          # timed, after one warm-up step
 GRAD_ENV = 1e-2
 GRAD_ENV_F64 = 1e-3
 FWD, BWD = warp_cuda.FWD, warp_cuda.BWD
+FWD3D, DFLOW3D, DSRC3D = warp_cuda.FWD3D, warp_cuda.DFLOW3D, warp_cuda.DSRC3D
+ZERO = dict.fromkeys(warp_cuda.LAUNCHES, 0)
 DEVICE = "cuda"
 
 
@@ -264,7 +288,7 @@ def phase_kernel_bwd(seed):
         g = torch.randn((B, C, H, W), generator=gen, device=dev)
         dsrc, dflow = warp_cuda.warp2d_bwd_cuda(src, flow, g, need_dsrc)
         torch.cuda.synchronize()
-        ref_dsrc, ref_dflow = warp2d_bwd_plain(src, flow, g, need_dsrc)
+        ref_dsrc, ref_dflow = warp_bwd_plain(src, flow, g, need_dsrc)
         torch.cuda.synchronize()
         err_dflow = float((dflow - ref_dflow).abs().max())
         dsrc_scale = (max(1.0, float(ref_dsrc.abs().max())) if need_dsrc
@@ -283,7 +307,7 @@ def phase_kernel_bwd(seed):
             "max_abs_err": max(err_dflow, err_dsrc),
             "ms": time_ms(lambda: warp_cuda.warp2d_bwd_cuda(
                 src, flow, g, need_dsrc)),
-            "plain_ms": time_ms(lambda: warp2d_bwd_plain(
+            "plain_ms": time_ms(lambda: warp_bwd_plain(
                 src, flow, g, need_dsrc), reps=50),
             "library_ms": time_ms(library),
             "library_max_abs_err_dflow":
@@ -337,7 +361,7 @@ def phase_register(seed, smi):
             for a, b, lab in pairs]
     torch.cuda.synchronize()
     launches = dict(warp_cuda.LAUNCHES)
-    if launches != {FWD: WARPS_PER_REGISTER * N_PAIRS, BWD: 0}:
+    if launches != dict(ZERO, **{FWD: WARPS_PER_REGISTER * N_PAIRS}):
         raise AssertionError(f"{launches} warp kernel launches over "
                              f"{N_PAIRS} register calls, expected "
                              f"{WARPS_PER_REGISTER * N_PAIRS} forward, 0 "
@@ -446,7 +470,8 @@ def small_step_vs_cpu(seed):
         if run == "card":
             torch.cuda.synchronize()
             launches = dict(warp_cuda.LAUNCHES)
-            if launches != {FWD: WARPS_PER_STEP, BWD: WARPS_PER_STEP}:
+            if launches != dict(ZERO, **{FWD: WARPS_PER_STEP,
+                                         BWD: WARPS_PER_STEP}):
                 raise AssertionError(f"small step: {launches} warp launches,"
                                      f" expected {WARPS_PER_STEP} each")
     metric_errs = rel_errs(out["card"][0], out["cpu"][0], PATH_TOL,
@@ -520,7 +545,7 @@ def phase_train(seed, smi):
     step_ms, history = time_steps(model, pairs, cfg.lr, seed)
     launches = dict(warp_cuda.LAUNCHES)
     want = WARPS_PER_STEP * len(pairs)
-    if launches != {FWD: want, BWD: want}:
+    if launches != dict(ZERO, **{FWD: want, BWD: want}):
         raise AssertionError(f"{launches} warp kernel launches over "
                              f"{len(pairs)} train steps, expected {want} "
                              f"forward and {want} backward")
@@ -567,6 +592,357 @@ def phase_train(seed, smi):
 
 
 # ------------------------------------------------------------ phase 6
+KERNEL3D_CASES = [
+    # name, (B, C, D, H, W), flow kind, flow scale (voxels), dsrc wanted,
+    # src is flow
+    ("vecint_step", (1, 3, 80, 80, 80), "smooth", 3.0, True, True),
+    ("data_warp", (1, 1, 160, 160, 160), "smooth", 3.0, False, False),
+    ("odd_shape", (2, 3, 17, 33, 45), "smooth", 2.0, True, False),
+    ("violent", (1, 1, 40, 40, 40), "noise", 25.0, True, False),
+    ("zero_flow", (1, 2, 32, 48, 64), "smooth", 0.0, True, False),
+]
+# the cases of the main path: 7 of the 8 forward launches and 7 of the 8
+# dflow launches of a 3-D step are VecInt's, and all 7 dsrc launches
+MAIN3D_CASE = "vecint_step"
+# ~18 flops a voxel for coordinates and weights; per channel the forward's
+# 8 corners x (3 mul + 1 add), dflow's 8 x (7 mul + 3 add), dsrc's 8 x
+# (3 mul + 1 atomic add); 23 to combine dflow's terms
+FLOPS3D = {FWD3D: (18, 32), DFLOW3D: (41, 80), DSRC3D: (18, 32)}
+
+
+def smooth_field3d(shape, scale, gen, device):
+    """(B, C, D, H, W) smooth random field of about +-scale."""
+    B, C, *spatial = shape
+    coarse = torch.randn((B, C, *(max(n // 16, 2) for n in spatial)),
+                         generator=gen, device=device)
+    return F.interpolate(coarse, size=tuple(spatial), mode="trilinear",
+                         align_corners=True) * scale
+
+
+def warp3d_bound(name, B, C, N, alias):
+    """Least time for a 3-D kernel's work over B*N voxels: each input read
+    once (src is the flow when ``alias``), each output written once."""
+    flow, vals = 3 * B * N, B * C * N
+    src = 0 if alias else vals
+    nbytes = 4 * {FWD3D: flow + src + vals,
+                  DFLOW3D: flow + src + vals + flow,
+                  DSRC3D: flow + vals + vals}[name]
+    per_voxel, per_channel = FLOPS3D[name]
+    flops = B * N * per_voxel + vals * per_channel
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def grid3d(flow):
+    """grid_sample's normalised (x, y, z) grid for the pixel flow."""
+    D, H, W = flow.shape[2:]
+    locs = identity_grid((D, H, W), device=flow.device)[None] + flow
+    return torch.stack([2 * (locs[:, 2] / (W - 1) - 0.5),
+                        2 * (locs[:, 1] / (H - 1) - 0.5),
+                        2 * (locs[:, 0] / (D - 1) - 0.5)], dim=-1)
+
+
+def library3d_calls(src, flow, g):
+    """The PyTorch calls that compute the same functions (the yardsticks):
+    grid_sample on 5-D input and grid_sampler_3d_backward with its output
+    mask, on the normalised grid built beforehand; and the dflow of the
+    latter in voxel units."""
+    D, H, W = flow.shape[2:]
+    grid = grid3d(flow)
+
+    def bwd(mask):
+        return lambda: torch.ops.aten.grid_sampler_3d_backward(
+            g, src, grid, 0, 0, True, mask)
+
+    dgrid = bwd([False, True])()[1]
+    dflow = torch.stack([dgrid[..., 2] * (2 / (D - 1)),
+                         dgrid[..., 1] * (2 / (H - 1)),
+                         dgrid[..., 0] * (2 / (W - 1))], dim=1)
+    return {FWD3D: lambda: F.grid_sample(src, grid, mode="bilinear",
+                                         padding_mode="zeros",
+                                         align_corners=True),
+            DFLOW3D: bwd([False, True]), DSRC3D: bwd([True, False])}, dflow
+
+
+def device_us(fn, name, calls=10):
+    """Device time a launch of the kernel ``name`` over ``calls`` calls of
+    ``fn``, from the profiler; None if it saw no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and name in e.key]
+    count = sum(e.count for e in hits)
+    return sum(e.device_time_total for e in hits) / count if count else None
+
+
+def phase_kernel3d(seed, profile):
+    """Each 3-D kernel against its plain version on the card: forward max-abs
+    <= 1e-5 (the zero flow exactly the source), dflow <= 1e-5, dsrc <= 1e-5
+    * max(1, max|dsrc|); timed beside its bound, its plain version and the
+    library call."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    rows = {FWD3D: {}, DFLOW3D: {}, DSRC3D: {}}
+    for name, shape, kind, scale, need_dsrc, alias in KERNEL3D_CASES:
+        B, C, D, H, W = shape
+        N = D * H * W
+        if kind == "smooth":
+            flow = smooth_field3d((B, 3, D, H, W), scale, gen, dev)
+        else:
+            flow = torch.randn((B, 3, D, H, W), generator=gen,
+                               device=dev) * scale
+        src = flow if alias else torch.randn(shape, generator=gen, device=dev)
+        g = torch.randn(shape, generator=gen, device=dev)
+        kernels = {FWD3D: lambda: warp_cuda.warp3d_cuda(src, flow),
+                   DFLOW3D: lambda: warp_cuda.warp3d_bwd_dflow_cuda(
+                       src, flow, g),
+                   DSRC3D: lambda: warp_cuda.warp3d_bwd_dsrc_cuda(flow, g)}
+        plains = {FWD3D: lambda: warp(src, flow, impl="torch"),
+                  DFLOW3D: lambda: warp_bwd_plain(src, flow, g,
+                                                  need_dsrc=False)[1],
+                  DSRC3D: lambda: warp_bwd_plain(src, flow, g,
+                                                 need_dflow=False)[0]}
+        library, lib_dflow = library3d_calls(src, flow, g)
+        if not need_dsrc:          # the data warp: dflow alone, as in a step
+            del kernels[DSRC3D]
+        outs = {k: fn() for k, fn in kernels.items()}
+        torch.cuda.synchronize()
+        refs = {k: plains[k]() for k in kernels}
+        torch.cuda.synchronize()
+        if scale == 0.0 and not torch.equal(outs[FWD3D], src):
+            raise AssertionError("warp3d kernel: a zero flow does not copy "
+                                 "the source exactly")
+        outside = float((outs[FWD3D] == 0).float().mean())
+        for k in kernels:
+            err = float((outs[k] - refs[k]).abs().max())
+            tol = KERNEL_TOL * (max(1.0, float(refs[k].abs().max()))
+                                if k == DSRC3D else 1.0)
+            bound_ms, bound_by = warp3d_bound(k, B, C, N, alias)
+            row = {"case": name, "shape": list(shape), "flow": kind,
+                   "flow_px": scale, "src_is_flow": alias,
+                   "max_abs_err": err, "tol": tol,
+                   "zero_fraction": outside,
+                   "ms": time_ms(kernels[k], reps=50),
+                   "plain_ms": time_ms(plains[k], reps=10, warmup=2),
+                   "library_ms": time_ms(library[k], reps=50),
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            if k == FWD3D:
+                row["library_max_abs_err"] = float(
+                    (library[k]() - refs[k]).abs().max())
+            elif k == DFLOW3D:
+                row["library_max_abs_err"] = float(
+                    (lib_dflow - refs[k]).abs().max())
+            if profile:
+                row["device_us_per_launch"] = device_us(kernels[k], k)
+                row["library_device_us_per_launch"] = device_us(
+                    library[k], "grid_sampler_3d")
+            emit({"phase": "kernel3d", "kernel": k, **row})
+            if not err <= tol:
+                raise AssertionError(f"{k} disagrees with its plain version "
+                                     f"on {name}: {err} > {tol}")
+            rows[k][name] = row
+        del src, flow, g, outs, refs, library, lib_dflow
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------------------ phase 7
+STEP3D = {FWD3D: 8, DFLOW3D: 8, DSRC3D: 7}   # the data warp needs no dsrc
+REG3D_CALLS = 4
+SMALL3D = dict(vol_size=64, enc=(8, 16, 16, 16),
+               dec=(16, 16, 16, 16, 16, 8, 8))
+CONVERGE_STEPS = 20
+
+
+def make_volume_pairs(n, size, seed, device):
+    """Seeded textured volume pairs (source, target), (1, 1, S, S, S): the
+    target is smooth noise in three octaves through a tanh, the source the
+    target warped (plain version) by a smooth field of a few voxels."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pairs = []
+    for _ in range(n):
+        tex = sum(F.interpolate(
+            torch.randn((1, 1) + (max(size // k, 2),) * 3, generator=gen,
+                        device=device), size=(size,) * 3, mode="trilinear",
+            align_corners=True) * (8 / k) for k in (8, 16, 32))
+        target = torch.tanh(tex)
+        field = smooth_field3d((1, 3) + (size,) * 3, 3.0, gen, device)
+        pairs.append((warp(target, field, impl="torch"), target))
+    return pairs
+
+
+def build_engine(cfg, seed, device, gain=FLOW_GAIN):
+    eng = VxmEngine(cfg, device=device, seed=seed)
+    with torch.no_grad():
+        eng.netR.flow.weight.mul_(gain)
+    return eng
+
+
+def small3d_grads_vs_cpu(seed):
+    """A reduced-size 3-D loss and backward (64^3, enc (8,16,16,16)) on the
+    card against the CPU: gradients within GRAD_ENV of each tensor's max
+    |g| of the CPU in float32 and GRAD_ENV_F64 of the CPU in float64;
+    8 + 8 + 7 kernel launches on the card."""
+    cfg = VxmConfig(**SMALL3D)
+    (src, tgt), = make_volume_pairs(1, cfg.vol_size, seed + 9, "cpu")
+    grads = {}
+    for run, dev, dtype in (("card", DEVICE, torch.float32),
+                            ("cpu", "cpu", torch.float32),
+                            ("cpu_f64", "cpu", torch.float64)):
+        eng = build_engine(cfg, seed, dev)
+        eng.netR.to(dtype)
+        warp_cuda.reset_launches()
+        total, _ = eng.loss_fn(src.to(dev, dtype), tgt.to(dev, dtype))
+        total.backward()
+        if run == "card":
+            torch.cuda.synchronize()
+            if warp_cuda.LAUNCHES != dict(ZERO, **STEP3D):
+                raise AssertionError(f"small 3-D step: {warp_cuda.LAUNCHES} "
+                                     f"launches, expected {STEP3D}")
+        grads[run] = {k: p.grad.detach().cpu().double()
+                      for k, p in eng.netR.named_parameters()}
+    worst = {"card_vs_cpu": 0.0, "card_vs_f64": 0.0, "cpu_vs_f64": 0.0}
+    for k, exact in grads["cpu_f64"].items():
+        scale = float(exact.abs().max())
+        rel = {"card_vs_cpu": float((grads["card"][k] - grads["cpu"][k])
+                                    .abs().max()) / scale,
+               "card_vs_f64": float((grads["card"][k] - exact).abs().max())
+               / scale,
+               "cpu_vs_f64": float((grads["cpu"][k] - exact).abs().max())
+               / scale}
+        worst = {r: max(worst[r], v) for r, v in rel.items()}
+        if not (rel["card_vs_cpu"] <= GRAD_ENV
+                and rel["card_vs_f64"] <= GRAD_ENV_F64):
+            raise AssertionError(f"small 3-D step {k}: card gradients off by "
+                                 f"{rel} (relative to max |g|): bars "
+                                 f"{GRAD_ENV} (CPU), {GRAD_ENV_F64} "
+                                 f"(float64)")
+    return worst
+
+
+def phase_vxm3d(seed, smi):
+    """VxmConfig() at full width (160^3): register and train through the
+    3-D kernels, against the CPU, timed."""
+    cfg = VxmConfig()
+    S = cfg.vol_size
+    eng = build_engine(cfg, seed, DEVICE)
+    pairs = make_volume_pairs(1 + TRAIN_STEPS, S, seed + 8, DEVICE)
+
+    # the inference path, counted
+    warp_cuda.reset_launches()
+    outs = [eng.register(s, t) for s, t in pairs[:REG3D_CALLS]]
+    torch.cuda.synchronize()
+    reg_launches = dict(warp_cuda.LAUNCHES)
+    if reg_launches != dict(ZERO, **{FWD3D: 8 * REG3D_CALLS}):
+        raise AssertionError(f"{reg_launches} warp launches over "
+                             f"{REG3D_CALLS} 3-D register calls, expected "
+                             f"{8 * REG3D_CALLS} {FWD3D}")
+    for y, flow in outs:
+        if (tuple(y.shape) != (1, 1, S, S, S)
+                or tuple(flow.shape) != (1, 3, S, S, S)
+                or not bool(y.isfinite().all() & flow.isfinite().all())):
+            raise AssertionError(f"register: shapes {tuple(y.shape)}, "
+                                 f"{tuple(flow.shape)} or not finite")
+    flow_max = max(float(f.abs().max()) for _, f in outs)
+    if not flow_max > 0.5:
+        raise AssertionError(f"pos_flow max {flow_max} voxels: the field "
+                             f"does not deform, the warps test nothing")
+    stats = {k: float(v) for k, v in eng.flow_stats(*pairs[0]).items()}
+    metrics_card = {k: float(v) for k, v in eng.eval_step(*pairs[0]).items()}
+
+    # the same weights on the CPU: one register, one eval_step
+    cpu = build_engine(cfg, seed, "cpu")
+    s_cpu, t_cpu = (x.cpu() for x in pairs[0])
+    t1 = time.perf_counter()
+    y_ref, flow_ref = cpu.register(s_cpu, t_cpu)
+    cpu_register_s = time.perf_counter() - t1
+    metrics_cpu = {k: float(v) for k, v in cpu.eval_step(s_cpu,
+                                                         t_cpu).items()}
+    del cpu
+    errs = {"y_source": float((outs[0][0].cpu() - y_ref).abs().max()),
+            "pos_flow": float((outs[0][1].cpu() - flow_ref).abs().max())}
+    for k, e in errs.items():
+        if not e <= PATH_TOL:
+            raise AssertionError(f"3-D {k}: card vs CPU {e} > {PATH_TOL}")
+    metric_errs = rel_errs(metrics_card, metrics_cpu, PATH_TOL,
+                           "3-D eval_step")
+    del outs, y_ref, flow_ref
+
+    # the training path, counted: 1 warm-up + TRAIN_STEPS timed steps
+    before = {k: p.detach().clone() for k, p in eng.netR.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    warp_cuda.reset_launches()
+    step_ms, history = [], []
+    for s, t in pairs:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = eng.train_step(s, t)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        history.append({k: float(v) for k, v in m.items()})
+    train_launches = dict(warp_cuda.LAUNCHES)
+    want = {k: v * len(pairs) for k, v in STEP3D.items()}
+    if train_launches != dict(ZERO, **want):
+        raise AssertionError(f"{train_launches} warp launches over "
+                             f"{len(pairs)} 3-D train steps, expected {want}")
+    peak_train = torch.cuda.max_memory_allocated()
+    bad = [(i, k) for i, m in enumerate(history) for k, v in m.items()
+           if not v == v or abs(v) == float("inf")]
+    if bad:
+        raise AssertionError(f"non-finite 3-D metrics (step, name): {bad}")
+    unmoved = [k for k, p in eng.netR.named_parameters()
+               if torch.equal(p.detach(), before[k])]
+    if unmoved:
+        raise AssertionError(f"{len(unmoved)} parameters did not move: "
+                             f"{unmoved[:8]}")
+    del before
+
+    torch.cuda.reset_peak_memory_stats()
+    s, t = pairs[0]
+    reg_ms = time_ms(lambda: eng.register(s, t), reps=10, warmup=2)
+    peak_register = torch.cuda.max_memory_allocated()
+
+    # convergence: 20 steps at lr 1e-3 on one pair, from the flow head's
+    # own N(0, 1e-5) init (a field near zero)
+    fresh = build_engine(cfg, seed + 1, DEVICE, gain=1.0)
+    totals = [float(fresh.train_step(s, t, lr=1e-3)["total"])
+              for _ in range(CONVERGE_STEPS)]
+    del fresh
+    if not totals[-1] < totals[0]:
+        raise AssertionError(f"3-D loss did not fall over {CONVERGE_STEPS} "
+                             f"steps: {totals}")
+
+    small_grad_errs = small3d_grads_vs_cpu(seed)
+    ms_step = statistics.median(step_ms[1:])
+    emit({"phase": "vxm3d", "config": "VxmConfig() defaults",
+          "vol_size": S, "enc": list(cfg.enc), "dec": list(cfg.dec),
+          "int_steps": cfg.int_steps, "int_downsize": cfg.int_downsize,
+          "image_loss": cfg.image_loss, "ncc_win": cfg.ncc_win,
+          "register_calls": REG3D_CALLS, "launches_register": reg_launches,
+          "launches_train": train_launches, "steps": len(pairs),
+          "pos_flow_max_vox": flow_max, "flow_stats": stats,
+          "card_vs_cpu_max_abs": errs, "eval_card_vs_cpu_rel": metric_errs,
+          "cpu_register_s": cpu_register_s,
+          "metrics_first": history[0], "metrics_last": history[-1],
+          "converge_lr": 1e-3, "converge_totals": totals,
+          "small_step_grad_rel": small_grad_errs,
+          "ms_per_register_b1": reg_ms,
+          "step_ms_b1": step_ms, "ms_per_step_b1": ms_step,
+          "peak_mem_gb_train": peak_train / 1e9,
+          "peak_mem_gb_register": peak_register / 1e9, "card": smi})
+    return eng, pairs[0], reg_launches, train_launches, ms_step
+
+
+# ------------------------------------------------------------ phase 8
 CONV_OPS = ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose",
             "aten::convolution_backward")
 
@@ -614,8 +990,10 @@ def trace(call, calls):
              if e.key in CONV_OPS]
     top_convs = sorted(convs, key=lambda e: -e.device_time_total)[:6]
     warps = {}
-    for name in (FWD, BWD):
+    for name in warp_cuda.LAUNCHES:
         hits = [e for e in kernels if name in e.key]
+        if not hits:
+            continue
         warps[name] = {
             "device_us_per_launch": [e.device_time_total / e.count
                                      for e in hits],
@@ -669,11 +1047,20 @@ def phase_profile_train(model, seed, ms_b1):
           "ms_per_step_b1": ms_b1})
 
 
-def kernel_row(name, replaces, launches, rows, main):
+def phase_profile_vxm3d(eng, pair, ms_step):
+    """3-D train steps at B=1: device time by kernel and by conv op, and the
+    idle share."""
+    traced = trace(lambda: eng.train_step(*pair), 2)
+    emit({"phase": "profile", "path": "train3d", **traced,
+          "ms_per_step_b1": ms_step})
+
+
+def kernel_row(name, replaces, source, launches, main_path, rows, main):
+    """One kernel's entry of the kernels line: its numbers at its main
+    path's case, its launches by path (``launches`` is the main path's)."""
     r = rows[main]
-    return {"name": name, "route": "cuda",
-            "source": "dfmir_tpu_torch/csrc/warp2d.cu",
-            "replaces": replaces, "launches": launches["train"],
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[main_path],
             "launches_by_path": launches,
             "max_abs_err": max(x["max_abs_err"] for x in rows.values()),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -693,26 +1080,57 @@ def main(argv=None):
               file=sys.stderr)
         return 2
 
-    smi = phase_device()
-    phase_build()
-    fwd_rows = phase_kernel(args.seed)
-    bwd_rows = phase_kernel_bwd(args.seed)
-    model, reg_launches, reg_ms = phase_register(args.seed, smi)
-    if args.profile:
-        phase_profile(model, args.seed, reg_ms)
-    del model
-    model, train_launches, train_ms = phase_train(args.seed, smi)
-    if args.profile:
-        phase_profile_train(model, args.seed, train_ms)
+    wall = {}
 
+    def run(name, fn, *fn_args):
+        t0 = time.perf_counter()
+        out = fn(*fn_args)
+        wall[name] = time.perf_counter() - t0
+        emit({"phase": name, "wall_s": wall[name]})
+        return out
+
+    smi = run("device", phase_device)
+    run("build", phase_build)
+    fwd_rows = run("kernel", phase_kernel, args.seed)
+    bwd_rows = run("kernel_bwd", phase_kernel_bwd, args.seed)
+    model, reg_launches, reg_ms = run("register", phase_register, args.seed,
+                                      smi)
+    if args.profile:
+        run("profile_register", phase_profile, model, args.seed, reg_ms)
+    del model
+    model, train_launches, train_ms = run("train", phase_train, args.seed,
+                                          smi)
+    if args.profile:
+        run("profile_train", phase_profile_train, model, args.seed, train_ms)
+    del model
+    rows3d = run("kernel3d", phase_kernel3d, args.seed, args.profile)
+    eng, pair, reg3d_launches, train3d_launches, step3d_ms = run(
+        "vxm3d", phase_vxm3d, args.seed, smi)
+    if args.profile:
+        run("profile_train3d", phase_profile_vxm3d, eng, pair, step3d_ms)
+    del eng, pair
+
+    paths = {"register": reg_launches, "train": train_launches,
+             "register3d": reg3d_launches, "train3d": train3d_launches}
+
+    def by_path(name):
+        return {path: counts[name] for path, counts in paths.items()}
+
+    src2d, src3d = ("dfmir_tpu_torch/csrc/warp2d.cu",
+                    "dfmir_tpu_torch/csrc/warp3d.cu")
+    tpu = "dfmir_tpu/ops/warp_pallas.py"
     emit({"kernels": [
-        kernel_row(FWD, "dfmir_tpu/ops/warp_pallas.py:143",
-                   {"train": train_launches[FWD],
-                    "register": reg_launches[FWD]}, fwd_rows, MAIN_CASE),
-        kernel_row(BWD, "dfmir_tpu/ops/warp_pallas.py:972",
-                   {"train": train_launches[BWD],
-                    "register": reg_launches[BWD]}, bwd_rows, MAIN_BWD_CASE),
-    ]})
+        kernel_row(FWD, f"{tpu}:143", src2d, by_path(FWD), "train",
+                   fwd_rows, MAIN_CASE),
+        kernel_row(BWD, f"{tpu}:972", src2d, by_path(BWD), "train",
+                   bwd_rows, MAIN_BWD_CASE),
+        kernel_row(FWD3D, f"{tpu}:356", src3d, by_path(FWD3D), "train3d",
+                   rows3d[FWD3D], MAIN3D_CASE),
+        kernel_row(DFLOW3D, f"{tpu}:576", src3d, by_path(DFLOW3D),
+                   "train3d", rows3d[DFLOW3D], MAIN3D_CASE),
+        kernel_row(DSRC3D, f"{tpu}:643", src3d, by_path(DSRC3D), "train3d",
+                   rows3d[DSRC3D], MAIN3D_CASE),
+    ], "wall_s": wall})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

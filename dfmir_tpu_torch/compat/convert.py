@@ -5,7 +5,7 @@ The input is a JAX param tree as nested dicts of numpy arrays, e.g.
 ``jax.tree.map(np.asarray, state.params)``.  Layout maps: flax conv kernel
 (*k, in, out) -> torch Conv (out, in, *k); flax transposed-conv kernel
 (*k, in, out) -> torch ConvTranspose (in, out, *k).  Keys are the reference
-state_dict's: netG ``model.<i>.*``, netR
+state_dict's: netG ``model.<i>.*``, netR (2-D or 3-D)
 ``unet_model.{downarm,uparm,extras}.<i>.main.*`` and ``flow.*``, netF
 ``mlp_<i>.{0,2}.*``.  A flax Dense kernel (in, out) becomes an nn.Linear
 weight (out, in).
@@ -111,23 +111,33 @@ def netF_state_from_jax(
     return sd
 
 
+def _load_strict(net, sd) -> None:
+    """Load ``sd`` into ``net``; every weight (not the blur layers' fixed
+    ``filt`` buffers) must be given, and nothing else."""
+    full = net.state_dict()
+    missing = [k for k in full if k not in sd and not k.endswith(".filt")]
+    extra = [k for k in sd if k not in full]
+    if missing or extra:
+        raise KeyError(f"{type(net).__name__}: missing {missing}, "
+                       f"unexpected {extra}")
+    full.update(sd)
+    net.load_state_dict(full, strict=True)
+
+
 def load_jax_params(model, params: Mapping[str, Any]) -> None:
     """Load a JAX ``{"G": ..., "F": ..., "R": ...}`` param tree (numpy
     leaves) into a ``RegistrationModel``'s netG, netF and netR, strictly:
     every weight of the three networks must be given."""
     cfg = model.cfg
-    for net, sd in (
-        (model.netG, netG_state_from_jax(
-            params["G"], model.netG.specs, use_dropout=not cfg.no_dropout)),
-        (model.netF, netF_state_from_jax(params["F"])),
-        (model.netR, netR_state_from_jax(params["R"], cfg.vxm_enc,
-                                         cfg.vxm_dec)),
-    ):
-        full = net.state_dict()
-        missing = [k for k in full if k not in sd and not k.endswith(".filt")]
-        extra = [k for k in sd if k not in full]
-        if missing or extra:
-            raise KeyError(f"{type(net).__name__}: missing {missing}, "
-                           f"unexpected {extra}")
-        full.update(sd)
-        net.load_state_dict(full, strict=True)
+    _load_strict(model.netG, netG_state_from_jax(
+        params["G"], model.netG.specs, use_dropout=not cfg.no_dropout))
+    _load_strict(model.netF, netF_state_from_jax(params["F"]))
+    _load_strict(model.netR, netR_state_from_jax(params["R"], cfg.vxm_enc,
+                                                 cfg.vxm_dec))
+
+
+def load_jax_vxm_params(engine, params: Mapping[str, Any]) -> None:
+    """Load a JAX ``VxmEngine`` param tree (``state.params``, numpy leaves)
+    into a ``VxmEngine``'s netR, strictly, at 2-D or 3-D."""
+    _load_strict(engine.netR, netR_state_from_jax(params, engine.cfg.enc,
+                                                  engine.cfg.dec))

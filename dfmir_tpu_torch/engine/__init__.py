@@ -1,1 +1,1 @@
-"""Configuration and the registration model."""
+"""Configuration, the registration model and the VoxelMorph engine."""

@@ -1,4 +1,4 @@
-"""VoxelMorph-style dense registration network (2-D).
+"""VoxelMorph-style dense registration network (2-D and 3-D).
 
 The reference VxmDense + Unet: a strided-conv encoder (LeakyReLU 0.2), a
 nearest-upsample decoder with skip concats, extra full-resolution convs, a
@@ -8,7 +8,9 @@ full size and the dense warps.  Parameter names are the reference's
 (``unet_model.{downarm,uparm,extras}.<i>.main.*``, ``flow.*``).
 
 The UNet convs use torch's default init, as the reference does (it never
-passes netR through init_net).
+passes netR through init_net).  At 3-D the convs are ``nn.Conv3d``: the JAX
+package's ``Conv3DZ`` is a TPU lowering of the same conv, with the same
+parameters.
 """
 
 from __future__ import annotations
@@ -18,21 +20,25 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.nn.utils import skip_init
 
 from dfmir_tpu_torch.nets.layers import conv_nd, upsample_nearest
 from dfmir_tpu_torch.ops.integrate import resize_flow, vecint
 from dfmir_tpu_torch.ops.warp import warp
 
 
+def default_unet_features():
+    return [[16, 32, 32, 32], [32, 32, 32, 32, 32, 16, 16]]
+
+
 class VxmConvBlock(nn.Module):
-    """3x3 conv (torch default init) + LeakyReLU(0.2)."""
+    """3x3(x3) conv (torch default init) + LeakyReLU(0.2)."""
 
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1, *,
-                 generator: torch.Generator):
+                 ndims: int = 2, generator: torch.Generator):
         super().__init__()
         self.main = conv_nd(in_ch, out_ch, 3, stride, 1, True,
-                            init_type="torch_default", generator=generator)
+                            init_type="torch_default", ndims=ndims,
+                            generator=generator)
 
     def forward(self, x):
         return F.leaky_relu(self.main(x), negative_slope=0.2)
@@ -40,22 +46,24 @@ class VxmConvBlock(nn.Module):
 
 class VxmUnet(nn.Module):
     def __init__(self, enc_nf: Sequence[int], dec_nf: Sequence[int],
-                 in_ch: int = 2, *, generator: torch.Generator):
+                 in_ch: int = 2, *, ndims: int = 2,
+                 generator: torch.Generator):
         super().__init__()
         n_enc = len(enc_nf)
+        block = dict(ndims=ndims, generator=generator)
         self.downarm = nn.ModuleList()
         prev = in_ch
         for nf in enc_nf:
-            self.downarm.append(VxmConvBlock(prev, nf, 2, generator=generator))
+            self.downarm.append(VxmConvBlock(prev, nf, 2, **block))
             prev = nf
         skips = [in_ch] + list(enc_nf[:-1])      # popped from the end
         self.uparm = nn.ModuleList()
         for nf in dec_nf[:n_enc]:
-            self.uparm.append(VxmConvBlock(prev, nf, generator=generator))
+            self.uparm.append(VxmConvBlock(prev, nf, **block))
             prev = nf + skips.pop()
         self.extras = nn.ModuleList()
         for nf in dec_nf[n_enc:]:
-            self.extras.append(VxmConvBlock(prev, nf, generator=generator))
+            self.extras.append(VxmConvBlock(prev, nf, **block))
             prev = nf
         self.out_channels = prev
 
@@ -85,9 +93,8 @@ class VxmDense(nn.Module):
                  compute_dtype: str = "float32", *,
                  generator: torch.Generator):
         super().__init__()
-        if ndims != 2:
-            raise NotImplementedError(
-                "3-D VxmDense is not ported yet (ROADMAP A11, the 3-D slice)")
+        if ndims not in (2, 3):
+            raise ValueError(f"ndims must be 2 or 3, got {ndims}")
         if compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype={compute_dtype!r}: only float32 is ported")
@@ -95,12 +102,12 @@ class VxmDense(nn.Module):
         self.ndims = ndims
         self.int_steps, self.int_downsize, self.bidir = (int_steps,
                                                          int_downsize, bidir)
-        self.unet_model = VxmUnet(enc_nf, dec_nf, generator=generator)
-        self.flow = skip_init(nn.Conv2d, self.unet_model.out_channels, ndims,
-                              3, padding=1)
-        with torch.no_grad():
-            self.flow.weight.normal_(0.0, 1e-5, generator=generator)
-            self.flow.bias.zero_()
+        self.unet_model = VxmUnet(enc_nf, dec_nf, ndims=ndims,
+                                  generator=generator)
+        # N(0, 1e-5) weights, zero bias
+        self.flow = conv_nd(self.unet_model.out_channels, ndims, 3, 1, 1, True,
+                            init_type="normal", init_gain=1e-5, ndims=ndims,
+                            generator=generator)
 
     def forward(self, source, target, registration: bool = False,
                 return_preint: bool = False):

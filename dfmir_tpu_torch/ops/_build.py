@@ -30,6 +30,12 @@ SIGNATURES = {
     "dfmir_warp2d_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
     # (src, flow, g, dsrc or NULL, dflow, B, C, H, W, stream) -> cudaError_t
     "dfmir_warp2d_bwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # (src, flow, out, B, C, D, H, W, stream) -> cudaError_t
+    "dfmir_warp3d_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # (src, flow, g, dflow, B, C, D, H, W, stream) -> cudaError_t
+    "dfmir_warp3d_bwd_dflow": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # (flow, g, dsrc, B, C, D, H, W, stream) -> cudaError_t
+    "dfmir_warp3d_bwd_dsrc": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 _lib = None
@@ -60,18 +66,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"libdfmir_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands at once; raise with the first failure's output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        output = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{output}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
-    """Compile the kernels unless a library of these sources exists."""
+    """Compile the kernels unless a library of these sources exists: one
+    nvcc per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    _run_all([[nvcc(), *compile_flags, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(sources(), objects)])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    _run_all([[nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objects)]])
+    for obj in objects:
+        obj.unlink()
     os.replace(tmp, out)   # atomic: a concurrent process never loads half a file
     return out
 

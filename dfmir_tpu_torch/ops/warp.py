@@ -10,11 +10,12 @@ Layout: NCHW.  ``src (B, C, *spatial)``, ``flow (B, nd, *spatial)`` where
 ``flow[:, i]`` displaces spatial axis ``i``.
 
 ``impl``: ``"torch"`` is the plain version below (differentiable by
-autograd); ``"cuda"`` is the hand-written 2-D bilinear kernels, forward and
-backward (``ops/warp_cuda.py``); ``"auto"`` sends 2-D bilinear float32 CUDA
-tensors to the kernels and everything else (nearest, 1-D, 3-D, CPU tensors)
-to the plain version.  ``warp2d_bwd_plain`` is the backward kernel's plain
-version.
+autograd); ``"cuda"`` is the hand-written kernels (``ops/warp_cuda.py``):
+2-D bilinear and 3-D trilinear, forward and backward; ``"auto"`` sends 2-D
+bilinear and 3-D trilinear float32 CUDA tensors to the kernels and
+everything else (nearest, 1-D, CPU tensors) to the plain version.  3-D
+accepts the mode names ``"bilinear"`` and ``"trilinear"`` alike, as the JAX
+package does.  ``warp_bwd_plain`` is the backward kernels' plain version.
 """
 
 from __future__ import annotations
@@ -116,8 +117,12 @@ def grid_sample_pixel(src, coords, mode="bilinear"):
     return out.reshape(src.shape[:2] + out_spatial)
 
 
+# the modes the CUDA kernels take, by ndims
+_KERNEL_MODES = {2: ("bilinear",), 3: ("bilinear", "trilinear")}
+
+
 def _kernel_takes(src, flow, mode):
-    return (mode == "bilinear" and flow.shape[1] == 2 and src.is_cuda
+    return (mode in _KERNEL_MODES.get(flow.shape[1], ()) and src.is_cuda
             and src.dtype == torch.float32 and flow.dtype == torch.float32)
 
 
@@ -131,26 +136,30 @@ def warp(src, flow, mode="bilinear", impl="auto"):
     if impl == "auto":
         impl = "cuda" if _kernel_takes(src, flow, mode) else "torch"
     if impl == "cuda":
-        if mode != "bilinear" or flow.shape[1] != 2:
-            raise ValueError(f"the CUDA warp kernel is 2-D bilinear only, "
-                             f"got mode={mode!r} ndims={flow.shape[1]}")
-        return warp_cuda.Warp2dFunction.apply(src.contiguous(),
-                                              flow.contiguous())
+        nd = flow.shape[1]
+        if mode not in _KERNEL_MODES.get(nd, ()):
+            raise ValueError(f"the CUDA warp kernels are 2-D bilinear and 3-D "
+                             f"trilinear only, got mode={mode!r} ndims={nd}")
+        fn = warp_cuda.Warp2dFunction if nd == 2 else warp_cuda.Warp3dFunction
+        return fn.apply(src.contiguous(), flow.contiguous())
     if impl != "torch":
         raise ValueError(f"impl must be 'auto', 'torch' or 'cuda', got {impl!r}")
     grid = identity_grid(flow.shape[2:], dtype=flow.dtype, device=flow.device)
     return grid_sample_pixel(src, grid[None] + flow, mode=mode)
 
 
-def warp2d_bwd_plain(src, flow, g, need_dsrc: bool = True):
-    """The backward kernel's plain version: the gradients of
+def warp_bwd_plain(src, flow, g, need_dsrc: bool = True,
+                   need_dflow: bool = True):
+    """The backward kernels' plain version, 2-D or 3-D: the gradients of
     ``warp(src, flow, impl="torch")`` for the output cotangent ``g``, by
-    autograd.  Returns ``(dsrc, dflow)``, ``dsrc`` None unless
-    ``need_dsrc``.  ``src`` and ``flow`` may be one tensor; the two
-    gradients then come back apart, as the kernel returns them."""
+    autograd.  Returns ``(dsrc, dflow)``, each None unless asked for.
+    ``src`` and ``flow`` may be one tensor; the two gradients then come
+    back apart, as the kernels return them."""
     with torch.enable_grad():
         s = src.detach().requires_grad_(need_dsrc)
-        f = flow.detach().requires_grad_()
+        f = flow.detach().requires_grad_(need_dflow)
         out = warp(s, f, impl="torch")
-        grads = torch.autograd.grad(out, (s, f) if need_dsrc else (f,), g)
-    return (grads[0], grads[1]) if need_dsrc else (None, grads[0])
+        wrt = [t for t in (s, f) if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wrt, g))
+    return (next(grads) if need_dsrc else None,
+            next(grads) if need_dflow else None)

@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of dfmir_tpu_torch loads
-no JAX, Flax, Optax or dfmir_tpu module, and its source imports none."""
+no JAX, Flax, Optax or dfmir_tpu module, and neither its source nor
+chip_smoke.py imports one."""
 
 import json
 import pathlib
@@ -30,8 +31,8 @@ def test_import_loads_no_jax_or_reference_package():
     assert proc.returncode == 0, proc.stderr
     seen = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in ("ops.warp_cuda", "engine.registration", "engine.schedules",
-                 "nets.patch_sample", "losses.nce", "losses.similarity",
-                 "losses.regularizers"):
+                 "engine.vxm_engine", "nets.patch_sample", "losses.nce",
+                 "losses.similarity", "losses.regularizers"):
         assert f"dfmir_tpu_torch.{name}" in seen["modules"], name
     assert seen["banned"] == []
 
@@ -44,8 +45,8 @@ _BANNED_IMPORT = re.compile(
 
 
 def test_source_imports_no_jax_or_reference_package():
-    files = sorted(PKG.rglob("*.py"))
-    assert files
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert all(f.is_file() for f in files)
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in _BANNED_IMPORT.finditer(f.read_text())]
     assert hits == []

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels (2-D and 3-D warps) against their plain
+versions, on the card.
 
 Skips without a CUDA card.  On a machine with one (and no JAX), run:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_gpu.py
@@ -16,12 +17,15 @@ import torch
 from dfmir_tpu_torch import infer
 from dfmir_tpu_torch.engine.config import RegistrationConfig
 from dfmir_tpu_torch.engine.registration import RegistrationModel
+from dfmir_tpu_torch.engine.vxm_engine import VxmConfig, VxmEngine
 from dfmir_tpu_torch.ops import warp_cuda
-from dfmir_tpu_torch.ops.warp import warp, warp2d_bwd_plain
+from dfmir_tpu_torch.ops.warp import warp, warp_bwd_plain
 
 pytestmark = pytest.mark.gpu
 
 FWD, BWD = warp_cuda.FWD, warp_cuda.BWD
+FWD3D, DFLOW3D, DSRC3D = warp_cuda.FWD3D, warp_cuda.DFLOW3D, warp_cuda.DSRC3D
+ZERO = dict.fromkeys(warp_cuda.LAUNCHES, 0)
 SMALL = dict(crop_size=64, netG="resnet_4blocks", ngf=8,
              vxm_enc=(8, 16, 16, 16), vxm_dec=(16, 16, 16, 16, 16, 8, 8),
              netF_nc=16, num_patches=16)
@@ -38,9 +42,10 @@ def cuda():
 
 def inputs(cuda, shape, scale, shift):
     g = torch.Generator(device=cuda).manual_seed(0)
-    B, C, H, W = shape
+    B, C, *spatial = shape
     src = torch.randn(shape, device=cuda, generator=g)
-    flow = torch.randn((B, 2, H, W), device=cuda, generator=g) * scale + shift
+    flow = torch.randn((B, len(spatial), *spatial), device=cuda,
+                       generator=g) * scale + shift
     return src, flow, torch.randn(shape, device=cuda, generator=g)
 
 
@@ -61,7 +66,7 @@ def test_warp2d_kernel_matches_plain(cuda, shape, scale, shift):
     src, flow, _ = inputs(cuda, shape, scale, shift)
     before = dict(warp_cuda.LAUNCHES)
     out = warp(src, flow)                         # auto -> the kernel
-    assert warp_cuda.LAUNCHES == {FWD: before[FWD] + 1, BWD: before[BWD]}
+    assert warp_cuda.LAUNCHES == dict(before, **{FWD: before[FWD] + 1})
     ref = warp(src, flow, impl="torch")
     torch.cuda.synchronize()
     assert max_err(out, ref) <= 1e-5
@@ -75,7 +80,7 @@ def test_warp2d_bwd_kernel_matches_plain(cuda, shape, scale, shift,
     before = warp_cuda.LAUNCHES[BWD]
     dsrc, dflow = warp_cuda.warp2d_bwd_cuda(src, flow, g, need_dsrc)
     assert warp_cuda.LAUNCHES[BWD] == before + 1
-    ref_dsrc, ref_dflow = warp2d_bwd_plain(src, flow, g, need_dsrc)
+    ref_dsrc, ref_dflow = warp_bwd_plain(src, flow, g, need_dsrc)
     torch.cuda.synchronize()
     assert max_err(dflow, ref_dflow) <= 1e-5
     if need_dsrc:
@@ -93,8 +98,9 @@ def test_warp2d_autograd_launches_the_kernels(cuda):
     s, f = src.clone().requires_grad_(), flow.clone().requires_grad_()
     before = dict(warp_cuda.LAUNCHES)
     warp(s, f).sum().backward()
-    assert warp_cuda.LAUNCHES == {FWD: before[FWD] + 1, BWD: before[BWD] + 1}
-    ref_dsrc, ref_dflow = warp2d_bwd_plain(src, flow, torch.ones_like(src))
+    assert warp_cuda.LAUNCHES == dict(before, **{FWD: before[FWD] + 1,
+                                                 BWD: before[BWD] + 1})
+    ref_dsrc, ref_dflow = warp_bwd_plain(src, flow, torch.ones_like(src))
     assert max_err(s.grad, ref_dsrc) <= 1e-5 * max(1.0, float(
         ref_dsrc.abs().max()))
     assert max_err(f.grad, ref_dflow) <= 1e-5
@@ -106,7 +112,7 @@ def test_warp2d_autograd_launches_the_kernels(cuda):
     v = flow.clone().requires_grad_()
     g = torch.randn_like(flow)
     warp(v, v).backward(g)
-    dsrc, dflow = warp2d_bwd_plain(flow, flow, g)
+    dsrc, dflow = warp_bwd_plain(flow, flow, g)
     assert max_err(v.grad, dsrc + dflow) <= 1e-5 * max(1.0, float(
         dsrc.abs().max()))
 
@@ -129,7 +135,7 @@ def test_warp2d_wrapper_refuses(cuda):
     before = warp_cuda.LAUNCHES[BWD]
     warp(s, flow).sum().backward()
     assert warp_cuda.LAUNCHES[BWD] == before + 1
-    ref, _ = warp2d_bwd_plain(s, flow, torch.ones_like(src))
+    ref, _ = warp_bwd_plain(s, flow, torch.ones_like(src))
     assert max_err(s.grad, ref) <= 1e-5
 
 
@@ -141,7 +147,7 @@ def test_register_launches_eight_warps(cuda):
     a, b = torch.randn(2, 1, 1, 64, 64, generator=g)
     warp_cuda.reset_launches()
     out = infer.register_pair_outputs(gpu, a.to(cuda), b.to(cuda))
-    assert warp_cuda.LAUNCHES == {FWD: 8, BWD: 0}
+    assert warp_cuda.LAUNCHES == dict(ZERO, **{FWD: 8})
     ref = infer.register_pair_outputs(cpu, a, b)
     for k in ("fake_B", "y_source", "pos_flow"):
         assert max_err(out[k].cpu(), ref[k]) <= 1e-3, k
@@ -168,9 +174,9 @@ def test_train_step_launches_nine_and_nine(cuda):
         total.backward()
         if dev == "cuda":
             torch.cuda.synchronize()
-            assert warp_cuda.LAUNCHES == {FWD: 9, BWD: 9}
+            assert warp_cuda.LAUNCHES == dict(ZERO, **{FWD: 9, BWD: 9})
         else:
-            assert warp_cuda.LAUNCHES == {FWD: 0, BWD: 0}
+            assert warp_cuda.LAUNCHES == ZERO
         metrics[dev] = {k: float(v.detach()) for k, v in met.items()}
         grads[dev] = {net: [p.grad.cpu() for p in getattr(m, net).parameters()]
                       for net in ("netG", "netF", "netR")}
@@ -186,6 +192,98 @@ def test_train_step_launches_nine_and_nine(cuda):
     models["cuda"].train_step(a.to(cuda), b.to(cuda), 2e-4,
                               generator=torch.Generator().manual_seed(4))
     torch.cuda.synchronize()
-    assert warp_cuda.LAUNCHES == {FWD: 9, BWD: 9}
+    assert warp_cuda.LAUNCHES == dict(ZERO, **{FWD: 9, BWD: 9})
     assert any(not torch.equal(p, q)
                for p, q in zip(models["cuda"].parameters(), before))
+
+
+CASES3D = [
+    ((1, 3, 40, 40, 40), 2.0, 0.0),      # VecInt's self-warp shape, cut
+    ((1, 1, 64, 64, 64), 3.0, 0.0),      # the data warp, cut
+    ((2, 3, 17, 33, 45), 2.0, 0.0),      # odd shape
+    ((1, 1, 32, 32, 32), 25.0, 0.0),     # violent: most voxels outside
+]
+
+
+@pytest.mark.parametrize("shape,scale,shift", CASES3D)
+def test_warp3d_kernels_match_plain(cuda, shape, scale, shift):
+    src, flow, g = inputs(cuda, shape, scale, shift)
+    before = dict(warp_cuda.LAUNCHES)
+    out = warp(src, flow, mode="trilinear")       # auto -> the kernel
+    dflow = warp_cuda.warp3d_bwd_dflow_cuda(src, flow, g)
+    dsrc = warp_cuda.warp3d_bwd_dsrc_cuda(flow, g)
+    assert warp_cuda.LAUNCHES == dict(before, **{
+        k: before[k] + 1 for k in (FWD3D, DFLOW3D, DSRC3D)})
+    ref = warp(src, flow, impl="torch")
+    ref_dsrc, ref_dflow = warp_bwd_plain(src, flow, g)
+    torch.cuda.synchronize()
+    assert max_err(out, ref) <= 1e-5
+    assert max_err(dflow, ref_dflow) <= 1e-5
+    assert max_err(dsrc, ref_dsrc) <= 1e-5 * max(1.0, float(
+        ref_dsrc.abs().max()))
+
+
+def test_warp3d_zero_flow_copies_the_source(cuda):
+    src, _, _ = inputs(cuda, (1, 2, 20, 24, 28), 0.0, 0.0)
+    out = warp_cuda.warp3d_cuda(src, torch.zeros((1, 3, 20, 24, 28),
+                                                 device=cuda))
+    assert torch.equal(out, src)
+
+
+def test_warp3d_autograd_launches_the_kernels(cuda):
+    """A data warp (src without grad) launches dflow alone; a self-warp
+    (VecInt) launches both halves and gets the sum of both gradients."""
+    src, flow, _ = inputs(cuda, (1, 1, 24, 24, 24), 2.0, 0.0)
+    f = flow.clone().requires_grad_()
+    before = dict(warp_cuda.LAUNCHES)
+    warp(src, f).sum().backward()
+    assert warp_cuda.LAUNCHES == dict(before, **{
+        FWD3D: before[FWD3D] + 1, DFLOW3D: before[DFLOW3D] + 1})
+    _, ref_dflow = warp_bwd_plain(src, flow, torch.ones_like(src))
+    assert max_err(f.grad, ref_dflow) <= 1e-5
+
+    v = flow.clone().requires_grad_()
+    g = torch.randn_like(flow)
+    before = dict(warp_cuda.LAUNCHES)
+    warp(v, v).backward(g)
+    assert warp_cuda.LAUNCHES == dict(before, **{
+        k: before[k] + 1 for k in (FWD3D, DFLOW3D, DSRC3D)})
+    dsrc, dflow = warp_bwd_plain(flow, flow, g)
+    assert max_err(v.grad, dsrc + dflow) <= 1e-5 * max(1.0, float(
+        dsrc.abs().max()))
+
+
+def test_vxm_engine_3d_launches_and_matches_cpu(cuda):
+    """A small 3-D engine on the card: 8 forward launches a register call;
+    8 forward, 8 dflow and 7 dsrc a train step; metrics and gradients as on
+    the CPU."""
+    cfg = VxmConfig(vol_size=32, enc=(8, 16, 16), dec=(16, 16, 16, 16, 8))
+    engines = {dev: VxmEngine(cfg, device=dev, seed=1)
+               for dev in ("cuda", "cpu")}
+    for eng in engines.values():
+        with torch.no_grad():
+            eng.netR.flow.weight.mul_(1e5)
+    g = torch.Generator().manual_seed(2)
+    a, b = torch.rand(2, 1, 1, 32, 32, 32, generator=g)
+    warp_cuda.reset_launches()
+    y, flow = engines["cuda"].register(a.to(cuda), b.to(cuda))
+    assert warp_cuda.LAUNCHES == dict(ZERO, **{FWD3D: 8})
+    y_ref, flow_ref = engines["cpu"].register(a, b)
+    assert max_err(y.cpu(), y_ref) <= 1e-3
+    assert max_err(flow.cpu(), flow_ref) <= 1e-3
+    grads, metrics = {}, {}
+    for dev, eng in engines.items():
+        warp_cuda.reset_launches()
+        eng.optimizer.zero_grad()
+        total, met = eng.loss_fn(a.to(dev), b.to(dev))
+        total.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert warp_cuda.LAUNCHES == dict(ZERO, **{FWD3D: 8, DFLOW3D: 8,
+                                                       DSRC3D: 7})
+        metrics[dev] = {k: float(v.detach()) for k, v in met.items()}
+        grads[dev] = [p.grad.cpu() for p in eng.netR.parameters()]
+    for k, v in metrics["cpu"].items():
+        assert abs(metrics["cuda"][k] - v) <= 1e-3 * abs(v), k
+    for o, r in zip(grads["cuda"], grads["cpu"]):
+        assert max_err(o, r) <= 1e-2 * float(r.abs().max())

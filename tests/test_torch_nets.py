@@ -98,7 +98,3 @@ def test_vxm_dense(rng, vxms, registration):
     for o, r in zip(out, ref):
         np.testing.assert_allclose(to_nhwc(o), np.asarray(r), rtol=0, atol=TOL)
 
-
-def test_vxm_dense_3d_not_ported():
-    with pytest.raises(NotImplementedError, match="A11"):
-        VxmDense(3, NB, generator=torch.Generator())

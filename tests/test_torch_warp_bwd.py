@@ -1,4 +1,4 @@
-"""The 2-D warp backward: its plain version (``warp2d_bwd_plain``) against
+"""The 2-D warp backward: its plain version (``warp_bwd_plain``) against
 the JAX package, and ``Warp2dFunction``'s wiring on the CPU.
 
 - Against ``jax.vjp`` of ``warp(..., impl="xla")``, 1e-5 max-abs (float32
@@ -25,7 +25,7 @@ from dfmir_tpu.ops.warp import warp as jax_warp
 from dfmir_tpu.ops.warp_pallas import warp2d_banded_bwd
 from dfmir_tpu_torch.compat.convert import to_nchw, to_nhwc
 from dfmir_tpu_torch.ops import warp_cuda
-from dfmir_tpu_torch.ops.warp import warp, warp2d_bwd_plain
+from dfmir_tpu_torch.ops.warp import warp, warp_bwd_plain
 
 from test_torch_warp import FLOWS, make_flow
 
@@ -39,7 +39,7 @@ def jax_vjp(src, flow, g):
 
 
 def plain(src, flow, g, need_dsrc=True):
-    return warp2d_bwd_plain(*(torch.from_numpy(to_nchw(a))
+    return warp_bwd_plain(*(torch.from_numpy(to_nchw(a))
                               for a in (src, flow, g)), need_dsrc=need_dsrc)
 
 
@@ -86,7 +86,7 @@ def test_plain_bwd_vecint_alias(rng):
     _, vjp = jax.vjp(lambda v: jax_warp(v, v, impl="xla"), jnp.asarray(flow))
     (ref,) = vjp(jnp.asarray(g))
     v = torch.from_numpy(to_nchw(flow))
-    dsrc, dflow = warp2d_bwd_plain(v, v, torch.from_numpy(to_nchw(g)))
+    dsrc, dflow = warp_bwd_plain(v, v, torch.from_numpy(to_nchw(g)))
     np.testing.assert_allclose(to_nhwc(dsrc + dflow), np.asarray(ref),
                                rtol=0, atol=TOL)
 
@@ -101,7 +101,7 @@ def plain_launchers(monkeypatch):
 
     def bwd(src, flow, g, need_dsrc=True):
         calls.append(need_dsrc)
-        return warp2d_bwd_plain(src, flow, g, need_dsrc=need_dsrc)
+        return warp_bwd_plain(src, flow, g, need_dsrc=need_dsrc)
 
     monkeypatch.setattr(warp_cuda, "warp2d_cuda",
                         lambda s, f: warp(s, f, impl="torch"))
@@ -137,7 +137,7 @@ def test_function_skips_dsrc_for_data(rng, plain_launchers):
     out = warp_cuda.Warp2dFunction.apply(src, f)
     out.backward(g)
     assert plain_launchers == [False]
-    _, ref = warp2d_bwd_plain(src, flow, g)
+    _, ref = warp_bwd_plain(src, flow, g)
     np.testing.assert_array_equal(f.grad.numpy(), ref.numpy())
 
 
@@ -148,7 +148,7 @@ def test_function_alias_adds_gradients(rng, plain_launchers):
         np.float32))
     v = flow.clone().requires_grad_()
     warp_cuda.Warp2dFunction.apply(v, v).backward(g)
-    dsrc, dflow = warp2d_bwd_plain(flow, flow, g)
+    dsrc, dflow = warp_bwd_plain(flow, flow, g)
     np.testing.assert_allclose(v.grad.numpy(), (dsrc + dflow).numpy(),
                                rtol=0, atol=1e-6)
     assert plain_launchers == [True]
