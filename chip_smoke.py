@@ -7,19 +7,26 @@ Phases, each printing one JSON line:
   1. device   the card (nvidia-smi name and power limit); TF32 off for
               convs and matmuls, so every comparison is float32 to float32
   2. build    nvcc builds every kernel from dfmir_tpu_torch/csrc/
-  3. kernel   each kernel against its plain PyTorch version on the card at
-              the main paths' shapes and a few hard ones (forward max-abs
+  3. kernel   each 2-D kernel against its plain PyTorch version on the card
+              at the main paths' shapes and a few hard ones (forward max-abs
               <= 1e-5; backward dflow <= 1e-5, dsrc <= 1e-5 * max(1,
               max|dsrc|), the atomics' order), timed with CUDA events beside
               its byte/op bound and the one PyTorch call that computes the
-              same function
+              same function; a host-clock breakdown of one B1 call and one
+              B2 call at (1,1,256,256), part by part, on the earlier launch
+              path (rebuilt here) and on the lean path; VecInt's
+              chain kernels (vecint2d_fwd bit-equal to the plain loop,
+              vecint2d_bwd within 1e-5 * max(1, max|dvec|) of autograd of
+              it) beside two chains built here: 7 direct B1 / B2 launches
+              with their adds, and the chain written with F.grid_sample
   4. register the paper's model at full width (RegistrationConfig
               defaults: crop 256, ngf 64, resnet_9blocks, VxmDense
               (16,32,32,64,64,64)/(64,64,64,32,32,32,16), 7 integration
               steps), random weights from --seed with the flow head scaled so
               the field deforms: 4 pairs at B=1 through
               infer.register_pair_outputs as test.py serves them, kernel
-              launches counted over that run, one pair against the same
+              launches counted over that run (1 chain forward + 1 B1 a
+              call), one pair against the same
               weights on the CPU (max-abs <= 1e-3), then ms/pair at B=1 and
               pairs/s at B=8
   5. train    the joint translate-and-register step at the same full width
@@ -27,7 +34,8 @@ Phases, each printing one JSON line:
               loss_fn on the card against the same weights and patch ids on
               the CPU (metrics within 1e-3 relative), then 1 warm-up and 5
               timed train_step calls at B=1, kernel launches counted over
-              them (exactly 9 forward + 9 backward a step), every metric
+              them (exactly 1 chain forward + 2 B1 and 1 chain backward + 2
+              B2 a step), every metric
               finite and every parameter moved; a reduced-width step (crop
               64, ngf 8) card against CPU (metrics 1e-3 relative; gradients
               within 1e-2 * the network's max |g| of the CPU in float32 and
@@ -52,9 +60,9 @@ Phases, each printing one JSON line:
               (1e-3); ms per register and per step at B=1, peak memory
   8. profile  (--profile only) device time by kernel and by conv shape
               over register calls, 2-D and 3-D train steps, netG / netR
-              times, register calls with cuDNN's autotuner on, and each 3-D
-              kernel's device time a launch
-Each phase's wall seconds follow it.  Then the kernels line (all five
+              times, register calls with cuDNN's autotuner on, and each
+              kernel's device time a launch beside grid_sampler_2d / _3d
+Each phase's wall seconds follow it.  Then the kernels line (all seven
 kernels, their launches by path: register, train, register3d, train3d),
 and last {"ok": true, "device": {...}}.
 
@@ -79,7 +87,9 @@ from dfmir_tpu_torch.engine.config import RegistrationConfig
 from dfmir_tpu_torch.engine.registration import RegistrationModel
 from dfmir_tpu_torch.engine.vxm_engine import VxmConfig, VxmEngine
 from dfmir_tpu_torch.ops import _build, warp_cuda
-from dfmir_tpu_torch.ops.warp import identity_grid, warp, warp_bwd_plain
+from dfmir_tpu_torch.ops.integrate import vecint, vecint_bwd_plain
+from dfmir_tpu_torch.ops.warp import (_kernel_takes, identity_grid, warp,
+                                      warp_bwd_plain)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
 # (non-tensor-core) FLOP/s
@@ -89,10 +99,6 @@ KERNEL_TOL = 1e-5
 PATH_TOL = 1e-3
 FLOW_GAIN = 1e5          # flow head N(0, 1e-5) -> N(0, 1)
 N_PAIRS = 4
-WARPS_PER_REGISTER = 8   # 7 VecInt steps + the y_source warp
-# 7 VecInt steps + the stacked source/target warp + registered, each
-# forward and backward
-WARPS_PER_STEP = 9
 TRAIN_STEPS = 5          # timed, after one warm-up step
 # card vs CPU gradients: within GRAD_ENV * the network's max |g|, the JAX
 # suite's cross-program bar: the CPU's own float32 gradient is ~5e-3 of
@@ -102,8 +108,15 @@ TRAIN_STEPS = 5          # timed, after one warm-up step
 GRAD_ENV = 1e-2
 GRAD_ENV_F64 = 1e-3
 FWD, BWD = warp_cuda.FWD, warp_cuda.BWD
+VF, VB = warp_cuda.VECINT_FWD, warp_cuda.VECINT_BWD
 FWD3D, DFLOW3D, DSRC3D = warp_cuda.FWD3D, warp_cuda.DFLOW3D, warp_cuda.DSRC3D
 ZERO = dict.fromkeys(warp_cuda.LAUNCHES, 0)
+# launches a 2-D register call makes: VecInt's chain + the y_source warp
+REGISTER_LAUNCHES = {VF: 1, FWD: 1}
+# a 2-D train step: the chain, the stacked source/target warp and
+# `registered`, each forward and backward
+STEP_LAUNCHES = {VF: 1, FWD: 2, VB: 1, BWD: 2}
+NSTEPS = 7               # VecInt's integration steps
 DEVICE = "cuda"
 
 
@@ -166,13 +179,13 @@ def phase_build():
 # ------------------------------------------------------------ phase 3
 WARP_CASES = [
     # name, (B, C, H, W), flow scale (px), flow shift (px)
-    ("vecint_step", (1, 2, 128, 128), 5.0, 0.0),
+    ("vecint_step", (1, 2, 128, 128), 5.0, 0.0),   # one VecInt step
     ("y_source_b1", (1, 1, 256, 256), 5.0, 0.0),
     ("y_source_b8", (8, 1, 256, 256), 20.0, 0.0),
     ("mostly_outside", (2, 1, 128, 128), 40.0, 90.0),
     ("odd_shape", (3, 3, 67, 45), 3.0, 0.0),
 ]
-MAIN_CASE = "vecint_step"   # 7 of the 8 launches per register call
+MAIN_CASE = "y_source_b1"   # the single warp of a register call
 
 
 def warp2d_bound(B, C, H, W):
@@ -181,23 +194,34 @@ def warp2d_bound(B, C, H, W):
     channel for the corner sum."""
     nbytes = 4 * (B * 2 * H * W + 2 * B * C * H * W)
     flops = B * H * W * (12 + 7 * C)
+    return bound(nbytes, flops)
+
+
+def bound(nbytes, flops):
+    """(ms, "bytes" | "operations"): the larger of bytes over HBM's rate and
+    float32 operations over the card's peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def normalised_grid(flow):
+    """grid_sample's normalised (x, y) grid for the pixel flow."""
+    H, W = flow.shape[2:]
+    locs = identity_grid((H, W), device=flow.device)[None] + flow
+    return torch.stack([2 * (locs[:, 1] / (W - 1) - 0.5),
+                        2 * (locs[:, 0] / (H - 1) - 0.5)], dim=-1)
+
+
 def grid_sample_call(src, flow):
     """The one PyTorch call computing the same function (the yardstick):
     grid_sample on the flow's normalised coordinates, built beforehand."""
-    H, W = flow.shape[2:]
-    locs = identity_grid((H, W), device=flow.device)[None] + flow
-    grid = torch.stack([2 * (locs[:, 1] / (W - 1) - 0.5),
-                        2 * (locs[:, 0] / (H - 1) - 0.5)], dim=-1)
+    grid = normalised_grid(flow)
     return lambda: F.grid_sample(src, grid, mode="bilinear",
                                  padding_mode="zeros", align_corners=True)
 
 
-def phase_kernel(seed):
+def phase_kernel(seed, profile):
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(seed)
     rows = {}
@@ -213,18 +237,23 @@ def phase_kernel(seed):
         lib_err = float((library() - ref).abs().max())
         outside = float(((out == 0).float().mean()))
         bound_ms, bound_by = warp2d_bound(B, C, H, W)
+        kernel = lambda: warp_cuda.warp2d_cuda(src, flow)  # noqa: E731
         row = {
             "case": name, "shape": [B, C, H, W], "flow_px": scale,
             "shift_px": shift, "max_abs_err": err,
             "zero_fraction": outside,
-            "ms": time_ms(lambda: warp_cuda.warp2d_cuda(src, flow)),
+            "ms": time_ms(kernel),
             "plain_ms": time_ms(lambda: warp(src, flow, impl="torch"),
                                 reps=50),
             "library_ms": time_ms(library),
             "library_max_abs_err": lib_err,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
-        emit({"phase": "kernel", "kernel": "warp2d_bilinear_fwd", **row})
+        if profile:
+            row["device_us_per_launch"] = device_us(kernel, FWD)
+            # cuDNN's grid sampler on 4-D input: every kernel of the call
+            row["library_device_us_per_call"] = device_us(library)
+        emit({"phase": "kernel", "kernel": FWD, **row})
         if not err <= KERNEL_TOL:
             raise AssertionError(f"warp2d kernel disagrees with its plain "
                                  f"version on {name}: {err} > {KERNEL_TOL}")
@@ -235,13 +264,14 @@ def phase_kernel(seed):
 BWD_CASES = [
     # name, (B, C, H, W), flow scale (px), flow shift (px), dsrc wanted,
     # src is flow
-    ("vecint_step", (2, 2, 128, 128), 5.0, 0.0, True, True),
+    ("vecint_step", (2, 2, 128, 128), 5.0, 0.0, True, True),  # one step
     ("data_warp", (2, 1, 256, 256), 5.0, 0.0, False, False),
     ("registered", (1, 1, 256, 256), 5.0, 0.0, True, False),
     ("mostly_outside", (2, 1, 128, 128), 40.0, 90.0, True, False),
     ("odd_shape", (3, 3, 67, 45), 3.0, 0.0, True, False),
 ]
-MAIN_BWD_CASE = "vecint_step"   # 7 of the 9 backward launches a step
+MAIN_BWD_CASE = "registered"   # the backward of `registered = warp(fake_B,
+                               # pos_flow)`, both gradients
 
 
 def warp2d_bwd_bound(B, C, H, W, need_dsrc, alias):
@@ -253,9 +283,7 @@ def warp2d_bwd_bound(B, C, H, W, need_dsrc, alias):
     nbytes = 4 * (2 * px + (0 if alias else vals) + vals + 2 * px
                   + (vals if need_dsrc else 0))
     flops = px * 12 + vals * (14 + (10 if need_dsrc else 0))
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound(nbytes, flops)
 
 
 def grid_sample_bwd_call(src, flow, g, need_dsrc):
@@ -263,9 +291,7 @@ def grid_sample_bwd_call(src, flow, g, need_dsrc):
     grid_sample (aten::grid_sampler_2d_backward) on the flow's normalised
     grid, built beforehand.  Returns (call, its dflow in pixel units)."""
     H, W = flow.shape[2:]
-    locs = identity_grid((H, W), device=flow.device)[None] + flow
-    grid = torch.stack([2 * (locs[:, 1] / (W - 1) - 0.5),
-                        2 * (locs[:, 0] / (H - 1) - 0.5)], dim=-1)
+    grid = normalised_grid(flow)
 
     def call():
         return torch.ops.aten.grid_sampler_2d_backward(
@@ -277,7 +303,7 @@ def grid_sample_bwd_call(src, flow, g, need_dsrc):
     return call, dflow
 
 
-def phase_kernel_bwd(seed):
+def phase_kernel_bwd(seed, profile):
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     rows = {}
@@ -299,14 +325,15 @@ def phase_kernel_bwd(seed):
             raise AssertionError(f"{name}: dsrc computed though not wanted")
         library, lib_dflow = grid_sample_bwd_call(src, flow, g, need_dsrc)
         bound_ms, bound_by = warp2d_bwd_bound(B, C, H, W, need_dsrc, alias)
+        kernel = lambda: warp_cuda.warp2d_bwd_cuda(  # noqa: E731
+            src, flow, g, need_dsrc)
         row = {
             "case": name, "shape": [B, C, H, W], "flow_px": scale,
             "shift_px": shift, "need_dsrc": need_dsrc, "src_is_flow": alias,
             "max_abs_err_dflow": err_dflow, "max_abs_err_dsrc": err_dsrc,
             "dsrc_scale": dsrc_scale,
             "max_abs_err": max(err_dflow, err_dsrc),
-            "ms": time_ms(lambda: warp_cuda.warp2d_bwd_cuda(
-                src, flow, g, need_dsrc)),
+            "ms": time_ms(kernel),
             "plain_ms": time_ms(lambda: warp_bwd_plain(
                 src, flow, g, need_dsrc), reps=50),
             "library_ms": time_ms(library),
@@ -314,6 +341,9 @@ def phase_kernel_bwd(seed):
                 float((lib_dflow - ref_dflow).abs().max()),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
+        if profile:
+            row["device_us_per_launch"] = device_us(kernel, BWD)
+            row["library_device_us_per_call"] = device_us(library)
         emit({"phase": "kernel", "kernel": BWD, **row})
         if not (err_dflow <= KERNEL_TOL
                 and err_dsrc <= KERNEL_TOL * dsrc_scale):
@@ -322,6 +352,311 @@ def phase_kernel_bwd(seed):
                 f"{name}: dflow {err_dflow}, dsrc {err_dsrc} (scale "
                 f"{dsrc_scale}) > {KERNEL_TOL}")
         rows[name] = row
+    return rows
+
+
+# the earlier launch path, rebuilt here as it was, beside the lean one
+def seed_launch(entry, src, *args):
+    """The launch as ops/warp_cuda.py made it before the lean path: a
+    device guard around a Python Stream object and the call."""
+    lib = _build.load()
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, entry)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+
+
+def seed_warp2d(src, flow, counts):
+    warp_cuda._check(src, flow, "warp2d_cuda", 2)
+    out = torch.empty_like(src)
+    seed_launch("dfmir_warp2d_fwd", src, src.data_ptr(), flow.data_ptr(),
+                out.data_ptr(), *src.shape)
+    counts[FWD] += 1
+    return out
+
+
+def seed_warp2d_bwd(src, flow, g, counts):
+    warp_cuda._check(src, flow, "warp2d_bwd_cuda", 2)
+    warp_cuda._check_g(g, src)
+    dflow = torch.empty_like(flow)
+    dsrc = torch.zeros_like(src)
+    seed_launch("dfmir_warp2d_bwd", src, src.data_ptr(), flow.data_ptr(),
+                g.data_ptr(), dsrc.data_ptr(), dflow.data_ptr(), *src.shape)
+    counts[BWD] += 1
+    return dsrc, dflow
+
+
+class SeedWarp2d(torch.autograd.Function):
+    """Warp2dFunction's forward over the seed's launcher."""
+
+    @staticmethod
+    def forward(ctx, src, flow):
+        ctx.save_for_backward(src, flow)
+        return seed_warp2d(src, flow, {FWD: 0})
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        raise NotImplementedError
+
+
+def seed_warp(src, flow):
+    """warp(src, flow) as it dispatched before the lean path."""
+    if not _kernel_takes(src, flow, "bilinear"):
+        raise AssertionError("the card's warp should take these tensors")
+    return SeedWarp2d.apply(src.contiguous(), flow.contiguous())
+
+
+def host_us(fn, calls=2000, warmup=50):
+    """Mean host-clock microseconds of one call of ``fn`` over ``calls``
+    calls (the enqueue, not the device's work), after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def phase_host_path(seed):
+    """The host path of one B1 call at y_source's (1,1,256,256) and one B2
+    call at the `registered` case, part by part on the host clock: before
+    the lean path (rebuilt here) and on it.  The parts are timed one by
+    one; "rest" is the whole call less its parts (call overhead, Function
+    .apply for warp)."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    src = torch.randn((1, 1, 256, 256), generator=gen, device=dev)
+    flow = smooth_field((1, 2, 256, 256), 5.0, gen, dev)
+    g = torch.randn((1, 1, 256, 256), generator=gen, device=dev)
+    out, dsrc, dflow = (torch.empty_like(t) for t in (src, src, flow))
+    lib = _build.load()
+    fwd_fn, bwd_fn = lib.dfmir_warp2d_fwd, lib.dfmir_warp2d_bwd
+    d = src.get_device()
+    counts = dict(ZERO)
+    stream = torch._C._cuda_getCurrentRawStream(d)
+    fwd_args = (src.data_ptr(), flow.data_ptr(), out.data_ptr(), *src.shape)
+    bwd_args = (src.data_ptr(), flow.data_ptr(), g.data_ptr(),
+                dsrc.data_ptr(), dflow.data_ptr(), *src.shape)
+
+    def guard():
+        with torch.cuda.device(src.device):
+            pass
+
+    def count():
+        counts[FWD] += 1
+
+    common = {
+        "dispatch": lambda: _kernel_takes(src, flow, "bilinear"),
+        "contiguous": lambda: (src.contiguous(), flow.contiguous()),
+        "alloc_out": lambda: torch.empty_like(src),
+        "args": lambda: (src.data_ptr(), flow.data_ptr(), out.data_ptr(),
+                         *src.shape),
+        "count": count,
+    }
+    parts = {
+        "before": dict(common, **{
+            "check": lambda: warp_cuda._check(src, flow, "warp2d_cuda", 2),
+            "load": _build.load,
+            "guard": guard,
+            "stream": lambda: torch.cuda.current_stream().cuda_stream,
+            "ctypes_launch": lambda: getattr(lib, "dfmir_warp2d_fwd")(
+                *fwd_args, stream)}),
+        "after": dict(common, **{
+            "check": lambda: warp_cuda._device(src, flow, "warp2d_cuda", 2),
+            "entry": lambda: getattr(_build.load(), "dfmir_warp2d_fwd"),
+            "stream": lambda: torch._C._cuda_getCurrentRawStream(d),
+            "device_test": lambda: d == torch._C._cuda_getDevice(),
+            "ctypes_launch": lambda: fwd_fn(*fwd_args, stream)}),
+    }
+    launchers = {"before": lambda: seed_warp2d(src, flow, counts),
+                 "after": lambda: warp_cuda.warp2d_cuda(src, flow)}
+    warps = {"before": lambda: seed_warp(src, flow),
+             "after": lambda: warp(src, flow)}
+    bwd_parts = {
+        "before": {
+            "check": lambda: (warp_cuda._check(src, flow, "warp2d_bwd_cuda",
+                                               2), warp_cuda._check_g(g, src)),
+            "alloc_dflow": lambda: torch.empty_like(flow),
+            "alloc_dsrc": lambda: torch.zeros_like(src),
+            "load": _build.load, "guard": guard,
+            "stream": lambda: torch.cuda.current_stream().cuda_stream,
+            "ctypes_launch": lambda: getattr(lib, "dfmir_warp2d_bwd")(
+                *bwd_args, stream)},
+        "after": {
+            "check": lambda: (warp_cuda._device(src, flow, "warp2d_bwd_cuda",
+                                                2), warp_cuda._check_g(g,
+                                                                       src)),
+            "alloc_dflow": lambda: torch.empty_like(flow),
+            "alloc_dsrc": lambda: torch.empty_like(src),
+            "entry": lambda: getattr(_build.load(), "dfmir_warp2d_bwd"),
+            "stream": lambda: torch._C._cuda_getCurrentRawStream(d),
+            "device_test": lambda: d == torch._C._cuda_getDevice(),
+            "ctypes_launch": lambda: bwd_fn(*bwd_args, stream)},
+    }
+    bwd_launchers = {
+        "before": lambda: seed_warp2d_bwd(src, flow, g, counts),
+        "after": lambda: warp_cuda.warp2d_bwd_cuda(src, flow, g)}
+    library = grid_sample_call(src, flow)
+    library_bwd, _ = grid_sample_bwd_call(src, flow, g, True)
+    lines = {}
+    for path in ("before", "after"):
+        us = {k: host_us(fn) for k, fn in parts[path].items()}
+        launcher_parts = sum(v for k, v in us.items()
+                             if k not in ("dispatch", "contiguous"))
+        us["launcher_total"] = host_us(launchers[path])
+        us["launcher_rest"] = us["launcher_total"] - launcher_parts
+        us["warp_total"] = host_us(warps[path])
+        us["warp_rest"] = (us["warp_total"] - us["launcher_total"]
+                           - us["dispatch"] - us["contiguous"])
+        bus = {k: host_us(fn) for k, fn in bwd_parts[path].items()}
+        bus["launcher_total"] = host_us(bwd_launchers[path])
+        bus["launcher_rest"] = bus["launcher_total"] - sum(
+            v for k, v in bus.items() if k != "launcher_total")
+        lines[path] = {
+            "B1_us": us, "B2_us": bus,
+            "B1_launcher_ms_events": time_ms(launchers[path]),
+            "B2_launcher_ms_events": time_ms(bwd_launchers[path])}
+        emit({"phase": "host_path", "path": path,
+              "what": ("the seed's launch path, rebuilt in chip_smoke.py"
+                       if path == "before" else "ops/warp_cuda.py"),
+              "case": "B1 y_source (1,1,256,256); B2 registered "
+                      "(1,1,256,256), both gradients", **lines[path],
+              "library_us": host_us(library),
+              "library_bwd_us": host_us(library_bwd),
+              "library_ms_events": time_ms(library),
+              "library_bwd_ms_events": time_ms(library_bwd)})
+    return lines
+
+
+CHAIN_CASES = [
+    # name, (B, 2, H, W), field kind, velocity scale (px)
+    ("register", (1, 2, 128, 128), "smooth", 10.0),  # register's pos chain
+    ("train", (2, 2, 128, 128), "smooth", 10.0),     # a step's pos/neg chain
+    ("train_b8", (16, 2, 128, 128), "smooth", 10.0),
+    ("odd_shape", (3, 2, 67, 45), "smooth", 5.0),
+    ("violent", (1, 2, 128, 128), "noise", 25.0),    # x25 N(0, 1)
+]
+MAIN_CHAIN_CASE = "train"
+
+
+def chain_bound(kernel, B, H, W, n):
+    """Least time for the chain's work: the input (vec, or g and the n
+    saved fields) read once, each field the kernel writes (the saved steps
+    and the result, or dvec) written once; ~12 + 7*2 + 2 flops a pixel a
+    forward step, 12 + 24*2 + 4 a backward step."""
+    field = 4 * 2 * B * H * W
+    if kernel == VF:
+        return bound(field * (1 + n + 1), n * (12 + 7 * 2 + 2) * B * H * W)
+    return bound(field * (1 + n + 1), n * (12 + 24 * 2 + 4) * B * H * W)
+
+
+def launch_chain_fwd(vec):
+    """The chain as 7 direct B1 launches, each with its add (the path
+    before the chain kernel, without autograd)."""
+    v = vec * (1.0 / 2 ** NSTEPS)
+    for _ in range(NSTEPS):
+        v = v + warp_cuda.warp2d_cuda(v, v)
+    return v
+
+
+def launch_chain_bwd(steps, g):
+    """Its backward as 7 direct B2 launches, each with the two adds that
+    autograd made."""
+    for k in range(NSTEPS - 1, -1, -1):
+        dsrc, dflow = warp_cuda.warp2d_bwd_cuda(steps[k], steps[k], g)
+        g = g + dsrc + dflow
+    return g * (1.0 / 2 ** NSTEPS)
+
+
+def grid_sample_chain(vec):
+    """The chain written with F.grid_sample, its grid rebuilt each step."""
+    v = vec * (1.0 / 2 ** NSTEPS)
+    for _ in range(NSTEPS):
+        v = v + F.grid_sample(v, normalised_grid(v), mode="bilinear",
+                              padding_mode="zeros", align_corners=True)
+    return v
+
+
+def phase_kernel_chain(seed, profile):
+    """VecInt's chain kernels against the plain loop (forward bit-equal,
+    backward within 1e-5 * max(1, max|dvec|)), timed beside their bound,
+    the plain loop, 7 direct B1 / B2 launches with their adds and the
+    F.grid_sample chain."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    rows = {VF: {}, VB: {}}
+    for name, shape, kind, scale in CHAIN_CASES:
+        B, _, H, W = shape
+        if kind == "smooth":
+            vec = smooth_field(shape, scale, gen, dev)
+        else:
+            vec = torch.randn(shape, generator=gen, device=dev) * scale
+        g = torch.randn(shape, generator=gen, device=dev)
+        out, steps = warp_cuda.vecint2d_fwd_cuda(vec, NSTEPS, save=True)
+        out_inf, _ = warp_cuda.vecint2d_fwd_cuda(vec, NSTEPS, save=False)
+        dvec = warp_cuda.vecint2d_bwd_cuda(steps, g)
+        torch.cuda.synchronize()
+        ref = vecint(vec, NSTEPS, impl="torch")
+        ref_dvec = vecint_bwd_plain(vec, NSTEPS, g)
+        err = max(float((out - ref).abs().max()),
+                  float((out_inf - ref).abs().max()))
+        err_bwd = float((dvec - ref_dvec).abs().max())
+        tol_bwd = KERNEL_TOL * max(1.0, float(ref_dvec.abs().max()))
+        v = vec.clone().requires_grad_()
+        gs_out = grid_sample_chain(v)
+        gs_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            gs_out, v, g, retain_graph=True)
+        calls = {
+            VF: {"kernel": lambda: warp_cuda.vecint2d_fwd_cuda(
+                    vec, NSTEPS, save=True),
+                 "plain": lambda: vecint(vec, NSTEPS, impl="torch"),
+                 "launches": lambda: launch_chain_fwd(vec),
+                 "grid_sample": lambda: grid_sample_chain(vec)},
+            VB: {"kernel": lambda: warp_cuda.vecint2d_bwd_cuda(steps, g),
+                 "plain": lambda: vecint_bwd_plain(vec, NSTEPS, g),
+                 "launches": lambda: launch_chain_bwd(steps, g),
+                 "grid_sample": gs_bwd}}
+        before_err = {
+            VF: float((launch_chain_fwd(vec) - ref).abs().max()),
+            VB: float((launch_chain_bwd(steps, g) - ref_dvec).abs().max())}
+        gs_err = {VF: float((gs_out - ref).abs().max()),
+                  VB: float((gs_bwd()[0] - ref_dvec).abs().max())}
+        for k in (VF, VB):
+            c = calls[k]
+            bound_ms, bound_by = chain_bound(k, B, H, W, NSTEPS)
+            row = {"case": name, "shape": list(shape), "field": kind,
+                   "vec_px": scale, "nsteps": NSTEPS,
+                   "max_abs_err": err if k == VF else err_bwd,
+                   "tol": 0.0 if k == VF else tol_bwd,
+                   "ms": time_ms(c["kernel"]),
+                   "plain_ms": time_ms(c["plain"], reps=20, warmup=2),
+                   "launch_chain_ms": time_ms(c["launches"]),
+                   "launch_chain_max_abs_err": before_err[k],
+                   "grid_sample_chain_ms": time_ms(c["grid_sample"]),
+                   "grid_sample_chain_max_abs_err": gs_err[k],
+                   "library_ms": None,
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            if k == VF:
+                row["ms_inference"] = time_ms(
+                    lambda: warp_cuda.vecint2d_fwd_cuda(vec, NSTEPS,
+                                                        save=False))
+                row["field_max_px"] = float(ref.abs().max())
+            if profile:
+                row["device_us_per_launch"] = device_us(c["kernel"], k)
+                row["launch_chain_device_us"] = device_us(c["launches"])
+                row["grid_sample_chain_device_us"] = device_us(
+                    c["grid_sample"])
+            emit({"phase": "kernel", "kernel": k, **row})
+            if not row["max_abs_err"] <= row["tol"]:
+                raise AssertionError(f"{k} disagrees with its plain version "
+                                     f"on {name}: {row['max_abs_err']} > "
+                                     f"{row['tol']}")
+            rows[k][name] = row
+        del steps, gs_out, v
     return rows
 
 
@@ -361,11 +696,10 @@ def phase_register(seed, smi):
             for a, b, lab in pairs]
     torch.cuda.synchronize()
     launches = dict(warp_cuda.LAUNCHES)
-    if launches != dict(ZERO, **{FWD: WARPS_PER_REGISTER * N_PAIRS}):
-        raise AssertionError(f"{launches} warp kernel launches over "
-                             f"{N_PAIRS} register calls, expected "
-                             f"{WARPS_PER_REGISTER * N_PAIRS} forward, 0 "
-                             f"backward")
+    want = {k: v * N_PAIRS for k, v in REGISTER_LAUNCHES.items()}
+    if launches != dict(ZERO, **want):
+        raise AssertionError(f"{launches} kernel launches over {N_PAIRS} "
+                             f"register calls, expected {want}")
     shapes = {"fake_B": (1, 1, S, S), "idt_B": (1, 1, S, S),
               "y_source": (1, 1, S, S), "pos_flow": (1, 2, S, S),
               "jac_det": (1, S, S), "folding_fraction": (1,),
@@ -404,7 +738,8 @@ def phase_register(seed, smi):
           "crop": S, "ngf": cfg.ngf, "netG": cfg.netG,
           "vxm": [list(cfg.vxm_enc), list(cfg.vxm_dec)],
           "pairs": N_PAIRS, "launches": launches,
-          "launches_per_register": launches[FWD] / N_PAIRS,
+          "launches_per_register": {k: v / N_PAIRS
+                                    for k, v in launches.items() if v},
           "pos_flow_max_px": flow_max,
           "folding_fraction": [float(o["folding_fraction"][0]) for o in outs],
           "card_vs_cpu_max_abs": errs, "label_mismatch_fraction":
@@ -452,7 +787,7 @@ def small_step_vs_cpu(seed):
     """A reduced-width loss and backward (the CPU tests' config) on the card
     against the CPU: metrics 1e-3 relative; gradients within GRAD_ENV *
     max|g| of the CPU in float32 and GRAD_ENV_F64 * max|g| of the CPU in
-    float64; 9 + 9 warp launches on the card."""
+    float64; a train step's launches (STEP_LAUNCHES) on the card."""
     cfg = RegistrationConfig(**SMALL)
     gen = torch.Generator().manual_seed(seed + 3)
     a, b = (torch.tanh(2 * torch.randn((2, 1, 64, 64), generator=gen))
@@ -470,10 +805,9 @@ def small_step_vs_cpu(seed):
         if run == "card":
             torch.cuda.synchronize()
             launches = dict(warp_cuda.LAUNCHES)
-            if launches != dict(ZERO, **{FWD: WARPS_PER_STEP,
-                                         BWD: WARPS_PER_STEP}):
-                raise AssertionError(f"small step: {launches} warp launches,"
-                                     f" expected {WARPS_PER_STEP} each")
+            if launches != dict(ZERO, **STEP_LAUNCHES):
+                raise AssertionError(f"small step: {launches} launches, "
+                                     f"expected {STEP_LAUNCHES}")
     metric_errs = rel_errs(out["card"][0], out["cpu"][0], PATH_TOL,
                            "small step")
     grad_errs = {}
@@ -544,11 +878,10 @@ def phase_train(seed, smi):
     warp_cuda.reset_launches()
     step_ms, history = time_steps(model, pairs, cfg.lr, seed)
     launches = dict(warp_cuda.LAUNCHES)
-    want = WARPS_PER_STEP * len(pairs)
-    if launches != dict(ZERO, **{FWD: want, BWD: want}):
-        raise AssertionError(f"{launches} warp kernel launches over "
-                             f"{len(pairs)} train steps, expected {want} "
-                             f"forward and {want} backward")
+    want = {k: v * len(pairs) for k, v in STEP_LAUNCHES.items()}
+    if launches != dict(ZERO, **want):
+        raise AssertionError(f"{launches} kernel launches over "
+                             f"{len(pairs)} train steps, expected {want}")
     peak_b1 = torch.cuda.max_memory_allocated()
     bad = [(i, k) for i, m in enumerate(history) for k, v in m.items()
            if not v == v or abs(v) == float("inf")]
@@ -576,7 +909,7 @@ def phase_train(seed, smi):
           "vxm": [list(cfg.vxm_enc), list(cfg.vxm_dec)],
           "steps": len(pairs), "launches": launches,
           "launches_per_step": {k: v / len(pairs)
-                                for k, v in launches.items()},
+                                for k, v in launches.items() if v},
           "pos_flow_max_px": flow_max,
           "full_width_card_vs_cpu_rel": full_errs, "cpu_loss_fn_s": cpu_s,
           "small_step_card_vs_cpu_rel": small_metric_errs,
@@ -628,10 +961,7 @@ def warp3d_bound(name, B, C, N, alias):
                   DFLOW3D: flow + src + vals + flow,
                   DSRC3D: flow + vals + vals}[name]
     per_voxel, per_channel = FLOPS3D[name]
-    flops = B * N * per_voxel + vals * per_channel
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound(nbytes, B * N * per_voxel + vals * per_channel)
 
 
 def grid3d(flow):
@@ -665,9 +995,10 @@ def library3d_calls(src, flow, g):
             DFLOW3D: bwd([False, True]), DSRC3D: bwd([True, False])}, dflow
 
 
-def device_us(fn, name, calls=10):
-    """Device time a launch of the kernel ``name`` over ``calls`` calls of
-    ``fn``, from the profiler; None if it saw no such kernel."""
+def device_us(fn, name=None, calls=10):
+    """Device time from the profiler over ``calls`` calls of ``fn``: a
+    launch of the kernel ``name`` (None if it saw no such kernel), or, with
+    no name, every kernel of one call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -679,8 +1010,8 @@ def device_us(fn, name, calls=10):
         torch.cuda.synchronize()
     hits = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and name in e.key]
-    count = sum(e.count for e in hits)
+            and (name is None or name in e.key)]
+    count = calls if name is None else sum(e.count for e in hits)
     return sum(e.device_time_total for e in hits) / count if count else None
 
 
@@ -1004,6 +1335,8 @@ def trace(call, calls):
             "busy_ms_per_call": busy_ms, "span_ms_per_call": span_ms,
             "device_idle_share": 1 - busy_ms / span_ms,
             "warp_kernels": warps,
+            "warp_share_of_device": sum(w["ms_per_call"]
+                                        for w in warps.values()) / device_ms,
             "top_kernels": [{"name": e.key[:90],
                              "ms_per_call": e.device_time_total / 1e3 / calls,
                              "launches_per_call": e.count / calls}
@@ -1091,8 +1424,11 @@ def main(argv=None):
 
     smi = run("device", phase_device)
     run("build", phase_build)
-    fwd_rows = run("kernel", phase_kernel, args.seed)
-    bwd_rows = run("kernel_bwd", phase_kernel_bwd, args.seed)
+    fwd_rows = run("kernel", phase_kernel, args.seed, args.profile)
+    bwd_rows = run("kernel_bwd", phase_kernel_bwd, args.seed, args.profile)
+    run("host_path", phase_host_path, args.seed)
+    chain_rows = run("kernel_chain", phase_kernel_chain, args.seed,
+                     args.profile)
     model, reg_launches, reg_ms = run("register", phase_register, args.seed,
                                       smi)
     if args.profile:
@@ -1124,6 +1460,10 @@ def main(argv=None):
                    fwd_rows, MAIN_CASE),
         kernel_row(BWD, f"{tpu}:972", src2d, by_path(BWD), "train",
                    bwd_rows, MAIN_BWD_CASE),
+        kernel_row(VF, f"{tpu}:143", src2d, by_path(VF), "train",
+                   chain_rows[VF], MAIN_CHAIN_CASE),
+        kernel_row(VB, f"{tpu}:972", src2d, by_path(VB), "train",
+                   chain_rows[VB], MAIN_CHAIN_CASE),
         kernel_row(FWD3D, f"{tpu}:356", src3d, by_path(FWD3D), "train3d",
                    rows3d[FWD3D], MAIN3D_CASE),
         kernel_row(DFLOW3D, f"{tpu}:576", src3d, by_path(DFLOW3D),

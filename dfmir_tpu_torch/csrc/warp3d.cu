@@ -47,7 +47,8 @@
 //   so dflow rounds as the plain version does.  A clamped coordinate has all
 //   corners outside, so its dflow is 0, as the unclamped formula gives.
 // - dsrc scatters ((g * fx) * fy) * fz to each corner inside the volume with
-//   float32 atomicAdd into a buffer the caller zeroes.  It is therefore NOT
+//   float32 atomicAdd into a buffer its entry zeroes (cudaMemsetAsync on
+//   the launch's stream, no separate fill kernel).  It is therefore NOT
 //   bitwise reproducible: the order in which the atomics land changes from
 //   run to run and float addition is not associative, so two runs can differ
 //   in the last bits of a sum of the few terms that hit one voxel.  Held to
@@ -252,14 +253,17 @@ extern "C" int dfmir_warp3d_bwd_dflow(const float* src, const float* flow,
 }
 
 // The source gradient of dfmir_warp3d_fwd for the output cotangent g
-// (B,C,D,H,W): adds into dsrc (B,C,D,H,W), which the caller zeroes first.
-// Needs no source values.  float32, contiguous, on the device of `stream`;
-// dsrc must not alias flow or g.  Returns the launch's cudaError_t.
+// (B,C,D,H,W): writes dsrc (B,C,D,H,W), zeroed here on `stream` before the
+// scatter.  Needs no source values.  float32, contiguous, on the device of
+// `stream`; dsrc must not alias flow or g.  Returns the first cudaError_t.
 extern "C" int dfmir_warp3d_bwd_dsrc(const float* flow, const float* g,
                                      float* dsrc, int B, int C, int D, int H,
                                      int W, void* stream) {
   const long long n = (long long)B * D * H * W;
   if (n == 0 || C == 0) return (int)cudaSuccess;
+  const cudaError_t err = cudaMemsetAsync(dsrc, 0, sizeof(float) * n * C,
+                                          (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   warp3d_trilinear_bwd_dsrc<<<blocks_for(n), kThreads, 0,
                               (cudaStream_t)stream>>>(flow, g, dsrc, B, C, D,
                                                       H, W);

@@ -13,8 +13,9 @@ step).  ``remat`` recomputes netR's forward in the backward
 (``torch.utils.checkpoint``), as ``jax.checkpoint`` does.
 
 At 3-D every warp of the step (7 VecInt self-warps and the data warp) runs
-on the trilinear CUDA kernels when the tensors lie on the card, at 2-D on
-the bilinear ones; on the CPU the plain versions run.
+on the trilinear CUDA kernels when the tensors lie on the card; at 2-D
+VecInt's chain runs as one kernel launch each way and the data warp on the
+bilinear kernels; on the CPU the plain versions run.
 """
 
 from __future__ import annotations

@@ -30,6 +30,10 @@ SIGNATURES = {
     "dfmir_warp2d_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
     # (src, flow, g, dsrc or NULL, dflow, B, C, H, W, stream) -> cudaError_t
     "dfmir_warp2d_bwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # (vec, steps, out, B, H, W, nsteps, save, blocks, stream) -> cudaError_t
+    "dfmir_vecint2d_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    # (steps, g, scratch, dvec, B, H, W, nsteps, blocks, stream)
+    "dfmir_vecint2d_bwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     # (src, flow, out, B, C, D, H, W, stream) -> cudaError_t
     "dfmir_warp3d_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     # (src, flow, g, dflow, B, C, D, H, W, stream) -> cudaError_t

@@ -1,7 +1,10 @@
 """Flow-field integration and resizing.
 
 - ``vecint``: scaling and squaring, ``vec *= 1/2**nsteps`` then ``nsteps``
-  times ``vec = vec + warp(vec, vec)`` (the reference VecInt).
+  times ``vec = vec + warp(vec, vec)`` (the reference VecInt); a 2-D
+  float32 CUDA field runs the whole chain in one kernel launch each way
+  (``warp_cuda.VecInt2dFunction``).  ``vecint_bwd_plain`` is the plain
+  version of the chain's backward.
 - ``resize_flow``: resize and rescale a displacement field (the reference
   ResizeTransform): a factor below 1 resizes first and then scales, a factor
   above 1 scales first and then resizes, with align-corners linear
@@ -12,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from dfmir_tpu_torch.ops import warp_cuda
 from dfmir_tpu_torch.ops.warp import warp
 
 
@@ -55,12 +59,38 @@ def resize_flow(flow, factor: float):
     return resize_linear(flow * factor, out_spatial)
 
 
+def _chain_takes(vec):
+    """Whether ``impl="auto"`` sends ``vec`` to the chain kernels."""
+    return (vec.ndim == 4 and vec.shape[1] == 2 and vec.is_cuda
+            and vec.dtype == torch.float32)
+
+
 def vecint(vec, nsteps: int = 7, impl: str = "auto"):
     """Integrate a stationary velocity field (B, nd, *spatial), pixel units,
-    by scaling and squaring; returns the displacement field."""
+    by scaling and squaring; returns the displacement field.
+
+    ``impl``: ``"torch"`` is the plain loop below, each step a warp of the
+    field by itself; ``"cuda"`` runs a 2-D field through the chain kernels
+    (one launch forward, one backward; a CPU tensor raises) and a 3-D field
+    through the loop over the 3-D warp kernels; ``"auto"`` sends 2-D float32
+    CUDA fields to the chain kernels and everything else to the loop, whose
+    warps dispatch as ``warp`` does (3-D CUDA fields to the 3-D kernels)."""
     if nsteps < 0:
         raise ValueError(f"nsteps must be >= 0, got {nsteps}")
+    if vec.ndim == 4 and (impl == "cuda"
+                          or (impl == "auto" and _chain_takes(vec))):
+        return warp_cuda.VecInt2dFunction.apply(vec.contiguous(), nsteps)
     vec = vec * (1.0 / (2 ** nsteps))
     for _ in range(nsteps):
         vec = vec + warp(vec, vec, mode="bilinear", impl=impl)
     return vec
+
+
+def vecint_bwd_plain(vec, nsteps: int, g):
+    """The chain kernels' backward's plain version: the gradient of
+    ``vecint(vec, nsteps, impl="torch")`` for the output cotangent ``g``, by
+    autograd of the plain loop."""
+    with torch.enable_grad():
+        v = vec.detach().requires_grad_()
+        (dvec,) = torch.autograd.grad(vecint(v, nsteps, impl="torch"), v, g)
+    return dvec

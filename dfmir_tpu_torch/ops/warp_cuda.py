@@ -1,23 +1,33 @@
 """The Hopper kernels for the 2-D bilinear and 3-D trilinear warps, forward
-and backward.
+and backward, and for VecInt's 2-D scaling-and-squaring chain.
 
 Each launcher replaces a Pallas kernel of ``dfmir_tpu/ops/warp_pallas.py``:
 
 - ``warp2d_cuda``: ``_kernel`` / ``warp2d_banded`` (``csrc/warp2d.cu``);
 - ``warp2d_bwd_cuda``: ``_bwd_kernel`` / ``warp2d_banded_bwd`` (both
   gradients, one launch);
+- ``vecint2d_fwd_cuda``: ``_kernel`` as JAX's ``vecint`` calls it, 7 times
+  in a chain: the whole chain in one cooperative launch;
+- ``vecint2d_bwd_cuda``: ``_bwd_kernel`` as ``jax.vjp`` of ``vecint``
+  calls it: the chain's whole gradient in one cooperative launch;
 - ``warp3d_cuda``: ``_kernel3d`` / ``warp3d_banded`` (``csrc/warp3d.cu``);
 - ``warp3d_bwd_dflow_cuda``: ``_bwd_kernel3d_dflow`` /
   ``warp3d_banded_bwd_dflow``;
 - ``warp3d_bwd_dsrc_cuda``: ``_bwd_kernel3d_dsrc`` /
   ``warp3d_banded_bwd_dsrc``.
 
-All are one thread per output pixel or voxel (see the notes in the
-sources); ``ops/_build.py`` builds them.  Their plain versions are
-``ops/warp.py``'s ``warp(..., impl="torch")`` and ``warp_bwd_plain``, which
-the CPU tests and the on-card comparison use.  ``Warp2dFunction`` and
-``Warp3dFunction`` tie each warp's kernels together for autograd, as the
-custom VJPs ``_warp2d`` / ``_warp3d`` do in the JAX package.
+The designs are in the notes of the sources; ``ops/_build.py`` builds them.
+Their plain versions are ``ops/warp.py``'s ``warp(..., impl="torch")`` and
+``warp_bwd_plain``, and ``ops/integrate.py``'s ``vecint(..., impl="torch")``
+and ``vecint_bwd_plain``, which the CPU tests and the on-card comparison
+use.  ``Warp2dFunction``, ``Warp3dFunction`` and ``VecInt2dFunction`` tie
+the kernels together for autograd, as the custom VJPs ``_warp2d`` /
+``_warp3d`` do in the JAX package.
+
+Every launcher checks its tensors with one cheap test and, only when that
+fails, the detailed checks that say what is wrong; then ``_launch`` calls
+the library on the current stream.  A CPU tensor, a refused launch or a
+tensor the kernel does not take raises: nothing falls back.
 
 ``LAUNCHES`` counts the launches of each kernel by name, so a run can show
 that its path went through the kernels.
@@ -33,10 +43,16 @@ from dfmir_tpu_torch.ops import _build
 
 FWD = "warp2d_bilinear_fwd"
 BWD = "warp2d_bilinear_bwd"
+VECINT_FWD = "vecint2d_fwd"
+VECINT_BWD = "vecint2d_bwd"
 FWD3D = "warp3d_trilinear_fwd"
 DFLOW3D = "warp3d_trilinear_bwd_dflow"
 DSRC3D = "warp3d_trilinear_bwd_dsrc"
-LAUNCHES = {FWD: 0, BWD: 0, FWD3D: 0, DFLOW3D: 0, DSRC3D: 0}
+LAUNCHES = {FWD: 0, BWD: 0, VECINT_FWD: 0, VECINT_BWD: 0, FWD3D: 0,
+            DFLOW3D: 0, DSRC3D: 0}
+
+_F32 = torch.float32
+_INT_LIMIT = 2 ** 31
 
 
 def reset_launches() -> None:
@@ -45,11 +61,12 @@ def reset_launches() -> None:
 
 
 def _check(src, flow, name, nd):
-    """Raise unless src (B, C, *S) and flow (B, nd, *S), with ``nd`` spatial
-    axes, are float32, contiguous and on one CUDA device."""
+    """Raise, naming the fault, unless src (B, C, *S) and flow (B, nd, *S),
+    with ``nd`` spatial axes, are float32, contiguous and on one CUDA
+    device."""
     if not (src.is_cuda and flow.is_cuda):
         raise ValueError(f"{name} takes CUDA tensors; on the CPU use "
-                         f"warp(..., impl='torch')")
+                         f"impl='torch'")
     if src.device != flow.device:
         raise ValueError(f"src on {src.device}, flow on {flow.device}")
     if src.dtype != torch.float32 or flow.dtype != torch.float32:
@@ -64,29 +81,52 @@ def _check(src, flow, name, nd):
                          f"{tuple(src.shape)}: expected {(B, nd, *spatial)}")
     if not (src.is_contiguous() and flow.is_contiguous()):
         raise ValueError(f"{name} takes contiguous tensors")
-    if B * max(C, nd) * math.prod(spatial) >= 2 ** 31:
+    if B * max(C, nd) * math.prod(spatial) >= _INT_LIMIT:
         raise ValueError(f"{tuple(src.shape)} is too large for int sizes")
+
+
+def _device(src, flow, name, nd) -> int:
+    """The CUDA device index of src and flow when ``_check`` would pass them,
+    by one cheap test; otherwise ``_check`` raises."""
+    d = src.get_device()
+    s = src.shape
+    if not (d >= 0 and flow.get_device() == d and src.dtype is _F32
+            and flow.dtype is _F32 and len(s) == nd + 2
+            and flow.shape == (s[0], nd, *s[2:]) and src.is_contiguous()
+            and flow.is_contiguous() and src.numel() < _INT_LIMIT
+            and flow.numel() < _INT_LIMIT):
+        _check(src, flow, name, nd)
+    return d
 
 
 def _check_g(g, like):
     """Raise unless the cotangent ``g`` is float32, contiguous, of ``like``'s
     shape and on its device."""
-    if g.device != like.device or g.dtype != torch.float32:
-        raise TypeError(f"g must be float32 on {like.device}, got {g.dtype} "
-                        f"on {g.device}")
-    if g.shape != like.shape or not g.is_contiguous():
+    if not (g.get_device() == like.get_device() and g.dtype is _F32
+            and g.shape == like.shape and g.is_contiguous()):
+        if g.device != like.device or g.dtype != torch.float32:
+            raise TypeError(f"g must be float32 on {like.device}, got "
+                            f"{g.dtype} on {g.device}")
         raise ValueError(f"g must be contiguous and of src's shape "
                          f"{tuple(like.shape)}, got {tuple(g.shape)}")
 
 
 def _launch(name, entry, device, *args):
-    """Call the library's ``entry`` on ``device``'s current stream, raise on
-    a refused launch, count it."""
-    lib = _build.load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(*args, stream)
-    if err != 0:
+    """Call the library's ``entry`` with ``args`` and the current stream of
+    CUDA device ``device`` (an index); raise on a refused launch, count it.
+
+    The lean path: the raw stream is read without a device guard, and the
+    guard is entered only when ``device`` is not the current device.  The
+    library and its bound, typed functions are cached (``_build.load`` and
+    ctypes' own attribute cache)."""
+    fn = getattr(_build.load(), entry)
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    if device == torch._C._cuda_getDevice():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
+    if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     LAUNCHES[name] += 1
 
@@ -95,11 +135,11 @@ def warp2d_cuda(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Launch the forward kernel: src (B, C, H, W), flow (B, 2, H, W), both
     float32, contiguous and on one CUDA device; returns a fresh (B, C, H, W).
 
-    ``src`` and ``flow`` may be the same tensor (VecInt's self-warp)."""
-    _check(src, flow, "warp2d_cuda", 2)
+    ``src`` and ``flow`` may be the same tensor (a self-warp)."""
+    device = _device(src, flow, "warp2d_cuda", 2)
     out = torch.empty_like(src)
-    _launch(FWD, "dfmir_warp2d_fwd", src.device, src.data_ptr(),
-            flow.data_ptr(), out.data_ptr(), *src.shape)
+    _launch(FWD, "dfmir_warp2d_fwd", device, src.data_ptr(), flow.data_ptr(),
+            out.data_ptr(), *src.shape)
     return out
 
 
@@ -107,28 +147,71 @@ def warp2d_bwd_cuda(src: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
                     need_dsrc: bool = True):
     """Launch the backward kernel for the cotangent ``g`` (B, C, H, W) of
     ``warp2d_cuda(src, flow)``; returns ``(dsrc, dflow)``, with ``dsrc``
-    None unless ``need_dsrc`` (the scatter and its zero-fill are skipped).
+    None unless ``need_dsrc`` (the scatter and its zeroing are skipped).
 
-    ``dsrc`` is summed with float32 atomics, so it is not bitwise
-    reproducible from run to run; ``dflow`` is."""
-    _check(src, flow, "warp2d_bwd_cuda", 2)
+    ``dsrc`` is zeroed by the launch's entry (``cudaMemsetAsync``) and
+    summed with float32 atomics, so it is not bitwise reproducible from run
+    to run; ``dflow`` is."""
+    device = _device(src, flow, "warp2d_bwd_cuda", 2)
     _check_g(g, src)
     dflow = torch.empty_like(flow)
-    dsrc = torch.zeros_like(src) if need_dsrc else None
-    _launch(BWD, "dfmir_warp2d_bwd", src.device, src.data_ptr(),
-            flow.data_ptr(), g.data_ptr(),
-            dsrc.data_ptr() if need_dsrc else None, dflow.data_ptr(),
-            *src.shape)
+    dsrc = torch.empty_like(src) if need_dsrc else None
+    _launch(BWD, "dfmir_warp2d_bwd", device, src.data_ptr(), flow.data_ptr(),
+            g.data_ptr(), dsrc.data_ptr() if need_dsrc else None,
+            dflow.data_ptr(), *src.shape)
     return dsrc, dflow
+
+
+def vecint2d_fwd_cuda(vec: torch.Tensor, nsteps: int, save: bool):
+    """Launch the VecInt forward chain on vec (B, 2, H, W), float32,
+    contiguous, on a CUDA device: ``vec * 2**-nsteps`` squared ``nsteps``
+    times in one launch.  Returns ``(out, steps)``: the displacement field
+    and, when ``save``, the (nsteps, B, 2, H, W) stack of the fields before
+    each step, which the backward reads (else None)."""
+    device = _device(vec, vec, "vecint2d_fwd_cuda", 2)
+    out = torch.empty_like(vec)
+    if save:
+        steps = vec.new_empty((nsteps, *vec.shape))
+    else:
+        steps = torch.empty_like(vec) if nsteps else None
+    B, _, H, W = vec.shape
+    _launch(VECINT_FWD, "dfmir_vecint2d_fwd", device, vec.data_ptr(),
+            None if steps is None else steps.data_ptr(), out.data_ptr(),
+            B, H, W, nsteps, int(save), 0)
+    return out, steps if save else None
+
+
+def vecint2d_bwd_cuda(steps: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Launch the VecInt backward chain: ``steps`` the forward's saved
+    (nsteps, B, 2, H, W) stack, ``g`` (B, 2, H, W) the cotangent of its
+    output; returns the gradient of its input, in one launch.  Its source
+    gradients are summed with float32 atomics, so it is not bitwise
+    reproducible from run to run."""
+    nsteps = steps.shape[0]
+    device = _device(g, g, "vecint2d_bwd_cuda", 2)
+    if not (steps.get_device() == device and steps.dtype is _F32
+            and steps.shape[1:] == g.shape and steps.is_contiguous()
+            and steps.numel() < _INT_LIMIT):
+        raise ValueError(f"steps must be a contiguous float32 (n, "
+                         f"{', '.join(map(str, g.shape))}) stack on g's "
+                         f"device, got {steps.dtype} {tuple(steps.shape)} "
+                         f"on {steps.device}")
+    dvec = torch.empty_like(g)
+    scratch = torch.empty_like(g) if nsteps > 1 else None
+    B, _, H, W = g.shape
+    _launch(VECINT_BWD, "dfmir_vecint2d_bwd", device, steps.data_ptr(),
+            g.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            dvec.data_ptr(), B, H, W, nsteps, 0)
+    return dvec
 
 
 def warp3d_cuda(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Launch the 3-D forward kernel: src (B, C, D, H, W), flow (B, 3, D, H,
     W), both float32, contiguous and on one CUDA device; returns a fresh
     (B, C, D, H, W).  ``src`` and ``flow`` may be the same tensor."""
-    _check(src, flow, "warp3d_cuda", 3)
+    device = _device(src, flow, "warp3d_cuda", 3)
     out = torch.empty_like(src)
-    _launch(FWD3D, "dfmir_warp3d_fwd", src.device, src.data_ptr(),
+    _launch(FWD3D, "dfmir_warp3d_fwd", device, src.data_ptr(),
             flow.data_ptr(), out.data_ptr(), *src.shape)
     return out
 
@@ -138,10 +221,10 @@ def warp3d_bwd_dflow_cuda(src: torch.Tensor, flow: torch.Tensor,
     """Launch the 3-D flow-gradient kernel for the cotangent ``g`` (B, C, D,
     H, W) of ``warp3d_cuda(src, flow)``; returns dflow (B, 3, D, H, W),
     summed over channels.  Reproducible from run to run."""
-    _check(src, flow, "warp3d_bwd_dflow_cuda", 3)
+    device = _device(src, flow, "warp3d_bwd_dflow_cuda", 3)
     _check_g(g, src)
     dflow = torch.empty_like(flow)
-    _launch(DFLOW3D, "dfmir_warp3d_bwd_dflow", src.device, src.data_ptr(),
+    _launch(DFLOW3D, "dfmir_warp3d_bwd_dflow", device, src.data_ptr(),
             flow.data_ptr(), g.data_ptr(), dflow.data_ptr(), *src.shape)
     return dflow
 
@@ -149,11 +232,11 @@ def warp3d_bwd_dflow_cuda(src: torch.Tensor, flow: torch.Tensor,
 def warp3d_bwd_dsrc_cuda(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Launch the 3-D source-gradient kernel for the cotangent ``g`` (B, C,
     D, H, W) of a warp by ``flow``; returns dsrc (B, C, D, H, W).  It needs
-    no source values.  dsrc is summed with float32 atomics into a zeroed
-    buffer, so it is not bitwise reproducible from run to run."""
-    _check(g, flow, "warp3d_bwd_dsrc_cuda", 3)
-    dsrc = torch.zeros_like(g)
-    _launch(DSRC3D, "dfmir_warp3d_bwd_dsrc", g.device, flow.data_ptr(),
+    no source values.  dsrc is zeroed by the launch's entry and summed with
+    float32 atomics, so it is not bitwise reproducible from run to run."""
+    device = _device(g, flow, "warp3d_bwd_dsrc_cuda", 3)
+    dsrc = torch.empty_like(g)
+    _launch(DSRC3D, "dfmir_warp3d_bwd_dsrc", device, flow.data_ptr(),
             g.data_ptr(), dsrc.data_ptr(), *g.shape)
     return dsrc
 
@@ -161,7 +244,7 @@ def warp3d_bwd_dsrc_cuda(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 class Warp2dFunction(torch.autograd.Function):
     """The two 2-D kernels behind autograd.  ``backward`` computes the
     source gradient only when ``src`` needs one.  When ``src`` is ``flow``
-    (VecInt), autograd adds the two gradients it returns."""
+    (a self-warp), autograd adds the two gradients it returns."""
 
     @staticmethod
     def forward(ctx, src, flow):
@@ -177,11 +260,31 @@ class Warp2dFunction(torch.autograd.Function):
         return dsrc, dflow if need_dflow else None
 
 
+class VecInt2dFunction(torch.autograd.Function):
+    """VecInt's 2-D chain behind autograd: ``apply(vec, nsteps)``, one launch
+    forward and one backward.  The forward saves the fields before each step
+    only when ``vec`` needs a gradient; otherwise (inference) it keeps two
+    ping-pong buffers and saves nothing."""
+
+    @staticmethod
+    def forward(ctx, vec, nsteps):
+        out, steps = vecint2d_fwd_cuda(vec, nsteps,
+                                       save=ctx.needs_input_grad[0])
+        if steps is not None:
+            ctx.save_for_backward(steps)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (steps,) = ctx.saved_tensors
+        return vecint2d_bwd_cuda(steps, grad_out.contiguous()), None
+
+
 class Warp3dFunction(torch.autograd.Function):
     """The three 3-D kernels behind autograd.  ``backward`` launches the
     dflow kernel when ``flow`` needs a gradient and the dsrc kernel when
     ``src`` does, so the data warp (a source without a gradient) never
-    scatters or zero-fills a dsrc.  When ``src`` is ``flow`` (VecInt), both
+    scatters or zeroes a dsrc.  When ``src`` is ``flow`` (VecInt), both
     launch and autograd adds the two gradients."""
 
     @staticmethod

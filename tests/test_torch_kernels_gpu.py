@@ -1,11 +1,13 @@
-"""The port's CUDA kernels (2-D and 3-D warps) against their plain
-versions, on the card.
+"""The port's CUDA kernels (2-D and 3-D warps, VecInt's 2-D chain) against
+their plain versions, on the card.
 
 Skips without a CUDA card.  On a machine with one (and no JAX), run:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_gpu.py
 Tolerances: the forward 1e-5 max-abs (it rounds as the plain version
-does); the backward's dflow 1e-5 and dsrc 1e-5 * max(1, max|dsrc|) (dsrc
-is summed with atomics in an order that changes from run to run); a whole
+does) and the chain forward 0.0 (bit-equal); the backward's dflow 1e-5 and
+dsrc 1e-5 * max(1, max|dsrc|), the chain backward 1e-5 * max(1, max|dvec|)
+(source gradients are summed with atomics in an order that changes from
+run to run); a whole
 step card vs CPU 1e-3 relative on the metrics and 1e-2 * the network's max
 |g| on the gradients, the JAX suite's cross-program bar (cuDNN's
 convolutions and the atomics sum in another order than the CPU, and on
@@ -13,17 +15,20 @@ this loss float32 itself is ~5e-3 of netG's max |g| from float64)."""
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from dfmir_tpu_torch import infer
 from dfmir_tpu_torch.engine.config import RegistrationConfig
 from dfmir_tpu_torch.engine.registration import RegistrationModel
 from dfmir_tpu_torch.engine.vxm_engine import VxmConfig, VxmEngine
 from dfmir_tpu_torch.ops import warp_cuda
+from dfmir_tpu_torch.ops.integrate import vecint, vecint_bwd_plain
 from dfmir_tpu_torch.ops.warp import warp, warp_bwd_plain
 
 pytestmark = pytest.mark.gpu
 
 FWD, BWD = warp_cuda.FWD, warp_cuda.BWD
+VF, VB = warp_cuda.VECINT_FWD, warp_cuda.VECINT_BWD
 FWD3D, DFLOW3D, DSRC3D = warp_cuda.FWD3D, warp_cuda.DFLOW3D, warp_cuda.DSRC3D
 ZERO = dict.fromkeys(warp_cuda.LAUNCHES, 0)
 SMALL = dict(crop_size=64, netG="resnet_4blocks", ngf=8,
@@ -140,6 +145,7 @@ def test_warp2d_wrapper_refuses(cuda):
 
 
 def test_register_launches_eight_warps(cuda):
+    """A register call: 1 chain forward (VecInt) + 1 warp (y_source)."""
     cfg = RegistrationConfig(**SMALL)
     gpu = RegistrationModel(cfg)
     cpu = RegistrationModel(cfg, device="cpu")
@@ -147,15 +153,19 @@ def test_register_launches_eight_warps(cuda):
     a, b = torch.randn(2, 1, 1, 64, 64, generator=g)
     warp_cuda.reset_launches()
     out = infer.register_pair_outputs(gpu, a.to(cuda), b.to(cuda))
-    assert warp_cuda.LAUNCHES == dict(ZERO, **{FWD: 8})
+    assert warp_cuda.LAUNCHES == dict(ZERO, **{VF: 1, FWD: 1})
     ref = infer.register_pair_outputs(cpu, a, b)
     for k in ("fake_B", "y_source", "pos_flow"):
         assert max_err(out[k].cpu(), ref[k]) <= 1e-3, k
 
 
+STEP2D = dict(ZERO, **{VF: 1, FWD: 2, VB: 1, BWD: 2})
+
+
 def test_train_step_launches_nine_and_nine(cuda):
-    """A small-config train step on the card: 9 forward and 9 backward
-    warp launches, metrics and gradients as on the CPU."""
+    """A small-config train step on the card: 1 chain forward + 2 warps
+    (the stacked data warp, `registered`) and 1 chain backward + 2 warp
+    backwards; metrics and gradients as on the CPU."""
     cfg = RegistrationConfig(**SMALL)
     models = {}
     for dev in ("cuda", "cpu"):
@@ -174,7 +184,7 @@ def test_train_step_launches_nine_and_nine(cuda):
         total.backward()
         if dev == "cuda":
             torch.cuda.synchronize()
-            assert warp_cuda.LAUNCHES == dict(ZERO, **{FWD: 9, BWD: 9})
+            assert warp_cuda.LAUNCHES == STEP2D
         else:
             assert warp_cuda.LAUNCHES == ZERO
         metrics[dev] = {k: float(v.detach()) for k, v in met.items()}
@@ -192,9 +202,115 @@ def test_train_step_launches_nine_and_nine(cuda):
     models["cuda"].train_step(a.to(cuda), b.to(cuda), 2e-4,
                               generator=torch.Generator().manual_seed(4))
     torch.cuda.synchronize()
-    assert warp_cuda.LAUNCHES == dict(ZERO, **{FWD: 9, BWD: 9})
+    assert warp_cuda.LAUNCHES == STEP2D
     assert any(not torch.equal(p, q)
                for p, q in zip(models["cuda"].parameters(), before))
+
+
+def smooth(shape, scale, gen):
+    """(B, C, H, W) smooth random field of about +-scale on the card."""
+    B, C, H, W = shape
+    coarse = torch.randn((B, C, max(H // 16, 2), max(W // 16, 2)),
+                         generator=gen, device=gen.device)
+    return F.interpolate(coarse, size=(H, W), mode="bicubic",
+                         align_corners=True) * scale
+
+
+CHAIN_CASES = [
+    # (B, 2, H, W), field kind, scale (px) of the velocity field
+    ((1, 2, 128, 128), "smooth", 20.0),   # register's pos chain
+    ((2, 2, 128, 128), "smooth", 20.0),   # the train step's pos/neg chain
+    ((16, 2, 128, 128), "smooth", 20.0),  # the train step at B=8
+    ((3, 2, 67, 45), "smooth", 10.0),     # odd shape
+    ((1, 2, 128, 128), "noise", 25.0),    # violent: x25 N(0, 1)
+]
+
+
+def chain_field(cuda, shape, kind, scale):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    if kind == "noise":
+        return torch.randn(shape, generator=gen, device=cuda) * scale
+    return smooth(shape, scale, gen)
+
+
+@pytest.mark.parametrize("shape,kind,scale", CHAIN_CASES)
+def test_vecint_chain_matches_plain(cuda, shape, kind, scale):
+    """The chain forward is bit-equal to the plain loop; its backward is
+    within 1e-5 * max(1, max|dvec|) of autograd of the loop; one launch
+    each way, the steps saved only for a gradient."""
+    vec = chain_field(cuda, shape, kind, scale)
+    g = torch.randn(shape, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(6))
+    warp_cuda.reset_launches()
+    out = vecint(vec, 7)                          # auto -> the chain kernel
+    assert warp_cuda.LAUNCHES == dict(ZERO, **{VF: 1})
+    ref = vecint(vec, 7, impl="torch")
+    assert warp_cuda.LAUNCHES == dict(ZERO, **{VF: 1})
+    torch.cuda.synchronize()
+    assert max_err(out, ref) == 0.0
+    assert float((ref - vec / 128).abs().max()) > 1.0    # it deformed
+
+    v = vec.clone().requires_grad_()
+    vecint(v, 7).backward(g)
+    assert warp_cuda.LAUNCHES == dict(ZERO, **{VF: 2, VB: 1})
+    dvec = vecint_bwd_plain(vec, 7, g)
+    torch.cuda.synchronize()
+    assert max_err(v.grad, dvec) <= 1e-5 * max(1.0, float(dvec.abs().max()))
+
+    steps_out, steps = warp_cuda.vecint2d_fwd_cuda(vec, 7, save=True)
+    assert steps.shape == (7, *shape) and torch.equal(steps_out, ref)
+    assert torch.equal(steps[0], vec * (1.0 / 128))
+    out_ns, none = warp_cuda.vecint2d_fwd_cuda(vec, 7, save=False)
+    assert none is None and torch.equal(out_ns, ref)
+
+
+@pytest.mark.parametrize("nsteps", [0, 1, 2])
+def test_vecint_chain_few_steps(cuda, nsteps):
+    vec = chain_field(cuda, (2, 2, 40, 48), "smooth", 8.0)
+    g = torch.randn_like(vec)
+    v = vec.clone().requires_grad_()
+    out = vecint(v, nsteps)
+    assert torch.equal(out.detach(), vecint(vec, nsteps, impl="torch"))
+    out.backward(g)
+    dvec = vecint_bwd_plain(vec, nsteps, g)
+    assert max_err(v.grad, dvec) <= 1e-5 * max(1.0, float(dvec.abs().max()))
+
+
+def test_vecint_chain_refused_launch_raises(cuda):
+    """A cooperative grid larger than the card holds at once is refused:
+    the launcher raises, counts nothing and leaves no error behind."""
+    vec = chain_field(cuda, (1, 2, 64, 64), "smooth", 5.0)
+    steps = torch.empty((7, 1, 2, 64, 64), device=cuda)
+    out, scratch = torch.empty_like(vec), torch.empty_like(vec)
+    too_many = 10 ** 6                            # blocks, > the card holds
+    warp_cuda.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        warp_cuda._launch(VF, "dfmir_vecint2d_fwd", vec.get_device(),
+                          vec.data_ptr(), steps.data_ptr(), out.data_ptr(),
+                          1, 64, 64, 7, 1, too_many)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        warp_cuda._launch(VB, "dfmir_vecint2d_bwd", vec.get_device(),
+                          steps.data_ptr(), vec.data_ptr(),
+                          scratch.data_ptr(), out.data_ptr(), 1, 64, 64, 7,
+                          too_many)
+    assert warp_cuda.LAUNCHES == ZERO
+    out = vecint(vec, 7)
+    assert torch.equal(out, vecint(vec, 7, impl="torch"))
+    assert warp_cuda.LAUNCHES == dict(ZERO, **{VF: 1})
+
+
+def test_vecint_chain_refuses_what_it_does_not_take(cuda):
+    vec = torch.zeros(1, 2, 8, 8, device=cuda)
+    with pytest.raises(TypeError):
+        warp_cuda.vecint2d_fwd_cuda(vec.double(), 7, save=False)
+    with pytest.raises(ValueError, match="contiguous"):
+        warp_cuda.vecint2d_fwd_cuda(vec.transpose(2, 3), 7, save=False)
+    with pytest.raises(ValueError, match="does not match"):
+        warp_cuda.vecint2d_fwd_cuda(torch.zeros(1, 3, 8, 8, device=cuda), 7,
+                                    save=False)
+    with pytest.raises(ValueError, match="steps"):
+        warp_cuda.vecint2d_bwd_cuda(torch.zeros(7, 1, 2, 8, 4, device=cuda),
+                                    vec)
 
 
 CASES3D = [

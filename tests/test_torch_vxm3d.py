@@ -38,10 +38,12 @@ from dfmir_tpu_torch.engine.vxm_engine import VxmConfig, VxmEngine
 from dfmir_tpu_torch.losses import grad_loss, ncc_loss, ncc_map
 from dfmir_tpu_torch.nets.layers import upsample_nearest
 from dfmir_tpu_torch.nets.vxm import VxmDense
-from dfmir_tpu_torch.ops import warp as warp_mod
 from dfmir_tpu_torch.ops import warp_cuda
 from dfmir_tpu_torch.ops.integrate import resize_flow
-from dfmir_tpu_torch.ops.warp import warp, warp_bwd_plain
+from dfmir_tpu_torch.ops.warp import warp
+
+# every kernel swapped for its counted plain version
+from test_torch_vecint_chain import counted_kernels  # noqa: F401
 
 S = 24
 SMALL = dict(ndims=3, vol_size=S, enc=(8, 16), dec=(16, 16, 8), int_steps=4,
@@ -313,44 +315,13 @@ def test_training_reduces_loss():
 
 # ------------------------------------------------- the path, kernel by kernel
 
-@pytest.fixture
-def counted_kernels(monkeypatch):
-    """Every warp kernel swapped for its plain version, counted in
-    warp_cuda.LAUNCHES, and the dispatch opened to CPU tensors: the engine
-    then runs on the CPU exactly the launches it makes on the card."""
-    L = warp_cuda.LAUNCHES
-
-    def counted(name, fn):
-        def call(*args, **kwargs):
-            L[name] += 1
-            return fn(*args, **kwargs)
-        return call
-
-    plain = lambda s, f: warp(s, f, impl="torch")  # noqa: E731
-    for attr, name, fn in (
-        ("warp2d_cuda", warp_cuda.FWD, plain),
-        ("warp2d_bwd_cuda", warp_cuda.BWD,
-         lambda s, f, g, need_dsrc=True: warp_bwd_plain(s, f, g, need_dsrc)),
-        ("warp3d_cuda", warp_cuda.FWD3D, plain),
-        ("warp3d_bwd_dflow_cuda", warp_cuda.DFLOW3D,
-         lambda s, f, g: warp_bwd_plain(s, f, g, need_dsrc=False)[1]),
-        ("warp3d_bwd_dsrc_cuda", warp_cuda.DSRC3D,
-         lambda f, g: warp_bwd_plain(torch.zeros_like(g), f, g,
-                                     need_dflow=False)[0]),
-    ):
-        monkeypatch.setattr(warp_cuda, attr, counted(name, fn))
-    monkeypatch.setattr(warp_mod, "_kernel_takes",
-                        lambda src, flow, mode: mode != "nearest")
-    monkeypatch.setattr(warp_cuda, "LAUNCHES", dict.fromkeys(L, 0))
-    L = warp_cuda.LAUNCHES
-    return L
-
-
 @pytest.mark.parametrize("ndims", [3, 2])
 def test_engine_launches_per_call(jax_params, counted_kernels, ndims):
-    """register: 8 forward warps (7 VecInt steps + the data warp); a train
-    step: 8 forward, 8 dflow and 7 dsrc at 3-D (the data warp's source
-    needs no gradient), 8 + 8 at 2-D; remat runs the forward twice."""
+    """register: 8 forward warps at 3-D (7 VecInt steps + the data warp),
+    1 chain forward + 1 warp at 2-D; a train step: 8 forward, 8 dflow and 7
+    dsrc at 3-D (the data warp's source needs no gradient), at 2-D 1 + 1
+    forward and 1 + 1 backward (chain, data warp); remat runs the forward
+    twice."""
     L = counted_kernels
     cfg = dict(SMALL, ndims=ndims, int_steps=7)
     spatial = (1, 1) + (S,) * ndims
@@ -359,9 +330,11 @@ def test_engine_launches_per_call(jax_params, counted_kernels, ndims):
     eng = VxmEngine(VxmConfig(**cfg), device="cpu")
     f3, d3, s3 = warp_cuda.FWD3D, warp_cuda.DFLOW3D, warp_cuda.DSRC3D
     f2, b2 = warp_cuda.FWD, warp_cuda.BWD
+    vf, vb = warp_cuda.VECINT_FWD, warp_cuda.VECINT_BWD
     zero = dict.fromkeys(L, 0)
-    reg = {f3: 8} if ndims == 3 else {f2: 8}
-    step = {f3: 8, d3: 8, s3: 7} if ndims == 3 else {f2: 8, b2: 8}
+    reg = {f3: 8} if ndims == 3 else {vf: 1, f2: 1}
+    step = ({f3: 8, d3: 8, s3: 7} if ndims == 3
+            else {vf: 1, f2: 1, vb: 1, b2: 1})
     eng.register(src, tgt)
     assert L == dict(zero, **reg)
     L.update(zero)
