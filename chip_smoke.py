@@ -14,8 +14,9 @@ Phases, each printing one JSON line:
               its byte/op bound and the one PyTorch call that computes the
               same function; a host-clock breakdown of one B1 call and one
               B2 call at (1,1,256,256), part by part, on the earlier launch
-              path (rebuilt here) and on the lean path; VecInt's
-              chain kernels (vecint2d_fwd bit-equal to the plain loop,
+              path (rebuilt here) and on the lean path, and of each 3-D
+              launcher at (1,3,80,80,80) beside the library calls; VecInt's
+              2-D chain kernels (vecint2d_fwd bit-equal to the plain loop,
               vecint2d_bwd within 1e-5 * max(1, max|dvec|) of autograd of
               it) beside two chains built here: 7 direct B1 / B2 launches
               with their adds, and the chain written with F.grid_sample
@@ -46,15 +47,22 @@ Phases, each printing one JSON line:
               flow (x25 N(0,1)) and a zero flow (an exact copy); bars
               forward and dflow 1e-5, dsrc 1e-5 * max(1, max|dsrc|); timed
               beside its byte/op bound, its plain version and
-              grid_sample / grid_sampler_3d_backward
+              grid_sample / grid_sampler_3d_backward, with device us a
+              launch at the VecInt and 160^3 cases; then VecInt's 3-D
+              chain kernels (phase kernel_chain3d: (1,3,80^3), a (2,3,80^3)
+              pos/neg stack, an odd shape, a x25 N(0,1) field, 0-2 steps;
+              vecint3d_fwd bit-equal to the plain loop, vecint3d_bwd
+              within 1e-5 * max(1, max|dvec|)) beside 7 direct B3 / B4 + B5
+              launches with their adds and the F.grid_sample chain
   7. vxm3d    the 3-D VoxelMorph engine at VxmConfig() defaults (160^3,
               enc (16,32,32,32), dec (32,32,32,32,32,16,16), 7 integration
               steps at half resolution, NCC 9^3), random weights from --seed
-              with the flow head scaled: 4 register calls counted (8
-              forward launches each), one register and one eval_step
+              with the flow head scaled: 4 register calls counted (1 chain
+              forward + 1 B3 each), one register and one eval_step
               against the same weights on the CPU (1e-3), 1 warm-up + 5
-              timed train steps counted (8 forward + 8 dflow + 7 dsrc each,
-              metrics finite, every parameter moved), 20 steps at lr 1e-3
+              timed train steps counted (1 chain forward + 1 B3 + 1 chain
+              backward + 1 B4 each, no B5; metrics finite, every parameter
+              moved), 20 steps at lr 1e-3
               on one pair (the loss falls), a 64^3 step's gradients card vs
               CPU in float32 (1e-2 of each tensor's max |g|) and float64
               (1e-3); ms per register and per step at B=1, peak memory
@@ -62,7 +70,7 @@ Phases, each printing one JSON line:
               over register calls, 2-D and 3-D train steps, netG / netR
               times, register calls with cuDNN's autotuner on, and each
               kernel's device time a launch beside grid_sampler_2d / _3d
-Each phase's wall seconds follow it.  Then the kernels line (all seven
+Each phase's wall seconds follow it.  Then the kernels line (all nine
 kernels, their launches by path: register, train, register3d, train3d),
 and last {"ok": true, "device": {...}}.
 
@@ -74,6 +82,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -110,6 +119,7 @@ GRAD_ENV_F64 = 1e-3
 FWD, BWD = warp_cuda.FWD, warp_cuda.BWD
 VF, VB = warp_cuda.VECINT_FWD, warp_cuda.VECINT_BWD
 FWD3D, DFLOW3D, DSRC3D = warp_cuda.FWD3D, warp_cuda.DFLOW3D, warp_cuda.DSRC3D
+VF3, VB3 = warp_cuda.VECINT3D_FWD, warp_cuda.VECINT3D_BWD
 ZERO = dict.fromkeys(warp_cuda.LAUNCHES, 0)
 # launches a 2-D register call makes: VecInt's chain + the y_source warp
 REGISTER_LAUNCHES = {VF: 1, FWD: 1}
@@ -426,7 +436,7 @@ def phase_host_path(seed):
     call at the `registered` case, part by part on the host clock: before
     the lean path (rebuilt here) and on it.  The parts are timed one by
     one; "rest" is the whole call less its parts (call overhead, Function
-    .apply for warp)."""
+    .apply for warp).  Then the 3-D launchers (host_path3d)."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(seed + 11)
     src = torch.randn((1, 1, 256, 256), generator=gen, device=dev)
@@ -529,109 +539,254 @@ def phase_host_path(seed):
               "library_bwd_us": host_us(library_bwd),
               "library_ms_events": time_ms(library),
               "library_bwd_ms_events": time_ms(library_bwd)})
+    lines["3d"] = host_path3d(seed)
     return lines
 
 
+HOST3D_SHAPE = (1, 3, 80, 80, 80)     # VecInt's field in a 3-D step
+
+
+def host_path3d(seed):
+    """The host path of each 3-D launcher at VecInt's (1,3,80,80,80) (a
+    self-warp, and the chain's 7 steps), part by part on the host clock,
+    beside the library calls on the same inputs, with each call's CUDA-event
+    time and device time: why B3 trailed F.grid_sample host-timed while it
+    matched it on the device.  200 calls a part, fewer than the launch queue
+    holds, so the host never waits on the card."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    shape = HOST3D_SHAPE
+    B, _, D, H, W = shape
+    v = chain_field(shape, "smooth", 3.0, gen, dev)     # src is the flow
+    g = torch.randn(shape, generator=gen, device=dev)
+    _, steps = warp_cuda.vecint3d_fwd_cuda(v, NSTEPS, save=True)
+    out, dflow, dsrc, scratch = (torch.empty_like(v) for _ in range(4))
+    lib = _build.load()
+    d = v.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(d)
+    args = {
+        "dfmir_warp3d_fwd": (v.data_ptr(), v.data_ptr(), out.data_ptr(),
+                             *shape),
+        "dfmir_warp3d_bwd_dflow": (v.data_ptr(), v.data_ptr(), g.data_ptr(),
+                                   dflow.data_ptr(), *shape),
+        "dfmir_warp3d_bwd_dsrc": (v.data_ptr(), g.data_ptr(),
+                                  dsrc.data_ptr(), *shape),
+        "dfmir_vecint3d_fwd": (v.data_ptr(), steps.data_ptr(),
+                               steps.stride(0), out.data_ptr(), B, D, H, W,
+                               NSTEPS, 0),
+        "dfmir_vecint3d_bwd": (steps.data_ptr(), steps.stride(0),
+                               g.data_ptr(), scratch.data_ptr(),
+                               dsrc.data_ptr(), B, D, H, W, NSTEPS, 0),
+    }
+
+    def parts(entry, check, **allocs):
+        fn = getattr(lib, entry)
+        return {"check": check, **allocs,
+                "entry": lambda: getattr(_build.load(), entry),
+                "stream": lambda: torch._C._cuda_getCurrentRawStream(d),
+                "device_test": lambda: d == torch._C._cuda_getDevice(),
+                "ctypes_launch": lambda: fn(*args[entry], stream)}
+
+    empty = lambda: torch.empty_like(v)  # noqa: E731
+    launchers = {
+        FWD3D: (parts("dfmir_warp3d_fwd",
+                      lambda: warp_cuda._device(v, v, "warp3d_cuda", 3),
+                      alloc_out=empty),
+                lambda: warp_cuda.warp3d_cuda(v, v)),
+        DFLOW3D: (parts("dfmir_warp3d_bwd_dflow",
+                        lambda: (warp_cuda._device(
+                            v, v, "warp3d_bwd_dflow_cuda", 3),
+                                 warp_cuda._check_g(g, v)),
+                        alloc_dflow=empty),
+                  lambda: warp_cuda.warp3d_bwd_dflow_cuda(v, v, g)),
+        DSRC3D: (parts("dfmir_warp3d_bwd_dsrc",
+                       lambda: warp_cuda._device(
+                           g, v, "warp3d_bwd_dsrc_cuda", 3),
+                       alloc_dsrc=empty),
+                 lambda: warp_cuda.warp3d_bwd_dsrc_cuda(v, g)),
+        VF3: (parts("dfmir_vecint3d_fwd",
+                    lambda: warp_cuda._device(v, v, "vecint3d_fwd_cuda", 3),
+                    alloc_out=empty,
+                    alloc_steps=lambda: warp_cuda.stack3d(v, NSTEPS)),
+              lambda: warp_cuda.vecint3d_fwd_cuda(v, NSTEPS, save=True)),
+        VB3: (parts("dfmir_vecint3d_bwd",
+                    lambda: warp_cuda._device(g, g, "vecint3d_bwd_cuda", 3),
+                    alloc_dvec=empty, alloc_scratch=empty),
+              lambda: warp_cuda.vecint3d_bwd_cuda(steps, g)),
+    }
+    rows = {}
+    for name, (split, launcher) in launchers.items():
+        us = {k: host_us(fn, calls=200, warmup=20) for k, fn in split.items()}
+        total = host_us(launcher, calls=200, warmup=20)
+        rows[name] = {"us": us, "launcher_us": total,
+                      "launcher_rest_us": total - sum(us.values()),
+                      "ms_events": time_ms(launcher, reps=50),
+                      "device_us": device_us(launcher, name)}
+    library, _ = library3d_calls(v, v, g)
+    lib_rows = {name: {"host_us": host_us(fn, calls=200, warmup=20),
+                       "ms_events": time_ms(fn, reps=50),
+                       "device_us": device_us(fn, "grid_sampler_3d")}
+                for name, fn in library.items()}
+    wrappers = {
+        "warp": lambda: warp(v, v),
+        "vecint_inference": lambda: vecint(v, NSTEPS),
+        "launch_chain_fwd": lambda: launch_chain_fwd(v),
+        "launch_chain_bwd": lambda: launch_chain_bwd(steps, g)}
+    emit({"phase": "host_path", "path": "3d",
+          "case": f"{shape} VecInt self-warp and chain",
+          "launchers": rows, "library": lib_rows,
+          "wrappers_us": {k: host_us(fn, calls=200, warmup=20)
+                          for k, fn in wrappers.items()}})
+    return {"launchers": rows, "library": lib_rows}
+
+
 CHAIN_CASES = [
-    # name, (B, 2, H, W), field kind, velocity scale (px)
-    ("register", (1, 2, 128, 128), "smooth", 10.0),  # register's pos chain
-    ("train", (2, 2, 128, 128), "smooth", 10.0),     # a step's pos/neg chain
-    ("train_b8", (16, 2, 128, 128), "smooth", 10.0),
-    ("odd_shape", (3, 2, 67, 45), "smooth", 5.0),
-    ("violent", (1, 2, 128, 128), "noise", 25.0),    # x25 N(0, 1)
+    # name, (B, 2, H, W), field kind, velocity scale (px), steps
+    ("register", (1, 2, 128, 128), "smooth", 10.0, NSTEPS),  # register's
+    ("train", (2, 2, 128, 128), "smooth", 10.0, NSTEPS),     # a step's pos/neg
+    ("train_b8", (16, 2, 128, 128), "smooth", 10.0, NSTEPS),
+    ("odd_shape", (3, 2, 67, 45), "smooth", 5.0, NSTEPS),
+    ("violent", (1, 2, 128, 128), "noise", 25.0, NSTEPS),    # x25 N(0, 1)
 ]
 MAIN_CHAIN_CASE = "train"
+CHAIN3D_CASES = [
+    # name, (B, 3, D, H, W), field kind, velocity scale (voxels), steps
+    ("register", (1, 3, 80, 80, 80), "smooth", 10.0, NSTEPS),  # a 3-D register
+    ("bidir", (2, 3, 80, 80, 80), "posneg", 10.0, NSTEPS),     # call or step
+    ("odd_shape", (2, 3, 17, 33, 45), "smooth", 5.0, NSTEPS),
+    ("violent", (1, 3, 40, 40, 40), "noise", 25.0, NSTEPS),    # x25 N(0, 1)
+    ("steps_0", (1, 3, 24, 28, 32), "smooth", 5.0, 0),
+    ("steps_1", (1, 3, 24, 28, 32), "smooth", 5.0, 1),
+    ("steps_2", (1, 3, 24, 28, 32), "smooth", 5.0, 2),
+]
+MAIN_CHAIN3D_CASE = "register"   # the chain of a 3-D register call and step
+# flops a pixel (2-D) or voxel (3-D) a step: the forward's coordinates, its
+# corner sums for nd channels and the add; the backward's coordinates, its
+# dflow and dsrc terms for nd channels and the add of G
+CHAIN_FLOPS = {(2, True): 12 + 7 * 2 + 2, (2, False): 12 + 24 * 2 + 4,
+               (3, True): 18 + 32 * 3 + 3, (3, False): 41 + (80 + 32) * 3 + 3}
 
 
-def chain_bound(kernel, B, H, W, n):
-    """Least time for the chain's work: the input (vec, or g and the n
-    saved fields) read once, each field the kernel writes (the saved steps
-    and the result, or dvec) written once; ~12 + 7*2 + 2 flops a pixel a
-    forward step, 12 + 24*2 + 4 a backward step."""
-    field = 4 * 2 * B * H * W
-    if kernel == VF:
-        return bound(field * (1 + n + 1), n * (12 + 7 * 2 + 2) * B * H * W)
-    return bound(field * (1 + n + 1), n * (12 + 24 * 2 + 4) * B * H * W)
+def chain_bytes(B, nd, N, n):
+    """The bytes a chain must move over B*N pixels or voxels of nd
+    channels: its input (vec, or g and the n saved fields) read once, each
+    field it writes (the saved steps and the result, or dvec) once."""
+    return 4 * nd * B * N * (1 + n + 1)
 
 
-def launch_chain_fwd(vec):
-    """The chain as 7 direct B1 launches, each with its add (the path
-    before the chain kernel, without autograd)."""
-    v = vec * (1.0 / 2 ** NSTEPS)
-    for _ in range(NSTEPS):
-        v = v + warp_cuda.warp2d_cuda(v, v)
+def chain_bound(fwd, B, nd, N, n):
+    """Least time for a chain's work: the larger of chain_bytes over HBM's
+    rate and CHAIN_FLOPS over the float32 peak."""
+    return bound(chain_bytes(B, nd, N, n), n * CHAIN_FLOPS[nd, fwd] * B * N)
+
+
+def launch_chain_fwd(vec, n=NSTEPS):
+    """The chain as n direct single-warp launches (B1 at 2-D, B3 at 3-D),
+    each with its add: the path before the chain kernels, without
+    autograd."""
+    single = warp_cuda.warp2d_cuda if vec.ndim == 4 else warp_cuda.warp3d_cuda
+    v = vec * (1.0 / 2 ** n)
+    for _ in range(n):
+        v = v + single(v, v)
     return v
 
 
 def launch_chain_bwd(steps, g):
-    """Its backward as 7 direct B2 launches, each with the two adds that
-    autograd made."""
-    for k in range(NSTEPS - 1, -1, -1):
-        dsrc, dflow = warp_cuda.warp2d_bwd_cuda(steps[k], steps[k], g)
+    """Its backward as direct launches (B2 at 2-D; B4 and B5 at 3-D), each
+    step with the two adds that autograd made."""
+    n = steps.shape[0]
+    for k in range(n - 1, -1, -1):
+        if g.ndim == 4:
+            dsrc, dflow = warp_cuda.warp2d_bwd_cuda(steps[k], steps[k], g)
+        else:
+            dflow = warp_cuda.warp3d_bwd_dflow_cuda(steps[k], steps[k], g)
+            dsrc = warp_cuda.warp3d_bwd_dsrc_cuda(steps[k], g)
         g = g + dsrc + dflow
-    return g * (1.0 / 2 ** NSTEPS)
+    return g * (1.0 / 2 ** n)
 
 
-def grid_sample_chain(vec):
+def grid_sample_chain(vec, n=NSTEPS):
     """The chain written with F.grid_sample, its grid rebuilt each step."""
-    v = vec * (1.0 / 2 ** NSTEPS)
-    for _ in range(NSTEPS):
-        v = v + F.grid_sample(v, normalised_grid(v), mode="bilinear",
+    grid = normalised_grid if vec.ndim == 4 else grid3d
+    v = vec * (1.0 / 2 ** n)
+    for _ in range(n):
+        v = v + F.grid_sample(v, grid(v), mode="bilinear",
                               padding_mode="zeros", align_corners=True)
     return v
 
 
-def phase_kernel_chain(seed, profile):
-    """VecInt's chain kernels against the plain loop (forward bit-equal,
-    backward within 1e-5 * max(1, max|dvec|)), timed beside their bound,
-    the plain loop, 7 direct B1 / B2 launches with their adds and the
+def chain_field(shape, kind, scale, gen, dev):
+    """A velocity field: smooth, a smooth half and its negation stacked on
+    the batch (posneg, as the bidirectional model integrates them), or
+    N(0, 1) noise, about +-scale."""
+    if kind == "noise":
+        return torch.randn(shape, generator=gen, device=dev) * scale
+    smooth = smooth_field if len(shape) == 4 else smooth_field3d
+    if kind == "posneg":
+        half = smooth((shape[0] // 2, *shape[1:]), scale, gen, dev)
+        return torch.cat([half, -half])
+    return smooth(shape, scale, gen, dev)
+
+
+def run_chains(phase, cases, names, seed, profile):
+    """Each case through the chain kernels ``names`` (forward, backward)
+    against the plain loop (forward bit-equal, backward within 1e-5 *
+    max(1, max|dvec|)), timed beside their bound, the plain loop, the same
+    chain as direct single-warp launches with their adds and the
     F.grid_sample chain."""
     dev = torch.device(DEVICE)
-    gen = torch.Generator(device=dev).manual_seed(seed + 12)
-    rows = {VF: {}, VB: {}}
-    for name, shape, kind, scale in CHAIN_CASES:
-        B, _, H, W = shape
-        if kind == "smooth":
-            vec = smooth_field(shape, scale, gen, dev)
-        else:
-            vec = torch.randn(shape, generator=gen, device=dev) * scale
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kf, kb = names
+    fwd_cuda, bwd_cuda = ((warp_cuda.vecint2d_fwd_cuda,
+                           warp_cuda.vecint2d_bwd_cuda) if kf == VF else
+                          (warp_cuda.vecint3d_fwd_cuda,
+                           warp_cuda.vecint3d_bwd_cuda))
+    rows = {kf: {}, kb: {}}
+    for name, shape, kind, scale, n in cases:
+        B, nd, *spatial = shape
+        N = math.prod(spatial)
+        vec = chain_field(shape, kind, scale, gen, dev)
         g = torch.randn(shape, generator=gen, device=dev)
-        out, steps = warp_cuda.vecint2d_fwd_cuda(vec, NSTEPS, save=True)
-        out_inf, _ = warp_cuda.vecint2d_fwd_cuda(vec, NSTEPS, save=False)
-        dvec = warp_cuda.vecint2d_bwd_cuda(steps, g)
+        out, steps = fwd_cuda(vec, n, save=True)
+        out_inf, _ = fwd_cuda(vec, n, save=False)
+        dvec = bwd_cuda(steps, g)
         torch.cuda.synchronize()
-        ref = vecint(vec, NSTEPS, impl="torch")
-        ref_dvec = vecint_bwd_plain(vec, NSTEPS, g)
+        ref = vecint(vec, n, impl="torch")
+        ref_dvec = vecint_bwd_plain(vec, n, g)
         err = max(float((out - ref).abs().max()),
                   float((out_inf - ref).abs().max()))
         err_bwd = float((dvec - ref_dvec).abs().max())
         tol_bwd = KERNEL_TOL * max(1.0, float(ref_dvec.abs().max()))
+        moved = float((ref - vec / 2 ** n).abs().max())
+        if n == NSTEPS and kind != "noise" and not moved > 1.0:
+            raise AssertionError(f"{name}: the integrated field moved "
+                                 f"{moved} px from vec * 2^-n: the chain "
+                                 f"tests nothing across blocks")
         v = vec.clone().requires_grad_()
-        gs_out = grid_sample_chain(v)
+        gs_out = grid_sample_chain(v, n)
         gs_bwd = lambda: torch.autograd.grad(  # noqa: E731
             gs_out, v, g, retain_graph=True)
         calls = {
-            VF: {"kernel": lambda: warp_cuda.vecint2d_fwd_cuda(
-                    vec, NSTEPS, save=True),
-                 "plain": lambda: vecint(vec, NSTEPS, impl="torch"),
-                 "launches": lambda: launch_chain_fwd(vec),
-                 "grid_sample": lambda: grid_sample_chain(vec)},
-            VB: {"kernel": lambda: warp_cuda.vecint2d_bwd_cuda(steps, g),
-                 "plain": lambda: vecint_bwd_plain(vec, NSTEPS, g),
+            kf: {"kernel": lambda: fwd_cuda(vec, n, save=True),
+                 "plain": lambda: vecint(vec, n, impl="torch"),
+                 "launches": lambda: launch_chain_fwd(vec, n),
+                 "grid_sample": lambda: grid_sample_chain(vec, n)},
+            kb: {"kernel": lambda: bwd_cuda(steps, g),
+                 "plain": lambda: vecint_bwd_plain(vec, n, g),
                  "launches": lambda: launch_chain_bwd(steps, g),
                  "grid_sample": gs_bwd}}
         before_err = {
-            VF: float((launch_chain_fwd(vec) - ref).abs().max()),
-            VB: float((launch_chain_bwd(steps, g) - ref_dvec).abs().max())}
-        gs_err = {VF: float((gs_out - ref).abs().max()),
-                  VB: float((gs_bwd()[0] - ref_dvec).abs().max())}
-        for k in (VF, VB):
+            kf: float((launch_chain_fwd(vec, n) - ref).abs().max()),
+            kb: float((launch_chain_bwd(steps, g) - ref_dvec).abs().max())}
+        gs_err = {kf: float((gs_out - ref).abs().max()),
+                  kb: float((gs_bwd()[0] - ref_dvec).abs().max())}
+        for k in (kf, kb):
             c = calls[k]
-            bound_ms, bound_by = chain_bound(k, B, H, W, NSTEPS)
+            bound_ms, bound_by = chain_bound(k == kf, B, nd, N, n)
             row = {"case": name, "shape": list(shape), "field": kind,
-                   "vec_px": scale, "nsteps": NSTEPS,
-                   "max_abs_err": err if k == VF else err_bwd,
-                   "tol": 0.0 if k == VF else tol_bwd,
+                   "vec_px": scale, "nsteps": n,
+                   "max_abs_err": err if k == kf else err_bwd,
+                   "tol": 0.0 if k == kf else tol_bwd,
                    "ms": time_ms(c["kernel"]),
                    "plain_ms": time_ms(c["plain"], reps=20, warmup=2),
                    "launch_chain_ms": time_ms(c["launches"]),
@@ -639,18 +794,20 @@ def phase_kernel_chain(seed, profile):
                    "grid_sample_chain_ms": time_ms(c["grid_sample"]),
                    "grid_sample_chain_max_abs_err": gs_err[k],
                    "library_ms": None,
-                   "bound_ms": bound_ms, "bound_by": bound_by}
-            if k == VF:
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bytes_bound_ms": chain_bytes(B, nd, N, n)
+                   / HBM_BYTES_PER_S * 1e3}
+            if k == kf:
                 row["ms_inference"] = time_ms(
-                    lambda: warp_cuda.vecint2d_fwd_cuda(vec, NSTEPS,
-                                                        save=False))
+                    lambda: fwd_cuda(vec, n, save=False))
                 row["field_max_px"] = float(ref.abs().max())
-            if profile:
+                row["moved_px"] = moved
+            if profile or (nd == 3 and name == MAIN_CHAIN3D_CASE):
                 row["device_us_per_launch"] = device_us(c["kernel"], k)
                 row["launch_chain_device_us"] = device_us(c["launches"])
                 row["grid_sample_chain_device_us"] = device_us(
                     c["grid_sample"])
-            emit({"phase": "kernel", "kernel": k, **row})
+            emit({"phase": phase, "kernel": k, **row})
             if not row["max_abs_err"] <= row["tol"]:
                 raise AssertionError(f"{k} disagrees with its plain version "
                                      f"on {name}: {row['max_abs_err']} > "
@@ -658,6 +815,18 @@ def phase_kernel_chain(seed, profile):
             rows[k][name] = row
         del steps, gs_out, v
     return rows
+
+
+def phase_kernel_chain(seed, profile):
+    """VecInt's 2-D chain kernels against the plain loop (run_chains)."""
+    return run_chains("kernel", CHAIN_CASES, (VF, VB), seed + 12, profile)
+
+
+def phase_kernel_chain3d(seed, profile):
+    """VecInt's 3-D chain kernels against the plain loop (run_chains),
+    device times at the main case always."""
+    return run_chains("kernel_chain3d", CHAIN3D_CASES, (VF3, VB3), seed + 13,
+                      profile)
 
 
 # ------------------------------------------------------------ phase 4
@@ -934,9 +1103,13 @@ KERNEL3D_CASES = [
     ("violent", (1, 1, 40, 40, 40), "noise", 25.0, True, False),
     ("zero_flow", (1, 2, 32, 48, 64), "smooth", 0.0, True, False),
 ]
-# the cases of the main path: 7 of the 8 forward launches and 7 of the 8
-# dflow launches of a 3-D step are VecInt's, and all 7 dsrc launches
-MAIN3D_CASE = "vecint_step"
+# the single warps' cases of the kernels line: B3 and B4 run on the main
+# path as the 160^3 data warp (VecInt's steps run in the chain kernels), B5
+# no longer runs there; its case stays VecInt's self-warp
+MAIN3D_CASE = {FWD3D: "data_warp", DFLOW3D: "data_warp",
+               DSRC3D: "vecint_step"}
+# the cases whose device time a launch is always measured
+DEVICE3D_CASES = ("vecint_step", "data_warp")
 # ~18 flops a voxel for coordinates and weights; per channel the forward's
 # 8 corners x (3 mul + 1 add), dflow's 8 x (7 mul + 3 add), dsrc's 8 x
 # (3 mul + 1 atomic add); 23 to combine dflow's terms
@@ -995,24 +1168,28 @@ def library3d_calls(src, flow, g):
             DFLOW3D: bwd([False, True]), DSRC3D: bwd([True, False])}, dflow
 
 
-def device_us(fn, name=None, calls=10):
+def device_us(fn, name=None, calls=10, windows=3):
     """Device time from the profiler over ``calls`` calls of ``fn``: a
-    launch of the kernel ``name`` (None if it saw no such kernel), or, with
-    no name, every kernel of one call."""
+    launch of the kernel ``name``, or, with no name, every kernel of one
+    call.  The profiler sometimes records none of a window's kernels; then
+    the next window is tried, up to ``windows`` (None if none saw one)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and (name is None or name in e.key)]
-    count = calls if name is None else sum(e.count for e in hits)
-    return sum(e.device_time_total for e in hits) / count if count else None
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and (name is None or name in e.key)]
+        count = sum(e.count for e in hits) if name else calls * bool(hits)
+        if count:
+            return sum(e.device_time_total for e in hits) / count
+    return None
 
 
 def phase_kernel3d(seed, profile):
@@ -1072,10 +1249,13 @@ def phase_kernel3d(seed, profile):
             elif k == DFLOW3D:
                 row["library_max_abs_err"] = float(
                     (lib_dflow - refs[k]).abs().max())
-            if profile:
+            if profile or name in DEVICE3D_CASES:
                 row["device_us_per_launch"] = device_us(kernels[k], k)
                 row["library_device_us_per_launch"] = device_us(
                     library[k], "grid_sampler_3d")
+                if row["device_us_per_launch"]:    # None: no record seen
+                    row["share_of_bound"] = (bound_ms * 1e3
+                                             / row["device_us_per_launch"])
             emit({"phase": "kernel3d", "kernel": k, **row})
             if not err <= tol:
                 raise AssertionError(f"{k} disagrees with its plain version "
@@ -1087,7 +1267,10 @@ def phase_kernel3d(seed, profile):
 
 
 # ------------------------------------------------------------ phase 7
-STEP3D = {FWD3D: 8, DFLOW3D: 8, DSRC3D: 7}   # the data warp needs no dsrc
+# a 3-D register call: VecInt's chain + the data warp; a train step: each
+# forward and backward (the data warp's source needs no gradient: no dsrc)
+REG3D = {VF3: 1, FWD3D: 1}
+STEP3D = {VF3: 1, FWD3D: 1, VB3: 1, DFLOW3D: 1}
 REG3D_CALLS = 4
 SMALL3D = dict(vol_size=64, enc=(8, 16, 16, 16),
                dec=(16, 16, 16, 16, 16, 8, 8))
@@ -1122,7 +1305,7 @@ def small3d_grads_vs_cpu(seed):
     """A reduced-size 3-D loss and backward (64^3, enc (8,16,16,16)) on the
     card against the CPU: gradients within GRAD_ENV of each tensor's max
     |g| of the CPU in float32 and GRAD_ENV_F64 of the CPU in float64;
-    8 + 8 + 7 kernel launches on the card."""
+    the STEP3D kernel launches on the card."""
     cfg = VxmConfig(**SMALL3D)
     (src, tgt), = make_volume_pairs(1, cfg.vol_size, seed + 9, "cpu")
     grads = {}
@@ -1173,10 +1356,11 @@ def phase_vxm3d(seed, smi):
     outs = [eng.register(s, t) for s, t in pairs[:REG3D_CALLS]]
     torch.cuda.synchronize()
     reg_launches = dict(warp_cuda.LAUNCHES)
-    if reg_launches != dict(ZERO, **{FWD3D: 8 * REG3D_CALLS}):
+    want = {k: v * REG3D_CALLS for k, v in REG3D.items()}
+    if reg_launches != dict(ZERO, **want):
         raise AssertionError(f"{reg_launches} warp launches over "
                              f"{REG3D_CALLS} 3-D register calls, expected "
-                             f"{8 * REG3D_CALLS} {FWD3D}")
+                             f"{want}")
     for y, flow in outs:
         if (tuple(y.shape) != (1, 1, S, S, S)
                 or tuple(flow.shape) != (1, 3, S, S, S)
@@ -1440,6 +1624,8 @@ def main(argv=None):
         run("profile_train", phase_profile_train, model, args.seed, train_ms)
     del model
     rows3d = run("kernel3d", phase_kernel3d, args.seed, args.profile)
+    chain3d_rows = run("kernel_chain3d", phase_kernel_chain3d, args.seed,
+                       args.profile)
     eng, pair, reg3d_launches, train3d_launches, step3d_ms = run(
         "vxm3d", phase_vxm3d, args.seed, smi)
     if args.profile:
@@ -1465,11 +1651,15 @@ def main(argv=None):
         kernel_row(VB, f"{tpu}:972", src2d, by_path(VB), "train",
                    chain_rows[VB], MAIN_CHAIN_CASE),
         kernel_row(FWD3D, f"{tpu}:356", src3d, by_path(FWD3D), "train3d",
-                   rows3d[FWD3D], MAIN3D_CASE),
+                   rows3d[FWD3D], MAIN3D_CASE[FWD3D]),
         kernel_row(DFLOW3D, f"{tpu}:576", src3d, by_path(DFLOW3D),
-                   "train3d", rows3d[DFLOW3D], MAIN3D_CASE),
+                   "train3d", rows3d[DFLOW3D], MAIN3D_CASE[DFLOW3D]),
         kernel_row(DSRC3D, f"{tpu}:643", src3d, by_path(DSRC3D), "train3d",
-                   rows3d[DSRC3D], MAIN3D_CASE),
+                   rows3d[DSRC3D], MAIN3D_CASE[DSRC3D]),
+        kernel_row(VF3, f"{tpu}:356", src3d, by_path(VF3), "train3d",
+                   chain3d_rows[VF3], MAIN_CHAIN3D_CASE),
+        kernel_row(VB3, f"{tpu}:576", src3d, by_path(VB3), "train3d",
+                   chain3d_rows[VB3], MAIN_CHAIN3D_CASE),
     ], "wall_s": wall})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

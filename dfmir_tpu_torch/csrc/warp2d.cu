@@ -79,10 +79,10 @@
 // host path.  Bytes matter only at large B.  Design: one cooperative launch
 // (cudaLaunchCooperativeKernel) for the whole chain, with a grid no larger
 // than the blocks that fit on the card at once (occupancy x SMs, cached per
-// device), a grid-stride loop over the pixels and cooperative_groups'
-// grid.sync() between steps.  The forward writes v_k into slot k of a saved
-// stack (n, B, 2, H, W) when the input needs a gradient, and v_n into the
-// output; for inference, steps and output alternate as two ping-pong
+// device; csrc/chain_launch.cuh), a grid-stride loop over the pixels and
+// cooperative_groups' grid.sync() between steps.  The forward writes v_k
+// into slot k of a saved stack (n, B, 2, H, W) when the input needs a
+// gradient, and v_n into the output; for inference, steps and output alternate as two ping-pong
 // buffers.  The backward writes each pixel's own terms (G + dflow) into a
 // fresh buffer, syncs, scatters dsrc into it with atomics, syncs, and swaps
 // (two syncs a step, no zero-fill and no separate adds); then scales by
@@ -100,6 +100,8 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "chain_launch.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -369,56 +371,8 @@ __global__ void vecint2d_bwd(const float* __restrict__ steps,
   }
 }
 
-constexpr int kThreads = 256;
-constexpr int kMaxDevices = 64;
-
 unsigned int blocks_for(long long n) {
   return (unsigned int)((n + kThreads - 1) / kThreads);
-}
-
-// The blocks of `kernel` (kThreads each) that fit on the current device at
-// once, computed on the first call for each device and cached in `cache`.
-cudaError_t resident_blocks(const void* kernel, int* cache, int* blocks) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (cache[dev] == 0) {
-    int coop = 0, sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-    if (err != cudaSuccess) return err;
-    if (!coop) return cudaErrorNotSupported;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, 0);
-    if (err != cudaSuccess) return err;
-    if (per_sm * sms == 0) return cudaErrorCooperativeLaunchTooLarge;
-    cache[dev] = per_sm * sms;
-  }
-  *blocks = cache[dev];
-  return cudaSuccess;
-}
-
-// Launch `kernel` cooperatively over `npx` pixels: `blocks` blocks, or, when
-// 0, as many as the pixels need up to the co-resident limit.  A refused
-// launch returns its error (and clears it), never runs another way.
-cudaError_t launch_chain(const void* kernel, int* cache, long long npx,
-                         int blocks, void** args, void* stream) {
-  if (blocks == 0) {
-    int resident = 0;
-    const cudaError_t err = resident_blocks(kernel, cache, &resident);
-    if (err != cudaSuccess) return err;
-    const long long need = blocks_for(npx);
-    blocks = (int)(need < resident ? need : resident);
-  }
-  const cudaError_t err = cudaLaunchCooperativeKernel(
-      kernel, dim3(blocks), dim3(kThreads), args, 0, (cudaStream_t)stream);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return err;
-  }
-  return cudaGetLastError();
 }
 
 int fwd_resident[kMaxDevices];

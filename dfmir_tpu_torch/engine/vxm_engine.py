@@ -12,10 +12,9 @@ state (``torch.optim.Adam``, betas (0.9, 0.999), eps 1e-8: the update of
 step).  ``remat`` recomputes netR's forward in the backward
 (``torch.utils.checkpoint``), as ``jax.checkpoint`` does.
 
-At 3-D every warp of the step (7 VecInt self-warps and the data warp) runs
-on the trilinear CUDA kernels when the tensors lie on the card; at 2-D
-VecInt's chain runs as one kernel launch each way and the data warp on the
-bilinear kernels; on the CPU the plain versions run.
+When the tensors lie on the card, VecInt's chain runs as one kernel launch
+each way (2-D or 3-D) and the data warp on the single-warp kernels
+(bilinear or trilinear); on the CPU the plain versions run.
 """
 
 from __future__ import annotations

@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into one
 shared library with a plain C interface, loaded with ``ctypes``.  The build
 runs at first use and lands in ``dfmir_tpu_torch/build/``; the library's
-name carries a hash of the sources and flags, so an edited source builds
-anew.  Nothing here runs at import time.
+name carries a hash of the sources, the headers they share (``csrc/*.cuh``)
+and the flags, so an edited file builds anew.  Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 # name -> (restype, argtypes) of every extern "C" entry in csrc/
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     # (src, flow, out, B, C, H, W, stream) -> cudaError_t
     "dfmir_warp2d_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
@@ -34,6 +35,12 @@ SIGNATURES = {
     "dfmir_vecint2d_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     # (steps, g, scratch, dvec, B, H, W, nsteps, blocks, stream)
     "dfmir_vecint2d_bwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # (vec, steps, slot, out, B, D, H, W, nsteps, blocks, stream)
+    "dfmir_vecint3d_fwd": (_I, [_P, _P, _L, _P, _I, _I, _I, _I, _I, _I,
+                                _P]),
+    # (steps, slot, g, scratch, dvec, B, D, H, W, nsteps, blocks, stream)
+    "dfmir_vecint3d_bwd": (_I, [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _P]),
     # (src, flow, out, B, C, D, H, W, stream) -> cudaError_t
     "dfmir_warp3d_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     # (src, flow, g, dflow, B, C, D, H, W, stream) -> cudaError_t
@@ -64,7 +71,7 @@ def sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libdfmir_kernels_{h.hexdigest()[:16]}.so"

@@ -1,10 +1,10 @@
 """Flow-field integration and resizing.
 
 - ``vecint``: scaling and squaring, ``vec *= 1/2**nsteps`` then ``nsteps``
-  times ``vec = vec + warp(vec, vec)`` (the reference VecInt); a 2-D
-  float32 CUDA field runs the whole chain in one kernel launch each way
-  (``warp_cuda.VecInt2dFunction``).  ``vecint_bwd_plain`` is the plain
-  version of the chain's backward.
+  times ``vec = vec + warp(vec, vec)`` (the reference VecInt); a 2-D or
+  3-D float32 CUDA field runs the whole chain in one kernel launch each way
+  (``warp_cuda.VecInt2dFunction``, ``VecInt3dFunction``).
+  ``vecint_bwd_plain`` is the plain version of the chains' backward.
 - ``resize_flow``: resize and rescale a displacement field (the reference
   ResizeTransform): a factor below 1 resizes first and then scales, a factor
   above 1 scales first and then resizes, with align-corners linear
@@ -61,8 +61,8 @@ def resize_flow(flow, factor: float):
 
 def _chain_takes(vec):
     """Whether ``impl="auto"`` sends ``vec`` to the chain kernels."""
-    return (vec.ndim == 4 and vec.shape[1] == 2 and vec.is_cuda
-            and vec.dtype == torch.float32)
+    return (vec.ndim in (4, 5) and vec.shape[1] == vec.ndim - 2
+            and vec.is_cuda and vec.dtype == torch.float32)
 
 
 def vecint(vec, nsteps: int = 7, impl: str = "auto"):
@@ -70,16 +70,17 @@ def vecint(vec, nsteps: int = 7, impl: str = "auto"):
     by scaling and squaring; returns the displacement field.
 
     ``impl``: ``"torch"`` is the plain loop below, each step a warp of the
-    field by itself; ``"cuda"`` runs a 2-D field through the chain kernels
-    (one launch forward, one backward; a CPU tensor raises) and a 3-D field
-    through the loop over the 3-D warp kernels; ``"auto"`` sends 2-D float32
-    CUDA fields to the chain kernels and everything else to the loop, whose
-    warps dispatch as ``warp`` does (3-D CUDA fields to the 3-D kernels)."""
+    field by itself; ``"cuda"`` runs a 2-D or 3-D field through the chain
+    kernels (one launch forward, one backward; a CPU tensor raises);
+    ``"auto"`` sends 2-D and 3-D float32 CUDA fields to the chain kernels
+    and everything else (CPU fields, 1-D) to the plain loop."""
     if nsteps < 0:
         raise ValueError(f"nsteps must be >= 0, got {nsteps}")
-    if vec.ndim == 4 and (impl == "cuda"
-                          or (impl == "auto" and _chain_takes(vec))):
-        return warp_cuda.VecInt2dFunction.apply(vec.contiguous(), nsteps)
+    if vec.ndim in (4, 5) and (impl == "cuda"
+                               or (impl == "auto" and _chain_takes(vec))):
+        fn = (warp_cuda.VecInt2dFunction if vec.ndim == 4
+              else warp_cuda.VecInt3dFunction)
+        return fn.apply(vec.contiguous(), nsteps)
     vec = vec * (1.0 / (2 ** nsteps))
     for _ in range(nsteps):
         vec = vec + warp(vec, vec, mode="bilinear", impl=impl)
@@ -87,7 +88,7 @@ def vecint(vec, nsteps: int = 7, impl: str = "auto"):
 
 
 def vecint_bwd_plain(vec, nsteps: int, g):
-    """The chain kernels' backward's plain version: the gradient of
+    """The chain kernels' backwards' plain version: the gradient of
     ``vecint(vec, nsteps, impl="torch")`` for the output cotangent ``g``, by
     autograd of the plain loop."""
     with torch.enable_grad():

@@ -1,5 +1,5 @@
 """The Hopper kernels for the 2-D bilinear and 3-D trilinear warps, forward
-and backward, and for VecInt's 2-D scaling-and-squaring chain.
+and backward, and for VecInt's 2-D and 3-D scaling-and-squaring chains.
 
 Each launcher replaces a Pallas kernel of ``dfmir_tpu/ops/warp_pallas.py``:
 
@@ -14,15 +14,20 @@ Each launcher replaces a Pallas kernel of ``dfmir_tpu/ops/warp_pallas.py``:
 - ``warp3d_bwd_dflow_cuda``: ``_bwd_kernel3d_dflow`` /
   ``warp3d_banded_bwd_dflow``;
 - ``warp3d_bwd_dsrc_cuda``: ``_bwd_kernel3d_dsrc`` /
-  ``warp3d_banded_bwd_dsrc``.
+  ``warp3d_banded_bwd_dsrc``;
+- ``vecint3d_fwd_cuda``: ``_kernel3d`` as JAX's ``vecint`` calls it at 3-D,
+  the whole chain in one cooperative launch;
+- ``vecint3d_bwd_cuda``: ``_bwd_kernel3d_dflow`` and ``_bwd_kernel3d_dsrc``
+  as ``jax.vjp`` of ``vecint`` calls them: the whole gradient in one
+  cooperative launch.
 
 The designs are in the notes of the sources; ``ops/_build.py`` builds them.
 Their plain versions are ``ops/warp.py``'s ``warp(..., impl="torch")`` and
 ``warp_bwd_plain``, and ``ops/integrate.py``'s ``vecint(..., impl="torch")``
 and ``vecint_bwd_plain``, which the CPU tests and the on-card comparison
-use.  ``Warp2dFunction``, ``Warp3dFunction`` and ``VecInt2dFunction`` tie
-the kernels together for autograd, as the custom VJPs ``_warp2d`` /
-``_warp3d`` do in the JAX package.
+use.  ``Warp2dFunction``, ``Warp3dFunction``, ``VecInt2dFunction`` and
+``VecInt3dFunction`` tie the kernels together for autograd, as the custom
+VJPs ``_warp2d`` / ``_warp3d`` do in the JAX package.
 
 Every launcher checks its tensors with one cheap test and, only when that
 fails, the detailed checks that say what is wrong; then ``_launch`` calls
@@ -48,8 +53,10 @@ VECINT_BWD = "vecint2d_bwd"
 FWD3D = "warp3d_trilinear_fwd"
 DFLOW3D = "warp3d_trilinear_bwd_dflow"
 DSRC3D = "warp3d_trilinear_bwd_dsrc"
+VECINT3D_FWD = "vecint3d_fwd"
+VECINT3D_BWD = "vecint3d_bwd"
 LAUNCHES = {FWD: 0, BWD: 0, VECINT_FWD: 0, VECINT_BWD: 0, FWD3D: 0,
-            DFLOW3D: 0, DSRC3D: 0}
+            DFLOW3D: 0, DSRC3D: 0, VECINT3D_FWD: 0, VECINT3D_BWD: 0}
 
 _F32 = torch.float32
 _INT_LIMIT = 2 ** 31
@@ -162,46 +169,94 @@ def warp2d_bwd_cuda(src: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
     return dsrc, dflow
 
 
+def _check_steps(steps, g, device):
+    """Raise unless ``steps`` is a float32 stack of g-shaped fields, each
+    contiguous, on CUDA device ``device``."""
+    if not (steps.get_device() == device and steps.dtype is _F32
+            and steps.shape[1:] == g.shape and steps.stride()[1:] == g.stride()
+            and steps.shape[0] * steps.stride(0) < _INT_LIMIT):
+        raise ValueError(f"steps must be a float32 (n, "
+                         f"{', '.join(map(str, g.shape))}) stack of "
+                         f"contiguous fields on g's device, got {steps.dtype} "
+                         f"{tuple(steps.shape)} on {steps.device}")
+
+
 def vecint2d_fwd_cuda(vec: torch.Tensor, nsteps: int, save: bool):
     """Launch the VecInt forward chain on vec (B, 2, H, W), float32,
     contiguous, on a CUDA device: ``vec * 2**-nsteps`` squared ``nsteps``
     times in one launch.  Returns ``(out, steps)``: the displacement field
     and, when ``save``, the (nsteps, B, 2, H, W) stack of the fields before
-    each step, which the backward reads (else None)."""
+    each step, which the backward reads (else None; the launch then keeps
+    two ping-pong buffers)."""
     device = _device(vec, vec, "vecint2d_fwd_cuda", 2)
     out = torch.empty_like(vec)
     if save:
         steps = vec.new_empty((nsteps, *vec.shape))
     else:
         steps = torch.empty_like(vec) if nsteps else None
-    B, _, H, W = vec.shape
     _launch(VECINT_FWD, "dfmir_vecint2d_fwd", device, vec.data_ptr(),
             None if steps is None else steps.data_ptr(), out.data_ptr(),
-            B, H, W, nsteps, int(save), 0)
+            vec.shape[0], *vec.shape[2:], nsteps, int(save), 0)
     return out, steps if save else None
 
 
 def vecint2d_bwd_cuda(steps: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Launch the VecInt backward chain: ``steps`` the forward's saved
-    (nsteps, B, 2, H, W) stack, ``g`` (B, 2, H, W) the cotangent of its
-    output; returns the gradient of its input, in one launch.  Its source
-    gradients are summed with float32 atomics, so it is not bitwise
+    (nsteps, B, 2, H, W) stack, contiguous, ``g`` (B, 2, H, W) the cotangent
+    of its output; returns the gradient of its input, in one launch.  Its
+    source gradients are summed with float32 atomics, so it is not bitwise
     reproducible from run to run."""
-    nsteps = steps.shape[0]
     device = _device(g, g, "vecint2d_bwd_cuda", 2)
-    if not (steps.get_device() == device and steps.dtype is _F32
-            and steps.shape[1:] == g.shape and steps.is_contiguous()
-            and steps.numel() < _INT_LIMIT):
-        raise ValueError(f"steps must be a contiguous float32 (n, "
-                         f"{', '.join(map(str, g.shape))}) stack on g's "
-                         f"device, got {steps.dtype} {tuple(steps.shape)} "
-                         f"on {steps.device}")
+    _check_steps(steps, g, device)
+    if not steps.is_contiguous():
+        raise ValueError("steps must be contiguous")
+    nsteps = steps.shape[0]
     dvec = torch.empty_like(g)
     scratch = torch.empty_like(g) if nsteps > 1 else None
-    B, _, H, W = g.shape
     _launch(VECINT_BWD, "dfmir_vecint2d_bwd", device, steps.data_ptr(),
             g.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            dvec.data_ptr(), B, H, W, nsteps, 0)
+            dvec.data_ptr(), g.shape[0], *g.shape[2:], nsteps, 0)
+    return dvec
+
+
+def stack3d(vec: torch.Tensor, nsteps: int) -> torch.Tensor:
+    """An empty (nsteps, *vec.shape) stack for the 3-D chain whose fields
+    each start on a 128-byte line: a view of rows of a multiple of 32
+    floats, so that the chain may read every field through L1
+    (``csrc/warp3d.cu``, "Coherence")."""
+    slot = -(-vec.numel() // 32) * 32
+    return vec.new_empty((nsteps, slot)).as_strided(
+        (nsteps, *vec.shape), (slot, *vec.stride()))
+
+
+def vecint3d_fwd_cuda(vec: torch.Tensor, nsteps: int, save: bool):
+    """``vecint2d_fwd_cuda`` for a 3-D field vec (B, 3, D, H, W): returns
+    ``(out, steps)``, ``steps`` the (nsteps, B, 3, D, H, W) stack of
+    ``stack3d`` when ``save`` (else None).  The launch writes the stack
+    either way: each field is written once, into a slot of its own."""
+    device = _device(vec, vec, "vecint3d_fwd_cuda", 3)
+    out = torch.empty_like(vec)
+    steps = stack3d(vec, nsteps)
+    _launch(VECINT3D_FWD, "dfmir_vecint3d_fwd", device, vec.data_ptr(),
+            steps.data_ptr(), steps.stride(0), out.data_ptr(), vec.shape[0],
+            *vec.shape[2:], nsteps, 0)
+    return out, steps if save else None
+
+
+def vecint3d_bwd_cuda(steps: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``vecint2d_bwd_cuda`` for a 3-D field: ``steps`` (nsteps, B, 3, D,
+    H, W), each field contiguous (the rows of ``stack3d`` or one contiguous
+    stack), ``g`` (B, 3, D, H, W); one launch, not bitwise reproducible (its
+    source gradients are summed with float32 atomics)."""
+    device = _device(g, g, "vecint3d_bwd_cuda", 3)
+    _check_steps(steps, g, device)
+    nsteps = steps.shape[0]
+    dvec = torch.empty_like(g)
+    scratch = torch.empty_like(g) if nsteps > 1 else None
+    _launch(VECINT3D_BWD, "dfmir_vecint3d_bwd", device, steps.data_ptr(),
+            steps.stride(0), g.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), dvec.data_ptr(),
+            g.shape[0], *g.shape[2:], nsteps, 0)
     return dvec
 
 
@@ -280,12 +335,30 @@ class VecInt2dFunction(torch.autograd.Function):
         return vecint2d_bwd_cuda(steps, grad_out.contiguous()), None
 
 
+class VecInt3dFunction(torch.autograd.Function):
+    """VecInt's 3-D chain behind autograd, as ``VecInt2dFunction``: one
+    launch each way, the steps saved only when ``vec`` needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, vec, nsteps):
+        out, steps = vecint3d_fwd_cuda(vec, nsteps,
+                                       save=ctx.needs_input_grad[0])
+        if steps is not None:
+            ctx.save_for_backward(steps)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (steps,) = ctx.saved_tensors
+        return vecint3d_bwd_cuda(steps, grad_out.contiguous()), None
+
+
 class Warp3dFunction(torch.autograd.Function):
-    """The three 3-D kernels behind autograd.  ``backward`` launches the
-    dflow kernel when ``flow`` needs a gradient and the dsrc kernel when
-    ``src`` does, so the data warp (a source without a gradient) never
-    scatters or zeroes a dsrc.  When ``src`` is ``flow`` (VecInt), both
-    launch and autograd adds the two gradients."""
+    """The three 3-D single-warp kernels behind autograd.  ``backward``
+    launches the dflow kernel when ``flow`` needs a gradient and the dsrc
+    kernel when ``src`` does, so the data warp (a source without a
+    gradient) never scatters or zeroes a dsrc.  When ``src`` is ``flow`` (a
+    self-warp), both launch and autograd adds the two gradients."""
 
     @staticmethod
     def forward(ctx, src, flow):

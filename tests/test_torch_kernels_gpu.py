@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (2-D and 3-D warps, VecInt's 2-D chain) against
-their plain versions, on the card.
+"""The port's CUDA kernels (2-D and 3-D warps, VecInt's 2-D and 3-D chains)
+against their plain versions, on the card.
 
 Skips without a CUDA card.  On a machine with one (and no JAX), run:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_gpu.py
@@ -30,6 +30,7 @@ pytestmark = pytest.mark.gpu
 FWD, BWD = warp_cuda.FWD, warp_cuda.BWD
 VF, VB = warp_cuda.VECINT_FWD, warp_cuda.VECINT_BWD
 FWD3D, DFLOW3D, DSRC3D = warp_cuda.FWD3D, warp_cuda.DFLOW3D, warp_cuda.DSRC3D
+VF3, VB3 = warp_cuda.VECINT3D_FWD, warp_cuda.VECINT3D_BWD
 ZERO = dict.fromkeys(warp_cuda.LAUNCHES, 0)
 SMALL = dict(crop_size=64, netG="resnet_4blocks", ngf=8,
              vxm_enc=(8, 16, 16, 16), vxm_dec=(16, 16, 16, 16, 16, 8, 8),
@@ -318,7 +319,8 @@ CASES3D = [
     ((1, 1, 64, 64, 64), 3.0, 0.0),      # the data warp, cut
     ((2, 3, 17, 33, 45), 2.0, 0.0),      # odd shape
     ((1, 1, 32, 32, 32), 25.0, 0.0),     # violent: most voxels outside
-]
+    ((1, 2, 20, 24, 28), 2.0, 0.0),      # a channel count the kernels
+]                                        # do not specialise
 
 
 @pytest.mark.parametrize("shape,scale,shift", CASES3D)
@@ -337,6 +339,28 @@ def test_warp3d_kernels_match_plain(cuda, shape, scale, shift):
     assert max_err(dflow, ref_dflow) <= 1e-5
     assert max_err(dsrc, ref_dsrc) <= 1e-5 * max(1.0, float(
         ref_dsrc.abs().max()))
+
+
+def unaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past an 8-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, device=t.device)[1:].view(t.shape)
+    return buf.copy_(t)
+
+
+def test_warp3d_kernels_take_unaligned_tensors(cuda):
+    """Buffers off the 8-byte grid (an even W) give the same results: the
+    kernels assume no alignment beyond a float's."""
+    src, flow, g = inputs(cuda, (2, 3, 12, 14, 16), 2.0, 0.0)
+    u_src, u_flow, u_g = (unaligned(t) for t in (src, flow, g))
+    assert u_src.data_ptr() % 8 == 4
+    ref = warp(src, flow, impl="torch")
+    ref_dsrc, ref_dflow = warp_bwd_plain(src, flow, g)
+    assert max_err(warp_cuda.warp3d_cuda(u_src, u_flow), ref) <= 1e-5
+    assert max_err(warp_cuda.warp3d_bwd_dflow_cuda(u_src, u_flow, u_g),
+                   ref_dflow) <= 1e-5
+    assert max_err(warp_cuda.warp3d_bwd_dsrc_cuda(u_flow, u_g),
+                   ref_dsrc) <= 1e-5 * max(1.0, float(ref_dsrc.abs().max()))
 
 
 def test_warp3d_zero_flow_copies_the_source(cuda):
@@ -369,10 +393,157 @@ def test_warp3d_autograd_launches_the_kernels(cuda):
         dsrc.abs().max()))
 
 
+def smooth3d(shape, scale, gen):
+    """(B, C, D, H, W) smooth random field of about +-scale on the card."""
+    B, C, *spatial = shape
+    coarse = torch.randn((B, C, *(max(n // 16, 2) for n in spatial)),
+                         generator=gen, device=gen.device)
+    return F.interpolate(coarse, size=tuple(spatial), mode="trilinear",
+                         align_corners=True) * scale
+
+
+CHAIN3D_CASES = [
+    # (B, 3, D, H, W), field kind, scale (voxels) of the velocity field
+    ((1, 3, 80, 80, 80), "smooth", 10.0),   # a 3-D register call / step
+    ((2, 3, 80, 80, 80), "posneg", 10.0),   # a bidirectional pos/neg stack
+    ((2, 3, 17, 33, 45), "smooth", 5.0),    # odd shape
+    ((1, 3, 40, 40, 40), "noise", 25.0),    # violent: x25 N(0, 1)
+]
+
+
+def chain3d_field(cuda, shape, kind, scale):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    if kind == "noise":
+        return torch.randn(shape, generator=gen, device=cuda) * scale
+    if kind == "posneg":
+        half = smooth3d((shape[0] // 2, *shape[1:]), scale, gen)
+        return torch.cat([half, -half])
+    return smooth3d(shape, scale, gen)
+
+
+@pytest.mark.parametrize("shape,kind,scale", CHAIN3D_CASES)
+def test_vecint3d_chain_matches_plain(cuda, shape, kind, scale):
+    """The 3-D chain forward is bit-equal to the plain loop; its backward is
+    within 1e-5 * max(1, max|dvec|) of autograd of the loop; one launch
+    each way, the steps saved only for a gradient."""
+    vec = chain3d_field(cuda, shape, kind, scale)
+    g = torch.randn(shape, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(8))
+    warp_cuda.reset_launches()
+    out = vecint(vec, 7)                          # auto -> the chain kernel
+    assert warp_cuda.LAUNCHES == dict(ZERO, **{VF3: 1})
+    ref = vecint(vec, 7, impl="torch")
+    assert warp_cuda.LAUNCHES == dict(ZERO, **{VF3: 1})
+    torch.cuda.synchronize()
+    assert max_err(out, ref) == 0.0
+    assert float((ref - vec / 128).abs().max()) > 1.0    # it deformed
+
+    v = vec.clone().requires_grad_()
+    vecint(v, 7).backward(g)
+    assert warp_cuda.LAUNCHES == dict(ZERO, **{VF3: 2, VB3: 1})
+    dvec = vecint_bwd_plain(vec, 7, g)
+    torch.cuda.synchronize()
+    assert max_err(v.grad, dvec) <= 1e-5 * max(1.0, float(dvec.abs().max()))
+
+    steps_out, steps = warp_cuda.vecint3d_fwd_cuda(vec, 7, save=True)
+    assert steps.shape == (7, *shape) and torch.equal(steps_out, ref)
+    assert torch.equal(steps[0], vec * (1.0 / 128))
+    out_ns, none = warp_cuda.vecint3d_fwd_cuda(vec, 7, save=False)
+    assert none is None and torch.equal(out_ns, ref)
+
+
+@pytest.mark.parametrize("nsteps", [0, 1, 2])
+def test_vecint3d_chain_few_steps(cuda, nsteps):
+    vec = chain3d_field(cuda, (2, 3, 20, 24, 30), "smooth", 6.0)
+    g = torch.randn_like(vec)
+    v = vec.clone().requires_grad_()
+    out = vecint(v, nsteps)
+    assert torch.equal(out.detach(), vecint(vec, nsteps, impl="torch"))
+    out.backward(g)
+    dvec = vecint_bwd_plain(vec, nsteps, g)
+    assert max_err(v.grad, dvec) <= 1e-5 * max(1.0, float(dvec.abs().max()))
+
+
+def test_vecint3d_chain_takes_unaligned_tensors(cuda):
+    """An input and cotangent off the 8-byte grid: the chain reads them
+    through their own paths and gives the same results."""
+    vec = unaligned(chain3d_field(cuda, (1, 3, 16, 18, 20), "smooth", 6.0))
+    g = unaligned(torch.randn_like(vec))
+    out, steps = warp_cuda.vecint3d_fwd_cuda(vec, 7, save=True)
+    assert torch.equal(out, vecint(vec, 7, impl="torch"))
+    dvec = vecint_bwd_plain(vec, 7, g)
+    assert max_err(warp_cuda.vecint3d_bwd_cuda(steps, g), dvec) <= 1e-5 * max(
+        1.0, float(dvec.abs().max()))
+
+
+def test_vecint3d_chain_refused_launch_raises(cuda):
+    """A cooperative grid larger than the card holds at once is refused:
+    the launcher raises, counts nothing and leaves no error behind."""
+    shape = (1, 3, 16, 16, 16)
+    vec = chain3d_field(cuda, shape, "smooth", 5.0)
+    steps = warp_cuda.stack3d(vec, 7)
+    slot = steps.stride(0)
+    out, scratch = torch.empty_like(vec), torch.empty_like(vec)
+    too_many = 10 ** 6                            # blocks, > the card holds
+    warp_cuda.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        warp_cuda._launch(VF3, "dfmir_vecint3d_fwd", vec.get_device(),
+                          vec.data_ptr(), steps.data_ptr(), slot,
+                          out.data_ptr(), 1, 16, 16, 16, 7, too_many)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        warp_cuda._launch(VB3, "dfmir_vecint3d_bwd", vec.get_device(),
+                          steps.data_ptr(), slot, vec.data_ptr(),
+                          scratch.data_ptr(), out.data_ptr(), 1, 16, 16, 16,
+                          7, too_many)
+    assert warp_cuda.LAUNCHES == ZERO
+    out = vecint(vec, 7)
+    assert torch.equal(out, vecint(vec, 7, impl="torch"))
+    assert warp_cuda.LAUNCHES == dict(ZERO, **{VF3: 1})
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 17, 33, 45), (1, 3, 16, 16, 16)])
+def test_vecint3d_stack_slots_start_on_lines(cuda, shape):
+    """Every field of the 3-D chain's stack starts on a 128-byte line, the
+    odd shape's too; a stack off its line, or with a slot that is no
+    multiple of 32 floats, is refused before the launch (its L1 reads could
+    see stale lines) and nothing is counted."""
+    vec = chain3d_field(cuda, shape, "smooth", 5.0)
+    steps = warp_cuda.stack3d(vec, 7)
+    assert steps.shape == (7, *shape) and steps.stride(0) % 32 == 0
+    assert all(steps[k].data_ptr() % 128 == 0 for k in range(7))
+    out = torch.empty_like(vec)
+    warp_cuda.reset_launches()
+    for ptr, slot in ((steps.data_ptr() + 4, steps.stride(0)),
+                      (steps.data_ptr(), steps.stride(0) - 1)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            warp_cuda._launch(VF3, "dfmir_vecint3d_fwd", vec.get_device(),
+                              vec.data_ptr(), ptr, slot, out.data_ptr(),
+                              shape[0], *shape[2:], 7, 0)
+    assert warp_cuda.LAUNCHES == ZERO
+    assert torch.equal(vecint(vec, 7), vecint(vec, 7, impl="torch"))
+
+
+def test_vecint3d_chain_refuses_what_it_does_not_take(cuda):
+    vec = torch.zeros(1, 3, 4, 6, 8, device=cuda)
+    with pytest.raises(TypeError):
+        warp_cuda.vecint3d_fwd_cuda(vec.double(), 7, save=False)
+    with pytest.raises(ValueError, match="contiguous"):
+        warp_cuda.vecint3d_fwd_cuda(vec.transpose(3, 4), 7, save=False)
+    with pytest.raises(ValueError, match="does not match"):
+        warp_cuda.vecint3d_fwd_cuda(torch.zeros(1, 2, 4, 6, 8, device=cuda),
+                                    7, save=False)
+    with pytest.raises(ValueError, match="expected 5-D"):
+        warp_cuda.vecint3d_fwd_cuda(torch.zeros(1, 3, 6, 8, device=cuda), 7,
+                                    save=False)
+    with pytest.raises(ValueError, match="steps"):
+        warp_cuda.vecint3d_bwd_cuda(
+            torch.zeros(7, 1, 3, 4, 6, 4, device=cuda), vec)
+
+
 def test_vxm_engine_3d_launches_and_matches_cpu(cuda):
-    """A small 3-D engine on the card: 8 forward launches a register call;
-    8 forward, 8 dflow and 7 dsrc a train step; metrics and gradients as on
-    the CPU."""
+    """A small 3-D engine on the card: 1 chain forward + 1 data warp a
+    register call; 1 chain forward + 1 data warp, 1 chain backward + 1
+    dflow and no dsrc a train step; metrics and gradients as on the CPU."""
     cfg = VxmConfig(vol_size=32, enc=(8, 16, 16), dec=(16, 16, 16, 16, 8))
     engines = {dev: VxmEngine(cfg, device=dev, seed=1)
                for dev in ("cuda", "cpu")}
@@ -383,7 +554,7 @@ def test_vxm_engine_3d_launches_and_matches_cpu(cuda):
     a, b = torch.rand(2, 1, 1, 32, 32, 32, generator=g)
     warp_cuda.reset_launches()
     y, flow = engines["cuda"].register(a.to(cuda), b.to(cuda))
-    assert warp_cuda.LAUNCHES == dict(ZERO, **{FWD3D: 8})
+    assert warp_cuda.LAUNCHES == dict(ZERO, **{VF3: 1, FWD3D: 1})
     y_ref, flow_ref = engines["cpu"].register(a, b)
     assert max_err(y.cpu(), y_ref) <= 1e-3
     assert max_err(flow.cpu(), flow_ref) <= 1e-3
@@ -395,8 +566,8 @@ def test_vxm_engine_3d_launches_and_matches_cpu(cuda):
         total.backward()
         if dev == "cuda":
             torch.cuda.synchronize()
-            assert warp_cuda.LAUNCHES == dict(ZERO, **{FWD3D: 8, DFLOW3D: 8,
-                                                       DSRC3D: 7})
+            assert warp_cuda.LAUNCHES == dict(ZERO, **{VF3: 1, FWD3D: 1,
+                                                       VB3: 1, DFLOW3D: 1})
         metrics[dev] = {k: float(v.detach()) for k, v in met.items()}
         grads[dev] = [p.grad.cpu() for p in eng.netR.parameters()]
     for k, v in metrics["cpu"].items():

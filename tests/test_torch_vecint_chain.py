@@ -35,8 +35,8 @@ F2, B2 = warp_cuda.FWD, warp_cuda.BWD
 # -------------------------------------------------- the plain stand-ins
 
 def plain_chain_fwd(vec, nsteps, save):
-    """``vecint2d_fwd_cuda``'s plain version: the loop, keeping the field
-    before each step when ``save``."""
+    """``vecint2d_fwd_cuda``'s and ``vecint3d_fwd_cuda``'s plain version:
+    the loop, keeping the field before each step when ``save``."""
     v = vec * (1.0 / (2 ** nsteps))
     steps = []
     for _ in range(nsteps):
@@ -48,8 +48,9 @@ def plain_chain_fwd(vec, nsteps, save):
 
 
 def plain_chain_bwd(steps, g):
-    """``vecint2d_bwd_cuda``'s plain version: G_k = G_{k+1} + dflow + dsrc
-    of the self-warp of each saved field, last step first, then 2^-n."""
+    """``vecint2d_bwd_cuda``'s and ``vecint3d_bwd_cuda``'s plain version:
+    G_k = G_{k+1} + dflow + dsrc of the self-warp of each saved field, last
+    step first, then 2^-n."""
     n = steps.shape[0]
     for k in range(n - 1, -1, -1):
         dsrc, dflow = warp_bwd_plain(steps[k], steps[k], g)
@@ -71,8 +72,8 @@ def _counted(launches, name, fn, calls=None):
 def counted_kernels(monkeypatch):
     """Every kernel launcher swapped for its plain version, counted in
     warp_cuda.LAUNCHES, and the dispatch opened to CPU tensors (warps that
-    are not nearest, 2-D float32 fields for the chain): a model then runs
-    on the CPU exactly the launches it makes on the card."""
+    are not nearest, 2-D and 3-D float32 fields for the chains): a model
+    then runs on the CPU exactly the launches it makes on the card."""
     monkeypatch.setattr(warp_cuda, "LAUNCHES",
                         dict.fromkeys(warp_cuda.LAUNCHES, 0))
     L = warp_cuda.LAUNCHES
@@ -89,6 +90,8 @@ def counted_kernels(monkeypatch):
         ("warp3d_bwd_dsrc_cuda", warp_cuda.DSRC3D,
          lambda f, g: warp_bwd_plain(torch.zeros_like(g), f, g,
                                      need_dflow=False)[0]),
+        ("vecint3d_fwd_cuda", warp_cuda.VECINT3D_FWD, plain_chain_fwd),
+        ("vecint3d_bwd_cuda", warp_cuda.VECINT3D_BWD, plain_chain_bwd),
     ):
         monkeypatch.setattr(warp_cuda, attr, _counted(L, name, fn))
     monkeypatch.setattr(warp_mod, "_kernel_takes",

@@ -317,10 +317,9 @@ def test_training_reduces_loss():
 
 @pytest.mark.parametrize("ndims", [3, 2])
 def test_engine_launches_per_call(jax_params, counted_kernels, ndims):
-    """register: 8 forward warps at 3-D (7 VecInt steps + the data warp),
-    1 chain forward + 1 warp at 2-D; a train step: 8 forward, 8 dflow and 7
-    dsrc at 3-D (the data warp's source needs no gradient), at 2-D 1 + 1
-    forward and 1 + 1 backward (chain, data warp); remat runs the forward
+    """register: 1 chain forward + 1 data warp, at 2-D and 3-D; a train
+    step: 1 + 1 forward and 1 + 1 backward (chain, data warp; no dsrc: the
+    data warp's source needs no gradient); remat runs the forward
     twice."""
     L = counted_kernels
     cfg = dict(SMALL, ndims=ndims, int_steps=7)
@@ -330,11 +329,12 @@ def test_engine_launches_per_call(jax_params, counted_kernels, ndims):
     eng = VxmEngine(VxmConfig(**cfg), device="cpu")
     f3, d3, s3 = warp_cuda.FWD3D, warp_cuda.DFLOW3D, warp_cuda.DSRC3D
     f2, b2 = warp_cuda.FWD, warp_cuda.BWD
-    vf, vb = warp_cuda.VECINT_FWD, warp_cuda.VECINT_BWD
+    vf, vb = ((warp_cuda.VECINT3D_FWD, warp_cuda.VECINT3D_BWD) if ndims == 3
+              else (warp_cuda.VECINT_FWD, warp_cuda.VECINT_BWD))
+    fwd, bwd = (f3, d3) if ndims == 3 else (f2, b2)
     zero = dict.fromkeys(L, 0)
-    reg = {f3: 8} if ndims == 3 else {vf: 1, f2: 1}
-    step = ({f3: 8, d3: 8, s3: 7} if ndims == 3
-            else {vf: 1, f2: 1, vb: 1, b2: 1})
+    reg = {vf: 1, fwd: 1}
+    step = {vf: 1, fwd: 1, vb: 1, bwd: 1}
     eng.register(src, tgt)
     assert L == dict(zero, **reg)
     L.update(zero)
@@ -345,7 +345,8 @@ def test_engine_launches_per_call(jax_params, counted_kernels, ndims):
         L.update(zero)
         VxmEngine(VxmConfig(**dict(cfg, remat=True)),
                   device="cpu").train_step(src, tgt)
-        assert L == dict(zero, **dict(step, **{f3: 16}))
+        assert L == dict(zero, **dict(step, **{vf: 2, f3: 2}))
+        assert L[s3] == 0
 
 
 def test_config_and_refusals(jax_params):

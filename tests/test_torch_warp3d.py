@@ -200,25 +200,38 @@ def test_function_alias_adds_gradients(rng, plain_launchers):
 
 def test_vecint_runs_the_function_each_step(rng, plain_launchers,
                                             monkeypatch):
-    """With the kernels' dispatch open to CPU tensors, vecint's 7 steps go
-    through Warp3dFunction: 7 forward calls, 7 of each backward half."""
-    from dfmir_tpu_torch.ops import warp as warp_mod
+    """With the chains' dispatch open to CPU tensors, vecint's 7 steps at
+    3-D go through VecInt3dFunction: 1 chain forward and 1 chain backward
+    launch, equal to the plain loop, and no single-warp kernel."""
+    from test_torch_vecint_chain import plain_chain_bwd, plain_chain_fwd
 
-    fwd_calls = []
-    plain_fwd = warp_cuda.warp3d_cuda
-    monkeypatch.setattr(warp_cuda, "warp3d_cuda",
-                        lambda s, f: fwd_calls.append(1) or plain_fwd(s, f))
-    monkeypatch.setattr(warp_mod, "_kernel_takes",
-                        lambda src, flow, mode: flow.shape[1] == 3)
+    from dfmir_tpu_torch.ops import integrate
+
+    chain_calls = []
+    monkeypatch.setattr(
+        warp_cuda, "vecint3d_fwd_cuda",
+        lambda v, n, save: chain_calls.append(("fwd", save))
+        or plain_chain_fwd(v, n, save))
+    monkeypatch.setattr(
+        warp_cuda, "vecint3d_bwd_cuda",
+        lambda steps, g: chain_calls.append(("bwd", steps.shape[0]))
+        or plain_chain_bwd(steps, g))
+    monkeypatch.setattr(integrate, "_chain_takes",
+                        lambda vec: vec.shape[1] == 3)
     _, flow, _ = tensors(rng)
+    g = torch.from_numpy(rng.standard_normal(flow.shape).astype(np.float32))
     v = flow.clone().requires_grad_()
     out = vecint(v, 7)
-    ref = vecint(flow.clone().requires_grad_(), 7, impl="torch")
+    ref_v = flow.clone().requires_grad_()
+    ref = vecint(ref_v, 7, impl="torch")
     np.testing.assert_array_equal(out.detach().numpy(),
                                   ref.detach().numpy())
-    out.sum().backward()
-    assert len(fwd_calls) == 7
-    assert sorted(plain_launchers) == ["dflow"] * 7 + ["dsrc"] * 7
+    out.backward(g)
+    ref.backward(g)
+    np.testing.assert_allclose(v.grad.numpy(), ref_v.grad.numpy(), rtol=0,
+                               atol=1e-6)
+    assert chain_calls == [("fwd", True), ("bwd", 7)]
+    assert plain_launchers == []
 
 
 def test_cpu_tensors_never_reach_the_kernels(rng):
