@@ -44,16 +44,22 @@ Phases, each printing one JSON line:
   6. kernel3d each 3-D trilinear kernel (forward, dflow, dsrc) against its
               plain version on the card: VecInt's self-warp (1,3,80,80,80),
               the 160^3 data warp (dflow only), an odd shape, a violent
-              flow (x25 N(0,1)) and a zero flow (an exact copy); bars
-              forward and dflow 1e-5, dsrc 1e-5 * max(1, max|dsrc|); timed
-              beside its byte/op bound, its plain version and
-              grid_sample / grid_sampler_3d_backward, with device us a
+              flow (x25 N(0,1)), a zero flow (an exact copy) and a collapse
+              (flow 0.95 * (centre - p): thousands of targets a cell); bars
+              forward and dflow 1e-5, dsrc 1e-5 * max(1, max|dsrc|) and,
+              two calls bitwise the same, bit-equal to the plain binned sum
+              (warp3d_dsrc_binned_plain); timed beside its byte/op bound,
+              its plain version, grid_sample / grid_sampler_3d_backward and
+              two yardsticks of dsrc built here from
+              csrc/yardsticks/dsrc3d.cu (its phases as 4 plain launches; an
+              int64 atomic scatter of the same terms), with device us a
               launch at the VecInt and 160^3 cases; then VecInt's 3-D
               chain kernels (phase kernel_chain3d: (1,3,80^3), a (2,3,80^3)
-              pos/neg stack, an odd shape, a x25 N(0,1) field, 0-2 steps;
-              vecint3d_fwd bit-equal to the plain loop, vecint3d_bwd
-              within 1e-5 * max(1, max|dvec|)) beside 7 direct B3 / B4 + B5
-              launches with their adds and the F.grid_sample chain
+              pos/neg stack, an odd shape, a x25 N(0,1) field, a collapse,
+              0-2 steps; vecint3d_fwd bit-equal to the plain loop,
+              vecint3d_bwd within 1e-5 * max(1, max|dvec|) and two calls
+              bitwise the same) beside 7 direct B3 / B4 + B5 launches with
+              their adds and the F.grid_sample chain
   7. vxm3d    the 3-D VoxelMorph engine at VxmConfig() defaults (160^3,
               enc (16,32,32,32), dec (32,32,32,32,32,16,16), 7 integration
               steps at half resolution, NCC 9^3), random weights from --seed
@@ -81,8 +87,10 @@ propagates.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -98,6 +106,7 @@ from dfmir_tpu_torch.engine.vxm_engine import VxmConfig, VxmEngine
 from dfmir_tpu_torch.ops import _build, warp_cuda
 from dfmir_tpu_torch.ops.integrate import vecint, vecint_bwd_plain
 from dfmir_tpu_torch.ops.warp import (_kernel_takes, identity_grid, warp,
+                                      warp3d_dsrc_binned_plain,
                                       warp_bwd_plain)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
@@ -175,15 +184,69 @@ def phase_device():
 
 
 # ------------------------------------------------------------ phase 2
+YARD_SRC = _build.CSRC_DIR / "yardsticks" / "dsrc3d.cu"
+YARD_SIGNATURES = {
+    # (flow, g, dsrc, bins, B, C, D, H, W, phase, stream) -> cudaError_t
+    "dfmir_yard_dsrc3d_phased": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
+    # (flow, g, dsrc, acc, B, C, D, H, W, stream) -> cudaError_t
+    "dfmir_yard_dsrc3d_scatter64": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
+}
+_yard = {}
+
+
 def phase_build():
+    """nvcc builds the port's library (ops/_build.py) and, at once, the
+    yardsticks' library of phase kernel3d."""
     lib = _build.library_path()
     existed = lib.exists()
     t0 = time.perf_counter()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    yard = _build.BUILD_DIR / f"libdfmir_yardsticks.{os.getpid()}.so"
+    proc = subprocess.Popen(
+        [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(yard), str(YARD_SRC)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     _build.load()
+    output = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {YARD_SRC}:\n{output}")
+    _yard["lib"] = ctypes.CDLL(str(yard))
+    for name, argtypes in YARD_SIGNATURES.items():
+        fn = getattr(_yard["lib"], name)
+        fn.restype, fn.argtypes = ctypes.c_int, argtypes
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": not existed, "library": lib.name,
           "sources": [str(p.relative_to(_build.PKG_DIR.parent))
-                      for p in _build.sources()]})
+                      for p in _build.sources()],
+          "yardsticks": str(YARD_SRC.relative_to(_build.PKG_DIR.parent))})
+
+
+def yard_dsrc3d(entry, flow, g):
+    """A yardstick of B5 (csrc/yardsticks/dsrc3d.cu): returns a call that
+    launches it on the current stream and returns its dsrc, its output and
+    scratch allocated here once; ``call(p)`` launches phase p alone of the
+    phased one."""
+    B, C, D, H, W = g.shape
+    dsrc = torch.empty_like(g)
+    if entry == "phased":
+        scratch = warp_cuda._bins3d(g, 1)
+    else:
+        scratch = torch.empty(g.numel() + 1, dtype=torch.int64,
+                              device=g.device)
+    fn = getattr(_yard["lib"], f"dfmir_yard_dsrc3d_{entry}")
+    d = g.get_device()
+
+    def call(phase=-1):
+        extra = (phase,) if entry == "phased" else ()
+        err = fn(flow.data_ptr(), g.data_ptr(), dsrc.data_ptr(),
+                 scratch.data_ptr(), B, C, D, H, W, *extra,
+                 torch._C._cuda_getCurrentRawStream(d))
+        if err:
+            raise RuntimeError(f"yardstick {entry}: cudaError {err}")
+        return dsrc
+
+    return call
 
 
 # ------------------------------------------------------------ phase 3
@@ -560,7 +623,9 @@ def host_path3d(seed):
     v = chain_field(shape, "smooth", 3.0, gen, dev)     # src is the flow
     g = torch.randn(shape, generator=gen, device=dev)
     _, steps = warp_cuda.vecint3d_fwd_cuda(v, NSTEPS, save=True)
-    out, dflow, dsrc, scratch = (torch.empty_like(v) for _ in range(4))
+    out, dflow, dsrc = (torch.empty_like(v) for _ in range(3))
+    scratch = v.new_empty((2, *shape))
+    bins1, bins = warp_cuda._bins3d(v, 1), warp_cuda._bins3d(v, NSTEPS)
     lib = _build.load()
     d = v.get_device()
     stream = torch._C._cuda_getCurrentRawStream(d)
@@ -570,13 +635,15 @@ def host_path3d(seed):
         "dfmir_warp3d_bwd_dflow": (v.data_ptr(), v.data_ptr(), g.data_ptr(),
                                    dflow.data_ptr(), *shape),
         "dfmir_warp3d_bwd_dsrc": (v.data_ptr(), g.data_ptr(),
-                                  dsrc.data_ptr(), *shape),
+                                  dsrc.data_ptr(), bins1.data_ptr(), *shape,
+                                  0),
         "dfmir_vecint3d_fwd": (v.data_ptr(), steps.data_ptr(),
                                steps.stride(0), out.data_ptr(), B, D, H, W,
                                NSTEPS, 0),
         "dfmir_vecint3d_bwd": (steps.data_ptr(), steps.stride(0),
                                g.data_ptr(), scratch.data_ptr(),
-                               dsrc.data_ptr(), B, D, H, W, NSTEPS, 0),
+                               bins.data_ptr(), dsrc.data_ptr(), B, D, H, W,
+                               NSTEPS, 0),
     }
 
     def parts(entry, check, **allocs):
@@ -588,6 +655,7 @@ def host_path3d(seed):
                 "ctypes_launch": lambda: fn(*args[entry], stream)}
 
     empty = lambda: torch.empty_like(v)  # noqa: E731
+    alloc_bins = {"alloc_bins": lambda: warp_cuda._bins3d(v, 1)}
     launchers = {
         FWD3D: (parts("dfmir_warp3d_fwd",
                       lambda: warp_cuda._device(v, v, "warp3d_cuda", 3),
@@ -602,7 +670,7 @@ def host_path3d(seed):
         DSRC3D: (parts("dfmir_warp3d_bwd_dsrc",
                        lambda: warp_cuda._device(
                            g, v, "warp3d_bwd_dsrc_cuda", 3),
-                       alloc_dsrc=empty),
+                       alloc_dsrc=empty, **alloc_bins),
                  lambda: warp_cuda.warp3d_bwd_dsrc_cuda(v, g)),
         VF3: (parts("dfmir_vecint3d_fwd",
                     lambda: warp_cuda._device(v, v, "vecint3d_fwd_cuda", 3),
@@ -611,7 +679,9 @@ def host_path3d(seed):
               lambda: warp_cuda.vecint3d_fwd_cuda(v, NSTEPS, save=True)),
         VB3: (parts("dfmir_vecint3d_bwd",
                     lambda: warp_cuda._device(g, g, "vecint3d_bwd_cuda", 3),
-                    alloc_dvec=empty, alloc_scratch=empty),
+                    alloc_dvec=empty,
+                    alloc_scratch=lambda: v.new_empty((2, *shape)),
+                    alloc_bins=lambda: warp_cuda._bins3d(v, NSTEPS)),
               lambda: warp_cuda.vecint3d_bwd_cuda(steps, g)),
     }
     rows = {}
@@ -655,6 +725,7 @@ CHAIN3D_CASES = [
     ("bidir", (2, 3, 80, 80, 80), "posneg", 10.0, NSTEPS),     # call or step
     ("odd_shape", (2, 3, 17, 33, 45), "smooth", 5.0, NSTEPS),
     ("violent", (1, 3, 40, 40, 40), "noise", 25.0, NSTEPS),    # x25 N(0, 1)
+    ("collapse", (1, 3, 80, 80, 80), "collapse", 4.0, NSTEPS),  # crowded
     ("steps_0", (1, 3, 24, 28, 32), "smooth", 5.0, 0),
     ("steps_1", (1, 3, 24, 28, 32), "smooth", 5.0, 1),
     ("steps_2", (1, 3, 24, 28, 32), "smooth", 5.0, 2),
@@ -715,10 +786,23 @@ def grid_sample_chain(vec, n=NSTEPS):
     return v
 
 
+def collapse_field(shape, scale, device):
+    """(B, 3, D, H, W) flow scale * (centre - p): every voxel samples near
+    the centre, so thousands of targets share a few cells."""
+    B, _, *spatial = shape
+    grid = identity_grid(spatial, device=device)
+    centre = torch.tensor([(n - 1) / 2 for n in spatial],
+                          device=device).reshape(3, 1, 1, 1)
+    return (scale * (centre - grid))[None].expand(B, -1, -1, -1,
+                                                  -1).contiguous()
+
+
 def chain_field(shape, kind, scale, gen, dev):
     """A velocity field: smooth, a smooth half and its negation stacked on
-    the batch (posneg, as the bidirectional model integrates them), or
-    N(0, 1) noise, about +-scale."""
+    the batch (posneg, as the bidirectional model integrates them), N(0, 1)
+    noise, about +-scale, or a collapse (scale * (centre - p))."""
+    if kind == "collapse":
+        return collapse_field(shape, scale, dev)
     if kind == "noise":
         return torch.randn(shape, generator=gen, device=dev) * scale
     smooth = smooth_field if len(shape) == 4 else smooth_field3d
@@ -731,9 +815,10 @@ def chain_field(shape, kind, scale, gen, dev):
 def run_chains(phase, cases, names, seed, profile):
     """Each case through the chain kernels ``names`` (forward, backward)
     against the plain loop (forward bit-equal, backward within 1e-5 *
-    max(1, max|dvec|)), timed beside their bound, the plain loop, the same
-    chain as direct single-warp launches with their adds and the
-    F.grid_sample chain."""
+    max(1, max|dvec|); the 3-D backward also bitwise the same over two
+    calls), timed beside their bound, the plain loop, the same chain as
+    direct single-warp launches with their adds and the F.grid_sample
+    chain."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(seed)
     kf, kb = names
@@ -750,6 +835,8 @@ def run_chains(phase, cases, names, seed, profile):
         out, steps = fwd_cuda(vec, n, save=True)
         out_inf, _ = fwd_cuda(vec, n, save=False)
         dvec = bwd_cuda(steps, g)
+        # the 3-D backward sums its source gradients in a fixed point
+        same = torch.equal(dvec, bwd_cuda(steps, g)) if kb == VB3 else None
         torch.cuda.synchronize()
         ref = vecint(vec, n, impl="torch")
         ref_dvec = vecint_bwd_plain(vec, n, g)
@@ -797,6 +884,8 @@ def run_chains(phase, cases, names, seed, profile):
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "bytes_bound_ms": chain_bytes(B, nd, N, n)
                    / HBM_BYTES_PER_S * 1e3}
+            if k == kb and same is not None:
+                row["bit_reproducible"] = same
             if k == kf:
                 row["ms_inference"] = time_ms(
                     lambda: fwd_cuda(vec, n, save=False))
@@ -812,6 +901,8 @@ def run_chains(phase, cases, names, seed, profile):
                 raise AssertionError(f"{k} disagrees with its plain version "
                                      f"on {name}: {row['max_abs_err']} > "
                                      f"{row['tol']}")
+            if row.get("bit_reproducible") is False:
+                raise AssertionError(f"{k} gave two results on {name}")
             rows[k][name] = row
         del steps, gs_out, v
     return rows
@@ -1102,6 +1193,7 @@ KERNEL3D_CASES = [
     ("odd_shape", (2, 3, 17, 33, 45), "smooth", 2.0, True, False),
     ("violent", (1, 1, 40, 40, 40), "noise", 25.0, True, False),
     ("zero_flow", (1, 2, 32, 48, 64), "smooth", 0.0, True, False),
+    ("collapse", (1, 3, 80, 80, 80), "collapse", 0.95, True, False),
 ]
 # the single warps' cases of the kernels line: B3 and B4 run on the main
 # path as the 160^3 data warp (VecInt's steps run in the chain kernels), B5
@@ -1112,7 +1204,7 @@ MAIN3D_CASE = {FWD3D: "data_warp", DFLOW3D: "data_warp",
 DEVICE3D_CASES = ("vecint_step", "data_warp")
 # ~18 flops a voxel for coordinates and weights; per channel the forward's
 # 8 corners x (3 mul + 1 add), dflow's 8 x (7 mul + 3 add), dsrc's 8 x
-# (3 mul + 1 atomic add); 23 to combine dflow's terms
+# (3 mul + 1 add into its source voxel's sum); 23 to combine dflow's terms
 FLOPS3D = {FWD3D: (18, 32), DFLOW3D: (41, 80), DSRC3D: (18, 32)}
 
 
@@ -1192,11 +1284,51 @@ def device_us(fn, name=None, calls=10, windows=3):
     return None
 
 
+def dsrc3d_checks(flow, g, out, kernel, device):
+    """B5's extra checks and yardsticks: a second call and the plain binned
+    sum bit for bit, the yardsticks' results and times (device us of a whole
+    call, memsets included, beside B5's, when ``device``)."""
+    again = kernel()
+    binned = warp3d_dsrc_binned_plain(flow, g)
+    yards = {e: yard_dsrc3d(e, flow, g) for e in ("phased", "scatter64")}
+    row = {"bit_reproducible": torch.equal(out, again),
+           "binned_max_abs_err": float((out - binned).abs().max()),
+           "yardsticks_equal": all(torch.equal(fn(), out)
+                                   for fn in yards.values())}
+    for e, fn in yards.items():
+        row[f"{e}_ms"] = time_ms(fn, reps=50)
+    if device:
+        row["device_us_per_call"] = device_us(kernel)
+        for e, fn in yards.items():
+            row[f"{e}_device_us_per_call"] = device_us(fn)
+        row["phased_us_by_phase"] = phase_us(yards["phased"])
+    return row
+
+
+def phase_us(call, reps=20):
+    """Device us of each of B5's 4 phases (count, scan, place, gather; the
+    first with its zeroing) as the phased yardstick launches them one by
+    one: CUDA events around each launch, median of ``reps`` calls."""
+    for p in range(4):
+        call(p)
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(5)]
+             for _ in range(reps)]
+    for m in marks:
+        for p in range(4):
+            m[p].record()
+            call(p)
+        m[4].record()
+    torch.cuda.synchronize()
+    return [statistics.median(m[p].elapsed_time(m[p + 1]) for m in marks)
+            * 1e3 for p in range(4)]
+
+
 def phase_kernel3d(seed, profile):
     """Each 3-D kernel against its plain version on the card: forward max-abs
     <= 1e-5 (the zero flow exactly the source), dflow <= 1e-5, dsrc <= 1e-5
-    * max(1, max|dsrc|); timed beside its bound, its plain version and the
-    library call."""
+    * max(1, max|dsrc|), bitwise the same over two calls and as the plain
+    binned sum; timed beside its bound, its plain version, the library call
+    and, for dsrc, the two yardsticks (bit-equal to it too)."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(seed + 7)
     rows = {FWD3D: {}, DFLOW3D: {}, DSRC3D: {}}
@@ -1205,6 +1337,8 @@ def phase_kernel3d(seed, profile):
         N = D * H * W
         if kind == "smooth":
             flow = smooth_field3d((B, 3, D, H, W), scale, gen, dev)
+        elif kind == "collapse":
+            flow = collapse_field((B, 3, D, H, W), scale, dev)
         else:
             flow = torch.randn((B, 3, D, H, W), generator=gen,
                                device=dev) * scale
@@ -1249,6 +1383,9 @@ def phase_kernel3d(seed, profile):
             elif k == DFLOW3D:
                 row["library_max_abs_err"] = float(
                     (lib_dflow - refs[k]).abs().max())
+            else:
+                row.update(dsrc3d_checks(flow, g, outs[k], kernels[k],
+                                         profile or name in DEVICE3D_CASES))
             if profile or name in DEVICE3D_CASES:
                 row["device_us_per_launch"] = device_us(kernels[k], k)
                 row["library_device_us_per_launch"] = device_us(
@@ -1260,6 +1397,12 @@ def phase_kernel3d(seed, profile):
             if not err <= tol:
                 raise AssertionError(f"{k} disagrees with its plain version "
                                      f"on {name}: {err} > {tol}")
+            if k == DSRC3D and not (row["bit_reproducible"]
+                                    and row["binned_max_abs_err"] == 0.0
+                                    and row["yardsticks_equal"]):
+                raise AssertionError(f"{k} on {name}: not bitwise the same "
+                                     f"over two calls, as the binned plain "
+                                     f"sum and as its yardsticks: {row}")
             rows[k][name] = row
         del src, flow, g, outs, refs, library, lib_dflow
         torch.cuda.empty_cache()
@@ -1582,7 +1725,13 @@ def kernel_row(name, replaces, source, launches, main_path, rows, main):
             "max_abs_err": max(x["max_abs_err"] for x in rows.values()),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"]}
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            **({"bit_reproducible": all(x["bit_reproducible"]
+                                        for x in rows.values())}
+               if "bit_reproducible" in r else {}),
+            **({"binned_max_abs_err": max(x["binned_max_abs_err"]
+                                          for x in rows.values())}
+               if "binned_max_abs_err" in r else {})}
 
 
 def main(argv=None):

@@ -37,25 +37,26 @@
 // - Trilinear holds one 32-bit offset (corner 0's, which may be negative
 //   for a clamped coordinate) and an 8-bit validity mask; corner k's offset
 //   is base + (k>>2)*H*W + ((k>>1)&1)*W + (k&1), all int (the wrapper keeps
-//   B * max(C, 3) * D * H * W below 2^31, so int is exact);
+//   B * max(C, 3) * D * H * W and the cells below 2^31, so int is exact);
 // - a thread takes two voxels of one row, x and x + ceil(W/2), decoded
 //   from a 32-bit index, so twice the independent gathers are in flight;
 //   the two are half a row apart, not neighbours, so that each warp
-//   instruction (a flow load, a corner gather, a store, an atomic) still
-//   covers consecutive voxels: with neighbouring pairs (x, x+1) the
-//   atomics of B5 touched twice the lines per instruction and B5 ran at
-//   1.7x its earlier time; an odd row's second voxel past the end has a
-//   zero flow and no corner inside (no loads, no store);
+//   instruction (a flow load, a corner gather, a store) still covers
+//   consecutive voxels (with neighbouring pairs (x, x+1) the float atomics
+//   of the earlier dsrc touched twice the lines per instruction and ran at
+//   1.7x its time); an odd row's second voxel past the end has a zero flow
+//   and no corner inside (no loads, no store);
 // - B4 walks the corners 7..0 in turn, sums each corner's terms over the
 //   channels, and folds them at once into dz, dy, dx (five partial sums in
 //   place of 24 accumulators); at C = 1 (the data warp) the cotangent is
 //   held in a register, at any other C read again for each corner;
 // - loads are templated on their path (Path below).
 // Register caps (__launch_bounds__' minimum blocks a SM) were chosen on the
-// H100 by device time: 4 blocks (<= 64 registers) for B3 and B5, none for
-// the others; tighter caps made ptxas spill, and the kernels ran slower.
-// ptxas (-Xptxas -v): B3 64, B4 45 (C = 1) / 64, B5 63, vecint3d_fwd 64,
-// vecint3d_bwd 80 registers, no spills.
+// H100 by device time: 4 blocks (<= 64 registers) for B3 and vecint3d_bwd,
+// none for the others; tighter caps made ptxas spill, and the kernels ran
+// slower.  ptxas (-Xptxas -v): B3 64, B4 45 (C = 1) / 64, B5 80,
+// vecint3d_fwd 64, vecint3d_bwd 64 registers; vecint3d_bwd spills 84
+// bytes, the others nothing.
 //
 // Exactness.  Every product and sum is an _rn intrinsic, in a fixed order,
 // so nvcc contracts nothing into FMAs; built without --use_fast_math.
@@ -73,18 +74,60 @@
 //     dz = (((Z7 + Z6) + Z5) + Z4) - (((Z3 + Z2) + Z1) + Z0)
 //   so dflow rounds as the plain version does.  A clamped coordinate has all
 //   corners outside, so its dflow is 0, as the unclamped formula gives.
-// - dsrc scatters ((g * fx) * fy) * fz to each corner inside the volume with
-//   float32 atomicAdd into a buffer its entry zeroes (cudaMemsetAsync on
-//   the launch's stream, no separate fill kernel).  It is therefore NOT
-//   bitwise reproducible: the order in which the atomics land changes from
-//   run to run and float addition is not associative, so two runs can differ
-//   in the last bits of a sum of the few terms that hit one voxel.  Held to
-//   1e-5 * max(1, max|dsrc|) of its plain version.
+// - dsrc sums, at each source voxel s, the terms ((g * fx) * fy) * fz of
+//   every target voxel that samples s as one of its corners, each term
+//   formed in that order.  The sum is bitwise reproducible (see THE BINNED
+//   SOURCE GRADIENT below) and within 1e-5 * max(1, max|dsrc|) of autograd
+//   of the plain version, which sums in another order; it is bit-equal to
+//   ops/warp.py's warp3d_dsrc_binned_plain, which forms the same terms and
+//   sums them in the same fixed point.
+//
+// THE BINNED SOURCE GRADIENT (B5 and the chain backward's dsrc).  The TPU
+// kernel is deterministic by construction: it sums each tile's band with a
+// selection matmul in the grid's sequential order.  A scatter with float32
+// atomics (this port's first design) is not: the order in which the adds
+// land changes from run to run, float addition is not associative, and it
+// costs 8 atomics a voxel and channel (12.3 M a step of the chain at
+// (1,3,80^3)).  Here each source voxel gathers its terms instead:
+// 1. count: each target t whose corners are not all outside is counted into
+//    its cell, the (D+1, H+1, W+1) grid point of its corner 0 shifted by
+//    one on each axis (one int atomicAdd; exact, so order-free), and into
+//    its cell's chunk of kChunk cells (one atomicAdd for the lanes of a
+//    warp that share the chunk, into one of kCopies copies of the chunk's
+//    count, which spreads the warps' adds); max|g| is taken with atomicMax
+//    on the float's bits (order-free: the values are non-negative);
+// 2. scan: each chunk's cells are scanned into `beg`, the exclusive prefix
+//    of the counts, the chunk's own prefix summed from the chunk counts;
+// 3. place: each target takes a slot of its cell's list by an atomicSub on
+//    its count (any order; the counts end at 0 for the next use) and writes
+//    its weights and its corner 0's x there, and its cotangents into the
+//    list's channel planes (so the gather reads them in list order, not
+//    scattered);
+// 4. gather: a warp takes 32 source voxels of a row; for each (dz, dy) the
+//    targets that have one of them as corner (dz, dy, dx) are one range of
+//    the list (the cells of row (z - dz, y - dy) from x_lo - 1 to x_lo +
+//    31), which the lanes walk in turn, coalesced and balanced however the
+//    targets crowd; each term, formed for its corner, goes into its voxel's
+//    int64 fixed point in shared memory with a shared atomicAdd: the term
+//    times 2^e, rounded to an integer (__float2ll_rn); the sum times 2^-e
+//    (__ll2float_rn).  Integer addition is associative, so the result is
+//    the same bits whatever order the targets were placed and added in.
+// The scale: with m = max|g| < 2^E (E from m's exponent field) and at most
+// D*H*W <= 2^L terms a voxel, each at most m, e = min(61 - E - L, 100) keeps
+// every sum below 2^61; its resolution is 2^(E + L - 61), about 2^-40 of
+// max|g| at 80^3.  m = 0 gives e = 100 and an exact 0, with no division; a
+// non-finite m (a NaN or inf in g) writes NaN everywhere, so the result is
+// never finite where the plain version's is not.  Every phase ends in a
+// grid.sync() of one cooperative launch; the counts, offsets and list are
+// written and read in that launch, so they are read from L2 (__ldcg).  The
+// scratch (`Bins`) is one int32 buffer the wrapper allocates; the entry
+// zeroes its counted part (cudaMemsetAsync) and writes every dsrc voxel, so
+// dsrc needs no fill.
 //
 // THE SINGLE WARP (B3, B4, B5).  dflow and dsrc are separate launches, as on
 // the TPU: the data warp (source without a gradient) launches dflow alone
-// and never zero-fills a dsrc.  src and flow may alias: the kernels only
-// read them and write fresh buffers.
+// and never bins a dsrc.  src and flow may alias: the kernels only read them
+// and write fresh buffers.
 //
 // THE VECINT CHAIN (vecint3d_fwd, vecint3d_bwd).  Scaling and squaring,
 // v_0 = vec * 2^-n, then for k = 0..n-1
@@ -103,11 +146,17 @@
 // stack of n slots, each a (B, 3, D, H, W) field padded to a multiple of 32
 // floats, which the backward reads, and v_n into the output; it does so for
 // inference too, so that every field is written once and only then read.
-// The backward writes each voxel's own terms
-// (G + dflow) into a fresh buffer, syncs, scatters dsrc into it with
-// atomics, syncs, and swaps (no zero-fill, no separate adds); then scales
-// by 2^-n in place.  Per voxel the arithmetic is B3's, B4's and B5's, so
-// the forward chain is bit-equal to vecint(..., impl="torch").
+// The backward writes each voxel's own terms of step k, G_{k+1} + dflow,
+// into dvec and counts the voxel's cell (phase 1), then scans, places and
+// gathers as B5 does, G_k = (G_{k+1} + dflow) + dsrc.  The gather of step k
+// and phase 1 of step k-1 are one pass over the gather's row segments: the
+// lane that sums a voxel's G_k holds it in its registers for that voxel's
+// own terms of step k-1; G_k goes to one of two ping-pong fields, which the
+// next placement copies into the list, and the last pass writes G_0 * 2^-n
+// into dvec.  Three syncs a
+// step (scan, place, the fused pass).  Per voxel the arithmetic is B3's,
+// B4's and B5's, so the forward chain is bit-equal to vecint(...,
+// impl="torch") and the backward is bitwise reproducible.
 //
 // Coherence.  The L1 caches of the SMs are not coherent with each other;
 // they are invalidated between kernel launches.  The forward reads v_k
@@ -116,8 +165,9 @@
 // stride and a line-aligned stack; the entry checks both), so no sector of
 // it was read before it was written.  The corner gathers then hit L1 as
 // B3's do; reading them from L2 alone (__ldcg) made the chain take twice 7
-// B3 launches.  The backward's G_{k+1} is rewritten every other step and
-// is read at each voxel's own place only, from L2.
+// B3 launches.  The backward's fields (G_{k+1}, read at the targets; its
+// own terms, read back by the thread that wrote them) and the bins are
+// rewritten every step and read from L2.
 // vec and, in the backward, the saved stack (written by an earlier launch)
 // take the read-only path (__ldg).  A grid larger than the co-resident
 // limit makes the launch fail; the entry returns that error and the
@@ -150,6 +200,8 @@ __device__ __forceinline__ float ld(const float* p) {
 // One voxel's corners and weights.
 struct Trilinear {
   int base;          // corner 0's offset in a (D, H, W) plane (may be < 0)
+  int cell;          // corner 0 + (1, 1, 1) in the (D+1, H+1, W+1) cell grid
+                     // (meaningful when mask is not 0)
   unsigned mask;     // bit k: corner k lies inside the volume
   float wz, wy, wx;  // the high corners' weights; the low corners' 1 - w
 };
@@ -194,6 +246,7 @@ __device__ __forceinline__ Trilinear trilinear(int z, int y, int x, float uz,
                1u) << k;
   }
   t.base = (z0 * H + y0) * W + x0;
+  t.cell = ((z0 + 1) * (H + 1) + (y0 + 1)) * (W + 1) + (x0 + 1);
   return t;
 }
 
@@ -326,19 +379,326 @@ __device__ __forceinline__ float3 dflow_at(const float* src, int C, int dhw,
   return make_float3(__fsub_rn(za, zb), ya, dx);
 }
 
-// B5: one voxel's scatter of the cotangent gc into a dsrc plane.
-__device__ __forceinline__ void scatter_at(float* plane, float gc,
-                                           const Trilinear& t, int hw,
-                                           int W) {
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    if (!((t.mask >> k) & 1u)) continue;
-    const float w = __fmul_rn(
-        __fmul_rn(__fmul_rn(gc, weight(t.wx, k & 1)),
-                  weight(t.wy, (k >> 1) & 1)),
-        weight(t.wz, k >> 2));
-    atomicAdd(plane + (t.base + corner(k, hw, W)), w);
+// ------------------------------------------- the binned source gradient
+
+constexpr int kWarps = kThreads / 32;
+constexpr int kScanPer = 8;                       // cells a thread scans
+constexpr int kChunk = kThreads * kScanPer;       // cells a chunk
+// copies of each chunk's count, a warp adding to copy (its index mod
+// kCopies): thousands of warps' adds to one count in L2 serialise
+constexpr int kCopies = 16;
+
+// The scratch of the binned gradient, carved from one int32 buffer (see
+// bins_layout): the part up to `beg` is zeroed by the entry.
+struct Bins {
+  unsigned* gmax;   // a slot a step: the bits of max|g|
+  int* csum;        // a row of nchunks x kCopies chunk counts a step
+  int* cnt;         // nchunks * kChunk cell counts (0 again after placing)
+  int* beg;         // nchunks * kChunk: the exclusive scan of cnt
+  float* list;      // cap entries of es floats: wz, wy, wx, the bits of
+                    // corner 0's x, then the target's C cotangents
+  int es;           // 4 + C rounded up to 4: an entry is whole float4s
+  int cap;          // B * D * H * W, the most targets
+  int nc;           // cells a batch item, (D+1)(H+1)(W+1)
+  int nchunks;      // chunks of all B * nc cells and one past the end
+};
+
+long long round8(long long n) { return (n + 7) / 8 * 8; }
+
+// The buffer's layout for B volumes of (D, H, W), C channels and nsteps
+// steps: fills `bins` when `base` is given; returns the ints the buffer
+// holds, and in `zeroed` those the entry zeroes.  Every part starts on 32
+// bytes.
+long long bins_layout(int* base, int B, int C, int D, int H, int W,
+                      int nsteps, Bins* bins, long long* zeroed) {
+  const long long nc = (long long)(D + 1) * (H + 1) * (W + 1);
+  const long long nchunks = (B * nc + 1 + kChunk - 1) / kChunk;
+  const long long gmax = round8(nsteps);
+  const long long csum = round8(nsteps * nchunks * kCopies);
+  const long long cells = nchunks * kChunk, cap = (long long)B * D * H * W;
+  const int es = 4 + (C + 3) / 4 * 4;
+  *zeroed = gmax + csum + cells;
+  if (base != nullptr) {
+    bins->gmax = reinterpret_cast<unsigned*>(base);
+    bins->csum = base + gmax;
+    bins->cnt = bins->csum + csum;
+    bins->beg = bins->cnt + cells;
+    bins->list = reinterpret_cast<float*>(bins->beg + cells);
+    bins->es = es;
+    bins->cap = (int)cap;
+    bins->nc = (int)nc;
+    bins->nchunks = (int)nchunks;
   }
+  return *zeroed + cells + es * cap;
+}
+
+// The fixed point of a launch's (or a step's) sums, from max|g|'s bits.
+struct Fixed {
+  float scale, inv;   // 2^e and 2^-e
+  bool finite;        // max|g| is finite
+};
+
+__device__ __forceinline__ Fixed fixed_of(unsigned mbits, int dhw) {
+  const int E = max((int)(mbits >> 23), 1) - 126;   // max|g| < 2^E
+  const int L = 32 - __clz(dhw);                    // D*H*W < 2^L
+  const int e = min(61 - E - L, 100);               // in [-98, 100]
+  Fixed f;
+  f.scale = __int_as_float((127 + e) << 23);
+  f.inv = __int_as_float((127 - e) << 23);
+  f.finite = mbits < 0x7f800000u;
+  return f;
+}
+
+__device__ __forceinline__ unsigned abs_bits(float v) {
+  return __float_as_uint(v) & 0x7fffffffu;   // ordered as |v|, NaN on top
+}
+
+// The block's max of m into *slot: one atomicMax a block.  Every thread of
+// the block calls it.
+__device__ __forceinline__ void max_into(unsigned* slot, unsigned m,
+                                         unsigned* sh) {
+  m = __reduce_max_sync(0xffffffffu, m);
+  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kWarps; ++w) m = max(m, sh[w]);
+    atomicMax(slot, m);
+  }
+  __syncthreads();
+}
+
+// The sum of v over the block, in every thread.  Every thread calls it.
+__device__ __forceinline__ int block_sum(int v, int* sh) {
+  v = __reduce_add_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) total += sh[w];
+  __syncthreads();
+  return total;
+}
+
+// The sum of v over the block's threads before this one.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int up = __shfl_up_sync(0xffffffffu, inc, d);
+    if (lane >= d) inc += up;
+  }
+  if (lane == 31) sh[warp] = inc;
+  __syncthreads();
+  int before = 0;
+  for (int w = 0; w < warp; ++w) before += sh[w];
+  __syncthreads();
+  return before + inc - v;
+}
+
+// Phase 1: count target t of batch item b into its cell and its chunk (a
+// warp's lanes that share a chunk add once).  Every lane of the warp that
+// is in the loop calls it.
+__device__ __forceinline__ void count_target(const Bins& bins, int* csum,
+                                             int b, const Trilinear& t) {
+  const bool binned = t.mask != 0;
+  const int bc = b * bins.nc + t.cell;
+  if (binned) atomicAdd(bins.cnt + bc, 1);
+  const int chunk = binned ? bc / kChunk : -1;
+  const unsigned peers = __match_any_sync(__activemask(), chunk);
+  if (binned && (int)(threadIdx.x & 31) == __ffs(peers) - 1) {
+    const int copy = (blockIdx.x * kWarps + (threadIdx.x >> 5)) % kCopies;
+    atomicAdd(csum + chunk * kCopies + copy, __popc(peers));
+  }
+}
+
+// Phase 2: `beg`, the exclusive scan of the counts, chunk by chunk, from
+// the chunk counts `csum`.  Every thread of the block calls it.
+__device__ void scan_cells(const Bins& bins, const int* csum, int* sh) {
+  for (int j = blockIdx.x; j < bins.nchunks; j += gridDim.x) {
+    int part = 0;
+    for (int i = threadIdx.x; i < j * kCopies; i += kThreads) {
+      part += __ldcg(csum + i);
+    }
+    const int prefix = block_sum(part, sh);
+    const int base = j * kChunk + threadIdx.x * kScanPer;
+    const int4 a = __ldcg(reinterpret_cast<const int4*>(bins.cnt + base));
+    const int4 c = __ldcg(reinterpret_cast<const int4*>(bins.cnt + base + 4));
+    const int n[kScanPer] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
+    int ex[kScanPer], run = 0;
+#pragma unroll
+    for (int i = 0; i < kScanPer; ++i) {
+      ex[i] = run;
+      run += n[i];
+    }
+    const int off = prefix + block_exclusive_scan(run, sh);
+    int4* out = reinterpret_cast<int4*>(bins.beg + base);
+    __stcg(out, make_int4(off + ex[0], off + ex[1], off + ex[2], off + ex[3]));
+    __stcg(out + 1,
+           make_int4(off + ex[4], off + ex[5], off + ex[6], off + ex[7]));
+  }
+}
+
+// Phase 3 for pair q (of batch item b; fb its flow, gb its C cotangent
+// planes): each target takes a slot of its cell's list and writes its
+// entry there, whole float4s (one 32-byte sector for C <= 4).
+template <Path kPath>
+__device__ __forceinline__ void place_pair(const Bins& bins, const float* fb,
+                                          const float* gb, int C,
+                                          const Pair& q, int D, int H,
+                                          int W) {
+  const int dhw = D * H * W;
+  float2 u[3];
+  Trilinear t[2];
+  trilinear_pair<Path::kReadOnly>(fb, q, dhw, D, H, W, u, t);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!t[i].mask) continue;
+    const int bc = q.b * bins.nc + t[i].cell;
+    const int pos = __ldcg(bins.beg + bc) + atomicSub(bins.cnt + bc, 1) - 1;
+    const int x0 = t[i].cell % (W + 1) - 1;
+    float4* e = reinterpret_cast<float4*>(bins.list + (long long)pos * bins.es);
+    __stcg(e, make_float4(t[i].wz, t[i].wy, t[i].wx, __int_as_float(x0)));
+    const float* gp = gb + q.p + i * q.half;
+    for (int c = 0; c < C; c += 4) {
+      float v[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        v[a] = c + a < C ? ld<kPath>(gp + (c + a) * dhw) : 0.0f;
+      }
+      __stcg(++e, make_float4(v[0], v[1], v[2], v[3]));
+    }
+  }
+}
+
+// The gather's unit of work, a warp's: 32 voxels x_lo .. x_lo + 31 of row
+// (b, z, y), lane l's voxel x = x_lo + l (inside when x < W).
+struct Row {
+  int b, z, y, x;
+  bool in;
+};
+
+__device__ __forceinline__ Row row_at(int w, int D, int H, int W) {
+  const int nxb = (W + 31) >> 5;
+  Row r;
+  int rest = w / nxb;
+  r.x = (w - rest * nxb) * 32 + (threadIdx.x & 31);
+  r.y = rest % H;
+  rest /= H;
+  r.z = rest % D;
+  r.b = rest / D;
+  r.in = r.x < W;
+  return r;
+}
+
+// A warp's int64 sums in shared memory, kept as two 32-bit halves so that
+// every add is a native 32-bit shared atomic (a 64-bit one is a
+// compare-and-swap loop): lo takes the low half and hands its carry to hi,
+// so (hi, lo) is the exact sum mod 2^64 in any order.
+struct Acc {
+  unsigned lo[3][32];
+  unsigned hi[3][32];
+};
+
+__device__ __forceinline__ void acc_add(Acc& a, int c, int s, long long v) {
+  const unsigned l = (unsigned)v;
+  const unsigned old = atomicAdd(&a.lo[c][s], l);
+  atomicAdd(&a.hi[c][s], (unsigned)(v >> 32) + (old + l < old ? 1u : 0u));
+}
+
+__device__ __forceinline__ long long acc_at(const Acc& a, int c, int s) {
+  return (long long)(((unsigned long long)a.hi[c][s] << 32) | a.lo[c][s]);
+}
+
+// One entry's terms for its corners (dz, dy, 0) and (dz, dy, 1) that are
+// voxels of the warp's segment (x_lo .. x_lo + 31, inside the row), into
+// their sums.
+template <int kC>
+__device__ __forceinline__ void add_terms(Acc& acc, const float4& e,
+                                          const float (&gc)[kC], int dz,
+                                          int dy, int x_lo, int W,
+                                          const Fixed& f) {
+  const float fz = weight(e.x, dz), fy = weight(e.y, dy);
+  const int x0 = __float_as_int(e.w);
+#pragma unroll
+  for (int dx = 0; dx < 2; ++dx) {
+    const int s = x0 + dx - x_lo;
+    if (s < 0 || s >= 32 || x0 + dx >= W) continue;
+    const float fx = weight(e.z, dx);
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      const float term = __fmul_rn(__fmul_rn(__fmul_rn(gc[c], fx), fy), fz);
+      acc_add(acc, c, s, __float2ll_rn(__fmul_rn(term, f.scale)));
+    }
+  }
+}
+
+// Phase 4 for the warp's row segment r, kC channels from channel c0:
+// out[c] = lane's voxel's sum of the terms of every target that has it as a
+// corner, in the fixed point f.  For each (dz, dy) the targets whose corner
+// 0 lies in row (z - dz, y - dy) at x_lo - 1 .. x_lo + 31 are one range of
+// the list; the lanes walk the 4 ranges as one sequence, two entries a lane
+// at a time (coalesced, and balanced however the targets crowd), and add
+// each term to its voxel's sum in shared memory (`acc`, the warp's),
+// order-free.  The whole warp calls it.
+template <int kC>
+__device__ __forceinline__ void gather_row(const Bins& bins, int c0,
+                                           const Row& r, int H, int W,
+                                           const Fixed& f, Acc& acc,
+                                           float (&out)[kC]) {
+  const int lane = threadIdx.x & 31, x_lo = r.x - lane;
+#pragma unroll
+  for (int c = 0; c < kC; ++c) acc.lo[c][lane] = acc.hi[c][lane] = 0;
+  int lo[4], n[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int row = r.b * bins.nc +
+                    ((r.z - (q >> 1) + 1) * (H + 1) + (r.y - (q & 1) + 1)) *
+                        (W + 1);
+    lo[q] = __ldcg(bins.beg + row + x_lo);
+    n[q] = __ldcg(bins.beg + row + min(x_lo + 32, W) + 1);
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) n[q] -= lo[q];
+  const int total = n[0] + n[1] + n[2] + n[3];
+  __syncwarp();
+  // entry j of the sequence: its range q and its place in the list
+  auto at = [&](int j, int& q) {
+    int base = lo[0];
+    q = 0;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {   // constant indices: n, lo stay registers
+      if (q == k && j >= n[k]) {
+        j -= n[k];
+        q = k + 1;
+        base = lo[k + 1];
+      }
+    }
+    return base + j;
+  };
+  auto load = [&](int i, float4& e, float (&gc)[kC]) {
+    const float* ep = bins.list + (long long)i * bins.es;
+    e = __ldcg(reinterpret_cast<const float4*>(ep));
+#pragma unroll
+    for (int c = 0; c < kC; ++c) gc[c] = __ldcg(ep + 4 + c0 + c);
+  };
+  for (int j = lane; j < total; j += 64) {
+    const bool two = j + 32 < total;
+    int q0, q1 = 0;
+    float4 e0, e1;
+    float g0[kC], g1[kC];
+    load(at(j, q0), e0, g0);
+    if (two) load(at(j + 32, q1), e1, g1);
+    add_terms(acc, e0, g0, q0 >> 1, q0 & 1, x_lo, W, f);
+    if (two) add_terms(acc, e1, g1, q1 >> 1, q1 & 1, x_lo, W, f);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < kC; ++c) {
+    out[c] = f.finite ? __fmul_rn(__ll2float_rn(acc_at(acc, c, lane)), f.inv)
+                      : __int_as_float(0x7fffffff);
+  }
+  __syncwarp();
 }
 
 // ------------------------------------------------------- the single warp
@@ -411,24 +771,72 @@ __global__ void __launch_bounds__(kThreads)
   store2<false>(db + 2 * dhw, make_float2(d0.z, d1.z), q);
 }
 
-__global__ void __launch_bounds__(kThreads, 4)
+// Phases first..last of the binned gradient (0 count, 1 scan, 2 place, 3
+// gather), a grid.sync() between two: the entry's cooperative launch runs
+// 0..3 (the phases as 4 plain launches are a yardstick,
+// csrc/yardsticks/dsrc3d.cu).  The gather sums 3 channels at a time while
+// 3 are left, then one.
+__global__ void __launch_bounds__(kThreads)
     warp3d_trilinear_bwd_dsrc(const float* __restrict__ flow,
                               const float* __restrict__ g,
-                              float* __restrict__ dsrc, int npairs, int C,
-                              int D, int H, int W) {
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  if (j >= npairs) return;
-  const Pair q = pair_at(j, D, H, W);
-  const int hw = H * W, dhw = D * hw;
-  float2 u[3];
-  Trilinear t[2];
-  trilinear_pair<Path::kReadOnly>(flow + q.b * 3 * dhw, q, dhw, D, H, W, u,
-                                  t);
-  for (int c = 0; c < C; ++c) {
-    const int plane = (q.b * C + c) * dhw;
-    const float2 gv = load2<Path::kReadOnly>(g + plane + q.p, q);
-    scatter_at(dsrc + plane, gv.x, t[0], hw, W);
-    scatter_at(dsrc + plane, gv.y, t[1], hw, W);  // no corner unless two
+                              float* __restrict__ dsrc, Bins bins, int npairs,
+                              int C, int D, int H, int W, int first,
+                              int last) {
+  __shared__ int sh[kWarps];
+  __shared__ Acc acc[kWarps];
+  const int dhw = D * H * W;
+  const int lead = blockIdx.x * kThreads + threadIdx.x;
+  const int stride = gridDim.x * kThreads;
+  for (int phase = first; phase <= last; ++phase) {
+    if (phase > first) cg::this_grid().sync();
+    if (phase == 0) {
+      unsigned m = 0;
+      for (int j = lead; j < npairs; j += stride) {
+        const Pair q = pair_at(j, D, H, W);
+        float2 u[3];
+        Trilinear t[2];
+        trilinear_pair<Path::kReadOnly>(flow + q.b * 3 * dhw, q, dhw, D, H,
+                                        W, u, t);
+        count_target(bins, bins.csum, q.b, t[0]);
+        count_target(bins, bins.csum, q.b, t[1]);
+        for (int c = 0; c < C; ++c) {
+          const float2 gv =
+              load2<Path::kReadOnly>(g + (q.b * C + c) * dhw + q.p, q);
+          m = max(m, max(abs_bits(gv.x), abs_bits(gv.y)));
+        }
+      }
+      max_into(bins.gmax, m, reinterpret_cast<unsigned*>(sh));
+    } else if (phase == 1) {
+      scan_cells(bins, bins.csum, sh);
+    } else if (phase == 2) {
+      for (int j = lead; j < npairs; j += stride) {
+        const Pair q = pair_at(j, D, H, W);
+        place_pair<Path::kReadOnly>(bins, flow + q.b * 3 * dhw,
+                                    g + q.b * C * dhw, C, q, D, H, W);
+      }
+    } else {
+      const Fixed f = fixed_of(__ldcg(bins.gmax), dhw);
+      const int ntasks = npairs / ((W + 1) >> 1) * ((W + 31) >> 5);
+      Acc& wacc = acc[threadIdx.x >> 5];
+      for (int w = lead >> 5; w < ntasks; w += stride >> 5) {
+        const Row r = row_at(w, D, H, W);
+        float* out = dsrc + r.b * C * dhw + (r.z * H + r.y) * W + r.x;
+        int c = 0;
+        for (; c + 3 <= C; c += 3) {
+          float v[3];
+          gather_row<3>(bins, c, r, H, W, f, wacc, v);
+          if (r.in) {
+#pragma unroll
+            for (int a = 0; a < 3; ++a) out[(c + a) * dhw] = v[a];
+          }
+        }
+        for (; c < C; ++c) {
+          float v[1];
+          gather_row<1>(bins, c, r, H, W, f, wacc, v);
+          if (r.in) out[c * dhw] = v[0];
+        }
+      }
+    }
   }
 }
 
@@ -474,70 +882,119 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// G_{k+1} is `gin`; G_k is built in `acc`: the last step's acc is dvec, and
-// dvec and the single buffer `scratch` alternate before it.
-__global__ void __launch_bounds__(kThreads)
-    vecint3d_bwd(const float* __restrict__ steps, long long slot,
-                 const float* __restrict__ g, float* scratch, float* dvec,
-                 int npairs, int B, int D, int H, int W, int nsteps,
-                 float scale) {
-  cg::grid_group grid = cg::this_grid();
+// Phase 1 of a step at lane's voxel of row r (offset p in its plane): the
+// own terms G + dflow (G its cotangents; v the step's field) into `own`,
+// the voxel counted into its cell (csum the step's chunk counts), and m the
+// running max of |G|'s bits.  The whole warp calls it.
+__device__ __forceinline__ void own_terms(const float* v, const Row& r,
+                                          int p, const float (&G)[3],
+                                          float* own, const Bins& bins,
+                                          int* csum, unsigned& m, int D,
+                                          int H, int W) {
   const int hw = H * W, dhw = D * hw;
+  const float* vb = v + r.b * 3 * dhw;
+  Trilinear t;
+  t.mask = 0;
+  t.cell = 0;
+  if (r.in) {
+    t = trilinear(r.z, r.y, r.x, __ldg(vb + p), __ldg(vb + dhw + p),
+                  __ldg(vb + 2 * dhw + p), D, H, W);
+    const float3 d = dflow_at(vb, 3, dhw, hw, W, t,
+                              [&](int c) { return G[c]; });
+    float* ob = own + r.b * 3 * dhw + p;
+    __stcg(ob, __fadd_rn(G[0], d.x));
+    __stcg(ob + dhw, __fadd_rn(G[1], d.y));
+    __stcg(ob + 2 * dhw, __fadd_rn(G[2], d.z));
+  }
+  count_target(bins, csum, r.b, t);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) m = max(m, abs_bits(G[a]));
+}
+
+// G_n is g.  Step k's own terms are in dvec; its G_{k+1} is g or one of the
+// two ping-pong fields of `scratch` (nval floats apart), G_k goes to the
+// other; the last pass writes G_0 * scale into dvec.  Phases 1 and 4 run
+// over the gather's row segments, a warp each; 3 over voxel pairs.  Capped
+// at 64 registers (4 blocks a SM), chosen on the H100 by device time: with
+// 108 registers and 2 blocks a SM too few warps hide the gathers' latency.
+__global__ void __launch_bounds__(kThreads, 4)
+    vecint3d_bwd(const float* __restrict__ steps, long long slot,
+                 const float* __restrict__ g, float* scratch, Bins bins,
+                 float* dvec, int npairs, int B, int D, int H, int W,
+                 int nsteps, float scale) {
+  __shared__ int sh[kWarps];
+  __shared__ Acc acc[kWarps];
+  cg::grid_group grid = cg::this_grid();
+  const int dhw = D * H * W;
   const long long nval = 3LL * B * dhw;
   const int first = blockIdx.x * kThreads + threadIdx.x;
   const int stride = gridDim.x * kThreads;
+  const int ntasks = npairs / ((W + 1) >> 1) * ((W + 31) >> 5);
+  unsigned* shm = reinterpret_cast<unsigned*>(sh);
+  Acc& wacc = acc[threadIdx.x >> 5];
 
-  const float* gin = g;
+  if (nsteps == 0) {
+    for (long long j = first; j < nval; j += stride) dvec[j] = g[j];
+    return;
+  }
+  // phase 1 of step n-1
+  unsigned m = 0;
+  for (int w = first >> 5; w < ntasks; w += stride >> 5) {
+    const Row r = row_at(w, D, H, W);
+    const int p = (r.z * H + r.y) * W + r.x;
+    float G[3] = {0.0f, 0.0f, 0.0f};
+    if (r.in) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) G[a] = __ldcg(g + (r.b * 3 + a) * dhw + p);
+    }
+    own_terms(steps + (nsteps - 1) * slot, r, p, G, dvec, bins,
+              bins.csum + (nsteps - 1) * bins.nchunks * kCopies, m, D, H,
+              W);
+  }
+  max_into(bins.gmax + nsteps - 1, m, shm);
   for (int k = nsteps - 1; k >= 0; --k) {
     const float* v = steps + k * slot;
-    float* acc = (k & 1) ? scratch : dvec;
-    // each voxel's own terms: acc = G + dflow
+    const float* gin = k + 1 == nsteps ? g : scratch + ((k + 1) & 1) * nval;
+    float* gout = k > 0 ? scratch + (k & 1) * nval : nullptr;
+    grid.sync();
+    scan_cells(bins, bins.csum + k * bins.nchunks * kCopies, sh);
+    grid.sync();
     for (int j = first; j < npairs; j += stride) {
       const Pair q = pair_at(j, D, H, W);
-      const float* vb = v + q.b * 3 * dhw;
-      float2 u[3], gv[3];
-      Trilinear t[2];
-      trilinear_pair<Path::kReadOnly>(vb, q, dhw, D, H, W, u, t);
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        gv[a] = load2<Path::kL2>(gin + (q.b * 3 + a) * dhw + q.p, q);
-      }
-      const float g0[3] = {gv[0].x, gv[1].x, gv[2].x};
-      const float g1[3] = {gv[0].y, gv[1].y, gv[2].y};
-      const float3 d0 = dflow_at(vb, 3, dhw, hw, W, t[0],
-                                 [&](int c) { return g0[c]; });
-      const float3 d1 = dflow_at(vb, 3, dhw, hw, W, t[1],
-                                 [&](int c) { return g1[c]; });
-      float* ab = acc + q.b * 3 * dhw + q.p;
-      store2<true>(ab, make_float2(__fadd_rn(g0[0], d0.x),
-                                   __fadd_rn(g1[0], d1.x)), q);
-      store2<true>(ab + dhw, make_float2(__fadd_rn(g0[1], d0.y),
-                                         __fadd_rn(g1[1], d1.y)), q);
-      store2<true>(ab + 2 * dhw, make_float2(__fadd_rn(g0[2], d0.z),
-                                             __fadd_rn(g1[2], d1.z)), q);
+      place_pair<Path::kL2>(bins, v + q.b * 3 * dhw, gin + q.b * 3 * dhw, 3,
+                            q, D, H, W);
     }
     grid.sync();
-    // then every voxel's dsrc scattered into the others
-    for (int j = first; j < npairs; j += stride) {
-      const Pair q = pair_at(j, D, H, W);
-      float2 u[3];
-      Trilinear t[2];
-      trilinear_pair<Path::kReadOnly>(v + q.b * 3 * dhw, q, dhw, D, H, W, u,
-                                      t);
-      float* ab = acc + q.b * 3 * dhw;
+    // the gather of step k, then phase 1 of step k-1 (or the result)
+    const Fixed f = fixed_of(__ldcg(bins.gmax + k), dhw);
+    m = 0;
+    for (int w = first >> 5; w < ntasks; w += stride >> 5) {
+      const Row r = row_at(w, D, H, W);
+      const int p = (r.z * H + r.y) * W + r.x;
+      float ds[3], G[3] = {0.0f, 0.0f, 0.0f};
+      gather_row<3>(bins, 0, r, H, W, f, wacc, ds);
+      float* ob = dvec + r.b * 3 * dhw + p;
+      if (r.in) {
 #pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const float2 gv = load2<Path::kL2>(gin + (q.b * 3 + a) * dhw + q.p,
-                                           q);
-        scatter_at(ab + a * dhw, gv.x, t[0], hw, W);
-        scatter_at(ab + a * dhw, gv.y, t[1], hw, W);
+        for (int a = 0; a < 3; ++a) G[a] = __fadd_rn(__ldcg(ob + a * dhw), ds[a]);
       }
+      if (k == 0) {
+        if (r.in) {
+#pragma unroll
+          for (int a = 0; a < 3; ++a) ob[a * dhw] = __fmul_rn(G[a], scale);
+        }
+        continue;
+      }
+      if (r.in) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          __stcg(gout + (r.b * 3 + a) * dhw + p, G[a]);
+        }
+      }
+      own_terms(steps + (k - 1) * slot, r, p, G, dvec, bins,
+                bins.csum + (k - 1) * bins.nchunks * kCopies, m, D, H, W);
     }
-    grid.sync();
-    gin = acc;
-  }
-  for (long long j = first; j < nval; j += stride) {
-    __stcg(dvec + j, __fmul_rn(__ldcg(gin + j), scale));
+    if (k > 0) max_into(bins.gmax + k - 1, m, shm);
   }
 }
 
@@ -554,9 +1011,22 @@ bool on_line(const void* p) {
   return reinterpret_cast<std::uintptr_t>(p) % 128 == 0;
 }
 
-// co-resident blocks of each chain kernel, per device
+// The bins in `base` (on a 16-byte boundary, else cudaErrorInvalidValue),
+// their counted part zeroed on `s`.
+cudaError_t bins_of(int* base, int B, int C, int D, int H, int W,
+                    int nsteps, cudaStream_t s, Bins* bins) {
+  if (reinterpret_cast<std::uintptr_t>(base) % 16 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  long long zeroed = 0;
+  bins_layout(base, B, C, D, H, W, nsteps, bins, &zeroed);
+  return cudaMemsetAsync(base, 0, sizeof(int) * zeroed, s);
+}
+
+// co-resident blocks of each cooperative kernel, per device
 int fwd_resident[kMaxDevices];
 int bwd_resident[kMaxDevices];
+int dsrc_resident[kMaxDevices];
 
 }  // namespace
 
@@ -594,22 +1064,36 @@ extern "C" int dfmir_warp3d_bwd_dflow(const float* src, const float* flow,
   return (int)cudaGetLastError();
 }
 
+// The int32s of the `bins` buffer that dfmir_warp3d_bwd_dsrc (nsteps 1)
+// and dfmir_vecint3d_bwd (C 3) take for B volumes of (D, H, W).
+extern "C" long long dfmir_bins3d_ints(int B, int C, int D, int H, int W,
+                                       int nsteps) {
+  long long zeroed = 0;
+  return bins_layout(nullptr, B, C, D, H, W, nsteps, nullptr, &zeroed);
+}
+
 // The source gradient of dfmir_warp3d_fwd for the output cotangent g
-// (B,C,D,H,W): writes dsrc (B,C,D,H,W), zeroed here on `stream` before the
-// scatter.  Needs no source values.  float32, contiguous, on the device of
-// `stream`; dsrc must not alias flow or g.  Returns the first cudaError_t.
+// (B,C,D,H,W): writes every voxel of dsrc (B,C,D,H,W), bitwise the same on
+// every run.  Needs no source values.  `bins` holds dfmir_bins3d_ints(B, C,
+// D, H, W, 1) int32s on a 16-byte boundary.  One cooperative launch of
+// `blocks` blocks, or, when 0, up to the co-resident limit.  float32,
+// contiguous, on the device of `stream`; dsrc and bins alias nothing.
+// Returns the first cudaError_t.
 extern "C" int dfmir_warp3d_bwd_dsrc(const float* flow, const float* g,
-                                     float* dsrc, int B, int C, int D, int H,
-                                     int W, void* stream) {
+                                     float* dsrc, int* bins, int B, int C,
+                                     int D, int H, int W, int blocks,
+                                     void* stream) {
   const long long n = pairs_of(B, D, H, W);
   if (n == 0 || C == 0) return (int)cudaSuccess;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t err = cudaMemsetAsync(
-      dsrc, 0, sizeof(float) * B * C * D * H * W, s);
+  Bins b;
+  const cudaError_t err =
+      bins_of(bins, B, C, D, H, W, 1, (cudaStream_t)stream, &b);
   if (err != cudaSuccess) return (int)err;
-  warp3d_trilinear_bwd_dsrc<<<blocks_for(n), kThreads, 0, s>>>(
-      flow, g, dsrc, (int)n, C, D, H, W);
-  return (int)cudaGetLastError();
+  int npairs = (int)n, first = 0, last = 3;
+  void* args[] = {&flow, &g, &dsrc, &b, &npairs, &C,
+                  &D,    &H, &W,    &first, &last};
+  return (int)launch_chain((const void*)warp3d_trilinear_bwd_dsrc,
+                           dsrc_resident, n, blocks, args, stream);
 }
 
 // VecInt forward: vec (B,3,D,H,W) -> out (B,3,D,H,W), nsteps squarings.
@@ -639,20 +1123,27 @@ extern "C" int dfmir_vecint3d_fwd(const float* vec, float* steps,
 
 // VecInt backward: steps the forward's saved v_0..v_{n-1}, field k at k *
 // slot floats; g (B,3,D,H,W) the cotangent of v_n; writes dvec
-// (B,3,D,H,W).  `scratch` is one (B,3,D,H,W) buffer (unused when nsteps <
-// 2).  `blocks` as in the forward.  float32, contiguous, on the device of
-// `stream`; dvec and scratch alias nothing.  Returns the launch's
+// (B,3,D,H,W), bitwise the same on every run.  `scratch` is two
+// (B,3,D,H,W) fields, one after the other (unused when nsteps < 2); `bins`
+// holds dfmir_bins3d_ints(B, 3, D, H, W, nsteps) int32s on a 16-byte
+// boundary.
+// `blocks` as in the forward.  float32, contiguous, on the device of
+// `stream`; dvec, scratch and bins alias nothing.  Returns the first
 // cudaError_t.
 extern "C" int dfmir_vecint3d_bwd(const float* steps, long long slot,
-                                  const float* g, float* scratch, float* dvec,
-                                  int B, int D, int H, int W, int nsteps,
-                                  int blocks, void* stream) {
+                                  const float* g, float* scratch, int* bins,
+                                  float* dvec, int B, int D, int H, int W,
+                                  int nsteps, int blocks, void* stream) {
   const long long n = pairs_of(B, D, H, W);
   if (n == 0) return (int)cudaSuccess;
+  Bins b;
+  const cudaError_t err =
+      bins_of(bins, B, 3, D, H, W, nsteps, (cudaStream_t)stream, &b);
+  if (err != cudaSuccess) return (int)err;
   int npairs = (int)n;
   float scale = ldexpf(1.0f, -nsteps);
-  void* args[] = {&steps, &slot, &g, &scratch, &dvec, &npairs,
-                  &B,     &D,    &H, &W,       &nsteps, &scale};
+  void* args[] = {&steps, &slot, &g,      &scratch, &b, &dvec, &npairs,
+                  &B,     &D,    &H,      &W,       &nsteps, &scale};
   return (int)launch_chain((const void*)vecint3d_bwd, bwd_resident, n,
                            blocks, args, stream);
 }

@@ -38,15 +38,19 @@ SIGNATURES = {
     # (vec, steps, slot, out, B, D, H, W, nsteps, blocks, stream)
     "dfmir_vecint3d_fwd": (_I, [_P, _P, _L, _P, _I, _I, _I, _I, _I, _I,
                                 _P]),
-    # (steps, slot, g, scratch, dvec, B, D, H, W, nsteps, blocks, stream)
-    "dfmir_vecint3d_bwd": (_I, [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                _P]),
+    # (steps, slot, g, scratch, bins, dvec, B, D, H, W, nsteps, blocks,
+    #  stream)
+    "dfmir_vecint3d_bwd": (_I, [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _P]),
     # (src, flow, out, B, C, D, H, W, stream) -> cudaError_t
     "dfmir_warp3d_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     # (src, flow, g, dflow, B, C, D, H, W, stream) -> cudaError_t
     "dfmir_warp3d_bwd_dflow": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    # (flow, g, dsrc, B, C, D, H, W, stream) -> cudaError_t
-    "dfmir_warp3d_bwd_dsrc": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # (flow, g, dsrc, bins, B, C, D, H, W, blocks, stream) -> cudaError_t
+    "dfmir_warp3d_bwd_dsrc": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _P]),
+    # (B, C, D, H, W, nsteps) -> the int32s of the bins buffer
+    "dfmir_bins3d_ints": (_L, [_I, _I, _I, _I, _I, _I]),
 }
 
 _lib = None

@@ -163,3 +163,55 @@ def warp_bwd_plain(src, flow, g, need_dsrc: bool = True,
         grads = iter(torch.autograd.grad(out, wrt, g))
     return (next(grads) if need_dsrc else None,
             next(grads) if need_dflow else None)
+
+
+def _fixed_point_exponent(m: torch.Tensor, dhw: int) -> int:
+    """The exponent e of the binned source gradient's fixed point for
+    max|g| = m (a float32 scalar, finite) over D*H*W = dhw voxels, as
+    ``csrc/warp3d.cu::fixed_of`` takes it: m < 2^E from m's exponent field,
+    dhw < 2^L, e = min(61 - E - L, 100), so no sum of at most dhw terms of
+    at most m reaches 2^61."""
+    bits = int(m.reshape(1).view(torch.int32)[0])
+    return min(61 - (max(bits >> 23, 1) - 126) - dhw.bit_length(), 100)
+
+
+def warp3d_dsrc_binned_plain(flow, g):
+    """B5's source gradient as the kernel sums it, in plain PyTorch: the
+    dsrc of ``warp(src, flow, impl="torch")`` for the cotangent ``g`` (B, C,
+    D, H, W), float32.  Each target's term for corner k is formed as the
+    kernel forms it, ((g * fx) * fy) * fz, on coordinates clamped to
+    [-2, S+1], scaled by 2^e, rounded to an int64 and summed exactly with
+    ``index_add_``; the sum times 2^-e.  Integer sums are order-free, so
+    the kernel equals this bit for bit.  A non-finite g gives NaN
+    everywhere (the kernel's rule); a zero g exactly 0."""
+    B, C, D, H, W = g.shape
+    dhw = D * H * W
+    m = g.abs().max()
+    if not bool(torch.isfinite(m)):
+        return torch.full_like(g, float("nan"))
+    e = _fixed_point_exponent(m.float(), dhw)
+    spatial = (D, H, W)
+    grid = identity_grid(spatial, dtype=flow.dtype, device=flow.device)
+    coords = (grid[None] + flow).reshape(B, 3, dhw)
+    lo, w = [], []
+    for i, size in enumerate(spatial):
+        c = coords[:, i].clamp(-2.0, size + 1.0)
+        f = torch.floor(c)
+        lo.append(f.long())
+        w.append((c - f)[:, None])                      # (B, 1, N)
+    gf = g.reshape(B, C, dhw)
+    base = torch.arange(B * C, device=g.device).reshape(B, C, 1) * dhw
+    total = torch.zeros(B * C * dhw, dtype=torch.int64, device=g.device)
+    for k in range(8):
+        d = (k >> 2, (k >> 1) & 1, k & 1)
+        idx = [lo[i] + d[i] for i in range(3)]
+        valid = ((idx[0] >= 0) & (idx[0] < D) & (idx[1] >= 0) & (idx[1] < H)
+                 & (idx[2] >= 0) & (idx[2] < W))
+        fz, fy, fx = (w[i] if d[i] else 1.0 - w[i] for i in range(3))
+        term = ((gf * fx) * fy) * fz
+        q = torch.round(term * 2.0 ** e).long()
+        lin = (idx[0] * H + idx[1]) * W + idx[2]
+        at = (base + lin[:, None]).expand(B, C, dhw)
+        sel = valid[:, None].expand(B, C, dhw)
+        total.index_add_(0, at[sel], q[sel])
+    return (total.to(torch.float32) * 2.0 ** -e).reshape(g.shape)

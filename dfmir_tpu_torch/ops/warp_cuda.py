@@ -14,12 +14,13 @@ Each launcher replaces a Pallas kernel of ``dfmir_tpu/ops/warp_pallas.py``:
 - ``warp3d_bwd_dflow_cuda``: ``_bwd_kernel3d_dflow`` /
   ``warp3d_banded_bwd_dflow``;
 - ``warp3d_bwd_dsrc_cuda``: ``_bwd_kernel3d_dsrc`` /
-  ``warp3d_banded_bwd_dsrc``;
+  ``warp3d_banded_bwd_dsrc``: a binned gather summed in an int64 fixed
+  point, bitwise reproducible, in one cooperative launch;
 - ``vecint3d_fwd_cuda``: ``_kernel3d`` as JAX's ``vecint`` calls it at 3-D,
   the whole chain in one cooperative launch;
 - ``vecint3d_bwd_cuda``: ``_bwd_kernel3d_dflow`` and ``_bwd_kernel3d_dsrc``
   as ``jax.vjp`` of ``vecint`` calls them: the whole gradient in one
-  cooperative launch.
+  cooperative launch, its source gradients binned as B5's.
 
 The designs are in the notes of the sources; ``ops/_build.py`` builds them.
 Their plain versions are ``ops/warp.py``'s ``warp(..., impl="torch")`` and
@@ -40,6 +41,7 @@ that its path went through the kernels.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -219,6 +221,24 @@ def vecint2d_bwd_cuda(steps: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dvec
 
 
+@functools.lru_cache(maxsize=64)
+def _bins_ints(B, C, D, H, W, nsteps):
+    return int(_build.load().dfmir_bins3d_ints(B, C, D, H, W, nsteps))
+
+
+def _bins3d(g: torch.Tensor, nsteps: int) -> torch.Tensor:
+    """The int32 scratch of the binned 3-D source gradient for the (B, C,
+    D, H, W) cotangent ``g`` over ``nsteps`` steps (``csrc/warp3d.cu``,
+    "THE BINNED SOURCE GRADIENT"): cell counts, their scan and the targets'
+    list with their cotangents, 18 MB at (1, 3, 80, 80, 80)."""
+    B, C, D, H, W = g.shape
+    if B * (D + 1) * (H + 1) * (W + 1) + 4096 >= _INT_LIMIT:
+        raise ValueError(f"{tuple(g.shape)} has too many cells for int "
+                         f"sizes")
+    return torch.empty(_bins_ints(B, C, D, H, W, nsteps), dtype=torch.int32,
+                       device=g.device)
+
+
 def stack3d(vec: torch.Tensor, nsteps: int) -> torch.Tensor:
     """An empty (nsteps, *vec.shape) stack for the 3-D chain whose fields
     each start on a 128-byte line: a view of rows of a multiple of 32
@@ -246,17 +266,19 @@ def vecint3d_fwd_cuda(vec: torch.Tensor, nsteps: int, save: bool):
 def vecint3d_bwd_cuda(steps: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """``vecint2d_bwd_cuda`` for a 3-D field: ``steps`` (nsteps, B, 3, D,
     H, W), each field contiguous (the rows of ``stack3d`` or one contiguous
-    stack), ``g`` (B, 3, D, H, W); one launch, not bitwise reproducible (its
-    source gradients are summed with float32 atomics)."""
+    stack), ``g`` (B, 3, D, H, W); one launch, bitwise the same on every run
+    (its source gradients are binned and summed in a fixed point, as
+    ``warp3d_bwd_dsrc_cuda``'s)."""
     device = _device(g, g, "vecint3d_bwd_cuda", 3)
     _check_steps(steps, g, device)
     nsteps = steps.shape[0]
     dvec = torch.empty_like(g)
-    scratch = torch.empty_like(g) if nsteps > 1 else None
+    scratch = g.new_empty((2, *g.shape)) if nsteps > 1 else None
+    bins = _bins3d(g, nsteps)
     _launch(VECINT3D_BWD, "dfmir_vecint3d_bwd", device, steps.data_ptr(),
             steps.stride(0), g.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), dvec.data_ptr(),
-            g.shape[0], *g.shape[2:], nsteps, 0)
+            None if scratch is None else scratch.data_ptr(), bins.data_ptr(),
+            dvec.data_ptr(), g.shape[0], *g.shape[2:], nsteps, 0)
     return dvec
 
 
@@ -287,12 +309,16 @@ def warp3d_bwd_dflow_cuda(src: torch.Tensor, flow: torch.Tensor,
 def warp3d_bwd_dsrc_cuda(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Launch the 3-D source-gradient kernel for the cotangent ``g`` (B, C,
     D, H, W) of a warp by ``flow``; returns dsrc (B, C, D, H, W).  It needs
-    no source values.  dsrc is zeroed by the launch's entry and summed with
-    float32 atomics, so it is not bitwise reproducible from run to run."""
+    no source values.  Each source voxel gathers the terms of the targets
+    that sample it, binned by cell and summed in an int64 fixed point, so
+    dsrc is bitwise the same on every run and equal to
+    ``ops.warp.warp3d_dsrc_binned_plain(flow, g)``; one cooperative
+    launch."""
     device = _device(g, flow, "warp3d_bwd_dsrc_cuda", 3)
     dsrc = torch.empty_like(g)
+    bins = _bins3d(g, 1)
     _launch(DSRC3D, "dfmir_warp3d_bwd_dsrc", device, flow.data_ptr(),
-            g.data_ptr(), dsrc.data_ptr(), *g.shape)
+            g.data_ptr(), dsrc.data_ptr(), bins.data_ptr(), *g.shape, 0)
     return dsrc
 
 
@@ -357,7 +383,7 @@ class Warp3dFunction(torch.autograd.Function):
     """The three 3-D single-warp kernels behind autograd.  ``backward``
     launches the dflow kernel when ``flow`` needs a gradient and the dsrc
     kernel when ``src`` does, so the data warp (a source without a
-    gradient) never scatters or zeroes a dsrc.  When ``src`` is ``flow`` (a
+    gradient) never bins a dsrc.  When ``src`` is ``flow`` (a
     self-warp), both launch and autograd adds the two gradients."""
 
     @staticmethod

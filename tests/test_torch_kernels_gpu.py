@@ -6,8 +6,10 @@ Skips without a CUDA card.  On a machine with one (and no JAX), run:
 Tolerances: the forward 1e-5 max-abs (it rounds as the plain version
 does) and the chain forward 0.0 (bit-equal); the backward's dflow 1e-5 and
 dsrc 1e-5 * max(1, max|dsrc|), the chain backward 1e-5 * max(1, max|dvec|)
-(source gradients are summed with atomics in an order that changes from
-run to run); a whole
+(the 2-D source gradients are summed with atomics in an order that changes
+from run to run; the 3-D ones in a fixed point, in another order than
+autograd's, and bitwise the same on every run and as
+``warp3d_dsrc_binned_plain``); a whole
 step card vs CPU 1e-3 relative on the metrics and 1e-2 * the network's max
 |g| on the gradients, the JAX suite's cross-program bar (cuDNN's
 convolutions and the atomics sum in another order than the CPU, and on
@@ -23,7 +25,8 @@ from dfmir_tpu_torch.engine.registration import RegistrationModel
 from dfmir_tpu_torch.engine.vxm_engine import VxmConfig, VxmEngine
 from dfmir_tpu_torch.ops import warp_cuda
 from dfmir_tpu_torch.ops.integrate import vecint, vecint_bwd_plain
-from dfmir_tpu_torch.ops.warp import warp, warp_bwd_plain
+from dfmir_tpu_torch.ops.warp import (identity_grid, warp, warp_bwd_plain,
+                                      warp3d_dsrc_binned_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -320,12 +323,31 @@ CASES3D = [
     ((2, 3, 17, 33, 45), 2.0, 0.0),      # odd shape
     ((1, 1, 32, 32, 32), 25.0, 0.0),     # violent: most voxels outside
     ((1, 2, 20, 24, 28), 2.0, 0.0),      # a channel count the kernels
-]                                        # do not specialise
+                                         # do not specialise
+    ((1, 3, 40, 40, 40), "collapse", 0.0),   # thousands of targets a cell
+]
+
+
+def collapse_field(shape, device, scale=0.95):
+    """(B, 3, D, H, W) flow scale * (centre - p): every voxel samples near
+    the centre, so thousands of targets share a few cells."""
+    B, _, *spatial = shape
+    grid = identity_grid(spatial, device=device)
+    centre = torch.tensor([(n - 1) / 2 for n in spatial],
+                          device=device).reshape(3, 1, 1, 1)
+    return (scale * (centre - grid))[None].expand(B, -1, -1, -1, -1) \
+        .contiguous()
 
 
 @pytest.mark.parametrize("shape,scale,shift", CASES3D)
 def test_warp3d_kernels_match_plain(cuda, shape, scale, shift):
-    src, flow, g = inputs(cuda, shape, scale, shift)
+    """Each 3-D kernel against its plain version; dsrc also bitwise the same
+    over two calls and as the plain binned sum."""
+    if scale == "collapse":
+        src, _, g = inputs(cuda, shape, 0.0, 0.0)
+        flow = collapse_field((shape[0], 3, *shape[2:]), cuda)
+    else:
+        src, flow, g = inputs(cuda, shape, scale, shift)
     before = dict(warp_cuda.LAUNCHES)
     out = warp(src, flow, mode="trilinear")       # auto -> the kernel
     dflow = warp_cuda.warp3d_bwd_dflow_cuda(src, flow, g)
@@ -339,6 +361,30 @@ def test_warp3d_kernels_match_plain(cuda, shape, scale, shift):
     assert max_err(dflow, ref_dflow) <= 1e-5
     assert max_err(dsrc, ref_dsrc) <= 1e-5 * max(1.0, float(
         ref_dsrc.abs().max()))
+    assert torch.equal(dsrc, warp_cuda.warp3d_bwd_dsrc_cuda(flow, g))
+    assert torch.equal(dsrc, warp3d_dsrc_binned_plain(flow, g))
+
+
+def test_warp3d_dsrc_zero_and_nonfinite_cotangents(cuda):
+    """A zero cotangent gives exactly 0; a NaN or inf in it gives a dsrc and
+    a chain gradient that are not finite where the plain versions are
+    not."""
+    src, flow, g = inputs(cuda, (1, 3, 20, 24, 28), 2.0, 0.0)
+    assert torch.equal(warp_cuda.warp3d_bwd_dsrc_cuda(flow, g * 0),
+                       torch.zeros_like(g))
+    _, steps = warp_cuda.vecint3d_fwd_cuda(flow, 7, save=True)
+    assert torch.equal(warp_cuda.vecint3d_bwd_cuda(steps, g * 0),
+                       torch.zeros_like(g))
+    for bad in (float("nan"), float("inf")):
+        g2 = g.clone()
+        g2[0, 1, 10, 12, 14] = bad
+        ref, _ = warp_bwd_plain(src, flow, g2, need_dflow=False)
+        dsrc = warp_cuda.warp3d_bwd_dsrc_cuda(flow, g2)
+        assert not torch.isfinite(ref).all()
+        assert not torch.isfinite(dsrc[~torch.isfinite(ref)]).any()
+        dvec = vecint_bwd_plain(flow, 7, g2)
+        got = warp_cuda.vecint3d_bwd_cuda(steps, g2)
+        assert not torch.isfinite(got[~torch.isfinite(dvec)]).any()
 
 
 def unaligned(t):
@@ -408,11 +454,14 @@ CHAIN3D_CASES = [
     ((2, 3, 80, 80, 80), "posneg", 10.0),   # a bidirectional pos/neg stack
     ((2, 3, 17, 33, 45), "smooth", 5.0),    # odd shape
     ((1, 3, 40, 40, 40), "noise", 25.0),    # violent: x25 N(0, 1)
+    ((1, 3, 40, 40, 40), "collapse", 4.0),  # contracts to the centre
 ]
 
 
 def chain3d_field(cuda, shape, kind, scale):
     gen = torch.Generator(device=cuda).manual_seed(7)
+    if kind == "collapse":
+        return collapse_field(shape, cuda, scale)
     if kind == "noise":
         return torch.randn(shape, generator=gen, device=cuda) * scale
     if kind == "posneg":
@@ -424,8 +473,9 @@ def chain3d_field(cuda, shape, kind, scale):
 @pytest.mark.parametrize("shape,kind,scale", CHAIN3D_CASES)
 def test_vecint3d_chain_matches_plain(cuda, shape, kind, scale):
     """The 3-D chain forward is bit-equal to the plain loop; its backward is
-    within 1e-5 * max(1, max|dvec|) of autograd of the loop; one launch
-    each way, the steps saved only for a gradient."""
+    within 1e-5 * max(1, max|dvec|) of autograd of the loop and bitwise
+    the same over two calls; one launch each way, the steps saved only for
+    a gradient."""
     vec = chain3d_field(cuda, shape, kind, scale)
     g = torch.randn(shape, device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(8))
@@ -447,6 +497,9 @@ def test_vecint3d_chain_matches_plain(cuda, shape, kind, scale):
 
     steps_out, steps = warp_cuda.vecint3d_fwd_cuda(vec, 7, save=True)
     assert steps.shape == (7, *shape) and torch.equal(steps_out, ref)
+    again = warp_cuda.vecint3d_bwd_cuda(steps, g)
+    assert torch.equal(again, warp_cuda.vecint3d_bwd_cuda(steps, g))
+    assert torch.equal(again, v.grad)
     assert torch.equal(steps[0], vec * (1.0 / 128))
     out_ns, none = warp_cuda.vecint3d_fwd_cuda(vec, 7, save=False)
     assert none is None and torch.equal(out_ns, ref)
@@ -477,13 +530,15 @@ def test_vecint3d_chain_takes_unaligned_tensors(cuda):
 
 
 def test_vecint3d_chain_refused_launch_raises(cuda):
-    """A cooperative grid larger than the card holds at once is refused:
+    """A cooperative grid larger than the card holds at once (the chains',
+    B5's) is refused:
     the launcher raises, counts nothing and leaves no error behind."""
     shape = (1, 3, 16, 16, 16)
     vec = chain3d_field(cuda, shape, "smooth", 5.0)
     steps = warp_cuda.stack3d(vec, 7)
     slot = steps.stride(0)
-    out, scratch = torch.empty_like(vec), torch.empty_like(vec)
+    out, scratch = torch.empty_like(vec), vec.new_empty((2, *shape))
+    bins = warp_cuda._bins3d(vec, 7)
     too_many = 10 ** 6                            # blocks, > the card holds
     warp_cuda.reset_launches()
     with pytest.raises(RuntimeError, match="launch failed"):
@@ -493,8 +548,13 @@ def test_vecint3d_chain_refused_launch_raises(cuda):
     with pytest.raises(RuntimeError, match="launch failed"):
         warp_cuda._launch(VB3, "dfmir_vecint3d_bwd", vec.get_device(),
                           steps.data_ptr(), slot, vec.data_ptr(),
-                          scratch.data_ptr(), out.data_ptr(), 1, 16, 16, 16,
-                          7, too_many)
+                          scratch.data_ptr(), bins.data_ptr(), out.data_ptr(),
+                          1, 16, 16, 16, 7, too_many)
+    with pytest.raises(RuntimeError, match="launch failed"):  # B5 too
+        warp_cuda._launch(DSRC3D, "dfmir_warp3d_bwd_dsrc", vec.get_device(),
+                          vec.data_ptr(), vec.data_ptr(), out.data_ptr(),
+                          warp_cuda._bins3d(vec, 1).data_ptr(), *shape,
+                          too_many)
     assert warp_cuda.LAUNCHES == ZERO
     out = vecint(vec, 7)
     assert torch.equal(out, vecint(vec, 7, impl="torch"))
