@@ -18,8 +18,12 @@ Phases, each printing one JSON line:
               launcher at (1,3,80,80,80) beside the library calls; VecInt's
               2-D chain kernels (vecint2d_fwd bit-equal to the plain loop,
               vecint2d_bwd within 1e-5 * max(1, max|dvec|) of autograd of
-              it) beside two chains built here: 7 direct B1 / B2 launches
-              with their adds, and the chain written with F.grid_sample
+              it, bitwise the same over two calls and equal to
+              vecint2d_bwd_fixed_plain, at clusters of 8 and 16 blocks)
+              beside two chains built here: 7 direct B1 / B2 launches
+              with their adds, and the chain written with F.grid_sample;
+              at the main cases each chain at nsteps 1..7 (a step's cost,
+              the fixed cost)
   4. register the paper's model at full width (RegistrationConfig
               defaults: crop 256, ngf 64, resnet_9blocks, VxmDense
               (16,32,32,64,64,64)/(64,64,64,32,32,32,16), 7 integration
@@ -54,12 +58,16 @@ Phases, each printing one JSON line:
               csrc/yardsticks/dsrc3d.cu (its phases as 4 plain launches; an
               int64 atomic scatter of the same terms), with device us a
               launch at the VecInt and 160^3 cases; then VecInt's 3-D
-              chain kernels (phase kernel_chain3d: (1,3,80^3), a (2,3,80^3)
-              pos/neg stack, an odd shape, a x25 N(0,1) field, a collapse,
-              0-2 steps; vecint3d_fwd bit-equal to the plain loop,
-              vecint3d_bwd within 1e-5 * max(1, max|dvec|) and two calls
-              bitwise the same) beside 7 direct B3 / B4 + B5 launches with
-              their adds and the F.grid_sample chain
+              chain kernels (phase kernel_chain3d: (1,3,80^3) at +-10 and
+              +-2 voxels (mild), a (2,3,80^3) pos/neg stack, first steps
+              moving exactly 1, 2 and 3 voxels (the halo staged and past
+              it), an odd shape, a x25 N(0,1) field, a collapse, 0-2
+              steps; vecint3d_fwd bit-equal to the plain loop saving its
+              steps and not, each step's bricks by halo and share of
+              corners read from L2; vecint3d_bwd within 1e-5 * max(1,
+              max|dvec|) and two calls bitwise the same) beside 7 direct
+              B3 / B4 + B5 launches with their adds and the F.grid_sample
+              chain
   7. vxm3d    the 3-D VoxelMorph engine at VxmConfig() defaults (160^3,
               enc (16,32,32,32), dec (32,32,32,32,32,16,16), 7 integration
               steps at half resolution, NCC 9^3), random weights from --seed
@@ -79,6 +87,13 @@ Phases, each printing one JSON line:
 Each phase's wall seconds follow it.  Then the kernels line (all nine
 kernels, their launches by path: register, train, register3d, train3d),
 and last {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --steps
+
+runs the device and build phases and phase chain_steps alone: the two
+chains redesigned last (vecint3d_fwd, vecint2d_bwd) at nsteps 1..7 at
+their main cases, and one grid.sync() and one cluster barrier alone
+(csrc/yardsticks/sync.cu); it prints no result line.
 
 Exits non-zero, printing no result, without a CUDA card.  Every failure
 propagates.
@@ -103,7 +118,7 @@ from dfmir_tpu_torch import infer
 from dfmir_tpu_torch.engine.config import RegistrationConfig
 from dfmir_tpu_torch.engine.registration import RegistrationModel
 from dfmir_tpu_torch.engine.vxm_engine import VxmConfig, VxmEngine
-from dfmir_tpu_torch.ops import _build, warp_cuda
+from dfmir_tpu_torch.ops import _build, integrate, warp_cuda
 from dfmir_tpu_torch.ops.integrate import vecint, vecint_bwd_plain
 from dfmir_tpu_torch.ops.warp import (_kernel_takes, identity_grid, warp,
                                       warp3d_dsrc_binned_plain,
@@ -184,42 +199,53 @@ def phase_device():
 
 
 # ------------------------------------------------------------ phase 2
-YARD_SRC = _build.CSRC_DIR / "yardsticks" / "dsrc3d.cu"
+YARD_DIR = _build.CSRC_DIR / "yardsticks"
+_P, _I = ctypes.c_void_p, ctypes.c_int
 YARD_SIGNATURES = {
-    # (flow, g, dsrc, bins, B, C, D, H, W, phase, stream) -> cudaError_t
-    "dfmir_yard_dsrc3d_phased": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-    + [ctypes.c_void_p],
-    # (flow, g, dsrc, acc, B, C, D, H, W, stream) -> cudaError_t
-    "dfmir_yard_dsrc3d_scatter64": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-    + [ctypes.c_void_p],
+    "dsrc3d.cu": {
+        # (flow, g, dsrc, bins, B, C, D, H, W, phase, stream) -> cudaError_t
+        "dfmir_yard_dsrc3d_phased": [_P] * 4 + [_I] * 6 + [_P],
+        # (flow, g, dsrc, acc, B, C, D, H, W, stream) -> cudaError_t
+        "dfmir_yard_dsrc3d_scatter64": [_P] * 4 + [_I] * 5 + [_P]},
+    "sync.cu": {
+        # (blocks, nsyncs, stream) -> cudaError_t
+        "dfmir_yard_grid_sync": [_I, _I, _P],
+        # (clusters, size, nsyncs, stream) -> cudaError_t
+        "dfmir_yard_cluster_sync": [_I, _I, _I, _P]},
 }
 _yard = {}
 
 
 def phase_build():
     """nvcc builds the port's library (ops/_build.py) and, at once, the
-    yardsticks' library of phase kernel3d."""
+    yardsticks' libraries (csrc/yardsticks/, one each)."""
     lib = _build.library_path()
     existed = lib.exists()
     t0 = time.perf_counter()
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    yard = _build.BUILD_DIR / f"libdfmir_yardsticks.{os.getpid()}.so"
-    proc = subprocess.Popen(
-        [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(yard), str(YARD_SRC)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    procs = {}
+    for name in YARD_SIGNATURES:
+        out = _build.BUILD_DIR / f"libdfmir_yard_{name[:-3]}.{os.getpid()}.so"
+        procs[name] = (out, subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+             str(YARD_DIR / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     _build.load()
-    output = proc.communicate()[0]
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {YARD_SRC}:\n{output}")
-    _yard["lib"] = ctypes.CDLL(str(yard))
-    for name, argtypes in YARD_SIGNATURES.items():
-        fn = getattr(_yard["lib"], name)
-        fn.restype, fn.argtypes = ctypes.c_int, argtypes
+    for name, (out, proc) in procs.items():
+        output = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {YARD_DIR / name}:\n{output}")
+        lib_y = ctypes.CDLL(str(out))
+        for entry, argtypes in YARD_SIGNATURES[name].items():
+            fn = getattr(lib_y, entry)
+            fn.restype, fn.argtypes = ctypes.c_int, argtypes
+            _yard[entry] = fn
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": not existed, "library": lib.name,
           "sources": [str(p.relative_to(_build.PKG_DIR.parent))
                       for p in _build.sources()],
-          "yardsticks": str(YARD_SRC.relative_to(_build.PKG_DIR.parent))})
+          "yardsticks": [str((YARD_DIR / n).relative_to(
+              _build.PKG_DIR.parent)) for n in YARD_SIGNATURES]})
 
 
 def yard_dsrc3d(entry, flow, g):
@@ -234,7 +260,7 @@ def yard_dsrc3d(entry, flow, g):
     else:
         scratch = torch.empty(g.numel() + 1, dtype=torch.int64,
                               device=g.device)
-    fn = getattr(_yard["lib"], f"dfmir_yard_dsrc3d_{entry}")
+    fn = _yard[f"dfmir_yard_dsrc3d_{entry}"]
     d = g.get_device()
 
     def call(phase=-1):
@@ -626,6 +652,8 @@ def host_path3d(seed):
     out, dflow, dsrc = (torch.empty_like(v) for _ in range(3))
     scratch = v.new_empty((2, *shape))
     bins1, bins = warp_cuda._bins3d(v, 1), warp_cuda._bins3d(v, NSTEPS)
+    nbricks = warp_cuda._bricks3d(shape)
+    maxes = torch.empty(nbricks, dtype=torch.int32, device=dev)
     lib = _build.load()
     d = v.get_device()
     stream = torch._C._cuda_getCurrentRawStream(d)
@@ -638,8 +666,8 @@ def host_path3d(seed):
                                   dsrc.data_ptr(), bins1.data_ptr(), *shape,
                                   0),
         "dfmir_vecint3d_fwd": (v.data_ptr(), steps.data_ptr(),
-                               steps.stride(0), out.data_ptr(), B, D, H, W,
-                               NSTEPS, 0),
+                               steps.stride(0), out.data_ptr(),
+                               maxes.data_ptr(), B, D, H, W, NSTEPS, 1, 0),
         "dfmir_vecint3d_bwd": (steps.data_ptr(), steps.stride(0),
                                g.data_ptr(), scratch.data_ptr(),
                                bins.data_ptr(), dsrc.data_ptr(), B, D, H, W,
@@ -675,7 +703,9 @@ def host_path3d(seed):
         VF3: (parts("dfmir_vecint3d_fwd",
                     lambda: warp_cuda._device(v, v, "vecint3d_fwd_cuda", 3),
                     alloc_out=empty,
-                    alloc_steps=lambda: warp_cuda.stack3d(v, NSTEPS)),
+                    alloc_steps=lambda: warp_cuda.stack3d(v, NSTEPS),
+                    alloc_maxes=lambda: torch.empty(
+                        nbricks, dtype=torch.int32, device=dev)),
               lambda: warp_cuda.vecint3d_fwd_cuda(v, NSTEPS, save=True)),
         VB3: (parts("dfmir_vecint3d_bwd",
                     lambda: warp_cuda._device(g, g, "vecint3d_bwd_cuda", 3),
@@ -715,14 +745,22 @@ CHAIN_CASES = [
     ("register", (1, 2, 128, 128), "smooth", 10.0, NSTEPS),  # register's
     ("train", (2, 2, 128, 128), "smooth", 10.0, NSTEPS),     # a step's pos/neg
     ("train_b8", (16, 2, 128, 128), "smooth", 10.0, NSTEPS),
+    # the backward's state and sums in global memory (no block of 16 holds
+    # its pixels' G in registers or their sums in shared memory)
+    ("large", (1, 2, 192, 192), "smooth", 10.0, NSTEPS),
     ("odd_shape", (3, 2, 67, 45), "smooth", 5.0, NSTEPS),
     ("violent", (1, 2, 128, 128), "noise", 25.0, NSTEPS),    # x25 N(0, 1)
 ]
 MAIN_CHAIN_CASE = "train"
 CHAIN3D_CASES = [
-    # name, (B, 3, D, H, W), field kind, velocity scale (voxels), steps
+    # name, (B, 3, D, H, W), field kind, velocity scale (voxels; for
+    # "edge", max|v_0| exactly), steps
     ("register", (1, 3, 80, 80, 80), "smooth", 10.0, NSTEPS),  # a 3-D register
-    ("bidir", (2, 3, 80, 80, 80), "posneg", 10.0, NSTEPS),     # call or step
+    ("mild", (1, 3, 80, 80, 80), "smooth", 2.0, NSTEPS),       # call or step
+    ("bidir", (2, 3, 80, 80, 80), "posneg", 10.0, NSTEPS),
+    ("halo_at_1", (1, 3, 40, 40, 40), "edge", 1.0, 2),   # displacements at
+    ("halo_at_2", (1, 3, 40, 40, 40), "edge", 2.0, 2),   # the halo staged
+    ("halo_past_2", (1, 3, 40, 40, 40), "edge", 3.0, 2),  # and past it
     ("odd_shape", (2, 3, 17, 33, 45), "smooth", 5.0, NSTEPS),
     ("violent", (1, 3, 40, 40, 40), "noise", 25.0, NSTEPS),    # x25 N(0, 1)
     ("collapse", (1, 3, 80, 80, 80), "collapse", 4.0, NSTEPS),  # crowded
@@ -797,12 +835,17 @@ def collapse_field(shape, scale, device):
                                                   -1).contiguous()
 
 
-def chain_field(shape, kind, scale, gen, dev):
+def chain_field(shape, kind, scale, gen, dev, nsteps=NSTEPS):
     """A velocity field: smooth, a smooth half and its negation stacked on
     the batch (posneg, as the bidirectional model integrates them), N(0, 1)
-    noise, about +-scale, or a collapse (scale * (centre - p))."""
+    noise, about +-scale, a collapse (scale * (centre - p)), or a smooth
+    field whose first step moves a voxel by exactly scale at most (edge:
+    max|vec * 2^-nsteps| is scale)."""
     if kind == "collapse":
         return collapse_field(shape, scale, dev)
+    if kind == "edge":
+        v = chain_field(shape, "smooth", 1.0, gen, dev)
+        return v / v.abs().max() * (scale * 2 ** nsteps)
     if kind == "noise":
         return torch.randn(shape, generator=gen, device=dev) * scale
     smooth = smooth_field if len(shape) == 4 else smooth_field3d
@@ -812,13 +855,200 @@ def chain_field(shape, kind, scale, gen, dev):
     return smooth(shape, scale, gen, dev)
 
 
+def steps_fit(call_of_n, name):
+    """The kernel ``name``'s device us a launch at nsteps = 1..NSTEPS
+    (``call_of_n(n)`` returns the call) and the least-squares line through
+    them: its slope, the cost of one step, and its intercept, the fixed
+    cost of a launch."""
+    us = {n: device_us(call_of_n(n), name) for n in range(1, NSTEPS + 1)}
+    pts = [(n, t) for n, t in us.items() if t is not None]
+    if len(pts) < 2:
+        return {"us_by_nsteps": us, "per_step_us": None, "fixed_us": None}
+    mn = statistics.fmean(n for n, _ in pts)
+    mt = statistics.fmean(t for _, t in pts)
+    slope = (sum((n - mn) * (t - mt) for n, t in pts)
+             / sum((n - mn) ** 2 for n, _ in pts))
+    return {"us_by_nsteps": us, "per_step_us": slope,
+            "fixed_us": mt - slope * mn}
+
+
+def chain_steps_fit(kernel, vec, g):
+    """``steps_fit`` of a chain kernel on vec (its cotangent g): the
+    forward saving its steps and not, or the backward of the forward's
+    saved steps."""
+    if kernel in (VF, VF3):
+        fwd = (warp_cuda.vecint2d_fwd_cuda if kernel == VF
+               else warp_cuda.vecint3d_fwd_cuda)
+        return {"save": steps_fit(lambda n: lambda: fwd(vec, n, save=True),
+                                  kernel),
+                "inference": steps_fit(
+                    lambda n: lambda: fwd(vec, n, save=False), kernel)}
+    fwd, bwd = ((warp_cuda.vecint2d_fwd_cuda, warp_cuda.vecint2d_bwd_cuda)
+                if kernel == VB else
+                (warp_cuda.vecint3d_fwd_cuda, warp_cuda.vecint3d_bwd_cuda))
+
+    def call_of_n(n):
+        steps = fwd(vec, n, save=True)[1]
+        return lambda: bwd(steps, g)
+
+    return {"save": steps_fit(call_of_n, kernel)}
+
+
+def yard_sync_call(entry, *args):
+    d = torch.cuda.current_device()
+    fn = _yard[entry]
+
+    def call():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(d))
+        if err:
+            raise RuntimeError(f"yardstick {entry}{args}: cudaError {err}")
+
+    return call
+
+
+def barrier_us(entry, *args, n=1000):
+    """One barrier's device us from the csrc/yardsticks/sync.cu launch that
+    does nothing but barriers: the launch with ``n`` of them less the one
+    with none (CUDA events, median of 20), over ``n``."""
+    with_n = time_ms(yard_sync_call(entry, *args, n), reps=20, warmup=3)
+    none = time_ms(yard_sync_call(entry, *args, 0), reps=20, warmup=3)
+    return (with_n - none) * 1e3 / n
+
+
+STEP_CASES = [
+    # kernel, case, (B, nd, *spatial), field kind, velocity scale
+    (VF3, "register", (1, 3, 80, 80, 80), "smooth", 10.0),
+    (VF3, "mild", (1, 3, 80, 80, 80), "smooth", 2.0),
+    (VB, "train", (2, 2, 128, 128), "smooth", 10.0),
+    (VB, "train_b8", (16, 2, 128, 128), "smooth", 10.0),
+]
+
+
+def phase_chain_steps(seed):
+    """Where the two redesigned chains' time goes: each at nsteps = 1..7
+    (``chain_steps_fit``) at STEP_CASES, and one barrier alone: a
+    grid.sync() over 1, 2, 4 and 5 blocks of 256 threads a SM, and a
+    cluster barrier over clusters of 8 and 16 blocks."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    rows = {}
+    for kernel, name, shape, kind, scale in STEP_CASES:
+        vec = chain_field(shape, kind, scale, gen, dev)
+        g = torch.randn(shape, generator=gen, device=dev)
+        rows[kernel, name] = chain_steps_fit(kernel, vec, g)
+        emit({"phase": "chain_steps", "kernel": kernel, "case": name,
+              "shape": list(shape), "vec_px": scale, **rows[kernel, name]})
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = {f"{k}_per_sm": barrier_us("dfmir_yard_grid_sync", k * sms)
+            for k in (1, 2, 4, 5)}
+    cluster = {f"{c}x{s}": barrier_us("dfmir_yard_cluster_sync", c, s)
+               for c, s in ((2, 8), (16, 8), (2, 16), (16, 16))}
+    emit({"phase": "chain_steps", "grid_sync_us": grid,
+          "cluster_sync_us": cluster, "sms": sms})
+    return rows
+
+
+def halo_report(steps, dims):
+    """The 3-D forward chain's halos and the corners it reads from L2, from
+    the fields v_0..v_{n-1} it stepped (``steps``) and its brick geometry
+    ``dims`` (brick z, y, x, most halo, x pad; warp_cuda.brick3d): each
+    brick's halo a step is min(ceil(max|v_k| over its voxels), the most),
+    its box that halo around the brick in z and y and the x pad in x; a
+    corner inside the volume but outside its voxel's box is read from L2.
+    Returns each step's bricks at each halo and share of corners from
+    L2."""
+    *brick, most, pad = dims
+    bricks_by_halo, shares = [], []
+    inside = outside = 0
+    for v in steps:
+        spatial = v.shape[2:]
+        nb = [-(-n // b) for n, b in zip(spatial, brick)]
+        mag = v.abs().amax(dim=1, keepdim=True)
+        mag = F.pad(mag, [0, nb[2] * brick[2] - spatial[2],
+                          0, nb[1] * brick[1] - spatial[1],
+                          0, nb[0] * brick[0] - spatial[0]])
+        m = F.max_pool3d(mag, brick, brick)[:, 0]         # (B, *nb)
+        h = torch.where(m.isfinite(), m.ceil().clamp(max=most),
+                        torch.full_like(m, most))
+        bricks_by_halo.append([int((h == k).sum()) for k in range(most + 1)])
+        for a, b in enumerate(brick):
+            h = h.repeat_interleave(b, dim=a + 1)
+        h = h[:, :spatial[0], :spatial[1], :spatial[2]]   # (B, D, H, W)
+        grid = identity_grid(spatial, device=v.device)
+        z0 = [(grid[a] + v[:, a]).clamp(-2.0, n + 1.0).floor()
+              for a, n in enumerate(spatial)]
+        lo = [(grid[a] // b) * b - h for a, b in enumerate(brick[:2])]
+        lo.append((grid[2] // brick[2]) * brick[2] - pad + 0 * h)
+        size = [brick[0] + 2 * h + 1, brick[1] + 2 * h + 1,
+                brick[2] + 2 * pad + 0 * h]
+        n_in = n_out = 0
+        for k in range(8):
+            d = (k >> 2, (k >> 1) & 1, k & 1)
+            vol = box = True
+            for a in range(3):
+                c = z0[a] + d[a]
+                vol = vol & (c >= 0) & (c < spatial[a])
+                box = box & (c >= lo[a]) & (c - lo[a] < size[a])
+            n_in += int(vol.sum())
+            n_out += int((vol & ~box).sum())
+        shares.append(n_out / max(n_in, 1))
+        inside += n_in
+        outside += n_out
+    return {"bricks_by_halo_by_step": bricks_by_halo,
+            "l2_corner_share_by_step": shares,
+            "l2_corner_share": outside / max(inside, 1)}
+
+
+def launch_vecint2d_bwd(steps, g, cluster):
+    """vecint2d_bwd_cuda with clusters of ``cluster`` blocks (the wrapper
+    takes the kernel's own size); the launch is counted as the wrapper's."""
+    dvec = torch.empty_like(g)
+    sums = torch.empty(g.shape, dtype=torch.int64, device=g.device)
+    warp_cuda._launch(VB, "dfmir_vecint2d_bwd", g.get_device(),
+                      steps.data_ptr(), g.data_ptr(), sums.data_ptr(),
+                      dvec.data_ptr(), g.shape[0], *g.shape[2:],
+                      steps.shape[0], cluster)
+    return dvec
+
+
+def vecint2d_bwd_clusters(size=0):
+    """(blocks a cluster, clusters the card holds at once) of vecint2d_bwd
+    at ``size`` blocks a cluster, 0 for the kernel's own."""
+    size, active = ctypes.c_int(size), ctypes.c_int(0)
+    err = _build.load().dfmir_vecint2d_bwd_clusters(ctypes.byref(size),
+                                                    ctypes.byref(active))
+    if err:
+        raise RuntimeError(f"cluster occupancy query: cudaError {err}")
+    return size.value, active.value
+
+
+def cluster_report(steps, g, dvec):
+    """vecint2d_bwd at clusters of 8 and 16 blocks: each bit-equal to the
+    wrapper's ``dvec``, its ms, device us and the clusters the card holds
+    at once."""
+    rows = {}
+    for size in (8, 16):
+        rows[size] = {"active_clusters": vecint2d_bwd_clusters(size)[1]}
+        call = lambda: launch_vecint2d_bwd(steps, g, size)  # noqa: E731
+        rows[size].update(equal=torch.equal(call(), dvec), ms=time_ms(call),
+                          device_us=device_us(call, VB))
+        if not rows[size]["equal"]:
+            raise AssertionError(f"{VB} with clusters of {size} blocks "
+                                 f"disagrees with the wrapper's result")
+    return rows
+
+
 def run_chains(phase, cases, names, seed, profile):
     """Each case through the chain kernels ``names`` (forward, backward)
-    against the plain loop (forward bit-equal, backward within 1e-5 *
-    max(1, max|dvec|); the 3-D backward also bitwise the same over two
-    calls), timed beside their bound, the plain loop, the same chain as
-    direct single-warp launches with their adds and the F.grid_sample
-    chain."""
+    against the plain loop (forward bit-equal, saving its steps and not;
+    backward within 1e-5 * max(1, max|dvec|) and bitwise the same over two
+    calls; the 2-D backward bit-equal to vecint2d_bwd_fixed_plain), timed
+    beside their bound, the plain loop, the same chain as direct
+    single-warp launches with their adds and the F.grid_sample chain.  At
+    the main cases (and the 3-D "mild"): device us, each kernel's cost a
+    step and fixed cost (nsteps 1..7), the 3-D forward's halo a step and
+    share of corners read from L2, the 2-D backward at clusters of 8 and
+    16 blocks."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(seed)
     kf, kb = names
@@ -830,13 +1060,15 @@ def run_chains(phase, cases, names, seed, profile):
     for name, shape, kind, scale, n in cases:
         B, nd, *spatial = shape
         N = math.prod(spatial)
-        vec = chain_field(shape, kind, scale, gen, dev)
+        vec = chain_field(shape, kind, scale, gen, dev, n)
         g = torch.randn(shape, generator=gen, device=dev)
         out, steps = fwd_cuda(vec, n, save=True)
         out_inf, _ = fwd_cuda(vec, n, save=False)
         dvec = bwd_cuda(steps, g)
-        # the 3-D backward sums its source gradients in a fixed point
-        same = torch.equal(dvec, bwd_cuda(steps, g)) if kb == VB3 else None
+        # both backwards sum their source gradients in a fixed point
+        same = torch.equal(dvec, bwd_cuda(steps, g))
+        fixed_err = (float((dvec - integrate.vecint2d_bwd_fixed_plain(
+            steps, g)).abs().max()) if kb == VB else None)
         torch.cuda.synchronize()
         ref = vecint(vec, n, impl="torch")
         ref_dvec = vecint_bwd_plain(vec, n, g)
@@ -867,6 +1099,8 @@ def run_chains(phase, cases, names, seed, profile):
             kb: float((launch_chain_bwd(steps, g) - ref_dvec).abs().max())}
         gs_err = {kf: float((gs_out - ref).abs().max()),
                   kb: float((gs_bwd()[0] - ref_dvec).abs().max())}
+        main = (name == MAIN_CHAIN_CASE if nd == 2
+                else name in (MAIN_CHAIN3D_CASE, "mild"))
         for k in (kf, kb):
             c = calls[k]
             bound_ms, bound_by = chain_bound(k == kf, B, nd, N, n)
@@ -884,18 +1118,36 @@ def run_chains(phase, cases, names, seed, profile):
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "bytes_bound_ms": chain_bytes(B, nd, N, n)
                    / HBM_BYTES_PER_S * 1e3}
-            if k == kb and same is not None:
+            if k == kb:
                 row["bit_reproducible"] = same
+                if fixed_err is not None:
+                    row["fixed_max_abs_err"] = fixed_err
             if k == kf:
                 row["ms_inference"] = time_ms(
                     lambda: fwd_cuda(vec, n, save=False))
+                row["inference_bound_ms"], row["inference_bound_by"] = bound(
+                    chain_bytes(B, nd, N, 0),
+                    n * CHAIN_FLOPS[nd, True] * B * N)
                 row["field_max_px"] = float(ref.abs().max())
                 row["moved_px"] = moved
-            if profile or (nd == 3 and name == MAIN_CHAIN3D_CASE):
+                if nd == 3:
+                    row.update(halo_report(steps, warp_cuda.brick3d()))
+            if profile or main:
                 row["device_us_per_launch"] = device_us(c["kernel"], k)
+                if k == kf:
+                    row["device_us_inference"] = device_us(
+                        lambda: fwd_cuda(vec, n, save=False), k)
                 row["launch_chain_device_us"] = device_us(c["launches"])
                 row["grid_sample_chain_device_us"] = device_us(
                     c["grid_sample"])
+            if main and n == NSTEPS:
+                fit = chain_steps_fit(k, vec, g)
+                row["per_step_us"] = fit["save"]["per_step_us"]
+                row["fixed_us"] = fit["save"]["fixed_us"]
+                row["steps_fit"] = fit
+            if main and k == VB:
+                row["blocks_per_cluster"] = vecint2d_bwd_clusters()[0]
+                row["clusters"] = cluster_report(steps, g, dvec)
             emit({"phase": phase, "kernel": k, **row})
             if not row["max_abs_err"] <= row["tol"]:
                 raise AssertionError(f"{k} disagrees with its plain version "
@@ -903,6 +1155,10 @@ def run_chains(phase, cases, names, seed, profile):
                                      f"{row['tol']}")
             if row.get("bit_reproducible") is False:
                 raise AssertionError(f"{k} gave two results on {name}")
+            if row.get("fixed_max_abs_err", 0.0) != 0.0:
+                raise AssertionError(f"{k} differs from its fixed-point "
+                                     f"model on {name}: "
+                                     f"{row['fixed_max_abs_err']}")
             rows[k][name] = row
         del steps, gs_out, v
     return rows
@@ -1731,7 +1987,14 @@ def kernel_row(name, replaces, source, launches, main_path, rows, main):
                if "bit_reproducible" in r else {}),
             **({"binned_max_abs_err": max(x["binned_max_abs_err"]
                                           for x in rows.values())}
-               if "binned_max_abs_err" in r else {})}
+               if "binned_max_abs_err" in r else {}),
+            **({"fixed_max_abs_err": max(x["fixed_max_abs_err"]
+                                         for x in rows.values())}
+               if "fixed_max_abs_err" in r else {}),
+            **{key: r[key] for key in ("per_step_us", "fixed_us",
+                                       "device_us_per_launch", "ms_inference",
+                                       "inference_bound_ms")
+               if key in r}}
 
 
 def main(argv=None):
@@ -1740,6 +2003,9 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="also trace register calls and train steps with "
                          "torch.profiler")
+    ap.add_argument("--steps", action="store_true",
+                    help="only build and phase chain_steps (the chains at "
+                         "nsteps 1..7, one barrier alone); no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -1757,6 +2023,9 @@ def main(argv=None):
 
     smi = run("device", phase_device)
     run("build", phase_build)
+    if args.steps:
+        run("chain_steps", phase_chain_steps, args.seed)
+        return 0
     fwd_rows = run("kernel", phase_kernel, args.seed, args.profile)
     bwd_rows = run("kernel_bwd", phase_kernel_bwd, args.seed, args.profile)
     run("host_path", phase_host_path, args.seed)

@@ -1,11 +1,14 @@
 // What the kernels of csrc/warp2d.cu and csrc/warp3d.cu share: the block
-// size, and VecInt's chains' cooperative launch, with a grid no larger than
-// the blocks the card holds at once.
+// size, VecInt's chains' cooperative launch, with a grid no larger than
+// the blocks the card holds at once, and the launch of thread-block
+// clusters.
 //
 // The co-resident limit is occupancy x SMs, computed on the first launch of
 // each kernel on each device and cached by the caller.  A grid above it
 // makes cudaLaunchCooperativeKernel fail; launch_chain returns that error
-// (and clears it) and never runs the chain another way.
+// (and clears it) and never runs the chain another way.  A cluster size
+// the card refuses (above 16 blocks) makes launch_clusters fail the same
+// way.
 
 #pragma once
 
@@ -60,6 +63,63 @@ cudaError_t launch_chain(const void* kernel, int* cache, long long units,
     return err;
   }
   return cudaGetLastError();
+}
+
+// Launch `kernel` as `clusters` thread-block clusters of `size` blocks of
+// `threads` threads, one after another along x (cudaLaunchKernelEx with a
+// cluster dimension); more than 8 blocks a cluster (the portable size) are
+// allowed first.  A refused launch returns its error (and clears it).
+inline cudaError_t launch_clusters(const void* kernel, int threads,
+                                   int clusters, int size, void** args,
+                                   void* stream) {
+  if (size < 1) return cudaErrorInvalidValue;
+  if (size > 8) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return err;
+    }
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = size;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(clusters * size);
+  config.blockDim = dim3(threads);
+  config.stream = (cudaStream_t)stream;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelExC(&config, kernel, args);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  return cudaGetLastError();
+}
+
+// The clusters of `size` blocks of `threads` threads of `kernel` that the
+// card holds at once (cudaOccupancyMaxActiveClusters), in *active.
+inline cudaError_t active_clusters(const void* kernel, int threads,
+                                   int size, int* active) {
+  if (size > 8) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = size;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(size);
+  config.blockDim = dim3(threads);
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(active, kernel, &config);
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
 // 2-D bilinear warp for Hopper (sm_90a): the single warp's forward (B1) and
 // backward (B2), and VecInt's whole scaling-and-squaring chain as one
-// cooperative launch each way (vecint2d_fwd, vecint2d_bwd).
+// launch each way (vecint2d_fwd, cooperative; vecint2d_bwd, a
+// thread-block cluster a batch item).
 //
 // Layout NCHW, float32.  out[b,c,y,x] is src[b,c] sampled bilinearly at
 // (y + flow[b,0,y,x], x + flow[b,1,y,x]), zero outside the image.
@@ -36,14 +37,20 @@
 //     dflow_x = ((d11 - d10) + d01) - d00
 //   so dflow is bit-equal to the plain version.  Subtracting the corners first
 //   would round differently, by a few ulps of |g * a|.
-// - dsrc scatters g * weight(corner) to every corner inside the image with
-//   float32 atomicAdd (red.global.add.f32).  It is therefore NOT bitwise
-//   reproducible: the order in which the atomics land changes from run to
-//   run and float addition is not associative, so two runs can differ in the
-//   last bits of a sum of the few terms that hit one pixel.  Held to 1e-5 *
-//   max(1, max|dsrc|) of its plain version.  A deterministic dsrc (a gather
-//   per source pixel, or tile partial sums reduced in a fixed order) is
-//   later work.
+// - B2's dsrc scatters g * weight(corner) to every corner inside the image
+//   with float32 atomicAdd (red.global.add.f32).  It is therefore NOT
+//   bitwise reproducible: the order in which the atomics land changes from
+//   run to run and float addition is not associative, so two runs can
+//   differ in the last bits of a sum of the few terms that hit one pixel.
+//   Held to 1e-5 * max(1, max|dsrc|) of its plain version.
+// - vecint2d_bwd's dsrc forms the same terms and adds them as integers in
+//   an int64 fixed point (csrc/fixed_point.cuh), so it is the same bits on
+//   every run, equal to ops/integrate.py's vecint2d_bwd_fixed_plain, and
+//   within 1e-5 * max(1, max|dvec|) of autograd of the plain loop.  Its
+//   scale is per batch item (e_b from max|G| over item b's two channels,
+//   at most H*W terms a sum), where the 3-D chain's is the whole tensor's:
+//   a whole-batch max would need every item's blocks to meet, and per item
+//   each item's gradient does not depend on the others'.
 //
 // THE SINGLE WARP (B1, B2)
 //
@@ -71,30 +78,55 @@
 // and its gradient, for G_n = dL/dv_n, for k = n-1..0
 //   G_k = G_{k+1} + dflow_k(G_{k+1}) + dsrc_k(G_{k+1})   (src = flow = v_k),
 //   dL/dvec = G_0 * 2^-n.
-// What bounds it: launch and grid-sync latency.  VecInt's field at the main
-// path's shape is (2,2,128,128) float32, 256 KB, resident in the 50 MB L2
-// for the whole chain; each step is a few microseconds of dependent L2
-// gathers, and as separate kernels the chain cost 15 launches forward and
-// about 28 backward (B1 or B2, their adds, dsrc zero-fills), each with its
-// host path.  Bytes matter only at large B.  Design: one cooperative launch
-// (cudaLaunchCooperativeKernel) for the whole chain, with a grid no larger
-// than the blocks that fit on the card at once (occupancy x SMs, cached per
-// device; csrc/chain_launch.cuh), a grid-stride loop over the pixels and
-// cooperative_groups' grid.sync() between steps.  The forward writes v_k
-// into slot k of a saved stack (n, B, 2, H, W) when the input needs a
-// gradient, and v_n into the output; for inference, steps and output alternate as two ping-pong
-// buffers.  The backward writes each pixel's own terms (G + dflow) into a
-// fresh buffer, syncs, scatters dsrc into it with atomics, syncs, and swaps
-// (two syncs a step, no zero-fill and no separate adds); then scales by
-// 2^-n in place.  The arithmetic per step is exactly B1's and B2's, so the
-// forward chain is bit-equal to vecint(..., impl="torch").
+// What bounds it: launch and synchronisation latency.  VecInt's field at
+// the main path's shape is (2,2,128,128) float32, 256 KB, resident in the
+// 50 MB L2 for the whole chain; each step is a few microseconds of
+// dependent L2 gathers, and as separate kernels the chain cost 15 launches
+// forward and about 28 backward (B1 or B2, their adds, dsrc zero-fills),
+// each with its host path.  Bytes matter only at large B.
+// - The forward: one cooperative launch (cudaLaunchCooperativeKernel) for
+//   the whole chain, with a grid no larger than the blocks that fit on the
+//   card at once (occupancy x SMs, cached per device;
+//   csrc/chain_launch.cuh), a grid-stride loop over the pixels and
+//   cooperative_groups' grid.sync() between steps.  It writes v_k into
+//   slot k of a saved stack (n, B, 2, H, W) when the input needs a
+//   gradient, and v_n into the output; for inference, steps and output
+//   alternate as two ping-pong buffers.  The arithmetic per step is
+//   exactly B1's, so it is bit-equal to vecint(..., impl="torch").
+// - The backward: no batch item reads another's data, so each item is one
+//   thread-block cluster (16 blocks of 512 threads; cudaLaunchKernelEx with
+//   a cluster dimension), and every barrier is a cluster barrier, where
+//   grid.sync() over the whole grid cost 1.1-1.8 us and a cluster barrier
+//   0.6-0.7 us (csrc/yardsticks/sync.cu on an H100; chip_smoke.py).  The
+//   launch needs no cooperative grid: clusters run in any number of waves.
+//   A block owns a run of its item's pixels, each pixel read and written
+//   by the thread that owns it, so G never crosses blocks: G and the own
+//   terms stay in the thread's registers when a thread owns at most
+//   kRegPixels pixels (the main path's 128^2 in 16 blocks of 512), else in
+//   dvec (read through L2).
+//   Per step, two phases, a cluster barrier after each: (1) each pixel's
+//   own terms G + dflow (B2's terms, in autograd's order) into dvec, and
+//   its dsrc terms added as int64s into the sums of the pixels they land
+//   on: a pixel the block owns in its shared memory (two 32-bit halves
+//   with a carry: a 64-bit shared atomic add is a compare-and-swap loop),
+//   any other in the item's sums in global memory (a native 64-bit atomic
+//   add), so most terms (those that stay in the block's rows) never
+//   leave the SM; (2) G_k = own + (both
+//   sums) * 2^-e_b at the block's pixels, the sums zeroed for the next
+//   step, and max|G_k| over the cluster (each block's max in its shared
+//   memory, read by the others through distributed shared memory) for the
+//   next step's e_b.  The last pass writes G_0 * 2^-n.  No float atomics
+//   and no grid.sync().
 //
-// Coherence: a field written earlier in the same launch is read with __ldcg
-// (L2 only), never through __ldg or const __restrict__: the read-only / L1
-// path is not coherent across SMs within a launch.  Inputs the launch never
-// writes (vec, g's first step, the saved stack in the backward) may use
-// __ldg.  A grid larger than the co-resident limit makes the cooperative
-// launch fail; the entry returns that error, and the wrapper raises.
+// Coherence: a field written earlier in the same launch by another SM is
+// read with __ldcg (L2 only), never through __ldg or const __restrict__:
+// the read-only / L1 path is not coherent across SMs within a launch.  The
+// backward's sums are such a field; the cluster barrier (arrive.release /
+// wait.acquire) orders their atomics before the reads.  Inputs the launch
+// never writes (vec, g, the saved stack in the backward) may use __ldg.  A
+// grid larger than the co-resident limit makes the forward's cooperative
+// launch fail, and a cluster size the card refuses the backward's; the
+// entry returns that error, and the wrapper raises.
 
 #include <cmath>
 
@@ -102,6 +134,7 @@
 #include <cuda_runtime.h>
 
 #include "chain_launch.cuh"
+#include "fixed_point.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -211,6 +244,25 @@ __device__ __forceinline__ void scatter(float* plane, long long W, float gc,
   if (t.v11) atomicAdd(plane + t.o00 + W + 1, __fmul_rn(gw, t.wy));
 }
 
+// vecint2d_bwd's dsrc terms of one channel's cotangent gc, formed as
+// scatter forms them, each handed to add(corner's offset, the term in the
+// fixed point f) as an integer.
+template <typename Add>
+__device__ __forceinline__ void scatter_fixed(float gc, const Bilinear& t,
+                                              int W, const Fixed& f,
+                                              Add add) {
+  const float gu = __fmul_rn(gc, t.ux);
+  const float gw = __fmul_rn(gc, t.wx);
+  const int o = (int)t.o00;
+  auto fixed = [&](float term) {
+    return __float2ll_rn(__fmul_rn(term, f.scale));
+  };
+  if (t.v00) add(o, fixed(__fmul_rn(gu, t.uy)));
+  if (t.v01) add(o + 1, fixed(__fmul_rn(gw, t.uy)));
+  if (t.v10) add(o + W, fixed(__fmul_rn(gu, t.wy)));
+  if (t.v11) add(o + W + 1, fixed(__fmul_rn(gw, t.wy)));
+}
+
 // ------------------------------------------------------- the single warp
 
 __global__ void warp2d_bilinear_fwd(const float* __restrict__ src,
@@ -312,63 +364,199 @@ __global__ void vecint2d_fwd(const float* __restrict__ vec, float* steps,
   }
 }
 
-// G_{k+1} is `gin`; G_k is built in `acc`: the last step's acc is dvec, and
-// dvec and the single buffer `scratch` alternate before it.
-__global__ void vecint2d_bwd(const float* __restrict__ steps,
-                             const float* __restrict__ g, float* scratch,
-                             float* dvec, int B, int H, int W, int nsteps,
-                             float scale) {
-  cg::grid_group grid = cg::this_grid();
-  const long long hw = (long long)H * W;
-  const long long npx = (long long)B * hw;
-  const long long nval = 2 * npx;
-  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
+// The backward chain's block: kClusterThreads threads, a cluster of
+// kClusterBlocks blocks a batch item unless the entry is given another
+// size (at most 16).
+constexpr int kClusterThreads = 512;
+constexpr int kClusterBlocks = 16;
+// A block keeps the sums of its own pixels in shared memory when it owns
+// at most kLocalPixels of them (1,024 at 128^2 in 16 blocks).
+constexpr int kLocalPixels = 2048;
 
-  const float* gin = g;
+// The max of m over this block's threads, then over the cluster's blocks,
+// in every thread: each block's max in its shared `mine`, a cluster
+// barrier, and each warp reading the blocks' values through distributed
+// shared memory.  Every thread of the cluster calls it.
+__device__ __forceinline__ unsigned cluster_max(cg::cluster_group& cluster,
+                                                unsigned m, unsigned* mine,
+                                                unsigned* sh) {
+  m = __reduce_max_sync(0xffffffffu, m);
+  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kClusterThreads / 32; ++w) m = max(m, sh[w]);
+    *mine = m;
+  }
+  cluster.sync();
+  const unsigned r = threadIdx.x & 31;
+  m = r < cluster.num_blocks() ? *cluster.map_shared_rank(mine, r) : 0u;
+  return __reduce_max_sync(0xffffffffu, m);
+}
+
+// The backward chain, one cluster a batch item b (the cluster's blocks
+// split its pixels; block r takes pixels [r, r + 1) * H*W / size).  G
+// lives in registers (kRegs) or dvec, each pixel read and written by the
+// thread that owns it; the dsrc sums of a block's own pixels in its shared
+// memory (when it owns at most kLocalPixels) and all others in `sums`,
+// (B, 2, H, W) int64, added to by every block of the cluster.  Per step
+// k = n-1..0:
+//   1. each pixel's own terms G + dflow (registers or dvec), and its dsrc
+//      terms into
+//      the sums of the corners it samples, in the item's fixed point (from
+//      max|G_{k+1}| over the item);
+//   2. after a cluster barrier, G_k = own + sum * 2^-e at each pixel, its
+//      sums zeroed, and max|G_k| over the item (a second barrier).
+// The last pass writes G_0 * 2^-n.  kRegs: every block owns at most
+// kRegPixels pixels a thread, and G and the own terms stay in its threads'
+// registers instead of dvec.  Capped at 64 registers, so that two blocks
+// fit a SM.
+constexpr int kRegPixels = 2;
+
+template <bool kRegs>
+__global__ void __launch_bounds__(kClusterThreads, 2)
+    vecint2d_bwd(const float* __restrict__ steps, const float* __restrict__ g,
+                 unsigned long long* __restrict__ sums,
+                 float* __restrict__ dvec, int B, int H, int W, int nsteps,
+                 float scale) {
+  __shared__ unsigned sh[kClusterThreads / 32];
+  __shared__ unsigned mine;
+  __shared__ unsigned local_lo[2][kLocalPixels], local_hi[2][kLocalPixels];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int size = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / size;
+  const int hw = H * W;
+  const int lo = (int)((long long)hw * rank / size);
+  const int hi = (int)((long long)hw * (rank + 1) / size);
+  const int first = lo + threadIdx.x;
+  const float* gb = g + b * 2 * hw;
+  float* db = dvec + b * 2 * hw;
+  unsigned long long* sb = sums + b * 2 * hw;
+  float G[kRegPixels][2], own[kRegPixels][2];   // kRegs only
+
+  // fn(slot, p) at each pixel p of this thread
+  auto for_pixels = [&](auto&& fn) {
+    if constexpr (kRegs) {
+#pragma unroll
+      for (int i = 0; i < kRegPixels; ++i) {
+        const int p = first + i * kClusterThreads;
+        if (p < hi) fn(i, p);
+      }
+    } else {
+      for (int p = first; p < hi; p += kClusterThreads) fn(0, p);
+    }
+  };
+
+  // a term for this block's own pixels goes into its shared sums (two
+  // 32-bit halves, lo handing its carry to hi: a 64-bit shared atomic is
+  // a compare-and-swap loop), any other into the item's sums in global
+  // memory; both are exact integer sums, added at the pixel's owner
+  const bool local = hi - lo <= kLocalPixels;
+  auto add = [&](int c, int o, long long v) {
+    if (local && o >= lo && o < hi) {
+      const unsigned l = (unsigned)v;
+      const unsigned old = atomicAdd(&local_lo[c][o - lo], l);
+      atomicAdd(&local_hi[c][o - lo],
+                (unsigned)(v >> 32) + (old + l < old ? 1u : 0u));
+    } else {
+      atomicAdd(sb + c * hw + o, (unsigned long long)v);
+    }
+  };
+  unsigned m = 0;
+  for_pixels([&](int i, int p) {
+    sb[p] = 0;
+    sb[hw + p] = 0;
+    if (local) {
+      local_lo[0][p - lo] = local_lo[1][p - lo] = 0;
+      local_hi[0][p - lo] = local_hi[1][p - lo] = 0;
+    }
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float gc = __ldg(gb + c * hw + p);
+      if constexpr (kRegs) G[i][c] = gc;
+      m = max(m, abs_bits(gc));
+    }
+  });
+  m = cluster_max(cluster, m, &mine, sh);
+  if (nsteps == 0) {
+    for_pixels([&](int, int p) {
+      db[p] = __fmul_rn(__ldg(gb + p), scale);
+      db[hw + p] = __fmul_rn(__ldg(gb + hw + p), scale);
+    });
+  }
   for (int k = nsteps - 1; k >= 0; --k) {
-    const float* v = steps + (long long)k * nval;
-    float* acc = (k & 1) ? scratch : dvec;
-    // each pixel's own terms: acc = G + dflow
-    for (long long i = first; i < npx; i += stride) {
-      const int b = (int)(i / hw);
-      const long long p = i - b * hw;
-      const int y = (int)(p / W);
-      const int x = (int)(p - (long long)y * W);
-      const float* vb = v + (long long)b * 2 * hw;
+    const Fixed f = fixed_of(m, hw);
+    const float* vb = steps + ((long long)k * B + b) * 2 * hw;
+    for_pixels([&](int i, int p) {
+      const int y = p / W;
+      const int x = p - y * W;
       const Bilinear t = bilinear_at(y, x, __ldg(vb + p), __ldg(vb + hw + p),
                                      H, W);
-      const float* gb = gin + (long long)b * 2 * hw;
-      const float g0 = __ldcg(gb + p);
-      const float g1 = __ldcg(gb + hw + p);
+      const Corners a0 = corners<false>(vb, W, t);
+      const Corners a1 = corners<false>(vb + hw, W, t);
+      float g0, g1;
+      if constexpr (kRegs) {
+        g0 = G[i][0];
+        g1 = G[i][1];
+      } else {
+        const bool in_g = k == nsteps - 1;
+        g0 = in_g ? __ldg(gb + p) : __ldcg(db + p);
+        g1 = in_g ? __ldg(gb + hw + p) : __ldcg(db + hw + p);
+      }
       DflowTerms terms;
-      terms.add(g0, corners<false>(vb, W, t), t);
-      terms.add(g1, corners<false>(vb + hw, W, t), t);
-      float* ab = acc + (long long)b * 2 * hw;
-      __stcg(ab + p, __fadd_rn(g0, terms.dy()));
-      __stcg(ab + hw + p, __fadd_rn(g1, terms.dx()));
-    }
-    grid.sync();
-    // then every pixel's dsrc scattered into the others
-    for (long long i = first; i < npx; i += stride) {
-      const int b = (int)(i / hw);
-      const long long p = i - b * hw;
-      const int y = (int)(p / W);
-      const int x = (int)(p - (long long)y * W);
-      const float* vb = v + (long long)b * 2 * hw;
-      const Bilinear t = bilinear_at(y, x, __ldg(vb + p), __ldg(vb + hw + p),
-                                     H, W);
-      const float* gb = gin + (long long)b * 2 * hw;
-      float* ab = acc + (long long)b * 2 * hw;
-      scatter(ab, W, __ldcg(gb + p), t);
-      scatter(ab + hw, W, __ldcg(gb + hw + p), t);
-    }
-    grid.sync();
-    gin = acc;
+      terms.add(g0, a0, t);
+      terms.add(g1, a1, t);
+      const float o0 = __fadd_rn(g0, terms.dy());
+      const float o1 = __fadd_rn(g1, terms.dx());
+      if constexpr (kRegs) {
+        own[i][0] = o0;
+        own[i][1] = o1;
+      } else {
+        __stcg(db + p, o0);
+        __stcg(db + hw + p, o1);
+      }
+      scatter_fixed(g0, t, W, f, [&](int o, long long v) { add(0, o, v); });
+      scatter_fixed(g1, t, W, f, [&](int o, long long v) { add(1, o, v); });
+    });
+    cluster.sync();
+    m = 0;
+    for_pixels([&](int i, int p) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int o = c * hw + p;
+        unsigned long long sum = __ldcg(sb + o);
+        if (local) {
+          sum += (unsigned long long)local_hi[c][p - lo] << 32 |
+                 local_lo[c][p - lo];
+        }
+        const float dsrc =
+            f.finite ? __fmul_rn(__ll2float_rn((long long)sum), f.inv)
+                     : __int_as_float(0x7fffffff);
+        float Gk;
+        if constexpr (kRegs) {
+          Gk = __fadd_rn(own[i][c], dsrc);
+        } else {
+          Gk = __fadd_rn(__ldcg(db + o), dsrc);
+        }
+        if (k == 0) {
+          db[o] = __fmul_rn(Gk, scale);
+        } else {
+          if constexpr (kRegs) {
+            G[i][c] = Gk;
+          } else {
+            __stcg(db + o, Gk);
+          }
+          __stcg(sb + o, 0ull);
+          if (local) local_lo[c][p - lo] = local_hi[c][p - lo] = 0;
+          m = max(m, abs_bits(Gk));
+        }
+      }
+    });
+    if (k > 0) m = cluster_max(cluster, m, &mine, sh);
   }
-  for (long long j = first; j < nval; j += stride) {
-    __stcg(dvec + j, __fmul_rn(__ldcg(gin + j), scale));
-  }
+  // No block may leave while another reads its `mine`: the last reads
+  // come before step 0's barrier, or, without steps, here.
+  if (nsteps == 0) cluster.sync();
 }
 
 unsigned int blocks_for(long long n) {
@@ -376,7 +564,6 @@ unsigned int blocks_for(long long n) {
 }
 
 int fwd_resident[kMaxDevices];
-int bwd_resident[kMaxDevices];
 
 }  // namespace
 
@@ -430,18 +617,34 @@ extern "C" int dfmir_vecint2d_fwd(const float* vec, float* steps, float* out,
 }
 
 // VecInt backward: steps (nsteps,B,2,H,W) the forward's saved v_0..v_{n-1},
-// g (B,2,H,W) the cotangent of v_n; writes dvec (B,2,H,W).  `scratch` is one
-// (B,2,H,W) buffer (unused when nsteps < 2).  `blocks` as in the forward.
-// float32, contiguous, on the device of `stream`; dvec and scratch alias
-// nothing.  Returns the launch's cudaError_t.
+// g (B,2,H,W) the cotangent of v_n; writes dvec (B,2,H,W), bitwise the
+// same on every run.  `sums` is (B,2,H,W) int64 scratch, zeroed by the
+// launch.  `cluster` is the blocks of a batch item's cluster (0: 16); a
+// size the card refuses (above 16) fails the launch.  float32,
+// contiguous, on the device of `stream`; dvec and sums alias nothing.
+// Returns the launch's cudaError_t.
 extern "C" int dfmir_vecint2d_bwd(const float* steps, const float* g,
-                                  float* scratch, float* dvec, int B, int H,
-                                  int W, int nsteps, int blocks,
-                                  void* stream) {
-  const long long npx = (long long)B * H * W;
-  if (npx == 0) return (int)cudaSuccess;
+                                  unsigned long long* sums, float* dvec,
+                                  int B, int H, int W, int nsteps,
+                                  int cluster, void* stream) {
+  if ((long long)B * H * W == 0) return (int)cudaSuccess;
+  if (cluster == 0) cluster = kClusterBlocks;
   float scale = ldexpf(1.0f, -nsteps);
-  void* args[] = {&steps, &g, &scratch, &dvec, &B, &H, &W, &nsteps, &scale};
-  return (int)launch_chain((const void*)vecint2d_bwd, bwd_resident, npx,
-                           blocks, args, stream);
+  void* args[] = {&steps, &g, &sums, &dvec, &B, &H, &W, &nsteps, &scale};
+  // G in registers when no block owns more than kRegPixels pixels a thread
+  const long long per = ((long long)H * W + cluster - 1) / cluster;
+  const void* kernel = per <= (long long)kRegPixels * kClusterThreads
+                           ? (const void*)vecint2d_bwd<true>
+                           : (const void*)vecint2d_bwd<false>;
+  return (int)launch_clusters(kernel, kClusterThreads, B, cluster, args,
+                              stream);
+}
+
+// The clusters of *cluster blocks of vecint2d_bwd (0: set to the entry's
+// own size) that the card holds at once, in *active.  Returns the query's
+// cudaError_t.
+extern "C" int dfmir_vecint2d_bwd_clusters(int* cluster, int* active) {
+  if (*cluster == 0) *cluster = kClusterBlocks;
+  return (int)active_clusters((const void*)vecint2d_bwd<true>,
+                              kClusterThreads, *cluster, active);
 }

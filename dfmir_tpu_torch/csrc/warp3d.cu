@@ -26,14 +26,14 @@
 // exactly when it was before, so the result equals the unclamped formula),
 // a validity mask per corner, zero padding.
 //
-// THE PER-VOXEL CORE, shared by all five kernels.  What bounds the single
-// warps is device-memory bytes and the latency of dependent gathers: at the
-// 160^3 data warp a launch moves 82 MB (B3) or 131 MB (B4), and each voxel
+// THE PER-VOXEL CORE, shared by B3, B4, B5 and vecint3d_bwd.  What bounds the
+// single warps is device-memory bytes and the latency of dependent gathers: at
+// the 160^3 data warp a launch moves 82 MB (B3) or 131 MB (B4), and each voxel
 // reads its flow, then gathers 8 corners a channel that depend on it.  The
-// first design (one voxel a thread, 64-bit offsets for each of the 8
-// corners, 24 accumulators in B4) took 48 registers for B3 and 72 for B4
-// and ran at 36-41% of the byte bound.  This one keeps a thread's state
-// small and its loads many:
+// first design (one voxel a thread, 64-bit offsets for each of the 8 corners,
+// 24 accumulators in B4) took 48 registers for B3 and 72 for B4 and ran at
+// 36-41% of the byte bound.  This one keeps a thread's state small and its
+// loads many:
 // - Trilinear holds one 32-bit offset (corner 0's, which may be negative
 //   for a clamped coordinate) and an 8-bit validity mask; corner k's offset
 //   is base + (k>>2)*H*W + ((k>>1)&1)*W + (k&1), all int (the wrapper keeps
@@ -54,9 +54,9 @@
 // Register caps (__launch_bounds__' minimum blocks a SM) were chosen on the
 // H100 by device time: 4 blocks (<= 64 registers) for B3 and vecint3d_bwd,
 // none for the others; tighter caps made ptxas spill, and the kernels ran
-// slower.  ptxas (-Xptxas -v): B3 64, B4 45 (C = 1) / 64, B5 80,
-// vecint3d_fwd 64, vecint3d_bwd 64 registers; vecint3d_bwd spills 84
-// bytes, the others nothing.
+// slower.  ptxas (-Xptxas -v): B3 64, B4 32 (C = 1) / 48, B5 80,
+// vecint3d_fwd 64 (48,704 bytes of shared memory), vecint3d_bwd 64
+// registers; vecint3d_bwd spills 64 bytes, the others nothing.
 //
 // Exactness.  Every product and sum is an _rn intrinsic, in a fixed order,
 // so nvcc contracts nothing into FMAs; built without --use_fast_math.
@@ -139,39 +139,72 @@
 // an add a step) and 36 backward (B4, a zero-fill and B5, and autograd's
 // two adds a step), each with its host path; its field at VecInt's
 // (1,3,80,80,80) is 6.1 MB and the saved stack of 7 fields 43 MB, within
-// the 50 MB L2.  Design, as the 2-D chain's (csrc/warp2d.cu): one
-// cooperative launch (csrc/chain_launch.cuh) with a grid capped at the
-// blocks the card holds at once, a grid-stride loop over voxel pairs, and
-// grid.sync() between steps.  The forward writes v_k into slot k of a
-// stack of n slots, each a (B, 3, D, H, W) field padded to a multiple of 32
-// floats, which the backward reads, and v_n into the output; it does so for
-// inference too, so that every field is written once and only then read.
-// The backward writes each voxel's own terms of step k, G_{k+1} + dflow,
-// into dvec and counts the voxel's cell (phase 1), then scans, places and
-// gathers as B5 does, G_k = (G_{k+1} + dflow) + dsrc.  The gather of step k
-// and phase 1 of step k-1 are one pass over the gather's row segments: the
-// lane that sums a voxel's G_k holds it in its registers for that voxel's
-// own terms of step k-1; G_k goes to one of two ping-pong fields, which the
-// next placement copies into the list, and the last pass writes G_0 * 2^-n
-// into dvec.  Three syncs a
-// step (scan, place, the fused pass).  Per voxel the arithmetic is B3's,
-// B4's and B5's, so the forward chain is bit-equal to vecint(...,
-// impl="torch") and the backward is bitwise reproducible.
+// the 50 MB L2.  Both are one cooperative launch (csrc/chain_launch.cuh)
+// with a grid capped at the blocks the card holds at once and grid.sync()
+// between steps.
+//
+// THE FORWARD CHAIN.  A step is a field self-warp: each voxel reads its 3
+// displacements, then gathers 8 corners x 3 channels that depend on them.
+// As gathers through L1/L2 (a thread a voxel pair) a step cost 13.1 us at
+// (1,3,80^3), 1.65 of them a grid.sync() (chip_smoke.py --steps on an
+// H100).  Here a block takes bricks of kBz x kBy x kBx voxels of one batch
+// item (bricks blockIdx.x, + gridDim.x, ..., the same every step; at
+// (1,3,80^3) the 500 bricks fit the co-resident grid at once) and, per
+// brick and step, stages the brick's box of the field into shared memory:
+// the brick and h voxels on each side in z and y (h + 1 past its high
+// end), and x from kPadX before the brick to kPadX - 1 past it, all 3
+// channels.  When every row of the field starts on 16 bytes (W % 4 == 0
+// and aligned buffers, the main path's case) the box is copied with
+// 16-byte cp.async.cg copies (L2 only: the field was written by other SMs
+// in this launch), else with __ldcg loads, 4 in flight a thread.  Each
+// voxel then reads its own displacement and its corners from the box: with
+// no test at all when its 8 corners are inside the volume and the box,
+// else corner by corner, a corner outside the box (a displacement above
+// h) read from L2 (__ldcg) in the same code, so any displacement is
+// taken; a box cell outside the volume is never staged and never read
+// (the corner's validity mask decides, as in B3).  A warp takes 16 voxels
+// of a row and the same 16 two planes on, 16 banks apart, so its corner
+// reads meet no bank twice.
+// The halo is per brick: the block that stages brick i at step k wrote
+// its voxels at step k-1, so it keeps max|v_k| over them (the float's
+// bits; the prologue, which scales vec brick by brick, takes max|v_0|) in
+// maxes[i] and picks h = min(ceil(max|v_k|), kHalo), a template parameter
+// of the step (0, 1, 2), with no exchange between blocks.  The model's own
+// field (0.81 voxels at 160^3, about 0.4 at 80^3) is staged whole at every
+// step; a field of +-10 voxels sends its far steps' far corners to L2.
+// The box at kHalo (13 x 13 x 24 x 3 floats, 48,672 bytes) leaves room for
+// 4 blocks a SM at <= 64 registers.  There is one brick a block at the main
+// case, so no next brick to copy ahead; all blocks stage at once after the
+// sync, then compute.  (Two boxes a block, the next brick's copies in flight
+// while this one's voxels are computed, leave room for only 2 blocks a SM, and
+// ran slower; so did 4 groups of copies a brick, one for each quarter of its
+// voxels, and a first step that stages vec itself in place of a scaling pass
+// and its sync, at the +-10-voxel case.)  With a saved stack the forward
+// writes v_k into slot k (the backward's input) and v_n into the output; for
+// inference the output and one more field alternate (12 MB at 80^3 where the
+// stack is 43 MB).  Per voxel the arithmetic is B3's, in the same order, so
+// the chain is bit-equal to vecint(..., impl="torch") with and without a
+// stack; only where a value is read from changed.
+//
+// THE BACKWARD CHAIN writes each voxel's own terms of step k, G_{k+1} +
+// dflow, into dvec and counts the voxel's cell (phase 1), then scans,
+// places and gathers as B5 does, G_k = (G_{k+1} + dflow) + dsrc.  The
+// gather of step k and phase 1 of step k-1 are one pass over the gather's
+// row segments: the lane that sums a voxel's G_k holds it in its
+// registers for that voxel's own terms of step k-1; G_k goes to one of two
+// ping-pong fields, which the next placement copies into the list, and
+// the last pass writes G_0 * 2^-n into dvec.  Three syncs a step (scan,
+// place, the fused pass).  Per voxel the arithmetic is B4's and B5's, so
+// the backward is bitwise reproducible.
 //
 // Coherence.  The L1 caches of the SMs are not coherent with each other;
-// they are invalidated between kernel launches.  The forward reads v_k
-// through L1 (__ldca): slot k is written once, and no SM can hold a stale
-// copy of it, because every slot starts on a 128-byte line (the padded
-// stride and a line-aligned stack; the entry checks both), so no sector of
-// it was read before it was written.  The corner gathers then hit L1 as
-// B3's do; reading them from L2 alone (__ldcg) made the chain take twice 7
-// B3 launches.  The backward's fields (G_{k+1}, read at the targets; its
-// own terms, read back by the thread that wrote them) and the bins are
-// rewritten every step and read from L2.
-// vec and, in the backward, the saved stack (written by an earlier launch)
-// take the read-only path (__ldg).  A grid larger than the co-resident
-// limit makes the launch fail; the entry returns that error and the
-// wrapper raises.
+// they are invalidated between kernel launches.  So every field a chain
+// writes and reads in one launch (the forward's v_k, the backward's
+// G_{k+1}, own terms and bins) is read from L2 (__ldcg) and stored with
+// __stcg; vec and, in the backward, the saved stack (written by an
+// earlier launch) take the read-only path (__ldg).  A grid larger than the
+// co-resident limit makes the launch fail; the entry returns that error
+// and the wrapper raises.
 
 #include <cmath>
 #include <cstdint>
@@ -180,20 +213,20 @@
 #include <cuda_runtime.h>
 
 #include "chain_launch.cuh"
+#include "fixed_point.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 // The path of a load: the read-only path (a buffer no thread writes in the
-// launch), L2 alone (a buffer written earlier in the launch), or L1 (a
-// write-once slot; see the notes on coherence).
-enum class Path { kReadOnly, kL2, kL1 };
+// launch) or L2 alone (a buffer written earlier in the launch; see the
+// notes on coherence).
+enum class Path { kReadOnly, kL2 };
 
 template <Path kPath>
 __device__ __forceinline__ float ld(const float* p) {
   if constexpr (kPath == Path::kL2) return __ldcg(p);
-  if constexpr (kPath == Path::kL1) return __ldca(p);
   return __ldg(p);
 }
 
@@ -225,6 +258,17 @@ __device__ __forceinline__ unsigned inside(int i, int size) {
          (unsigned)(i + 1 >= 0 && i + 1 <= size - 1) << 1;
 }
 
+// Bit k: corner k = 4*dz + 2*dy + dx is inside, from each axis's two bits
+// (bit d: the corner at d along the axis is inside; see inside).
+__device__ __forceinline__ unsigned corner_mask(unsigned mz, unsigned my,
+                                                unsigned mx) {
+  // each axis's bits spread over the corners they govern, then and-ed
+  const unsigned z = (mz & 1u) * 0x0fu | (mz >> 1) * 0xf0u;
+  const unsigned y = (my & 1u) * 0x33u | (my >> 1) * 0xccu;
+  const unsigned x = (mx & 1u) * 0x55u | (mx >> 1) * 0xaau;
+  return z & y & x;
+}
+
 // Voxel (z, y, x) displaced by (uz, uy, ux).
 __device__ __forceinline__ Trilinear trilinear(int z, int y, int x, float uz,
                                                float uy, float ux, int D,
@@ -239,12 +283,7 @@ __device__ __forceinline__ Trilinear trilinear(int z, int y, int x, float uz,
   t.wz = zs - z0f;
   t.wy = ys - y0f;
   t.wx = xs - x0f;
-  t.mask = 0;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    t.mask |= ((mz >> (k >> 2)) & (my >> ((k >> 1) & 1)) & (mx >> (k & 1)) &
-               1u) << k;
-  }
+  t.mask = corner_mask(mz, my, mx);
   t.base = (z0 * H + y0) * W + x0;
   t.cell = ((z0 + 1) * (H + 1) + (y0 + 1)) * (W + 1) + (x0 + 1);
   return t;
@@ -430,27 +469,6 @@ long long bins_layout(int* base, int B, int C, int D, int H, int W,
     bins->nchunks = (int)nchunks;
   }
   return *zeroed + cells + es * cap;
-}
-
-// The fixed point of a launch's (or a step's) sums, from max|g|'s bits.
-struct Fixed {
-  float scale, inv;   // 2^e and 2^-e
-  bool finite;        // max|g| is finite
-};
-
-__device__ __forceinline__ Fixed fixed_of(unsigned mbits, int dhw) {
-  const int E = max((int)(mbits >> 23), 1) - 126;   // max|g| < 2^E
-  const int L = 32 - __clz(dhw);                    // D*H*W < 2^L
-  const int e = min(61 - E - L, 100);               // in [-98, 100]
-  Fixed f;
-  f.scale = __int_as_float((127 + e) << 23);
-  f.inv = __int_as_float((127 - e) << 23);
-  f.finite = mbits < 0x7f800000u;
-  return f;
-}
-
-__device__ __forceinline__ unsigned abs_bits(float v) {
-  return __float_as_uint(v) & 0x7fffffffu;   // ordered as |v|, NaN on top
 }
 
 // The block's max of m into *slot: one atomicMax a block.  Every thread of
@@ -842,42 +860,305 @@ __global__ void __launch_bounds__(kThreads)
 
 // ----------------------------------------------------------- the chain
 
-// Slot k of `steps` starts at k * slot floats.
-__global__ void __launch_bounds__(kThreads)
-    vecint3d_fwd(const float* __restrict__ vec, float* steps, long long slot,
-                 float* out, int npairs, int B, int D, int H, int W,
-                 int nsteps, float scale) {
-  cg::grid_group grid = cg::this_grid();
-  const int hw = H * W, dhw = D * hw;
-  const long long nval = 3LL * B * dhw;
-  const int first = blockIdx.x * kThreads + threadIdx.x;
-  const int stride = gridDim.x * kThreads;
+// The forward chain's bricks: a block computes kBz x kBy x kBx voxels of
+// one batch item at a time from a box of the field staged in shared
+// memory: the brick and h <= kHalo voxels around it in z and y (h + 1 past
+// its high end), x from kPadX before the brick to kPadX - 1 past it (whole
+// 16-byte chunks, room for a halo of up to kPadX - 1), all 3 channels:
+// 13 x 13 x 24 x 3 floats, 48,672 bytes, at kHalo.
+constexpr int kBz = 8, kBy = 8, kBx = 16;
+constexpr int kHalo = 2;
+constexpr int kPadX = 4;
+constexpr int kBoxX = kBx + 2 * kPadX;
+constexpr int kBoxMax = (kBz + 2 * kHalo + 1) * (kBy + 2 * kHalo + 1) * kBoxX;
+static_assert(kHalo < kPadX && kBx % 4 == 0, "x halo in whole chunks");
+static_assert(kBz * kBy * kBx % kThreads == 0, "whole voxels a thread");
 
-  float* v0 = nsteps ? steps : out;
-  for (long long j = first; j < nval; j += stride) {
-    __stcg(v0 + j, __fmul_rn(__ldg(vec + j), scale));
+// Where v_k lives: with a saved stack, slot k of `steps` for k < n and
+// `out` for k = n; without one, `out` and the single field `steps`
+// alternate so that v_n lands in `out`.
+__device__ __forceinline__ float* field3(float* steps, long long slot,
+                                         float* out, int k, int n,
+                                         bool save) {
+  if (save) return k == n ? out : steps + k * slot;
+  return ((n - k) & 1) ? steps : out;
+}
+
+// The max of m over the block, in every thread.  Every thread calls it.
+__device__ __forceinline__ unsigned block_max(unsigned m, unsigned* sh) {
+  m = __reduce_max_sync(0xffffffffu, m);
+  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = m;
+  __syncthreads();
+  m = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) m = max(m, sh[w]);
+  __syncthreads();
+  return m;
+}
+
+// The halo a brick stages when max|v| over its voxels has the bits
+// `mbits`: ceil(max|v|), at most kHalo (a NaN or inf: kHalo).  Each
+// displacement is then at most h, so each corner of a voxel z lies in
+// z - h .. z + h + 1 (z + u rounds monotonically and z +- h is exact).
+__device__ __forceinline__ int halo_of(unsigned mbits) {
+  if (mbits >= 0x7f800000u) return kHalo;
+  const float m = __uint_as_float(mbits);
+  return m >= (float)kHalo ? kHalo : (int)ceilf(m);
+}
+
+// 16 bytes from global memory (through L2 alone) into shared memory,
+// asynchronously; copies_done waits for all of the thread's copies.
+__device__ __forceinline__ void copy16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copies_done() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// A brick of the chain: batch item b, the box's origin (oz, oy, ox).
+struct Brick {
+  int b, oz, oy, ox;
+};
+
+__device__ __forceinline__ Brick brick_at(int i, int D, int H, int W, int h) {
+  const int nbz = (D + kBz - 1) / kBz, nby = (H + kBy - 1) / kBy,
+            nbx = (W + kBx - 1) / kBx;
+  Brick k;
+  const int bx = i % nbx;
+  i /= nbx;
+  const int by = i % nby;
+  i /= nby;
+  k.oz = (i % nbz) * kBz - h;
+  k.oy = by * kBy - h;
+  k.ox = bx * kBx - kPadX;
+  k.b = i / nbz;
+  return k;
+}
+
+// Voxel j of a brick whose box has the halo kH: its place (z, y, x) in
+// the volume and its cell in the box.  A warp takes 16 voxels of a row
+// and the 16 of the same row two planes on: two planes of the box are 16
+// banks apart at every halo (2 * 9, 11, 13 rows of 24 floats), so the
+// warp's reads of a smooth field's corners meet no bank twice.
+template <int kH>
+__device__ __forceinline__ void voxel_of(int j, const Brick& k, int& z,
+                                         int& y, int& x, int& cell) {
+  static_assert(kBx == 16 && kBy == 8 && kBz == 8, "the lanes' layout");
+  const int lx = j & 15, w = j >> 5, ly = w & 7, pair = w >> 3;
+  const int lz = (pair & 1) + ((pair >> 1) << 2) + ((j >> 4) & 1) * 2;
+  z = k.oz + kH + lz;
+  y = k.oy + kH + ly;
+  x = k.ox + kPadX + lx;
+  cell = ((lz + kH) * (kBy + 2 * kH + 1) + (ly + kH)) * kBoxX + lx + kPadX;
+}
+
+// Stage brick k's box of the field vb (the batch item's 3 planes) into
+// `box`: with 16-byte asynchronous copies when every row of the field
+// starts on 16 bytes (`aligned`), else with scalar loads, 4 in flight a
+// thread.  Cells outside the volume are not written.  Every thread of the
+// block calls it.
+template <int kH>
+__device__ __forceinline__ void stage(const float* vb, const Brick& k,
+                                      bool aligned, int D, int H, int W,
+                                      float* box) {
+  constexpr int SZ = kBz + 2 * kH + 1, SY = kBy + 2 * kH + 1,
+                ROW = kBoxX / 4, N4 = SZ * SY * ROW, CELLS = SZ * SY * kBoxX;
+  const int dhw = D * H * W;
+  for (int i = threadIdx.x; i < 3 * N4; i += kThreads) {
+    const int a = i / N4;
+    int r = i - a * N4;
+    const int z = r / (SY * ROW);
+    r -= z * (SY * ROW);
+    const int y = r / ROW, c = r - y * ROW;
+    const int gz = k.oz + z, gy = k.oy + y, gx = k.ox + 4 * c;
+    if (gz < 0 || gz >= D || gy < 0 || gy >= H) continue;
+    float* dst = box + a * CELLS + (z * SY + y) * kBoxX + 4 * c;
+    const float* src = vb + a * dhw + (gz * H + gy) * W + gx;
+    if (aligned) {
+      if (gx >= 0 && gx < W) copy16(dst, src);
+    } else {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = gx + e >= 0 && gx + e < W ? __ldcg(src + e) : 0.0f;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dst[e] = v[e];
+    }
   }
-  for (int k = 0; k < nsteps; ++k) {
-    grid.sync();
-    const float* v = steps + k * slot;
-    float* next = k + 1 == nsteps ? out : steps + (k + 1) * slot;
-    for (int j = first; j < npairs; j += stride) {
-      const Pair q = pair_at(j, D, H, W);
-      const float* vb = v + q.b * 3 * dhw;
-      float2 u[3];
-      Trilinear t[2];
-      trilinear_pair<Path::kL1>(vb, q, dhw, D, H, W, u, t);
-      float* nb = next + q.b * 3 * dhw + q.p;
+  if (aligned) copies_done();
+  __syncthreads();
+}
+
+// How a voxel's corners are read: every corner inside the volume and the
+// box (kFull: no test), every corner inside the volume in the box
+// (kStaged), or each as it lies (kAny: outside the box from L2).
+enum class Corners3 { kFull, kStaged, kAny };
+
+// B3's blend of channel a at one voxel, each corner inside the volume
+// (mask) read from the box at s0 or, when not staged, from L2 at g0 of the
+// channel's plane gp.
+template <int kH, Corners3 kHow>
+__device__ __forceinline__ float blend_box(const float* box, int s0,
+                                           const float* gp, int g0,
+                                           unsigned mask, unsigned staged,
+                                           float wz, float wy, float wx,
+                                           int hw, int W) {
+  constexpr int SY = kBy + 2 * kH + 1;
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int dz = k >> 2, dy = (k >> 1) & 1, dx = k & 1;
+    const float* sp = box + s0 + (dz * SY + dy) * kBoxX + dx;
+    float val;
+    if constexpr (kHow == Corners3::kFull) {
+      val = *sp;
+    } else if ((mask >> k) & 1u) {
+      val = kHow == Corners3::kStaged || ((staged >> k) & 1u)
+                ? *sp
+                : __ldcg(gp + g0 + corner(k, hw, W));
+    } else {
+      val = 0.0f;
+    }
+    const float term = __fmul_rn(
+        __fmul_rn(__fmul_rn(val, weight(wz, dz)), weight(wy, dy)),
+        weight(wx, dx));
+    acc = k == 0 ? term : __fadd_rn(acc, term);
+  }
+  return acc;
+}
+
+// One step of the forward chain at brick k with a halo of kH: v -> next
+// at the brick's voxels; returns max|next| over them (bits), in every
+// thread.  Every thread of the block calls it.
+template <int kH>
+__device__ unsigned step_brick(const float* v, float* next, bool last,
+                               bool aligned, int i, int D, int H, int W,
+                               float* box, unsigned* sh) {
+  constexpr int SZ = kBz + 2 * kH + 1, SY = kBy + 2 * kH + 1,
+                CELLS = SZ * SY * kBoxX;
+  const int hw = H * W, dhw = D * hw;
+  const Brick k = brick_at(i, D, H, W, kH);
+  const float* vb = v + k.b * 3 * dhw;
+  stage<kH>(vb, k, aligned, D, H, W, box);
+  unsigned m = 0;
+#pragma unroll 1
+  for (int j = threadIdx.x; j < kBz * kBy * kBx; j += kThreads) {
+    int z, y, x, c;
+    voxel_of<kH>(j, k, z, y, x, c);
+    if (z >= D || y >= H || x >= W) continue;
+    const float u[3] = {box[c], box[CELLS + c], box[2 * CELLS + c]};
+    const float zs = clamp_coord((float)z + u[0], D);
+    const float ys = clamp_coord((float)y + u[1], H);
+    const float xs = clamp_coord((float)x + u[2], W);
+    const float z0f = floorf(zs), y0f = floorf(ys), x0f = floorf(xs);
+    const int z0 = (int)z0f, y0 = (int)y0f, x0 = (int)x0f;
+    const float wz = zs - z0f, wy = ys - y0f, wx = xs - x0f;
+    // corner k: inside the volume (mask), inside the box (staged)
+    const unsigned mask = corner_mask(inside(z0, D), inside(y0, H),
+                                      inside(x0, W));
+    const unsigned staged = corner_mask(inside(z0 - k.oz, SZ),
+                                        inside(y0 - k.oy, SY),
+                                        inside(x0 - k.ox, kBoxX));
+    const int g0 = (z0 * H + y0) * W + x0;
+    const int s0 = ((z0 - k.oz) * SY + (y0 - k.oy)) * kBoxX + (x0 - k.ox);
+    float* nb = next + k.b * 3 * dhw + (z * H + y) * W + x;
+    float acc[3];
+    if ((mask & staged) == 0xffu) {
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
-        const float* plane = vb + a * dhw;
-        store2<true>(
-            nb + a * dhw,
-            make_float2(
-                __fadd_rn(u[a].x, blend<Path::kL1>(plane, t[0], hw, W)),
-                __fadd_rn(u[a].y, blend<Path::kL1>(plane, t[1], hw, W))),
-            q);
+        acc[a] = blend_box<kH, Corners3::kFull>(box + a * CELLS, s0, vb, g0,
+                                                mask, staged, wz, wy, wx, hw,
+                                                W);
       }
+    } else if ((mask & ~staged) == 0) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        acc[a] = blend_box<kH, Corners3::kStaged>(box + a * CELLS, s0, vb,
+                                                  g0, mask, staged, wz, wy,
+                                                  wx, hw, W);
+      }
+    } else {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        acc[a] = blend_box<kH, Corners3::kAny>(box + a * CELLS, s0,
+                                               vb + a * dhw, g0, mask,
+                                               staged, wz, wy, wx, hw, W);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float out = __fadd_rn(u[a], acc[a]);
+      if (last) {
+        nb[a * dhw] = out;
+      } else {
+        __stcg(nb + a * dhw, out);
+      }
+      m = max(m, abs_bits(out));
+    }
+  }
+  return block_max(m, sh);
+}
+
+// The forward chain.  A block takes bricks blockIdx.x, + gridDim.x, ...,
+// the same every step, so the block that stages a brick at step k wrote
+// its voxels at step k-1: it keeps max|v_k| over them in maxes[brick]
+// (written and read by its thread 0) and picks the brick's halo from it,
+// with no exchange between blocks.
+__global__ void __launch_bounds__(kThreads, 4)
+    vecint3d_fwd(const float* __restrict__ vec, float* steps, long long slot,
+                 float* out, unsigned* maxes, int B, int D, int H, int W,
+                 int nsteps, int save, int aligned, float scale) {
+  __shared__ __align__(16) float box[3 * kBoxMax];
+  __shared__ unsigned sh[kWarps];
+  cg::grid_group grid = cg::this_grid();
+  const int hw = H * W, dhw = D * hw;
+  const int nbricks = B * ((D + kBz - 1) / kBz) * ((H + kBy - 1) / kBy) *
+                      ((W + kBx - 1) / kBx);
+
+  // v_0 = vec * 2^-n, brick by brick
+  float* v0 = field3(steps, slot, out, 0, nsteps, save);
+  for (int i = blockIdx.x; i < nbricks; i += gridDim.x) {
+    const Brick k = brick_at(i, D, H, W, 0);
+    unsigned m = 0;
+    for (int j = threadIdx.x; j < kBz * kBy * kBx; j += kThreads) {
+      int z, y, x, c;
+      voxel_of<0>(j, k, z, y, x, c);
+      if (z >= D || y >= H || x >= W) continue;
+      const int o = k.b * 3 * dhw + (z * H + y) * W + x;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float val = __fmul_rn(__ldg(vec + o + a * dhw), scale);
+        __stcg(v0 + o + a * dhw, val);
+        m = max(m, abs_bits(val));
+      }
+    }
+    m = block_max(m, sh);
+    if (threadIdx.x == 0 && nsteps > 0) maxes[i] = m;
+  }
+  for (int step = 0; step < nsteps; ++step) {
+    grid.sync();
+    const float* v = field3(steps, slot, out, step, nsteps, save);
+    float* next = field3(steps, slot, out, step + 1, nsteps, save);
+    const bool last = step + 1 == nsteps;
+    for (int i = blockIdx.x; i < nbricks; i += gridDim.x) {
+      // maxes[i] was written by this block's thread 0 before the sync; the
+      // last brick's reads of the box ended in its block_max
+      const int h = halo_of(maxes[i]);
+      unsigned m;
+      if (h == 0) {
+        m = step_brick<0>(v, next, last, aligned, i, D, H, W, box, sh);
+      } else if (h == 1) {
+        m = step_brick<1>(v, next, last, aligned, i, D, H, W, box, sh);
+      } else {
+        m = step_brick<kHalo>(v, next, last, aligned, i, D, H, W, box, sh);
+      }
+      if (threadIdx.x == 0) maxes[i] = m;
     }
   }
 }
@@ -1007,10 +1288,6 @@ long long pairs_of(int B, int D, int H, int W) {
   return (long long)B * D * H * ((W + 1) / 2);
 }
 
-bool on_line(const void* p) {
-  return reinterpret_cast<std::uintptr_t>(p) % 128 == 0;
-}
-
 // The bins in `base` (on a 16-byte boundary, else cudaErrorInvalidValue),
 // their counted part zeroed on `s`.
 cudaError_t bins_of(int* base, int B, int C, int D, int H, int W,
@@ -1096,28 +1373,51 @@ extern "C" int dfmir_warp3d_bwd_dsrc(const float* flow, const float* g,
                            dsrc_resident, n, blocks, args, stream);
 }
 
+// The forward chain's bricks, {kBz, kBy, kBx, kHalo, kPadX}: the wrapper
+// sizes `maxes` by the bricks, and chip_smoke.py accounts for the corners a
+// run reads from L2.
+extern "C" void dfmir_vecint3d_fwd_brick(int* dims) {
+  dims[0] = kBz;
+  dims[1] = kBy;
+  dims[2] = kBx;
+  dims[3] = kHalo;
+  dims[4] = kPadX;
+}
+
 // VecInt forward: vec (B,3,D,H,W) -> out (B,3,D,H,W), nsteps squarings.
-// `steps` receives v_0..v_{n-1}, field k at k * slot floats (the backward's
-// input; unused when nsteps is 0): `slot` a multiple of 32 no smaller than
-// a field, `steps` on a 128-byte line, else cudaErrorInvalidValue.
-// `blocks` 0 sizes the grid to the co-resident limit.  float32, contiguous,
-// on the device of `stream`; no buffer aliases another.  Returns the
-// launch's cudaError_t.
+// With `save`, `steps` receives v_0..v_{n-1}, field k at k * slot floats
+// (the backward's input; `slot` no smaller than a field); without, it is
+// one (B,3,D,H,W) field (unused when nsteps is 0).  `maxes` holds a uint32
+// a brick, B * ceil(D/kBz) * ceil(H/kBy) * ceil(W/kBx).  `blocks` 0 sizes
+// the grid to the bricks, at most the co-resident limit.  float32,
+// contiguous, on the device of `stream`; no buffer aliases another.
+// Returns the launch's cudaError_t.
 extern "C" int dfmir_vecint3d_fwd(const float* vec, float* steps,
-                                  long long slot, float* out, int B, int D,
-                                  int H, int W, int nsteps, int blocks,
+                                  long long slot, float* out,
+                                  unsigned* maxes, int B, int D, int H,
+                                  int W, int nsteps, int save, int blocks,
                                   void* stream) {
-  const long long n = pairs_of(B, D, H, W);
-  if (n == 0) return (int)cudaSuccess;
-  if (nsteps > 0 && (slot % 32 != 0 || slot < 3LL * B * D * H * W ||
-                     !on_line(steps))) {
-    return (int)cudaErrorInvalidValue;    // a slot off its line: stale L1
+  const long long nval = 3LL * B * D * H * W;
+  if (nval == 0) return (int)cudaSuccess;
+  if (save && nsteps > 0 && slot < nval) return (int)cudaErrorInvalidValue;
+  if (blocks == 0) {   // every brick at once, or as many as fit
+    const cudaError_t err =
+        resident_blocks((const void*)vecint3d_fwd, fwd_resident, &blocks);
+    if (err != cudaSuccess) return (int)err;
+    const long long bricks = (long long)B * ((D + kBz - 1) / kBz) *
+                             ((H + kBy - 1) / kBy) * ((W + kBx - 1) / kBx);
+    if (bricks < blocks) blocks = (int)bricks;
   }
-  int npairs = (int)n;
+  // every row of every field on 16 bytes: the boxes staged by cp.async
+  auto on16 = [](const void* p) {
+    return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+  };
+  int aligned = W % 4 == 0 && on16(out) && (nsteps == 0 || on16(steps)) &&
+                (!save || slot % 4 == 0);
   float scale = ldexpf(1.0f, -nsteps);
-  void* args[] = {&vec, &steps, &slot, &out, &npairs, &B,
-                  &D,   &H,     &W,    &nsteps, &scale};
-  return (int)launch_chain((const void*)vecint3d_fwd, fwd_resident, n,
+  void* args[] = {&vec, &steps, &slot,   &out,  &maxes,   &B,     &D,
+                  &H,   &W,     &nsteps, &save, &aligned, &scale};
+  return (int)launch_chain((const void*)vecint3d_fwd, fwd_resident, 0,
                            blocks, args, stream);
 }
 

@@ -33,11 +33,16 @@ SIGNATURES = {
     "dfmir_warp2d_bwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # (vec, steps, out, B, H, W, nsteps, save, blocks, stream) -> cudaError_t
     "dfmir_vecint2d_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    # (steps, g, scratch, dvec, B, H, W, nsteps, blocks, stream)
+    # (steps, g, sums, dvec, B, H, W, nsteps, cluster, stream)
     "dfmir_vecint2d_bwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    # (vec, steps, slot, out, B, D, H, W, nsteps, blocks, stream)
-    "dfmir_vecint3d_fwd": (_I, [_P, _P, _L, _P, _I, _I, _I, _I, _I, _I,
-                                _P]),
+    # (&cluster, &active) -> cudaError_t
+    "dfmir_vecint2d_bwd_clusters": (_I, [_P, _P]),
+    # (vec, steps, slot, out, maxes, B, D, H, W, nsteps, save, blocks,
+    #  stream)
+    "dfmir_vecint3d_fwd": (_I, [_P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _P]),
+    # (dims) -> None: {brick z, y, x, most halo, x pad}
+    "dfmir_vecint3d_fwd_brick": (None, [_P]),
     # (steps, slot, g, scratch, bins, dvec, B, D, H, W, nsteps, blocks,
     #  stream)
     "dfmir_vecint3d_bwd": (_I, [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I,

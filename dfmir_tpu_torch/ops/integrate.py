@@ -4,7 +4,9 @@
   times ``vec = vec + warp(vec, vec)`` (the reference VecInt); a 2-D or
   3-D float32 CUDA field runs the whole chain in one kernel launch each way
   (``warp_cuda.VecInt2dFunction``, ``VecInt3dFunction``).
-  ``vecint_bwd_plain`` is the plain version of the chains' backward.
+  ``vecint_bwd_plain`` is the plain version of the chains' backward, and
+  ``vecint2d_bwd_fixed_plain`` the 2-D chain backward as its kernel sums
+  it, bit for bit.
 - ``resize_flow``: resize and rescale a displacement field (the reference
   ResizeTransform): a factor below 1 resizes first and then scales, a factor
   above 1 scales first and then resizes, with align-corners linear
@@ -16,7 +18,8 @@ from __future__ import annotations
 import torch
 
 from dfmir_tpu_torch.ops import warp_cuda
-from dfmir_tpu_torch.ops.warp import warp
+from dfmir_tpu_torch.ops.warp import (warp, warp2d_dsrc_fixed_plain,
+                                      warp_bwd_plain)
 
 
 def linear_resize_matrix(n_in: int, n_out: int) -> torch.Tensor:
@@ -95,3 +98,19 @@ def vecint_bwd_plain(vec, nsteps: int, g):
         v = vec.detach().requires_grad_()
         (dvec,) = torch.autograd.grad(vecint(v, nsteps, impl="torch"), v, g)
     return dvec
+
+
+def vecint2d_bwd_fixed_plain(steps, g):
+    """``vecint2d_bwd_cuda`` in plain PyTorch, bit for bit: ``steps`` the
+    forward's saved (nsteps, B, 2, H, W) fields, ``g`` the cotangent of its
+    output.  Last step first, G_k = (G_{k+1} + dflow) + dsrc: dflow from
+    ``warp_bwd_plain`` of the self-warp of v_k (the kernel's order), dsrc
+    from ``warp2d_dsrc_fixed_plain`` (its fixed point, scaled per batch
+    item); then G_0 * 2^-n."""
+    n = steps.shape[0]
+    G = g
+    for k in range(n - 1, -1, -1):
+        _, dflow = warp_bwd_plain(steps[k], steps[k], G, need_dsrc=False)
+        G = (G + dflow) + warp2d_dsrc_fixed_plain(steps[k], G)
+    return G * (1.0 / (2 ** n))
+

@@ -166,11 +166,11 @@ def warp_bwd_plain(src, flow, g, need_dsrc: bool = True,
 
 
 def _fixed_point_exponent(m: torch.Tensor, dhw: int) -> int:
-    """The exponent e of the binned source gradient's fixed point for
-    max|g| = m (a float32 scalar, finite) over D*H*W = dhw voxels, as
-    ``csrc/warp3d.cu::fixed_of`` takes it: m < 2^E from m's exponent field,
-    dhw < 2^L, e = min(61 - E - L, 100), so no sum of at most dhw terms of
-    at most m reaches 2^61."""
+    """The exponent e of the fixed point of the source gradients for
+    max|g| = m (a float32 scalar, finite) over dhw voxels or pixels, as
+    ``csrc/fixed_point.cuh::fixed_of`` takes it: m < 2^E from m's exponent
+    field, dhw < 2^L, e = min(61 - E - L, 100), so no sum of at most dhw
+    terms of at most m reaches 2^61."""
     bits = int(m.reshape(1).view(torch.int32)[0])
     return min(61 - (max(bits >> 23, 1) - 126) - dhw.bit_length(), 100)
 
@@ -215,3 +215,47 @@ def warp3d_dsrc_binned_plain(flow, g):
         sel = valid[:, None].expand(B, C, dhw)
         total.index_add_(0, at[sel], q[sel])
     return (total.to(torch.float32) * 2.0 ** -e).reshape(g.shape)
+
+
+def warp2d_dsrc_fixed_plain(flow, g):
+    """The 2-D source gradient as ``vecint2d_bwd`` sums it, in plain
+    PyTorch: the dsrc of ``warp(src, flow, impl="torch")`` for the
+    cotangent ``g`` (B, C, H, W), float32.  Each target's term for corner
+    (dy, dx) is formed as the kernel forms it, (g * fx) * fy, on
+    coordinates clamped to [-2, S+1]; item b's terms are scaled by 2^e_b,
+    e_b from max|g[b]| over its channels and H*W pixels, rounded to int64
+    and summed exactly with ``index_add_``; the sum times 2^-e_b.  A
+    non-finite item gives NaN over that item; a zero one exactly 0."""
+    B, C, H, W = g.shape
+    hw = H * W
+    grid = identity_grid((H, W), dtype=flow.dtype, device=flow.device)
+    coords = (grid[None] + flow).reshape(B, 2, hw)
+    lo, w = [], []
+    for i, size in enumerate((H, W)):
+        c = coords[:, i].clamp(-2.0, size + 1.0)
+        f = torch.floor(c)
+        lo.append(f.long())
+        w.append((c - f)[:, None])                      # (B, 1, N)
+    m = g.abs().reshape(B, -1).amax(dim=1)
+    finite = torch.isfinite(m)
+    e = [_fixed_point_exponent(m[b], hw) if finite[b] else 0
+         for b in range(B)]
+    scale = torch.tensor([2.0 ** x for x in e], dtype=g.dtype,
+                         device=g.device).reshape(B, 1, 1)
+    gf = g.reshape(B, C, hw)
+    base = torch.arange(B * C, device=g.device).reshape(B, C, 1) * hw
+    total = torch.zeros(B * C * hw, dtype=torch.int64, device=g.device)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            y, x = lo[0] + dy, lo[1] + dx
+            valid = (y >= 0) & (y < H) & (x >= 0) & (x < W)
+            fy = w[0] if dy else 1.0 - w[0]
+            fx = w[1] if dx else 1.0 - w[1]
+            q = torch.round(((gf * fx) * fy) * scale).long()
+            at = (base + (y * W + x)[:, None]).expand(B, C, hw)
+            sel = valid[:, None].expand(B, C, hw)
+            total.index_add_(0, at[sel], q[sel])
+    out = total.reshape(B, C, hw).to(torch.float32) * (1.0 / scale)
+    out[~finite] = float("nan")
+    return out.reshape(g.shape)
+

@@ -9,7 +9,9 @@ Each launcher replaces a Pallas kernel of ``dfmir_tpu/ops/warp_pallas.py``:
 - ``vecint2d_fwd_cuda``: ``_kernel`` as JAX's ``vecint`` calls it, 7 times
   in a chain: the whole chain in one cooperative launch;
 - ``vecint2d_bwd_cuda``: ``_bwd_kernel`` as ``jax.vjp`` of ``vecint``
-  calls it: the chain's whole gradient in one cooperative launch;
+  calls it: the chain's whole gradient in one launch of a thread-block
+  cluster a batch item, its source gradients summed in an int64 fixed
+  point, bitwise reproducible;
 - ``warp3d_cuda``: ``_kernel3d`` / ``warp3d_banded`` (``csrc/warp3d.cu``);
 - ``warp3d_bwd_dflow_cuda``: ``_bwd_kernel3d_dflow`` /
   ``warp3d_banded_bwd_dflow``;
@@ -17,7 +19,8 @@ Each launcher replaces a Pallas kernel of ``dfmir_tpu/ops/warp_pallas.py``:
   ``warp3d_banded_bwd_dsrc``: a binned gather summed in an int64 fixed
   point, bitwise reproducible, in one cooperative launch;
 - ``vecint3d_fwd_cuda``: ``_kernel3d`` as JAX's ``vecint`` calls it at 3-D,
-  the whole chain in one cooperative launch;
+  the whole chain in one cooperative launch, each step reading the field
+  from bricks staged in shared memory;
 - ``vecint3d_bwd_cuda``: ``_bwd_kernel3d_dflow`` and ``_bwd_kernel3d_dsrc``
   as ``jax.vjp`` of ``vecint`` calls them: the whole gradient in one
   cooperative launch, its source gradients binned as B5's.
@@ -26,7 +29,10 @@ The designs are in the notes of the sources; ``ops/_build.py`` builds them.
 Their plain versions are ``ops/warp.py``'s ``warp(..., impl="torch")`` and
 ``warp_bwd_plain``, and ``ops/integrate.py``'s ``vecint(..., impl="torch")``
 and ``vecint_bwd_plain``, which the CPU tests and the on-card comparison
-use.  ``Warp2dFunction``, ``Warp3dFunction``, ``VecInt2dFunction`` and
+use; the fixed-point source gradients' plain models are
+``ops/warp.py``'s ``warp3d_dsrc_binned_plain`` and ``ops/integrate.py``'s
+``vecint2d_bwd_fixed_plain``, equal to the kernels bit for bit.
+``Warp2dFunction``, ``Warp3dFunction``, ``VecInt2dFunction`` and
 ``VecInt3dFunction`` tie the kernels together for autograd, as the custom
 VJPs ``_warp2d`` / ``_warp3d`` do in the JAX package.
 
@@ -41,6 +47,7 @@ that its path went through the kernels.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -205,19 +212,20 @@ def vecint2d_fwd_cuda(vec: torch.Tensor, nsteps: int, save: bool):
 def vecint2d_bwd_cuda(steps: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Launch the VecInt backward chain: ``steps`` the forward's saved
     (nsteps, B, 2, H, W) stack, contiguous, ``g`` (B, 2, H, W) the cotangent
-    of its output; returns the gradient of its input, in one launch.  Its
-    source gradients are summed with float32 atomics, so it is not bitwise
-    reproducible from run to run."""
+    of its output; returns the gradient of its input, in one launch of one
+    thread-block cluster a batch item.  Its source gradients are summed in
+    an int64 fixed point scaled per batch item, so the result is bitwise
+    the same on every run and equal to
+    ``ops.integrate.vecint2d_bwd_fixed_plain(steps, g)``."""
     device = _device(g, g, "vecint2d_bwd_cuda", 2)
     _check_steps(steps, g, device)
     if not steps.is_contiguous():
         raise ValueError("steps must be contiguous")
-    nsteps = steps.shape[0]
     dvec = torch.empty_like(g)
-    scratch = torch.empty_like(g) if nsteps > 1 else None
+    sums = torch.empty(g.shape, dtype=torch.int64, device=g.device)
     _launch(VECINT_BWD, "dfmir_vecint2d_bwd", device, steps.data_ptr(),
-            g.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            dvec.data_ptr(), g.shape[0], *g.shape[2:], nsteps, 0)
+            g.data_ptr(), sums.data_ptr(), dvec.data_ptr(), g.shape[0],
+            *g.shape[2:], steps.shape[0], 0)
     return dvec
 
 
@@ -242,24 +250,50 @@ def _bins3d(g: torch.Tensor, nsteps: int) -> torch.Tensor:
 def stack3d(vec: torch.Tensor, nsteps: int) -> torch.Tensor:
     """An empty (nsteps, *vec.shape) stack for the 3-D chain whose fields
     each start on a 128-byte line: a view of rows of a multiple of 32
-    floats, so that the chain may read every field through L1
-    (``csrc/warp3d.cu``, "Coherence")."""
+    floats, so that every field's rows start on 16 bytes wherever a fresh
+    tensor's would and the forward stages them with 16-byte copies
+    (``csrc/warp3d.cu``, "THE FORWARD CHAIN")."""
     slot = -(-vec.numel() // 32) * 32
     return vec.new_empty((nsteps, slot)).as_strided(
         (nsteps, *vec.shape), (slot, *vec.stride()))
 
 
+@functools.lru_cache(maxsize=1)
+def brick3d():
+    """The 3-D forward chain's (brick z, y, x, most halo, x pad) in
+    voxels (``csrc/warp3d.cu``, "THE FORWARD CHAIN")."""
+    dims = (ctypes.c_int * 5)()
+    _build.load().dfmir_vecint3d_fwd_brick(dims)
+    return tuple(dims)
+
+
+def _bricks3d(shape) -> int:
+    """The forward chain's bricks of a (B, 3, D, H, W) field."""
+    bz, by, bx = brick3d()[:3]
+    B, _, D, H, W = shape
+    return B * -(-D // bz) * -(-H // by) * -(-W // bx)
+
+
 def vecint3d_fwd_cuda(vec: torch.Tensor, nsteps: int, save: bool):
     """``vecint2d_fwd_cuda`` for a 3-D field vec (B, 3, D, H, W): returns
     ``(out, steps)``, ``steps`` the (nsteps, B, 3, D, H, W) stack of
-    ``stack3d`` when ``save`` (else None).  The launch writes the stack
-    either way: each field is written once, into a slot of its own."""
+    ``stack3d`` when ``save`` (else None; the launch then keeps two
+    ping-pong fields).  Each step reads the field from boxes staged in
+    shared memory (``csrc/warp3d.cu``, "THE FORWARD CHAIN")."""
     device = _device(vec, vec, "vecint3d_fwd_cuda", 3)
     out = torch.empty_like(vec)
-    steps = stack3d(vec, nsteps)
+    if save:
+        steps = stack3d(vec, nsteps)
+        slot = steps.stride(0)
+    else:
+        steps = torch.empty_like(vec) if nsteps else None
+        slot = vec.numel()
+    maxes = torch.empty(_bricks3d(vec.shape), dtype=torch.int32,
+                        device=vec.device)
     _launch(VECINT3D_FWD, "dfmir_vecint3d_fwd", device, vec.data_ptr(),
-            steps.data_ptr(), steps.stride(0), out.data_ptr(), vec.shape[0],
-            *vec.shape[2:], nsteps, 0)
+            None if steps is None else steps.data_ptr(), slot,
+            out.data_ptr(), maxes.data_ptr(), vec.shape[0], *vec.shape[2:],
+            nsteps, int(save), 0)
     return out, steps if save else None
 
 

@@ -6,10 +6,10 @@ Skips without a CUDA card.  On a machine with one (and no JAX), run:
 Tolerances: the forward 1e-5 max-abs (it rounds as the plain version
 does) and the chain forward 0.0 (bit-equal); the backward's dflow 1e-5 and
 dsrc 1e-5 * max(1, max|dsrc|), the chain backward 1e-5 * max(1, max|dvec|)
-(the 2-D source gradients are summed with atomics in an order that changes
-from run to run; the 3-D ones in a fixed point, in another order than
-autograd's, and bitwise the same on every run and as
-``warp3d_dsrc_binned_plain``); a whole
+(B2's source gradients are summed with atomics in an order that changes
+from run to run; the chains' and B5's in a fixed point, in another order
+than autograd's, and bitwise the same on every run and as
+``vecint2d_bwd_fixed_plain`` / ``warp3d_dsrc_binned_plain``); a whole
 step card vs CPU 1e-3 relative on the metrics and 1e-2 * the network's max
 |g| on the gradients, the JAX suite's cross-program bar (cuDNN's
 convolutions and the atomics sum in another order than the CPU, and on
@@ -24,7 +24,8 @@ from dfmir_tpu_torch.engine.config import RegistrationConfig
 from dfmir_tpu_torch.engine.registration import RegistrationModel
 from dfmir_tpu_torch.engine.vxm_engine import VxmConfig, VxmEngine
 from dfmir_tpu_torch.ops import warp_cuda
-from dfmir_tpu_torch.ops.integrate import vecint, vecint_bwd_plain
+from dfmir_tpu_torch.ops.integrate import (vecint, vecint2d_bwd_fixed_plain,
+                                           vecint_bwd_plain)
 from dfmir_tpu_torch.ops.warp import (identity_grid, warp, warp_bwd_plain,
                                       warp3d_dsrc_binned_plain)
 
@@ -225,6 +226,8 @@ CHAIN_CASES = [
     ((1, 2, 128, 128), "smooth", 20.0),   # register's pos chain
     ((2, 2, 128, 128), "smooth", 20.0),   # the train step's pos/neg chain
     ((16, 2, 128, 128), "smooth", 20.0),  # the train step at B=8
+    ((1, 2, 192, 192), "smooth", 20.0),   # backward state and sums in
+                                          # global memory
     ((3, 2, 67, 45), "smooth", 10.0),     # odd shape
     ((1, 2, 128, 128), "noise", 25.0),    # violent: x25 N(0, 1)
 ]
@@ -263,6 +266,10 @@ def test_vecint_chain_matches_plain(cuda, shape, kind, scale):
 
     steps_out, steps = warp_cuda.vecint2d_fwd_cuda(vec, 7, save=True)
     assert steps.shape == (7, *shape) and torch.equal(steps_out, ref)
+    again = warp_cuda.vecint2d_bwd_cuda(steps, g)
+    assert torch.equal(again, warp_cuda.vecint2d_bwd_cuda(steps, g))
+    assert torch.equal(again, v.grad)
+    assert torch.equal(again, vecint2d_bwd_fixed_plain(steps, g))
     assert torch.equal(steps[0], vec * (1.0 / 128))
     out_ns, none = warp_cuda.vecint2d_fwd_cuda(vec, 7, save=False)
     assert none is None and torch.equal(out_ns, ref)
@@ -278,14 +285,18 @@ def test_vecint_chain_few_steps(cuda, nsteps):
     out.backward(g)
     dvec = vecint_bwd_plain(vec, nsteps, g)
     assert max_err(v.grad, dvec) <= 1e-5 * max(1.0, float(dvec.abs().max()))
+    steps = warp_cuda.vecint2d_fwd_cuda(vec, nsteps, save=True)[1]
+    assert torch.equal(v.grad, vecint2d_bwd_fixed_plain(steps, g))
 
 
 def test_vecint_chain_refused_launch_raises(cuda):
-    """A cooperative grid larger than the card holds at once is refused:
-    the launcher raises, counts nothing and leaves no error behind."""
+    """A cooperative grid larger than the card holds at once, and a
+    cluster larger than the card takes (32 blocks), are refused: the
+    launcher raises, counts nothing and leaves no error behind."""
     vec = chain_field(cuda, (1, 2, 64, 64), "smooth", 5.0)
     steps = torch.empty((7, 1, 2, 64, 64), device=cuda)
-    out, scratch = torch.empty_like(vec), torch.empty_like(vec)
+    out = torch.empty_like(vec)
+    sums = torch.empty(vec.shape, dtype=torch.int64, device=cuda)
     too_many = 10 ** 6                            # blocks, > the card holds
     warp_cuda.reset_launches()
     with pytest.raises(RuntimeError, match="launch failed"):
@@ -294,9 +305,8 @@ def test_vecint_chain_refused_launch_raises(cuda):
                           1, 64, 64, 7, 1, too_many)
     with pytest.raises(RuntimeError, match="launch failed"):
         warp_cuda._launch(VB, "dfmir_vecint2d_bwd", vec.get_device(),
-                          steps.data_ptr(), vec.data_ptr(),
-                          scratch.data_ptr(), out.data_ptr(), 1, 64, 64, 7,
-                          too_many)
+                          steps.data_ptr(), vec.data_ptr(), sums.data_ptr(),
+                          out.data_ptr(), 1, 64, 64, 7, 32)
     assert warp_cuda.LAUNCHES == ZERO
     out = vecint(vec, 7)
     assert torch.equal(out, vecint(vec, 7, impl="torch"))
@@ -450,18 +460,26 @@ def smooth3d(shape, scale, gen):
 
 CHAIN3D_CASES = [
     # (B, 3, D, H, W), field kind, scale (voxels) of the velocity field
-    ((1, 3, 80, 80, 80), "smooth", 10.0),   # a 3-D register call / step
-    ((2, 3, 80, 80, 80), "posneg", 10.0),   # a bidirectional pos/neg stack
-    ((2, 3, 17, 33, 45), "smooth", 5.0),    # odd shape
-    ((1, 3, 40, 40, 40), "noise", 25.0),    # violent: x25 N(0, 1)
-    ((1, 3, 40, 40, 40), "collapse", 4.0),  # contracts to the centre
+    # (for "edge", max|v_0| exactly), steps
+    ((1, 3, 80, 80, 80), "smooth", 10.0, 7),   # a 3-D register call / step
+    ((1, 3, 80, 80, 80), "smooth", 2.0, 7),    # mild: halo 2 or less
+    ((2, 3, 80, 80, 80), "posneg", 10.0, 7),   # a bidirectional pos/neg stack
+    ((2, 3, 17, 33, 45), "smooth", 5.0, 7),    # odd shape
+    ((1, 3, 40, 40, 40), "noise", 25.0, 7),    # violent: x25 N(0, 1)
+    ((1, 3, 40, 40, 40), "collapse", 4.0, 7),  # contracts to the centre
+    ((1, 3, 40, 40, 40), "edge", 1.0, 2),      # displacements at halo 1,
+    ((1, 3, 40, 40, 40), "edge", 2.0, 2),      # at the most staged, 2,
+    ((1, 3, 40, 40, 40), "edge", 3.0, 2),      # and past it
 ]
 
 
-def chain3d_field(cuda, shape, kind, scale):
+def chain3d_field(cuda, shape, kind, scale, nsteps=7):
     gen = torch.Generator(device=cuda).manual_seed(7)
     if kind == "collapse":
         return collapse_field(shape, cuda, scale)
+    if kind == "edge":
+        v = smooth3d(shape, 1.0, gen)
+        return v / v.abs().max() * (scale * 2 ** nsteps)
     if kind == "noise":
         return torch.randn(shape, generator=gen, device=cuda) * scale
     if kind == "posneg":
@@ -470,38 +488,41 @@ def chain3d_field(cuda, shape, kind, scale):
     return smooth3d(shape, scale, gen)
 
 
-@pytest.mark.parametrize("shape,kind,scale", CHAIN3D_CASES)
-def test_vecint3d_chain_matches_plain(cuda, shape, kind, scale):
-    """The 3-D chain forward is bit-equal to the plain loop; its backward is
-    within 1e-5 * max(1, max|dvec|) of autograd of the loop and bitwise
-    the same over two calls; one launch each way, the steps saved only for
-    a gradient."""
-    vec = chain3d_field(cuda, shape, kind, scale)
+@pytest.mark.parametrize("shape,kind,scale,nsteps", CHAIN3D_CASES)
+def test_vecint3d_chain_matches_plain(cuda, shape, kind, scale, nsteps):
+    """The 3-D chain forward is bit-equal to the plain loop, saving its
+    steps and not; its backward is within 1e-5 * max(1, max|dvec|) of
+    autograd of the loop and bitwise the same over two calls; one launch
+    each way, the steps saved only for a gradient."""
+    vec = chain3d_field(cuda, shape, kind, scale, nsteps)
     g = torch.randn(shape, device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(8))
     warp_cuda.reset_launches()
-    out = vecint(vec, 7)                          # auto -> the chain kernel
+    out = vecint(vec, nsteps)                     # auto -> the chain kernel
     assert warp_cuda.LAUNCHES == dict(ZERO, **{VF3: 1})
-    ref = vecint(vec, 7, impl="torch")
+    ref = vecint(vec, nsteps, impl="torch")
     assert warp_cuda.LAUNCHES == dict(ZERO, **{VF3: 1})
     torch.cuda.synchronize()
     assert max_err(out, ref) == 0.0
-    assert float((ref - vec / 128).abs().max()) > 1.0    # it deformed
+    if kind == "edge":      # the first step's largest move is exactly scale
+        assert float((vec / 2 ** nsteps).abs().max()) == scale
+    else:
+        assert float((ref - vec / 2 ** nsteps).abs().max()) > 1.0
 
     v = vec.clone().requires_grad_()
-    vecint(v, 7).backward(g)
+    vecint(v, nsteps).backward(g)
     assert warp_cuda.LAUNCHES == dict(ZERO, **{VF3: 2, VB3: 1})
-    dvec = vecint_bwd_plain(vec, 7, g)
+    dvec = vecint_bwd_plain(vec, nsteps, g)
     torch.cuda.synchronize()
     assert max_err(v.grad, dvec) <= 1e-5 * max(1.0, float(dvec.abs().max()))
 
-    steps_out, steps = warp_cuda.vecint3d_fwd_cuda(vec, 7, save=True)
-    assert steps.shape == (7, *shape) and torch.equal(steps_out, ref)
+    steps_out, steps = warp_cuda.vecint3d_fwd_cuda(vec, nsteps, save=True)
+    assert steps.shape == (nsteps, *shape) and torch.equal(steps_out, ref)
     again = warp_cuda.vecint3d_bwd_cuda(steps, g)
     assert torch.equal(again, warp_cuda.vecint3d_bwd_cuda(steps, g))
     assert torch.equal(again, v.grad)
-    assert torch.equal(steps[0], vec * (1.0 / 128))
-    out_ns, none = warp_cuda.vecint3d_fwd_cuda(vec, 7, save=False)
+    assert torch.equal(steps[0], vec * (1.0 / 2 ** nsteps))
+    out_ns, none = warp_cuda.vecint3d_fwd_cuda(vec, nsteps, save=False)
     assert none is None and torch.equal(out_ns, ref)
 
 
@@ -540,11 +561,14 @@ def test_vecint3d_chain_refused_launch_raises(cuda):
     out, scratch = torch.empty_like(vec), vec.new_empty((2, *shape))
     bins = warp_cuda._bins3d(vec, 7)
     too_many = 10 ** 6                            # blocks, > the card holds
+    maxes = torch.empty(warp_cuda._bricks3d(shape), dtype=torch.int32,
+                        device=cuda)
     warp_cuda.reset_launches()
     with pytest.raises(RuntimeError, match="launch failed"):
         warp_cuda._launch(VF3, "dfmir_vecint3d_fwd", vec.get_device(),
                           vec.data_ptr(), steps.data_ptr(), slot,
-                          out.data_ptr(), 1, 16, 16, 16, 7, too_many)
+                          out.data_ptr(), maxes.data_ptr(), 1, 16, 16, 16, 7,
+                          1, too_many)
     with pytest.raises(RuntimeError, match="launch failed"):
         warp_cuda._launch(VB3, "dfmir_vecint3d_bwd", vec.get_device(),
                           steps.data_ptr(), slot, vec.data_ptr(),
@@ -564,23 +588,34 @@ def test_vecint3d_chain_refused_launch_raises(cuda):
 @pytest.mark.parametrize("shape", [(2, 3, 17, 33, 45), (1, 3, 16, 16, 16)])
 def test_vecint3d_stack_slots_start_on_lines(cuda, shape):
     """Every field of the 3-D chain's stack starts on a 128-byte line, the
-    odd shape's too; a stack off its line, or with a slot that is no
-    multiple of 32 floats, is refused before the launch (its L1 reads could
-    see stale lines) and nothing is counted."""
+    odd shape's too; the chain reads no field through L1, so a stack off
+    its line, or with a slot that is no multiple of 32 floats, gives the
+    same bits, and a slot smaller than a field is refused before the
+    launch, counting nothing."""
     vec = chain3d_field(cuda, shape, "smooth", 5.0)
     steps = warp_cuda.stack3d(vec, 7)
     assert steps.shape == (7, *shape) and steps.stride(0) % 32 == 0
     assert all(steps[k].data_ptr() % 128 == 0 for k in range(7))
-    out = torch.empty_like(vec)
+    ref = vecint(vec, 7, impl="torch")
+    maxes = torch.empty(warp_cuda._bricks3d(shape), dtype=torch.int32,
+                        device=cuda)
+    raw = torch.empty(7 * vec.numel() + 64, device=cuda)
+    for offset, slot in ((1, vec.numel()), (0, vec.numel() + 1)):
+        out = torch.empty_like(vec)
+        warp_cuda._launch(VF3, "dfmir_vecint3d_fwd", vec.get_device(),
+                          vec.data_ptr(), raw[offset:].data_ptr(), slot,
+                          out.data_ptr(), maxes.data_ptr(), shape[0],
+                          *shape[2:], 7, 1, 0)
+        assert torch.equal(out, ref)
+        assert torch.equal(raw[offset:offset + vec.numel()].view(vec.shape),
+                           vec * (1.0 / 128))
     warp_cuda.reset_launches()
-    for ptr, slot in ((steps.data_ptr() + 4, steps.stride(0)),
-                      (steps.data_ptr(), steps.stride(0) - 1)):
-        with pytest.raises(RuntimeError, match="launch failed"):
-            warp_cuda._launch(VF3, "dfmir_vecint3d_fwd", vec.get_device(),
-                              vec.data_ptr(), ptr, slot, out.data_ptr(),
-                              shape[0], *shape[2:], 7, 0)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        warp_cuda._launch(VF3, "dfmir_vecint3d_fwd", vec.get_device(),
+                          vec.data_ptr(), raw.data_ptr(), vec.numel() - 1,
+                          out.data_ptr(), maxes.data_ptr(), shape[0],
+                          *shape[2:], 7, 1, 0)
     assert warp_cuda.LAUNCHES == ZERO
-    assert torch.equal(vecint(vec, 7), vecint(vec, 7, impl="torch"))
 
 
 def test_vecint3d_chain_refuses_what_it_does_not_take(cuda):
