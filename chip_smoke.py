@@ -10,16 +10,21 @@ Phases, each printing one JSON line:
   3. kernel   each 2-D kernel against its plain PyTorch version on the card
               at the main paths' shapes and a few hard ones (forward max-abs
               <= 1e-5; backward dflow <= 1e-5, dsrc <= 1e-5 * max(1,
-              max|dsrc|), the atomics' order), timed with CUDA events beside
-              its byte/op bound and the one PyTorch call that computes the
-              same function; a host-clock breakdown of one B1 call and one
+              max|dsrc|) of autograd and, two calls bitwise the same,
+              bit-equal to the fixed-point sum warp2d_dsrc_fixed_plain, in a
+              collapse and with more items than blocks too), timed with
+              CUDA events beside its byte/op bound and the one PyTorch call
+              that computes the same function, B2's device us at every
+              case; a host-clock breakdown of one B1 call and one
               B2 call at (1,1,256,256), part by part, on the earlier launch
               path (rebuilt here) and on the lean path, and of each 3-D
               launcher at (1,3,80,80,80) beside the library calls; VecInt's
               2-D chain kernels (vecint2d_fwd bit-equal to the plain loop,
-              vecint2d_bwd within 1e-5 * max(1, max|dvec|) of autograd of
-              it, bitwise the same over two calls and equal to
-              vecint2d_bwd_fixed_plain, at clusters of 8 and 16 blocks)
+              saving its steps and not, its field in the clusters' shared
+              memory or, at (1,2,512,512), in global memory; vecint2d_bwd
+              within 1e-5 * max(1, max|dvec|) of autograd of it, bitwise
+              the same over two calls and equal to
+              vecint2d_bwd_fixed_plain; both at clusters of 8 and 16 blocks)
               beside two chains built here: 7 direct B1 / B2 launches
               with their adds, and the chain written with F.grid_sample;
               at the main cases each chain at nsteps 1..7 (a step's cost,
@@ -90,10 +95,13 @@ and last {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --steps
 
-runs the device and build phases and phase chain_steps alone: the two
-chains redesigned last (vecint3d_fwd, vecint2d_bwd) at nsteps 1..7 at
-their main cases, and one grid.sync() and one cluster barrier alone
-(csrc/yardsticks/sync.cu); it prints no result line.
+runs the device and build phases and phase chain_steps alone: the chains
+redesigned last (vecint2d_fwd, vecint2d_bwd, vecint3d_fwd) at nsteps
+1..7 at their main cases, B2 with both gradients at the `registered`,
+VecInt-step and collapse cases beside grid_sampler_2d_backward, and one
+grid.sync() and one cluster barrier alone (csrc/yardsticks/sync.cu); it
+prints no result line.  It calls the kernels through their wrappers
+alone, so it also runs from an earlier commit's tree.
 
 Exits non-zero, printing no result, without a CUDA card.  Every failure
 propagates.
@@ -121,6 +129,7 @@ from dfmir_tpu_torch.engine.vxm_engine import VxmConfig, VxmEngine
 from dfmir_tpu_torch.ops import _build, integrate, warp_cuda
 from dfmir_tpu_torch.ops.integrate import vecint, vecint_bwd_plain
 from dfmir_tpu_torch.ops.warp import (_kernel_takes, identity_grid, warp,
+                                      warp2d_dsrc_fixed_plain,
                                       warp3d_dsrc_binned_plain,
                                       warp_bwd_plain)
 
@@ -361,16 +370,31 @@ def phase_kernel(seed, profile):
 
 
 BWD_CASES = [
-    # name, (B, C, H, W), flow scale (px), flow shift (px), dsrc wanted,
-    # src is flow
-    ("vecint_step", (2, 2, 128, 128), 5.0, 0.0, True, True),  # one step
-    ("data_warp", (2, 1, 256, 256), 5.0, 0.0, False, False),
-    ("registered", (1, 1, 256, 256), 5.0, 0.0, True, False),
-    ("mostly_outside", (2, 1, 128, 128), 40.0, 90.0, True, False),
-    ("odd_shape", (3, 3, 67, 45), 3.0, 0.0, True, False),
+    # name, (B, C, H, W), flow kind, flow scale (px; "collapse": the
+    # factor), flow shift (px), dsrc wanted, src is flow
+    ("vecint_step", (2, 2, 128, 128), "smooth", 5.0, 0.0, True, True),
+    ("data_warp", (2, 1, 256, 256), "smooth", 5.0, 0.0, False, False),
+    ("registered", (1, 1, 256, 256), "smooth", 5.0, 0.0, True, False),
+    ("mostly_outside", (2, 1, 128, 128), "smooth", 40.0, 90.0, True, False),
+    ("odd_shape", (3, 3, 67, 45), "smooth", 3.0, 0.0, True, False),
+    # every pixel samples near the centre: thousands of terms a pixel
+    ("collapse", (1, 1, 256, 256), "collapse", 0.95, 0.0, True, False),
+    # more items than the card holds blocks: a block takes several items
+    ("many_items", (2048, 2, 8, 8), "smooth", 2.0, 0.0, True, False),
 ]
 MAIN_BWD_CASE = "registered"   # the backward of `registered = warp(fake_B,
                                # pos_flow)`, both gradients
+
+
+def bwd_case_inputs(shape, kind, scale, shift, alias, gen, dev):
+    """(src, flow, g) of a BWD_CASES case."""
+    B, C, H, W = shape
+    if kind == "collapse":
+        flow = collapse_field((B, 2, H, W), scale, dev)
+    else:
+        flow = smooth_field((B, 2, H, W), scale, gen, dev) + shift
+    src = flow if alias else torch.randn(shape, generator=gen, device=dev)
+    return src, flow, torch.randn(shape, generator=gen, device=dev)
 
 
 def warp2d_bwd_bound(B, C, H, W, need_dsrc, alias):
@@ -403,15 +427,20 @@ def grid_sample_bwd_call(src, flow, g, need_dsrc):
 
 
 def phase_kernel_bwd(seed, profile):
+    """B2 against its plain version at BWD_CASES: dflow within 1e-5 of
+    autograd; dsrc within 1e-5 * max(1, max|dsrc|) of it, bitwise the same
+    over two calls and 0.0 from warp2d_dsrc_fixed_plain; timed beside its
+    bound, its plain version and grid_sampler_2d_backward, with device us a
+    launch at every case."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     rows = {}
-    for name, (B, C, H, W), scale, shift, need_dsrc, alias in BWD_CASES:
-        flow = smooth_field((B, 2, H, W), scale, gen, dev) + shift
-        src = flow if alias else torch.randn((B, C, H, W), generator=gen,
-                                             device=dev)
-        g = torch.randn((B, C, H, W), generator=gen, device=dev)
+    for (name, (B, C, H, W), kind, scale, shift, need_dsrc,
+         alias) in BWD_CASES:
+        src, flow, g = bwd_case_inputs((B, C, H, W), kind, scale, shift,
+                                       alias, gen, dev)
         dsrc, dflow = warp_cuda.warp2d_bwd_cuda(src, flow, g, need_dsrc)
+        dsrc2, dflow2 = warp_cuda.warp2d_bwd_cuda(src, flow, g, need_dsrc)
         torch.cuda.synchronize()
         ref_dsrc, ref_dflow = warp_bwd_plain(src, flow, g, need_dsrc)
         torch.cuda.synchronize()
@@ -422,6 +451,10 @@ def phase_kernel_bwd(seed, profile):
                     else 0.0)
         if not need_dsrc and dsrc is not None:
             raise AssertionError(f"{name}: dsrc computed though not wanted")
+        same = torch.equal(dflow, dflow2) and (
+            not need_dsrc or torch.equal(dsrc, dsrc2))
+        fixed_err = (float((dsrc - warp2d_dsrc_fixed_plain(flow, g))
+                           .abs().max()) if need_dsrc else 0.0)
         library, lib_dflow = grid_sample_bwd_call(src, flow, g, need_dsrc)
         bound_ms, bound_by = warp2d_bwd_bound(B, C, H, W, need_dsrc, alias)
         kernel = lambda: warp_cuda.warp2d_bwd_cuda(  # noqa: E731
@@ -439,9 +472,10 @@ def phase_kernel_bwd(seed, profile):
             "library_max_abs_err_dflow":
                 float((lib_dflow - ref_dflow).abs().max()),
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "bit_reproducible": same, "fixed_max_abs_err": fixed_err,
+            "device_us_per_launch": device_us(kernel, BWD),
         }
         if profile:
-            row["device_us_per_launch"] = device_us(kernel, BWD)
             row["library_device_us_per_call"] = device_us(library)
         emit({"phase": "kernel", "kernel": BWD, **row})
         if not (err_dflow <= KERNEL_TOL
@@ -450,6 +484,10 @@ def phase_kernel_bwd(seed, profile):
                 f"warp2d backward kernel disagrees with its plain version on "
                 f"{name}: dflow {err_dflow}, dsrc {err_dsrc} (scale "
                 f"{dsrc_scale}) > {KERNEL_TOL}")
+        if not same or fixed_err != 0.0:
+            raise AssertionError(
+                f"warp2d backward on {name}: two calls the same bits "
+                f"{same}, dsrc {fixed_err} from warp2d_dsrc_fixed_plain")
         rows[name] = row
     return rows
 
@@ -480,8 +518,11 @@ def seed_warp2d_bwd(src, flow, g, counts):
     warp_cuda._check_g(g, src)
     dflow = torch.empty_like(flow)
     dsrc = torch.zeros_like(src)
+    scratch = torch.empty(warp_cuda._scratch2d(*src.shape),
+                          dtype=torch.int64, device=src.device)
     seed_launch("dfmir_warp2d_bwd", src, src.data_ptr(), flow.data_ptr(),
-                g.data_ptr(), dsrc.data_ptr(), dflow.data_ptr(), *src.shape)
+                g.data_ptr(), dsrc.data_ptr(), dflow.data_ptr(),
+                scratch.data_ptr(), *src.shape)
     counts[BWD] += 1
     return dsrc, dflow
 
@@ -532,6 +573,8 @@ def phase_host_path(seed):
     flow = smooth_field((1, 2, 256, 256), 5.0, gen, dev)
     g = torch.randn((1, 1, 256, 256), generator=gen, device=dev)
     out, dsrc, dflow = (torch.empty_like(t) for t in (src, src, flow))
+    scratch = torch.empty(warp_cuda._scratch2d(*src.shape),
+                          dtype=torch.int64, device=dev)
     lib = _build.load()
     fwd_fn, bwd_fn = lib.dfmir_warp2d_fwd, lib.dfmir_warp2d_bwd
     d = src.get_device()
@@ -539,7 +582,8 @@ def phase_host_path(seed):
     stream = torch._C._cuda_getCurrentRawStream(d)
     fwd_args = (src.data_ptr(), flow.data_ptr(), out.data_ptr(), *src.shape)
     bwd_args = (src.data_ptr(), flow.data_ptr(), g.data_ptr(),
-                dsrc.data_ptr(), dflow.data_ptr(), *src.shape)
+                dsrc.data_ptr(), dflow.data_ptr(), scratch.data_ptr(),
+                *src.shape)
 
     def guard():
         with torch.cuda.device(src.device):
@@ -591,6 +635,9 @@ def phase_host_path(seed):
                                                                        src)),
             "alloc_dflow": lambda: torch.empty_like(flow),
             "alloc_dsrc": lambda: torch.empty_like(src),
+            "alloc_scratch": lambda: torch.empty(
+                warp_cuda._scratch2d(*src.shape), dtype=torch.int64,
+                device=dev),
             "entry": lambda: getattr(_build.load(), "dfmir_warp2d_bwd"),
             "stream": lambda: torch._C._cuda_getCurrentRawStream(d),
             "device_test": lambda: d == torch._C._cuda_getDevice(),
@@ -748,6 +795,9 @@ CHAIN_CASES = [
     # the backward's state and sums in global memory (no block of 16 holds
     # its pixels' G in registers or their sums in shared memory)
     ("large", (1, 2, 192, 192), "smooth", 10.0, NSTEPS),
+    # the forward's field in global memory (two buffers of a band exceed
+    # a block's share of shared memory)
+    ("large_fwd", (1, 2, 512, 512), "smooth", 10.0, NSTEPS),
     ("odd_shape", (3, 2, 67, 45), "smooth", 5.0, NSTEPS),
     ("violent", (1, 2, 128, 128), "noise", 25.0, NSTEPS),    # x25 N(0, 1)
 ]
@@ -825,14 +875,14 @@ def grid_sample_chain(vec, n=NSTEPS):
 
 
 def collapse_field(shape, scale, device):
-    """(B, 3, D, H, W) flow scale * (centre - p): every voxel samples near
-    the centre, so thousands of targets share a few cells."""
-    B, _, *spatial = shape
+    """(B, nd, *spatial) flow scale * (centre - p): every pixel or voxel
+    samples near the centre, so thousands of targets share a few cells."""
+    B, nd, *spatial = shape
     grid = identity_grid(spatial, device=device)
     centre = torch.tensor([(n - 1) / 2 for n in spatial],
-                          device=device).reshape(3, 1, 1, 1)
-    return (scale * (centre - grid))[None].expand(B, -1, -1, -1,
-                                                  -1).contiguous()
+                          device=device).reshape(nd, *[1] * nd)
+    return (scale * (centre - grid))[None].expand(
+        B, *[-1] * (nd + 1)).contiguous()
 
 
 def chain_field(shape, kind, scale, gen, dev, nsteps=NSTEPS):
@@ -917,18 +967,27 @@ def barrier_us(entry, *args, n=1000):
 
 STEP_CASES = [
     # kernel, case, (B, nd, *spatial), field kind, velocity scale
-    (VF3, "register", (1, 3, 80, 80, 80), "smooth", 10.0),
-    (VF3, "mild", (1, 3, 80, 80, 80), "smooth", 2.0),
+    (VF, "register", (1, 2, 128, 128), "smooth", 10.0),
+    (VF, "train", (2, 2, 128, 128), "smooth", 10.0),
+    (VF, "train_b8", (16, 2, 128, 128), "smooth", 10.0),
+    (VF, "large_fwd", (1, 2, 512, 512), "smooth", 10.0),
     (VB, "train", (2, 2, 128, 128), "smooth", 10.0),
     (VB, "train_b8", (16, 2, 128, 128), "smooth", 10.0),
+    (VF3, "register", (1, 3, 80, 80, 80), "smooth", 10.0),
+    (VF3, "mild", (1, 3, 80, 80, 80), "smooth", 2.0),
 ]
+# B2's cases timed by --steps, both gradients
+STEP_BWD_CASES = ("registered", "vecint_step", "collapse")
 
 
 def phase_chain_steps(seed):
-    """Where the two redesigned chains' time goes: each at nsteps = 1..7
-    (``chain_steps_fit``) at STEP_CASES, and one barrier alone: a
-    grid.sync() over 1, 2, 4 and 5 blocks of 256 threads a SM, and a
-    cluster barrier over clusters of 8 and 16 blocks."""
+    """Where the chains' time goes: each at nsteps = 1..7
+    (``chain_steps_fit``) at STEP_CASES; B2 with both gradients at
+    STEP_BWD_CASES, device us a launch and ms beside
+    grid_sampler_2d_backward's; and one barrier alone: a grid.sync() over
+    1, 2, 4 and 5 blocks of 256 threads a SM, and a cluster barrier over
+    clusters of 8 and 16 blocks.  It calls the wrappers alone, so it runs
+    against an earlier tree's library too."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(seed + 14)
     rows = {}
@@ -938,6 +997,23 @@ def phase_chain_steps(seed):
         rows[kernel, name] = chain_steps_fit(kernel, vec, g)
         emit({"phase": "chain_steps", "kernel": kernel, "case": name,
               "shape": list(shape), "vec_px": scale, **rows[kernel, name]})
+    for (name, shape, kind, scale, shift, need_dsrc,
+         alias) in BWD_CASES:
+        if name not in STEP_BWD_CASES:
+            continue
+        src, flow, g = bwd_case_inputs(shape, kind, scale, shift, alias,
+                                       gen, dev)
+        kernel = lambda: warp_cuda.warp2d_bwd_cuda(  # noqa: E731
+            src, flow, g, need_dsrc)
+        library, _ = grid_sample_bwd_call(src, flow, g, need_dsrc)
+        rows[BWD, name] = {
+            "device_us_per_launch": device_us(kernel, BWD),
+            "ms": time_ms(kernel),
+            "library_device_us_per_call": device_us(library),
+            "library_ms": time_ms(library),
+            "bound_ms": warp2d_bwd_bound(*shape, need_dsrc, alias)[0]}
+        emit({"phase": "chain_steps", "kernel": BWD, "case": name,
+              "shape": list(shape), **rows[BWD, name]})
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     grid = {f"{k}_per_sm": barrier_us("dfmir_yard_grid_sync", k * sms)
             for k in (1, 2, 4, 5)}
@@ -1011,6 +1087,17 @@ def launch_vecint2d_bwd(steps, g, cluster):
     return dvec
 
 
+def launch_vecint2d_fwd(vec, n, cluster):
+    """vecint2d_fwd_cuda(vec, n, save=True)'s output with clusters of
+    ``cluster`` blocks; the launch is counted as the wrapper's."""
+    out = torch.empty_like(vec)
+    steps = vec.new_empty((n, *vec.shape))
+    warp_cuda._launch(VF, "dfmir_vecint2d_fwd", vec.get_device(),
+                      vec.data_ptr(), steps.data_ptr(), out.data_ptr(),
+                      vec.shape[0], *vec.shape[2:], n, 1, cluster)
+    return out
+
+
 def vecint2d_bwd_clusters(size=0):
     """(blocks a cluster, clusters the card holds at once) of vecint2d_bwd
     at ``size`` blocks a cluster, 0 for the kernel's own."""
@@ -1022,18 +1109,21 @@ def vecint2d_bwd_clusters(size=0):
     return size.value, active.value
 
 
-def cluster_report(steps, g, dvec):
-    """vecint2d_bwd at clusters of 8 and 16 blocks: each bit-equal to the
-    wrapper's ``dvec``, its ms, device us and the clusters the card holds
-    at once."""
+def cluster_report(kernel, call_of_size, result):
+    """The 2-D chain kernel ``kernel`` at clusters of 8 and 16 blocks
+    (``call_of_size(size)`` returns the call): each bit-equal to the
+    wrapper's ``result``, its ms and device us; for vecint2d_bwd the
+    clusters the card holds at once."""
     rows = {}
     for size in (8, 16):
-        rows[size] = {"active_clusters": vecint2d_bwd_clusters(size)[1]}
-        call = lambda: launch_vecint2d_bwd(steps, g, size)  # noqa: E731
-        rows[size].update(equal=torch.equal(call(), dvec), ms=time_ms(call),
-                          device_us=device_us(call, VB))
+        call = call_of_size(size)
+        rows[size] = {"equal": torch.equal(call(), result),
+                      "ms": time_ms(call),
+                      "device_us": device_us(call, kernel)}
+        if kernel == VB:
+            rows[size]["active_clusters"] = vecint2d_bwd_clusters(size)[1]
         if not rows[size]["equal"]:
-            raise AssertionError(f"{VB} with clusters of {size} blocks "
+            raise AssertionError(f"{kernel} with clusters of {size} blocks "
                                  f"disagrees with the wrapper's result")
     return rows
 
@@ -1147,7 +1237,13 @@ def run_chains(phase, cases, names, seed, profile):
                 row["steps_fit"] = fit
             if main and k == VB:
                 row["blocks_per_cluster"] = vecint2d_bwd_clusters()[0]
-                row["clusters"] = cluster_report(steps, g, dvec)
+                row["clusters"] = cluster_report(
+                    VB, lambda size: lambda: launch_vecint2d_bwd(
+                        steps, g, size), dvec)
+            if main and k == VF:
+                row["clusters"] = cluster_report(
+                    VF, lambda size: lambda: launch_vecint2d_fwd(
+                        vec, n, size), out)
             emit({"phase": phase, "kernel": k, **row})
             if not row["max_abs_err"] <= row["tol"]:
                 raise AssertionError(f"{k} disagrees with its plain version "

@@ -1,7 +1,7 @@
 // What the kernels of csrc/warp2d.cu and csrc/warp3d.cu share: the block
-// size, VecInt's chains' cooperative launch, with a grid no larger than
-// the blocks the card holds at once, and the launch of thread-block
-// clusters.
+// size, the cooperative launch (the 3-D chains, B5, B2 with a source
+// gradient), with a grid no larger than the blocks the card holds at once,
+// and the launch of thread-block clusters (the 2-D chains).
 //
 // The co-resident limit is occupancy x SMs, computed on the first launch of
 // each kernel on each device and cached by the caller.  A grid above it
@@ -67,19 +67,26 @@ cudaError_t launch_chain(const void* kernel, int* cache, long long units,
 
 // Launch `kernel` as `clusters` thread-block clusters of `size` blocks of
 // `threads` threads, one after another along x (cudaLaunchKernelEx with a
-// cluster dimension); more than 8 blocks a cluster (the portable size) are
-// allowed first.  A refused launch returns its error (and clears it).
+// cluster dimension), each block with `smem` bytes of dynamic shared
+// memory; more than 8 blocks a cluster (the portable size) and more than
+// 48 KB of dynamic shared memory are allowed first.  A refused launch
+// returns its error (and clears it).
 inline cudaError_t launch_clusters(const void* kernel, int threads,
-                                   int clusters, int size, void** args,
-                                   void* stream) {
+                                   int clusters, int size, int smem,
+                                   void** args, void* stream) {
   if (size < 1) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
   if (size > 8) {
-    const cudaError_t err = cudaFuncSetAttribute(
+    err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) {
-      cudaGetLastError();
-      return err;
-    }
+  }
+  if (err == cudaSuccess && smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
   }
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
@@ -89,10 +96,11 @@ inline cudaError_t launch_clusters(const void* kernel, int threads,
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(clusters * size);
   config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = smem;
   config.stream = (cudaStream_t)stream;
   config.attrs = &attr;
   config.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelExC(&config, kernel, args);
+  err = cudaLaunchKernelExC(&config, kernel, args);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return err;

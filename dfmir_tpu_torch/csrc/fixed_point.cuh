@@ -1,6 +1,6 @@
 // The int64 fixed point in which the source gradients of csrc/warp2d.cu
-// (vecint2d_bwd) and csrc/warp3d.cu (B5, vecint3d_bwd) are summed, so that
-// the sums are the same bits in any order.
+// (B2, vecint2d_bwd) and csrc/warp3d.cu (B5, vecint3d_bwd) are summed, so
+// that the sums are the same bits in any order.
 //
 // A term t becomes the integer __float2ll_rn(t * 2^e); the sum S of such
 // integers becomes the float __ll2float_rn(S) * 2^-e.  With m = max|term

@@ -29,9 +29,13 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     # (src, flow, out, B, C, H, W, stream) -> cudaError_t
     "dfmir_warp2d_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
-    # (src, flow, g, dsrc or NULL, dflow, B, C, H, W, stream) -> cudaError_t
-    "dfmir_warp2d_bwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    # (vec, steps, out, B, H, W, nsteps, save, blocks, stream) -> cudaError_t
+    # (src, flow, g, dsrc or NULL, dflow, scratch, B, C, H, W, stream)
+    #  -> cudaError_t
+    "dfmir_warp2d_bwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # (B, C, H, W) -> the int64s of dfmir_warp2d_bwd's scratch
+    "dfmir_warp2d_bwd_scratch": (_L, [_I, _I, _I, _I]),
+    # (vec, steps, out, B, H, W, nsteps, save, cluster, stream)
+    #  -> cudaError_t
     "dfmir_vecint2d_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     # (steps, g, sums, dvec, B, H, W, nsteps, cluster, stream)
     "dfmir_vecint2d_bwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),

@@ -218,10 +218,11 @@ def warp3d_dsrc_binned_plain(flow, g):
 
 
 def warp2d_dsrc_fixed_plain(flow, g):
-    """The 2-D source gradient as ``vecint2d_bwd`` sums it, in plain
-    PyTorch: the dsrc of ``warp(src, flow, impl="torch")`` for the
-    cotangent ``g`` (B, C, H, W), float32.  Each target's term for corner
-    (dy, dx) is formed as the kernel forms it, (g * fx) * fy, on
+    """The 2-D source gradient as B2 (``warp2d_bwd_cuda``) and
+    ``vecint2d_bwd`` sum it, in plain PyTorch: the dsrc of ``warp(src,
+    flow, impl="torch")`` for the cotangent ``g`` (B, C, H, W), float32.
+    Each target's term for corner (dy, dx) is formed as the kernel forms
+    it, (g * fx) * fy, on
     coordinates clamped to [-2, S+1]; item b's terms are scaled by 2^e_b,
     e_b from max|g[b]| over its channels and H*W pixels, rounded to int64
     and summed exactly with ``index_add_``; the sum times 2^-e_b.  A

@@ -5,9 +5,12 @@ Each launcher replaces a Pallas kernel of ``dfmir_tpu/ops/warp_pallas.py``:
 
 - ``warp2d_cuda``: ``_kernel`` / ``warp2d_banded`` (``csrc/warp2d.cu``);
 - ``warp2d_bwd_cuda``: ``_bwd_kernel`` / ``warp2d_banded_bwd`` (both
-  gradients, one launch);
+  gradients, one launch; the source gradient summed in an int64 fixed
+  point scaled per batch item, in one cooperative launch, bitwise
+  reproducible);
 - ``vecint2d_fwd_cuda``: ``_kernel`` as JAX's ``vecint`` calls it, 7 times
-  in a chain: the whole chain in one cooperative launch;
+  in a chain: the whole chain in one launch of a thread-block cluster a
+  batch item, the field in the cluster's shared memory between steps;
 - ``vecint2d_bwd_cuda``: ``_bwd_kernel`` as ``jax.vjp`` of ``vecint``
   calls it: the chain's whole gradient in one launch of a thread-block
   cluster a batch item, its source gradients summed in an int64 fixed
@@ -30,7 +33,8 @@ Their plain versions are ``ops/warp.py``'s ``warp(..., impl="torch")`` and
 ``warp_bwd_plain``, and ``ops/integrate.py``'s ``vecint(..., impl="torch")``
 and ``vecint_bwd_plain``, which the CPU tests and the on-card comparison
 use; the fixed-point source gradients' plain models are
-``ops/warp.py``'s ``warp3d_dsrc_binned_plain`` and ``ops/integrate.py``'s
+``ops/warp.py``'s ``warp2d_dsrc_fixed_plain`` and
+``warp3d_dsrc_binned_plain`` and ``ops/integrate.py``'s
 ``vecint2d_bwd_fixed_plain``, equal to the kernels bit for bit.
 ``Warp2dFunction``, ``Warp3dFunction``, ``VecInt2dFunction`` and
 ``VecInt3dFunction`` tie the kernels together for autograd, as the custom
@@ -159,22 +163,33 @@ def warp2d_cuda(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _scratch2d(B, C, H, W):
+    return int(_build.load().dfmir_warp2d_bwd_scratch(B, C, H, W))
+
+
 def warp2d_bwd_cuda(src: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
                     need_dsrc: bool = True):
     """Launch the backward kernel for the cotangent ``g`` (B, C, H, W) of
     ``warp2d_cuda(src, flow)``; returns ``(dsrc, dflow)``, with ``dsrc``
-    None unless ``need_dsrc`` (the scatter and its zeroing are skipped).
+    None unless ``need_dsrc`` (no max and no sums are then computed).
 
-    ``dsrc`` is zeroed by the launch's entry (``cudaMemsetAsync``) and
-    summed with float32 atomics, so it is not bitwise reproducible from run
-    to run; ``dflow`` is."""
+    Both are bitwise the same on every run: ``dflow`` is formed in
+    autograd's order, and ``dsrc`` is summed in an int64 fixed point scaled
+    per batch item, equal to ``ops.warp.warp2d_dsrc_fixed_plain(flow,
+    g)``, in int64 scratch allocated here."""
     device = _device(src, flow, "warp2d_bwd_cuda", 2)
     _check_g(g, src)
     dflow = torch.empty_like(flow)
-    dsrc = torch.empty_like(src) if need_dsrc else None
+    dsrc = scratch = None
+    if need_dsrc:
+        dsrc = torch.empty_like(src)
+        scratch = torch.empty(_scratch2d(*src.shape), dtype=torch.int64,
+                              device=src.device)
     _launch(BWD, "dfmir_warp2d_bwd", device, src.data_ptr(), flow.data_ptr(),
             g.data_ptr(), dsrc.data_ptr() if need_dsrc else None,
-            dflow.data_ptr(), *src.shape)
+            dflow.data_ptr(), scratch.data_ptr() if need_dsrc else None,
+            *src.shape)
     return dsrc, dflow
 
 
@@ -193,10 +208,12 @@ def _check_steps(steps, g, device):
 def vecint2d_fwd_cuda(vec: torch.Tensor, nsteps: int, save: bool):
     """Launch the VecInt forward chain on vec (B, 2, H, W), float32,
     contiguous, on a CUDA device: ``vec * 2**-nsteps`` squared ``nsteps``
-    times in one launch.  Returns ``(out, steps)``: the displacement field
-    and, when ``save``, the (nsteps, B, 2, H, W) stack of the fields before
-    each step, which the backward reads (else None; the launch then keeps
-    two ping-pong buffers)."""
+    times in one launch of a thread-block cluster a batch item.  Returns
+    ``(out, steps)``: the displacement field and, when ``save``, the
+    (nsteps, B, 2, H, W) stack of the fields before each step, which the
+    backward reads (else None; the launch then keeps the field in the
+    cluster's shared memory or, for a field too large for it, two
+    ping-pong buffers)."""
     device = _device(vec, vec, "vecint2d_fwd_cuda", 2)
     out = torch.empty_like(vec)
     if save:

@@ -6,14 +6,14 @@ Skips without a CUDA card.  On a machine with one (and no JAX), run:
 Tolerances: the forward 1e-5 max-abs (it rounds as the plain version
 does) and the chain forward 0.0 (bit-equal); the backward's dflow 1e-5 and
 dsrc 1e-5 * max(1, max|dsrc|), the chain backward 1e-5 * max(1, max|dvec|)
-(B2's source gradients are summed with atomics in an order that changes
-from run to run; the chains' and B5's in a fixed point, in another order
-than autograd's, and bitwise the same on every run and as
-``vecint2d_bwd_fixed_plain`` / ``warp3d_dsrc_binned_plain``); a whole
-step card vs CPU 1e-3 relative on the metrics and 1e-2 * the network's max
-|g| on the gradients, the JAX suite's cross-program bar (cuDNN's
-convolutions and the atomics sum in another order than the CPU, and on
-this loss float32 itself is ~5e-3 of netG's max |g| from float64)."""
+(every source gradient is summed in a fixed point, in another order than
+autograd's, and is bitwise the same on every run and as
+``warp2d_dsrc_fixed_plain`` / ``vecint2d_bwd_fixed_plain`` /
+``warp3d_dsrc_binned_plain``); a whole step card vs CPU 1e-3 relative on
+the metrics and 1e-2 * the network's max |g| on the gradients, the JAX
+suite's cross-program bar (cuDNN's convolutions sum in another order than
+the CPU, and on this loss float32 itself is ~5e-3 of netG's max |g| from
+float64)."""
 
 import pytest
 import torch
@@ -26,8 +26,10 @@ from dfmir_tpu_torch.engine.vxm_engine import VxmConfig, VxmEngine
 from dfmir_tpu_torch.ops import warp_cuda
 from dfmir_tpu_torch.ops.integrate import (vecint, vecint2d_bwd_fixed_plain,
                                            vecint_bwd_plain)
-from dfmir_tpu_torch.ops.warp import (identity_grid, warp, warp_bwd_plain,
-                                      warp3d_dsrc_binned_plain)
+from dfmir_tpu_torch.ops.warp import (identity_grid, warp,
+                                      warp2d_dsrc_fixed_plain,
+                                      warp3d_dsrc_binned_plain,
+                                      warp_bwd_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -98,6 +100,46 @@ def test_warp2d_bwd_kernel_matches_plain(cuda, shape, scale, shift,
         assert max_err(dsrc, ref_dsrc) <= 1e-5 * scale
     else:
         assert dsrc is None
+
+
+DSRC_CASES = [*CASES,
+              ((2, 3, 96, 80), 4.0, 0.0),            # C = 3
+              ((1, 1, 256, 256), "collapse", 0.0),   # thousands of terms a
+                                                     # pixel
+              ((2048, 2, 8, 8), 2.0, 0.0)]           # more items than
+                                                     # the card's blocks
+
+
+@pytest.mark.parametrize("shape,scale,shift", DSRC_CASES)
+def test_warp2d_bwd_dsrc_is_fixed_point(cuda, shape, scale, shift):
+    """B2's dsrc is the same bits on every call and equal to its plain
+    fixed-point model; its dflow is unchanged by the dsrc path."""
+    if scale == "collapse":
+        src, _, g = inputs(cuda, shape, 0.0, 0.0)
+        flow = collapse_field((shape[0], 2, *shape[2:]), cuda)
+    else:
+        src, flow, g = inputs(cuda, shape, scale, shift)
+    dsrc, dflow = warp_cuda.warp2d_bwd_cuda(src, flow, g)
+    again, dflow2 = warp_cuda.warp2d_bwd_cuda(src, flow, g)
+    assert torch.equal(dsrc, again) and torch.equal(dflow, dflow2)
+    assert torch.equal(dsrc, warp2d_dsrc_fixed_plain(flow, g))
+    assert torch.equal(dflow, warp_cuda.warp2d_bwd_cuda(src, flow, g,
+                                                        need_dsrc=False)[1])
+
+
+def test_warp2d_bwd_dsrc_zero_and_nan_items(cuda):
+    """A zero cotangent gives exactly 0; a NaN in item 0 makes item 0's dsrc
+    NaN and leaves item 1 the same bits as alone."""
+    src, flow, g = inputs(cuda, (2, 2, 40, 48), 3.0, 0.0)
+    zero, _ = warp_cuda.warp2d_bwd_cuda(src, flow, g * 0)
+    assert torch.equal(zero, torch.zeros_like(g))
+    g[0, 1, 7, 9] = float("nan")
+    dsrc, _ = warp_cuda.warp2d_bwd_cuda(src, flow, g)
+    alone, _ = warp_cuda.warp2d_bwd_cuda(src[1:].contiguous(),
+                                         flow[1:].contiguous(),
+                                         g[1:].contiguous())
+    assert bool(dsrc[0].isnan().all())
+    assert torch.equal(dsrc[1:], alone)
 
 
 def test_warp2d_autograd_launches_the_kernels(cuda):
@@ -275,6 +317,34 @@ def test_vecint_chain_matches_plain(cuda, shape, kind, scale):
     assert none is None and torch.equal(out_ns, ref)
 
 
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("shape,kind,scale",
+                         [*CHAIN_CASES, ((1, 2, 512, 512), "smooth", 20.0)])
+def test_vecint2d_fwd_clusters(cuda, shape, kind, scale, cluster):
+    """The forward chain at clusters of 8 and 16 blocks, with its field in
+    shared memory or, at 512^2, in global memory: bit-equal to the plain
+    loop at 0-7 steps, saving its steps (each slot the loop's field) and
+    not."""
+    vec = chain_field(cuda, shape, kind, scale)
+    for nsteps in range(8):
+        fields = [vec * (1.0 / 2 ** nsteps)]
+        for _ in range(nsteps):
+            v = fields[-1]
+            fields.append(v + warp(v, v, impl="torch"))
+        for save in (1, 0):
+            out = torch.empty_like(vec)
+            steps = torch.empty((max(nsteps, 1), *shape) if save else shape,
+                                device=cuda)
+            warp_cuda._launch(VF, "dfmir_vecint2d_fwd", vec.get_device(),
+                              vec.data_ptr(), steps.data_ptr(),
+                              out.data_ptr(), shape[0], *shape[2:], nsteps,
+                              save, cluster)
+            assert torch.equal(out, fields[-1]), (nsteps, save)
+            if save:
+                for k in range(nsteps):
+                    assert torch.equal(steps[k], fields[k]), (nsteps, k)
+
+
 @pytest.mark.parametrize("nsteps", [0, 1, 2])
 def test_vecint_chain_few_steps(cuda, nsteps):
     vec = chain_field(cuda, (2, 2, 40, 48), "smooth", 8.0)
@@ -290,19 +360,18 @@ def test_vecint_chain_few_steps(cuda, nsteps):
 
 
 def test_vecint_chain_refused_launch_raises(cuda):
-    """A cooperative grid larger than the card holds at once, and a
-    cluster larger than the card takes (32 blocks), are refused: the
-    launcher raises, counts nothing and leaves no error behind."""
+    """A cluster larger than the card takes (32 blocks) is refused, forward
+    and backward: the launcher raises, counts nothing and leaves no error
+    behind."""
     vec = chain_field(cuda, (1, 2, 64, 64), "smooth", 5.0)
     steps = torch.empty((7, 1, 2, 64, 64), device=cuda)
     out = torch.empty_like(vec)
     sums = torch.empty(vec.shape, dtype=torch.int64, device=cuda)
-    too_many = 10 ** 6                            # blocks, > the card holds
     warp_cuda.reset_launches()
     with pytest.raises(RuntimeError, match="launch failed"):
         warp_cuda._launch(VF, "dfmir_vecint2d_fwd", vec.get_device(),
                           vec.data_ptr(), steps.data_ptr(), out.data_ptr(),
-                          1, 64, 64, 7, 1, too_many)
+                          1, 64, 64, 7, 1, 32)
     with pytest.raises(RuntimeError, match="launch failed"):
         warp_cuda._launch(VB, "dfmir_vecint2d_bwd", vec.get_device(),
                           steps.data_ptr(), vec.data_ptr(), sums.data_ptr(),
@@ -339,14 +408,14 @@ CASES3D = [
 
 
 def collapse_field(shape, device, scale=0.95):
-    """(B, 3, D, H, W) flow scale * (centre - p): every voxel samples near
-    the centre, so thousands of targets share a few cells."""
-    B, _, *spatial = shape
+    """(B, nd, *spatial) flow scale * (centre - p): every pixel or voxel
+    samples near the centre, so thousands of targets share a few cells."""
+    B, nd, *spatial = shape
     grid = identity_grid(spatial, device=device)
     centre = torch.tensor([(n - 1) / 2 for n in spatial],
-                          device=device).reshape(3, 1, 1, 1)
-    return (scale * (centre - grid))[None].expand(B, -1, -1, -1, -1) \
-        .contiguous()
+                          device=device).reshape(nd, *[1] * nd)
+    return (scale * (centre - grid))[None].expand(
+        B, *[-1] * (nd + 1)).contiguous()
 
 
 @pytest.mark.parametrize("shape,scale,shift", CASES3D)
