@@ -50,6 +50,24 @@ Phases, each printing one JSON line:
               64, ngf 8) card against CPU (metrics 1e-3 relative; gradients
               within 1e-2 * the network's max |g| of the CPU in float32 and
               1e-3 of the CPU in float64); then ms/step at B=1 and B=8
+  cli         the 2-D command line in-process at the options' defaults
+              (the paper's model at full width), in a temporary directory
+              removed after, its prints in a log there: 16 train and 4
+              test pairs of 256^2 PNGs written with utils/png.py in
+              scripts/make_soak_data.py's layout; train.main at B=1 over 8
+              pairs for 2 epochs (launches exactly 1 chain forward + 2 B1
+              and 1 chain backward + 2 B2 a step, 1 chain forward + 3 B1 a
+              compute_visuals, 1 chain forward + 1 B1 a
+              registration_stats; finite losses; {1,2,latest}_net_{G,F,R}
+              and _optim .pth, loss_log.txt, web/index.html); `latest`
+              reloaded into a fresh task on the card bit-equal (weights and
+              Adam state); --continue_train for one more epoch; `latest`
+              registered on the card and on the CPU within 1e-3; test.main
+              over the 4 test pairs (2 chain forwards + 3 B1 a pair; label
+              values kept); evaluate.main (1 + 1 a pair; a finite summary);
+              train.main at B=8 for one epoch; then ms a step beside phase
+              train's, data ms a step, PNG decode ms an image, checkpoint
+              save and load ms and bytes, test and evaluate ms a pair
   6. kernel3d each 3-D trilinear kernel (forward, dflow, dsrc) against its
               plain version on the card: VecInt's self-warp (1,3,80,80,80),
               the 160^3 data warp (dflow only), an odd shape, a violent
@@ -90,7 +108,8 @@ Phases, each printing one JSON line:
               times, register calls with cuDNN's autotuner on, and each
               kernel's device time a launch beside grid_sampler_2d / _3d
 Each phase's wall seconds follow it.  Then the kernels line (all nine
-kernels, their launches by path: register, train, register3d, train3d),
+kernels, their launches by path: register, train, cli_train, cli_test,
+register3d, train3d),
 and last {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --steps
@@ -110,28 +129,41 @@ propagates.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import math
 import os
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dfmir_tpu_torch import evaluate as eval_cli
 from dfmir_tpu_torch import infer
+from dfmir_tpu_torch import test as test_cli
+from dfmir_tpu_torch import train as train_cli
+from dfmir_tpu_torch.data.transforms import to_array
 from dfmir_tpu_torch.engine.config import RegistrationConfig
 from dfmir_tpu_torch.engine.registration import RegistrationModel
 from dfmir_tpu_torch.engine.vxm_engine import VxmConfig, VxmEngine
+from dfmir_tpu_torch.models.registration import RegistrationTask
 from dfmir_tpu_torch.ops import _build, integrate, warp_cuda
 from dfmir_tpu_torch.ops.integrate import vecint, vecint_bwd_plain
 from dfmir_tpu_torch.ops.warp import (_kernel_takes, identity_grid, warp,
                                       warp2d_dsrc_fixed_plain,
                                       warp3d_dsrc_binned_plain,
                                       warp_bwd_plain)
+from dfmir_tpu_torch.options import TestOptions, TrainOptions
+from dfmir_tpu_torch.utils.png import read_png, write_png
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
 # (non-tensor-core) FLOP/s
@@ -1536,6 +1568,382 @@ def phase_train(seed, smi):
     return model, launches, ms_b1
 
 
+# ------------------------------------------------------------ phase cli
+# what each call of the task around the engine launches, from the code:
+# compute_visuals runs loss_fn without a backward (the chain + the data and
+# `registered` warps) and warps the grid image into `dvf`;
+# registration_stats runs flow_stats, one register; test() runs eval_step
+# (loss_fn without a backward) and test.py one register_pair
+VISUALS_LAUNCHES = {VF: 1, FWD: 3}
+STATS_LAUNCHES = REGISTER_LAUNCHES
+TEST_PAIR_LAUNCHES = {VF: 2, FWD: 3}
+CLI_TRAIN, CLI_TEST = 16, 4          # pairs written, at 256^2
+CLI_MAX = 8                          # --max_dataset_size of the B=1 runs
+CLI_GPU = "0"                        # --gpu_ids of the card's runs
+CLI_SIZE = 256
+# the flags beside the options' defaults (the paper's model at full width)
+CLI_FLAGS = []
+# the B=1 run's cadence: --print_freq, --display_freq, --jac_freq
+CLI_PRINT, CLI_DISPLAY, CLI_JAC = 1, 8, 8
+CLI_B1 = ["--max_dataset_size", str(CLI_MAX), "--n_epochs", "1",
+          "--n_epochs_decay", "1", "--save_epoch_freq", "1",
+          "--print_freq", str(CLI_PRINT), "--display_freq", str(CLI_DISPLAY),
+          "--jac_freq", str(CLI_JAC)]
+
+
+def add_counts(*terms):
+    """sum of n * launches over (n, launches) terms, over every kernel"""
+    out = dict(ZERO)
+    for n, launches in terms:
+        for k, v in launches.items():
+            out[k] += n * v
+    return out
+
+
+def cli_train_launches(steps, batch, display_freq, print_freq, jac_freq):
+    """The launches of train.main over ``steps`` steps at ``batch`` pairs a
+    step: the steps, compute_visuals where total_iters % display_freq == 0,
+    registration_stats where it is a multiple of print_freq and jac_freq."""
+    iters = [batch * s for s in range(1, steps + 1)]
+    n_vis = sum(1 for i in iters if i % display_freq == 0)
+    n_stats = sum(1 for i in iters if i % print_freq == 0
+                  and jac_freq > 0 and i % jac_freq == 0)
+    return add_counts((steps, STEP_LAUNCHES), (n_vis, VISUALS_LAUNCHES),
+                      (n_stats, STATS_LAUNCHES))
+
+
+def smooth_np(rng, size, cells, channels=1):
+    """(channels, size, size) float32: N(0, 1) on a cells^2 grid, bilinear."""
+    coarse = torch.from_numpy(
+        rng.standard_normal((1, channels, cells, cells)).astype(np.float32))
+    return F.interpolate(coarse, size=(size, size), mode="bilinear",
+                         align_corners=True)[0].numpy()
+
+
+def anatomy(rng, size):
+    """Soft elliptical blobs on a smooth background, in [0, 1] (the recipe
+    of scripts/make_soak_data.py, which imports PIL)."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    img = 0.25 + 0.1 * smooth_np(rng, size, 4)[0]
+    for _ in range(int(rng.integers(6, 12))):
+        cy, cx = rng.uniform(0.15 * size, 0.85 * size, 2)
+        sy, sx = rng.uniform(0.03 * size, 0.15 * size, 2)
+        amp = rng.uniform(0.3, 0.9) * rng.choice([-1.0, 1.0])
+        img += amp * np.exp(-((yy - cy) / sy) ** 2 - ((xx - cx) / sx) ** 2)
+    img -= img.min()
+    return img / max(img.max(), 1e-6)
+
+
+def write_cli_data(root, seed, size):
+    """scripts/make_soak_data.py's layout: {train,test}{A,B} images (A a
+    ramp of the anatomy, B an inverted gamma of it, misaligned by a smooth
+    flow of about +-6 px) and their quantile-binned labels, x60."""
+    rng = np.random.default_rng(seed)
+    for phase, n in (("train", CLI_TRAIN), ("test", CLI_TEST)):
+        dirs = {k: os.path.join(root, phase + k)
+                for k in ("A", "B", "A_label", "B_label")}
+        for d in dirs.values():
+            os.makedirs(d, exist_ok=True)
+        for i in range(n):
+            base = anatomy(rng, size)
+            flow = torch.from_numpy(smooth_np(rng, size, 6, 2) * 6.0)[None]
+            qs = np.quantile(base, [0.25, 0.5, 0.75])
+            a_lab = np.digitize(base, qs).astype(np.float32) * 60
+            b_src, b_lab = (torch.from_numpy(x.astype(np.float32))[None, None]
+                            for x in ((1.0 - base) ** 0.6, a_lab))
+            b_img = warp(b_src, flow, impl="torch")[0, 0].numpy()
+            b_lab = warp(b_lab, flow, mode="nearest")[0, 0].numpy()
+            name = f"pair_{i:03d}.png"
+            for key, img in (("A", base ** 1.1 * 255), ("B", b_img * 255),
+                             ("A_label", a_lab), ("B_label", b_lab)):
+                write_png(os.path.join(dirs[key], name),
+                          np.clip(img, 0, 255).astype(np.uint8))
+
+
+def write_png_rows(path, img, kind):
+    """An L PNG whose every row carries filter ``kind`` (3 Average, 4
+    Paeth), as PIL-written files mix them: the decoder's slow rows."""
+    x = img.astype(np.int64)
+    left, up, upleft = (np.zeros_like(x) for _ in range(3))
+    left[:, 1:], up[1:], upleft[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+    if kind == 3:
+        pred = (left + up) // 2
+    else:
+        p = left + up - upleft
+        pa, pb, pc = (np.abs(p - v) for v in (left, up, upleft))
+        pred = np.where((pa <= pb) & (pa <= pc), left,
+                        np.where(pb <= pc, up, upleft))
+    rows = np.concatenate([np.full((x.shape[0], 1), kind),
+                           (x - pred) % 256], axis=1).astype(np.uint8)
+
+    def chunk(ctype, body):
+        return (struct.pack(">I", len(body)) + ctype + body
+                + struct.pack(">I", zlib.crc32(ctype + body)))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", x.shape[1],
+                                             x.shape[0], 8, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+                + chunk(b"IEND", b""))
+
+
+def decode_ms(paths):
+    """ms of read_png on each file, in turn."""
+    out = []
+    for p in paths:
+        t0 = time.perf_counter()
+        read_png(p, mode="L")
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def state_tensors(task):
+    """Every tensor of a task's networks and Adam state, on the CPU."""
+    out = {f"{n}.{k}": v.detach().cpu() for n, net in task._nets().items()
+           for k, v in net.state_dict().items()}
+    for i, st in task.engine.optimizer.state_dict()["state"].items():
+        out.update({f"adam.{i}.{k}": v.detach().cpu()
+                    for k, v in st.items()})
+    return out
+
+
+def losses_of(ck):
+    """loss_history.jsonl's records; raises on a non-finite loss."""
+    with open(os.path.join(ck, "loss_history.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    bad = [(r["epoch"], k) for r in recs for k, v in r["losses"].items()
+           if not math.isfinite(v)]
+    if not recs or bad:
+        raise AssertionError(f"{ck}: no losses, or non-finite ones {bad}")
+    return recs
+
+
+def run_counted(log, fn, argv):
+    """``fn(argv)`` with its prints in ``log``; (result, launches)."""
+    torch.cuda.synchronize()
+    warp_cuda.reset_launches()
+    with contextlib.redirect_stdout(log):
+        out = fn(argv)
+    torch.cuda.synchronize()
+    return out, dict(warp_cuda.LAUNCHES)
+
+
+def check_launches(what, got, want):
+    if got != want:
+        raise AssertionError(f"{what}: {got} kernel launches, expected "
+                             f"{want}")
+
+
+def phase_cli(seed, smi, engine_ms):
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        with open(os.path.join(root, "cli.log"), "w") as log:
+            return cli_paths(root, log, seed, smi, engine_ms)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def cli_paths(root, log, seed, smi, engine_ms):
+    """The 2-D command line at full width, in-process (its launches
+    counted): train, resume, card vs CPU, test, evaluate, train at B=8."""
+    data, ck_dir = os.path.join(root, "data"), os.path.join(root, "ck")
+    t0 = time.perf_counter()
+    write_cli_data(data, seed, CLI_SIZE)
+    write_s = time.perf_counter() - t0
+    common = ["--dataroot", data, "--checkpoints_dir", ck_dir, "--seed",
+              str(seed), *CLI_FLAGS]
+    card = ["--gpu_ids", CLI_GPU]
+    ck = os.path.join(ck_dir, "cli")
+
+    # train at B=1: CLI_MAX pairs x 2 epochs
+    trained, launches_train = run_counted(
+        log, train_cli.main, common + card + ["--name", "cli", *CLI_B1])
+    task = trained["model"]
+    step_s, data_s = trained["step_s"], trained["data_s"]
+    steps = len(step_s)
+    want = cli_train_launches(steps, 1, CLI_DISPLAY, CLI_PRINT, CLI_JAC)
+    check_launches(f"cli train, {steps} steps", launches_train, want)
+    recs = losses_of(ck)
+    files = sorted(os.listdir(ck))
+    need = ([f"{e}_net_{n}.pth" for e in ("1", "2", "latest") for n in "GFR"]
+            + [f"{e}_optim.pth" for e in ("1", "2", "latest")]
+            + ["loss_log.txt"])
+    missing = [f for f in need if f not in files]
+    if missing or not os.path.isfile(os.path.join(ck, "web", "index.html")):
+        raise AssertionError(f"cli train wrote {files}; missing {missing} "
+                             f"or web/index.html")
+
+    # checkpoints: save time and size; a fresh task on the card loads
+    # `latest` equal, bit for bit, to the trained task
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    task.save_networks("probe")
+    save_ms = (time.perf_counter() - t0) * 1e3
+    probe = [os.path.join(ck, f) for f in os.listdir(ck)
+             if f.startswith("probe_")]
+    ckpt_bytes = sum(os.path.getsize(p) for p in probe)
+    for p in probe:
+        os.remove(p)
+    with contextlib.redirect_stdout(log):
+        opt = TrainOptions(common + card + ["--name", "cli",
+                                            "--continue_train"]).parse()
+    fresh = RegistrationTask(opt)
+    t0 = time.perf_counter()
+    fresh.setup(opt)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    mine, ref = state_tensors(fresh), state_tensors(task)
+    unequal = [k for k in ref if k not in mine
+               or not torch.equal(mine[k], ref[k])]
+    if unequal or mine.keys() != ref.keys() or fresh.step != task.step:
+        raise AssertionError(f"reloaded `latest` differs from the trained "
+                             f"task: {unequal[:8]} (step {fresh.step} vs "
+                             f"{task.step})")
+    del fresh, mine, ref, task, trained
+    torch.cuda.empty_cache()
+
+    # resume: one more epoch
+    resumed, launches_resume = run_counted(
+        log, train_cli.main, common + card + [
+            "--name", "cli", "--continue_train", "--epoch_count", "3",
+            "--n_epochs", "1", "--n_epochs_decay", "2", "--save_epoch_freq",
+            "1", "--print_freq", "1", "--max_dataset_size", str(CLI_MAX)])
+    check_launches("cli resume", launches_resume,
+                   cli_train_launches(len(resumed["step_s"]), 1, 400, 1, 0))
+    recs_resume = [r for r in losses_of(ck) if r["epoch"] == 3]
+    if len(recs_resume) != CLI_MAX:
+        raise AssertionError(f"resume logged {len(recs_resume)} steps")
+    del resumed
+    torch.cuda.empty_cache()
+
+    # card vs CPU: `latest` (epoch 3) loaded by a test task on each
+    test_common = common + ["--name", "cli"]
+    pair = [torch.from_numpy(to_array(read_png(
+        os.path.join(data, f"test{s}", "pair_000.png"), mode="L")))[None]
+        for s in "AB"]
+    outs = {}
+    for dev, ids in (("card", CLI_GPU), ("cpu", "-1")):
+        with contextlib.redirect_stdout(log):
+            opt = TestOptions(test_common + ["--gpu_ids", ids]).parse()
+            t = RegistrationTask(opt)
+            t.setup(opt)
+        outs[dev] = [o.cpu() for o in t.register_pair(
+            *(x.to(t.device) for x in pair))]
+        del t
+    names = ("fake_B", "idt_B", "y_source", "pos_flow")
+    errs = {n: float((a - b).abs().max())
+            for n, a, b in zip(names, outs["card"], outs["cpu"])}
+    for n in ("fake_B", "y_source", "pos_flow"):
+        if not errs[n] <= PATH_TOL:
+            raise AssertionError(f"cli {n}: card vs CPU {errs[n]} > "
+                                 f"{PATH_TOL}")
+    del outs
+    torch.cuda.empty_cache()
+
+    # test: CLI_TEST pairs
+    results = os.path.join(root, "results")
+    tested, launches_test = run_counted(
+        log, test_cli.main, test_common + card + [
+            "--results_dir", results, "--num_test", str(CLI_TEST)])
+    check_launches("cli test", launches_test,
+                   add_counts((CLI_TEST, TEST_PAIR_LAUNCHES)))
+    for i in range(CLI_TEST):
+        name = f"pair_{i:03d}.png"
+        warped = read_png(os.path.join(data, "deform_label", name))
+        orig = read_png(os.path.join(data, "trainA_label", name))
+        if not set(np.unique(warped)) <= set(np.unique(orig)):
+            raise AssertionError(f"deform_label/{name}: values "
+                                 f"{np.unique(warped)} not all in "
+                                 f"{np.unique(orig)}")
+    n_warped = len(os.listdir(os.path.join(data, "deform_trainA")))
+    with open(os.path.join(data, "jac_vis", "stats.jsonl")) as f:
+        n_stats = len(f.readlines())
+    index = os.path.join(results, "cli", "test_latest", "index.html")
+    if n_warped != CLI_TEST or n_stats != CLI_TEST or \
+            not os.path.isfile(index):
+        raise AssertionError(f"cli test: {n_warped} deform_trainA PNGs, "
+                             f"{n_stats} jac_vis stats, index "
+                             f"{os.path.isfile(index)}")
+
+    # evaluate: the test pairs' paired labels
+    scored, launches_eval = run_counted(
+        log, eval_cli.main, ["--dataroot", data, "--name", "cli",
+                             "--checkpoints_dir", ck_dir, "--gpu_ids",
+                             CLI_GPU, "--num_test", str(CLI_TEST),
+                             "--crop_size", str(CLI_SIZE)])
+    check_launches("cli evaluate", launches_eval,
+                   add_counts((CLI_TEST, REGISTER_LAUNCHES)))
+    summary = scored["summary"]
+    keys = ("mean_dice_before", "mean_dice_after", "mean_hd95_before",
+            "mean_hd95_after", "mean_ncc_global", "mean_ncc_windowed",
+            "mean_psnr", "mean_folding_fraction")
+    if summary.get("n_pairs") != CLI_TEST or not all(
+            math.isfinite(summary.get(k, float("nan"))) for k in keys):
+        raise AssertionError(f"cli evaluate summary {summary}")
+
+    # train at B=8: every pair, one epoch
+    b8, launches_b8 = run_counted(
+        log, train_cli.main, common + card + [
+            "--name", "cli_b8", "--batch_size", "8", "--n_epochs", "1",
+            "--n_epochs_decay", "0", "--print_freq", "8",
+            "--display_freq", "1000", "--save_epoch_freq", "1"])
+    step_s_b8 = b8["step_s"]
+    steps_b8 = len(step_s_b8)
+    check_launches("cli train B=8", launches_b8,
+                   cli_train_launches(steps_b8, 8, 1000, 8, 0))
+    if steps_b8 != CLI_TRAIN // 8:
+        raise AssertionError(f"B=8: {steps_b8} steps")
+    losses_of(os.path.join(ck_dir, "cli_b8"))
+    del b8
+    torch.cuda.empty_cache()
+
+    # PNG decode: the phase's files (filter None) and the same images with
+    # Average or Paeth on every row
+    train_pngs = [os.path.join(data, f"train{s}", f"pair_{i:03d}.png")
+                  for s in "AB" for i in range(CLI_TRAIN)]
+    filtered = {}
+    for kind, label in ((3, "average"), (4, "paeth")):
+        paths = []
+        for i, src in enumerate(train_pngs[:4]):
+            p = os.path.join(root, f"rows{kind}_{i}.png")
+            write_png_rows(p, read_png(src), kind)
+            paths.append(p)
+        filtered[label] = decode_ms(paths)
+    decode = {"none": decode_ms(train_pngs), **filtered}
+
+    ms_b1 = statistics.median(step_s[1:]) * 1e3
+    emit({"phase": "cli", "config": "options defaults (the paper's model: "
+          "crop 256, ngf 64, resnet_9blocks, mlp_sample, 256 patches, CUT "
+          "with nce_idt)", "flags": CLI_FLAGS + CLI_B1,
+          "pairs": {"train": CLI_TRAIN, "test": CLI_TEST},
+          "data_write_s": write_s,
+          "launches": {"cli_train": launches_train,
+                       "cli_resume": launches_resume,
+                       "cli_test": launches_test,
+                       "cli_evaluate": launches_eval,
+                       "cli_train_b8": launches_b8},
+          "launches_per_test_pair": TEST_PAIR_LAUNCHES,
+          "steps_b1": steps, "card_vs_cpu_max_abs": errs,
+          "losses_first": recs[0]["losses"],
+          "losses_resumed_last": recs_resume[-1]["losses"],
+          "evaluate_summary": summary,
+          "ms_per_step_b1": ms_b1, "engine_ms_per_step_b1": engine_ms,
+          "step_ms_b1": [x * 1e3 for x in step_s],
+          "data_ms_per_step": statistics.median(data_s) * 1e3,
+          "data_ms": [x * 1e3 for x in data_s],
+          "png_decode_ms_per_image": {k: statistics.median(v)
+                                      for k, v in decode.items()},
+          "png_decode_ms_max": {k: max(v) for k, v in decode.items()},
+          "ckpt_save_ms": save_ms, "ckpt_load_ms": load_ms,
+          "ckpt_bytes": ckpt_bytes,
+          "test_ms_per_pair": statistics.median(tested["pair_s"]) * 1e3,
+          "evaluate_ms_per_pair": statistics.median(scored["pair_s"]) * 1e3,
+          "step_ms_b8": [x * 1e3 for x in step_s_b8],
+          "train_pairs_per_s_b8": 8e3 / (step_s_b8[-1] * 1e3),
+          "card": smi})
+    return {"cli_train": launches_train, "cli_test": launches_test}
+
+
 # ------------------------------------------------------------ phase 6
 KERNEL3D_CASES = [
     # name, (B, C, D, H, W), flow kind, flow scale (voxels), dsrc wanted,
@@ -2137,6 +2545,8 @@ def main(argv=None):
     if args.profile:
         run("profile_train", phase_profile_train, model, args.seed, train_ms)
     del model
+    torch.cuda.empty_cache()
+    cli_launches = run("cli", phase_cli, args.seed, smi, train_ms)
     rows3d = run("kernel3d", phase_kernel3d, args.seed, args.profile)
     chain3d_rows = run("kernel_chain3d", phase_kernel_chain3d, args.seed,
                        args.profile)
@@ -2147,7 +2557,8 @@ def main(argv=None):
     del eng, pair
 
     paths = {"register": reg_launches, "train": train_launches,
-             "register3d": reg3d_launches, "train3d": train3d_launches}
+             "register3d": reg3d_launches, "train3d": train3d_launches,
+             **cli_launches}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}

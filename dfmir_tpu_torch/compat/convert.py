@@ -1,5 +1,6 @@
 """The weight bridge: JAX package parameter trees -> the port's state_dicts,
-and the layout helpers the parity tests share.
+JAX checkpoints (flax msgpack, optax Adam state) -> the port's, and the
+layout helpers the parity tests share.
 
 The input is a JAX param tree as nested dicts of numpy arrays, e.g.
 ``jax.tree.map(np.asarray, state.params)``.  Layout maps: flax conv kernel
@@ -8,7 +9,11 @@ The input is a JAX param tree as nested dicts of numpy arrays, e.g.
 state_dict's: netG ``model.<i>.*``, netR (2-D or 3-D)
 ``unet_model.{downarm,uparm,extras}.<i>.main.*`` and ``flow.*``, netF
 ``mlp_<i>.{0,2}.*``.  A flax Dense kernel (in, out) becomes an nn.Linear
-weight (out, in).
+weight (out, in).  Adam's moments take the same maps as their parameters.
+
+``read_flax_msgpack`` decodes a checkpoint file that flax's
+``msgpack_serialize`` wrote, with the ``msgpack`` package (imported inside
+the function: only JAX checkpoints need it) and numpy; no flax.
 """
 
 from __future__ import annotations
@@ -111,7 +116,7 @@ def netF_state_from_jax(
     return sd
 
 
-def _load_strict(net, sd) -> None:
+def load_strict(net, sd) -> None:
     """Load ``sd`` into ``net``; every weight (not the blur layers' fixed
     ``filt`` buffers) must be given, and nothing else."""
     full = net.state_dict()
@@ -124,20 +129,99 @@ def _load_strict(net, sd) -> None:
     net.load_state_dict(full, strict=True)
 
 
+NETS = {"G": "netG", "F": "netF", "R": "netR"}
+
+
+def net_state_from_jax(model, name: str,
+                       tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX tree of network ``name`` ("G", "F" or "R": parameters, or
+    Adam moments of them) as a state_dict of ``model`` (a
+    ``RegistrationModel``)."""
+    cfg = model.cfg
+    if name == "G":
+        return netG_state_from_jax(tree, model.netG.specs,
+                                   use_dropout=not cfg.no_dropout)
+    if name == "F":
+        return netF_state_from_jax(tree)
+    if name == "R":
+        return netR_state_from_jax(tree, cfg.vxm_enc, cfg.vxm_dec)
+    raise KeyError(f"no network {name!r} in the port's RegistrationModel")
+
+
 def load_jax_params(model, params: Mapping[str, Any]) -> None:
     """Load a JAX ``{"G": ..., "F": ..., "R": ...}`` param tree (numpy
     leaves) into a ``RegistrationModel``'s netG, netF and netR, strictly:
     every weight of the three networks must be given."""
-    cfg = model.cfg
-    _load_strict(model.netG, netG_state_from_jax(
-        params["G"], model.netG.specs, use_dropout=not cfg.no_dropout))
-    _load_strict(model.netF, netF_state_from_jax(params["F"]))
-    _load_strict(model.netR, netR_state_from_jax(params["R"], cfg.vxm_enc,
-                                                 cfg.vxm_dec))
+    for name, attr in NETS.items():
+        load_strict(getattr(model, attr),
+                    net_state_from_jax(model, name, params[name]))
+
+
+def adam_state_from_jax(opt_state: Mapping[str, Any], model) -> dict:
+    """An optax ``ScaleByAdamState`` over ``{G, F, R}`` (as a state dict:
+    ``count``, ``mu``, ``nu``; numpy leaves) as a state_dict of
+    ``model.optimizer``: per parameter ``step`` (optax's one count),
+    ``exp_avg`` (mu) and ``exp_avg_sq`` (nu), through the parameters' own
+    key and layout maps.  Optax's ``scale_by_adam`` and torch's Adam agree
+    in bias correction and in eps outside the square root, so the map is
+    exact."""
+    step = float(np.asarray(opt_state["count"]))
+    state, index = {}, 0
+    for name, attr in NETS.items():
+        mu = net_state_from_jax(model, name, opt_state["mu"][name])
+        nu = net_state_from_jax(model, name, opt_state["nu"][name])
+        for key, _ in getattr(model, attr).named_parameters():
+            state[index] = {"step": torch.tensor(step, dtype=torch.float32),
+                            "exp_avg": mu[key], "exp_avg_sq": nu[key]}
+            index += 1
+    return {"state": state,
+            "param_groups": model.optimizer.state_dict()["param_groups"]}
+
+
+# flax's msgpack extension types (flax/serialization.py::_MsgpackExtType)
+_EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
+
+
+def _unchunk(tree):
+    """flax's chunked form of arrays over 1 GiB, back to arrays."""
+    if not isinstance(tree, dict):
+        return tree
+    if tree.get("__msgpack_chunked_array__"):
+        shape = [tree["shape"][str(i)] for i in range(len(tree["shape"]))]
+        chunks = [tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]
+        return np.concatenate(chunks).reshape(shape)
+    return {k: _unchunk(v) for k, v in tree.items()}
+
+
+def read_flax_msgpack(path: str) -> Any:
+    """The tree of dicts, lists, scalars and numpy arrays in a file flax's
+    ``msgpack_serialize`` wrote (a JAX checkpoint)."""
+    try:
+        import msgpack
+    except ImportError as err:
+        raise ImportError(f"reading the JAX checkpoint {path} needs the "
+                          f"msgpack package, which is not installed") from err
+
+    def ext_hook(code, data):
+        if code in (_EXT_NDARRAY, _EXT_NPSCALAR):
+            shape, dtype, buf = msgpack.unpackb(data, raw=True)
+            dtype = dtype.decode()
+            if dtype == "bfloat16":
+                raise ValueError(f"{path}: bfloat16 arrays are not read")
+            arr = np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(shape)
+            return arr[()] if code == _EXT_NPSCALAR else arr
+        if code == _EXT_COMPLEX:
+            re, im = msgpack.unpackb(data)
+            return complex(re, im)
+        raise ValueError(f"{path}: unknown msgpack extension type {code}")
+
+    with open(path, "rb") as f:
+        tree = msgpack.unpackb(f.read(), ext_hook=ext_hook, raw=False)
+    return _unchunk(tree)
 
 
 def load_jax_vxm_params(engine, params: Mapping[str, Any]) -> None:
     """Load a JAX ``VxmEngine`` param tree (``state.params``, numpy leaves)
     into a ``VxmEngine``'s netR, strictly, at 2-D or 3-D."""
-    _load_strict(engine.netR, netR_state_from_jax(params, engine.cfg.enc,
+    load_strict(engine.netR, netR_state_from_jax(params, engine.cfg.enc,
                                                   engine.cfg.dec))

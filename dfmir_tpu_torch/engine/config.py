@@ -61,3 +61,13 @@ class RegistrationConfig:
     def n_blocks(self) -> int:
         return {"resnet_9blocks": 9, "resnet_6blocks": 6,
                 "resnet_4blocks": 4}.get(self.netG, 9)
+
+    @classmethod
+    def from_opt(cls, opt) -> "RegistrationConfig":
+        """The config of parsed command-line options: every option named
+        like a field, and ``--nce_layers`` as a tuple of ints."""
+        nce_layers = tuple(int(i) for i in str(opt.nce_layers).split(","))
+        fields = {f.name for f in dataclasses.fields(cls)}
+        kwargs = {k: v for k, v in vars(opt).items() if k in fields}
+        kwargs["nce_layers"] = nce_layers
+        return cls(**kwargs)

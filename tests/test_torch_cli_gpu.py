@@ -1,0 +1,38 @@
+"""The command line on the card (needs CUDA; skips without it): chip_smoke's
+cli phase at crop 64 (full-width networks, 64^2 pairs it writes itself) -
+train at B=1 with exact kernel launches, a bit-equal reload, resume, card
+against CPU within 1e-3, test with exact launches and label values kept,
+a finite evaluate summary, train at B=8.
+
+    python -m pytest --noconftest -p no:cacheprovider -q \\
+        tests/test_torch_cli_gpu.py
+"""
+
+import pytest
+import torch
+
+import chip_smoke
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def test_cli_phase_at_crop_64(cuda, monkeypatch):
+    monkeypatch.setattr(chip_smoke, "CLI_SIZE", 64)
+    monkeypatch.setattr(chip_smoke, "CLI_FLAGS", [
+        "--crop_size", "64", "--load_size", "64", "--num_patches", "64"])
+    launches = chip_smoke.phase_cli(0, torch.cuda.get_device_name(0), None)
+    steps = chip_smoke.CLI_MAX * 2
+    assert launches["cli_train"] == chip_smoke.cli_train_launches(
+        steps, 1, chip_smoke.CLI_DISPLAY, chip_smoke.CLI_PRINT,
+        chip_smoke.CLI_JAC)
+    assert launches["cli_test"] == chip_smoke.add_counts(
+        (chip_smoke.CLI_TEST, chip_smoke.TEST_PAIR_LAUNCHES))
