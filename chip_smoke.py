@@ -107,10 +107,42 @@ Phases, each printing one JSON line:
               over register calls, 2-D and 3-D train steps, netG / netR
               times, register calls with cuDNN's autotuner on, and each
               kernel's device time a launch beside grid_sampler_2d / _3d
+  cli3d       the 3-D command line in-process at the task's defaults
+              (--model vxm --dataset_mode volume: 160^3, B=1, NCC 9^3,
+              enc (16,32,32,32), dec (32,32,32,32,32,16,16)), in a
+              temporary directory removed after: 4 train and 2 test pairs
+              of 160^3 .npy volumes with label volumes, written by this
+              script's numpy copy of scripts/make_soak_data.py --ndims 3;
+              train.main for 2 epochs of 4 steps (launches exactly 1 chain
+              forward + 1 B3 + 1 chain backward + 1 B4 and no B5 a step,
+              1 chain forward + 1 B3 a get_current_visuals and a
+              registration_stats call; finite losses; {1,2,latest}_net_R
+              and _optim .pth, loss_log.txt, web/index.html); `latest`
+              reloaded into a fresh task on the card bit-equal (weights,
+              Adam state, step); --continue_train for one more epoch;
+              `latest` registered on the card and on the CPU within 1e-3;
+              evaluate.main --ndims 3 over the 2 test pairs (1 + 1 a pair;
+              the label warp is nearest, the plain version; a finite
+              summary; warped label values within the input's); then ms a
+              step beside phase vxm3d's, data ms a step, checkpoint save
+              and load ms and bytes, evaluate ms a pair and its Dice /
+              HD95 part
 Each phase's wall seconds follow it.  Then the kernels line (all nine
 kernels, their launches by path: register, train, cli_train, cli_test,
-register3d, train3d),
+register3d, train3d, cli3d_train, cli3d_eval),
 and last {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --recipe3d [--recipe_epochs 600]
+
+runs the device and build phases and phase recipe3d alone: the JAX
+package's 3-D quality recipe (VXM3D_RECIPE_r05.json: 24 train and 12 test
+64^3 pairs of make_soak_data.py --ndims 3 at its defaults, seed 0, flow
+amplitude 6, texture 0.35; --image_loss mse --lambda_smooth 0.01 --lr
+1e-3) trained through train.main on the card for --recipe_epochs epochs
+(half at the initial rate, half decaying to zero), then `latest` scored by
+evaluate.main --ndims 3; it prints the summary, ms a step and the wall
+seconds, fails unless mean Dice after the warp exceeds Dice before, and
+prints no result line.
 
     python3 chip_smoke.py --steps
 
@@ -152,10 +184,13 @@ from dfmir_tpu_torch import infer
 from dfmir_tpu_torch import test as test_cli
 from dfmir_tpu_torch import train as train_cli
 from dfmir_tpu_torch.data.transforms import to_array
+from dfmir_tpu_torch.data.volume import (crop_or_pad, load_volume,
+                                         normalize_minmax)
 from dfmir_tpu_torch.engine.config import RegistrationConfig
 from dfmir_tpu_torch.engine.registration import RegistrationModel
 from dfmir_tpu_torch.engine.vxm_engine import VxmConfig, VxmEngine
 from dfmir_tpu_torch.models.registration import RegistrationTask
+from dfmir_tpu_torch.models.vxm import VxmTask
 from dfmir_tpu_torch.ops import _build, integrate, warp_cuda
 from dfmir_tpu_torch.ops.integrate import vecint, vecint_bwd_plain
 from dfmir_tpu_torch.ops.warp import (_kernel_takes, identity_grid, warp,
@@ -1600,16 +1635,20 @@ def add_counts(*terms):
     return out
 
 
-def cli_train_launches(steps, batch, display_freq, print_freq, jac_freq):
+def cli_train_launches(steps, batch, display_freq, print_freq, jac_freq,
+                       per_call=None):
     """The launches of train.main over ``steps`` steps at ``batch`` pairs a
-    step: the steps, compute_visuals where total_iters % display_freq == 0,
-    registration_stats where it is a multiple of print_freq and jac_freq."""
+    step: the steps, the visuals where total_iters % display_freq == 0,
+    registration_stats where it is a multiple of print_freq and jac_freq.
+    ``per_call``: the launches of (a step, a visuals call, a stats call),
+    the 2-D task's by default."""
+    step, visuals, stats = per_call or (STEP_LAUNCHES, VISUALS_LAUNCHES,
+                                        STATS_LAUNCHES)
     iters = [batch * s for s in range(1, steps + 1)]
     n_vis = sum(1 for i in iters if i % display_freq == 0)
     n_stats = sum(1 for i in iters if i % print_freq == 0
                   and jac_freq > 0 and i % jac_freq == 0)
-    return add_counts((steps, STEP_LAUNCHES), (n_vis, VISUALS_LAUNCHES),
-                      (n_stats, STATS_LAUNCHES))
+    return add_counts((steps, step), (n_vis, visuals), (n_stats, stats))
 
 
 def smooth_np(rng, size, cells, channels=1):
@@ -2360,6 +2399,375 @@ def phase_vxm3d(seed, smi):
     return eng, pairs[0], reg_launches, train_launches, ms_step
 
 
+# ------------------------------------------------------------ phase 7b
+# scripts/make_soak_data.py's 3-D writer (--ndims 3), copied: that script
+# imports PIL at its top, which the card's machine lacks.  The same numpy
+# calls in the same order, so the files are the script's bit for bit
+# (tests/test_torch_volume.py holds them so).
+
+def _upsample3d(lo, size):
+    """Trilinear upsample of a small 3-D grid to (size,)*3 (successive
+    per-axis linear interpolation)."""
+    out = lo.astype(np.float32)
+    for ax in range(3):
+        n = out.shape[ax]
+        pos = np.linspace(0, n - 1, size).astype(np.float32)
+        i0 = np.minimum(np.floor(pos).astype(np.int64), n - 2)
+        w = (pos - i0).astype(np.float32)
+        a = np.take(out, i0, axis=ax)
+        b = np.take(out, i0 + 1, axis=ax)
+        shape = [1, 1, 1]
+        shape[ax] = size
+        w = w.reshape(shape)
+        out = a * (1 - w) + b * w
+    return out
+
+
+def _smooth_noise3d(rng, size, cells, amp):
+    return _upsample3d(rng.standard_normal((cells,) * 3) * amp, size)
+
+
+def _anatomy3d(rng, size, texture=0.35):
+    """Soft 3-D Gaussian blobs on a smooth background plus a fine texture,
+    in [0, 1]."""
+    zz, yy, xx = np.mgrid[0:size, 0:size, 0:size].astype(np.float32)
+    img = 0.25 + 0.1 * _smooth_noise3d(rng, size, 4, 1.0)
+    for _ in range(int(rng.integers(8, 16))):
+        c = rng.uniform(0.15 * size, 0.85 * size, 3)
+        s = rng.uniform(0.04 * size, 0.16 * size, 3)
+        amp = rng.uniform(0.3, 0.9) * rng.choice([-1.0, 1.0])
+        img += amp * np.exp(-((zz - c[0]) / s[0]) ** 2
+                            - ((yy - c[1]) / s[1]) ** 2
+                            - ((xx - c[2]) / s[2]) ** 2)
+    if texture > 0:
+        img += texture * _smooth_noise3d(rng, size, max(size // 8, 4), 1.0)
+    img -= img.min()
+    return img / max(img.max(), 1e-6)
+
+
+def _warp_trilinear3d(vol, flow):
+    size = vol.shape
+    grid = np.mgrid[0:size[0], 0:size[1], 0:size[2]].astype(np.float32)
+    pos = [np.clip(grid[i] + flow[..., i], 0, size[i] - 1) for i in range(3)]
+    i0 = [np.minimum(np.floor(p).astype(np.int64), s - 2)
+          for p, s in zip(pos, size)]
+    w = [p - f for p, f in zip(pos, i0)]
+    out = np.zeros_like(vol)
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                wt = ((w[0] if dz else 1 - w[0])
+                      * (w[1] if dy else 1 - w[1])
+                      * (w[2] if dx else 1 - w[2]))
+                out += wt * vol[i0[0] + dz, i0[1] + dy, i0[2] + dx]
+    return out
+
+
+def _warp_nearest3d(vol, flow):
+    size = vol.shape
+    grid = np.mgrid[0:size[0], 0:size[1], 0:size[2]].astype(np.float32)
+    idx = [np.clip(np.rint(grid[i] + flow[..., i]), 0,
+                   size[i] - 1).astype(np.int64) for i in range(3)]
+    return vol[idx[0], idx[1], idx[2]]
+
+
+def _labels(base, n_bins=4):
+    """Quantile-binned anatomy -> label map {0..n_bins-1} scaled x60."""
+    qs = np.quantile(base, np.linspace(0, 1, n_bins + 1)[1:-1])
+    return (np.digitize(base, qs).astype(np.uint8) * 60)
+
+
+def write_volumes(out, n_train, n_test, size, seed=0, flow_amp=6.0,
+                  texture=0.35):
+    """make_soak_data.py --ndims 3's files: {train,test}{A,B} volumes (B
+    the textured anatomy warped by a smooth flow of about +-flow_amp
+    voxels) and {train,test}{A,B}_label (quantile bins of the smooth
+    anatomy riding the same flow), pair_NNN.npy each."""
+    rng = np.random.default_rng(seed)
+    for phase, n in (("train", n_train), ("test", n_test)):
+        dirs = {k: os.path.join(out, phase + k)
+                for k in ("A", "B", "A_label", "B_label")}
+        for d in dirs.values():
+            os.makedirs(d, exist_ok=True)
+        for i in range(n):
+            blob = _anatomy3d(rng, size, texture=0.0)
+            base = blob
+            if texture > 0:
+                tex = texture * _smooth_noise3d(rng, size,
+                                                max(size // 8, 4), 1.0)
+                base = blob + tex
+                base -= base.min()
+                base /= max(base.max(), 1e-6)
+            flow = np.stack([_smooth_noise3d(rng, size, 6, flow_amp)
+                             for _ in range(3)], -1)
+            b_vol = _warp_trilinear3d(base, flow)
+            a_lab = _labels(blob)
+            b_lab = _warp_nearest3d(a_lab, flow)
+            for key, arr in (("A", base.astype(np.float32)),
+                             ("B", b_vol.astype(np.float32)),
+                             ("A_label", a_lab), ("B_label", b_lab)):
+                np.save(os.path.join(dirs[key], f"pair_{i:03d}.npy"), arr)
+
+
+CLI3D_TRAIN, CLI3D_TEST = 4, 2       # pairs written
+CLI3D_SIZE = 160                     # --vol_size (the task's default)
+# the flags beside the task's defaults (enc, dec: VxmTask's), given to
+# train and evaluate alike
+CLI3D_FLAGS = []
+# the train run's cadence: --print_freq, --display_freq, --jac_freq
+CLI3D_PRINT, CLI3D_DISPLAY, CLI3D_JAC = 1, 2, 2
+CLI3D_RUN = ["--n_epochs", "1", "--n_epochs_decay", "1",
+             "--save_epoch_freq", "1", "--print_freq", str(CLI3D_PRINT),
+             "--display_freq", str(CLI3D_DISPLAY), "--jac_freq",
+             str(CLI3D_JAC)]
+# a 3-D step, a get_current_visuals call (it registers the batch), a
+# registration_stats call
+CLI3D_PER_CALL = (STEP3D, REG3D, REG3D)
+EVAL3D_PAIR_LAUNCHES = REG3D   # the label warp is nearest: the plain version
+
+
+def cli3d_train_launches(steps, display_freq, print_freq, jac_freq):
+    return cli_train_launches(steps, 1, display_freq, print_freq, jac_freq,
+                              CLI3D_PER_CALL)
+
+
+def volume_args(data, name, ck_dir, size, flags):
+    return ["--dataroot", data, "--name", name, "--checkpoints_dir", ck_dir,
+            "--vol_size", str(size), *flags]
+
+
+def phase_cli3d(seed, smi, engine_ms):
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli3d_")
+    try:
+        with open(os.path.join(root, "cli3d.log"), "w") as log:
+            return cli3d_paths(root, log, seed, smi, engine_ms)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def finite_summary(summary, n_pairs, what):
+    bad = {k: v for k, v in summary.items()
+           if not math.isfinite(float(v))}
+    if summary.get("n_pairs") != n_pairs or summary.get("ndims") != 3 or \
+            bad or "mean_dice_after" not in summary:
+        raise AssertionError(f"{what}: summary {summary}")
+
+
+def cli3d_paths(root, log, seed, smi, engine_ms):
+    """The 3-D command line (--model vxm --dataset_mode volume) at the
+    task's defaults, in-process (its launches counted): train, reload,
+    resume, card vs CPU, evaluate --ndims 3."""
+    data, ck_dir = os.path.join(root, "data"), os.path.join(root, "ck")
+    t0 = time.perf_counter()
+    write_volumes(data, CLI3D_TRAIN, CLI3D_TEST, CLI3D_SIZE, seed)
+    write_s = time.perf_counter() - t0
+    common = ["--model", "vxm", "--dataset_mode", "volume", "--seed",
+              str(seed), *volume_args(data, "cli3d", ck_dir, CLI3D_SIZE,
+                                      CLI3D_FLAGS)]
+    card = ["--gpu_ids", CLI_GPU]
+    ck = os.path.join(ck_dir, "cli3d")
+
+    # train at B=1: CLI3D_TRAIN pairs x 2 epochs
+    trained, launches_train = run_counted(log, train_cli.main,
+                                          common + card + CLI3D_RUN)
+    task = trained["model"]
+    step_s, data_s = trained["step_s"], trained["data_s"]
+    steps = len(step_s)
+    check_launches(f"cli3d train, {steps} steps", launches_train,
+                   cli3d_train_launches(steps, CLI3D_DISPLAY, CLI3D_PRINT,
+                                        CLI3D_JAC))
+    if steps != 2 * CLI3D_TRAIN:
+        raise AssertionError(f"cli3d train: {steps} steps")
+    recs = losses_of(ck)
+    n_stats = sum("fold" in r["losses"] for r in recs)
+    files = sorted(os.listdir(ck))
+    need = ([f"{e}_{s}.pth" for e in ("1", "2", "latest")
+             for s in ("net_R", "optim")] + ["loss_log.txt"])
+    missing = [f for f in need if f not in files]
+    if missing or not os.path.isfile(os.path.join(ck, "web", "index.html")):
+        raise AssertionError(f"cli3d train wrote {files}; missing {missing} "
+                             f"or web/index.html")
+
+    # checkpoints: save time and size; a fresh task on the card loads
+    # `latest` equal, bit for bit, to the trained task
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    task.save_networks("probe")
+    save_ms = (time.perf_counter() - t0) * 1e3
+    probe = [os.path.join(ck, f) for f in os.listdir(ck)
+             if f.startswith("probe_")]
+    ckpt_bytes = sum(os.path.getsize(p) for p in probe)
+    for p in probe:
+        os.remove(p)
+    with contextlib.redirect_stdout(log):
+        opt = TrainOptions(common + card + ["--continue_train"]).parse()
+    fresh = VxmTask(opt)
+    t0 = time.perf_counter()
+    fresh.setup(opt)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    mine, ref = state_tensors(fresh), state_tensors(task)
+    unequal = [k for k in ref if k not in mine
+               or not torch.equal(mine[k], ref[k])]
+    if unequal or mine.keys() != ref.keys() or fresh.step != task.step:
+        raise AssertionError(f"cli3d: reloaded `latest` differs from the "
+                             f"trained task: {unequal[:8]} (step "
+                             f"{fresh.step} vs {task.step})")
+    n_state = len(ref)
+    del fresh, mine, ref, task, trained
+    torch.cuda.empty_cache()
+
+    # resume: one more epoch
+    resumed, launches_resume = run_counted(
+        log, train_cli.main, common + card + [
+            "--continue_train", "--epoch_count", "3", "--n_epochs", "1",
+            "--n_epochs_decay", "2", "--save_epoch_freq", "1",
+            "--print_freq", "1"])
+    check_launches("cli3d resume", launches_resume, cli3d_train_launches(
+        len(resumed["step_s"]), 400, 1, 0))
+    if resumed["model"].step != 3 * CLI3D_TRAIN:
+        raise AssertionError(f"cli3d resume: step {resumed['model'].step}")
+    recs_resume = [r for r in losses_of(ck) if r["epoch"] == 3]
+    if len(recs_resume) != CLI3D_TRAIN:
+        raise AssertionError(f"cli3d resume logged {len(recs_resume)} steps")
+    del resumed
+    torch.cuda.empty_cache()
+
+    # card vs CPU: `latest` (epoch 3) loaded by a test-phase task on each
+    pair = [torch.from_numpy(crop_or_pad(normalize_minmax(load_volume(
+        os.path.join(data, f"test{s}", "pair_000.npy"))),
+        (CLI3D_SIZE,) * 3))[None, None] for s in "AB"]
+    outs = {}
+    for dev, ids in (("card", CLI_GPU), ("cpu", "-1")):
+        with contextlib.redirect_stdout(log):
+            opt = TestOptions(common + ["--gpu_ids", ids]).parse()
+            t = VxmTask(opt)
+            t.setup(opt)
+        outs[dev] = [o.cpu() for o in t.register_pair(
+            *(x.to(t.device) for x in pair))]
+        del t
+    errs = {n: float((a - b).abs().max()) for n, a, b in zip(
+        ("y_source", "pos_flow"), outs["card"], outs["cpu"])}
+    for n, e in errs.items():
+        if not e <= PATH_TOL:
+            raise AssertionError(f"cli3d {n}: card vs CPU {e} > {PATH_TOL}")
+    del outs
+    torch.cuda.empty_cache()
+
+    # evaluate --ndims 3 on the test pairs and their label volumes
+    scored, launches_eval = run_counted(
+        log, eval_cli.main, ["--ndims", "3", "--gpu_ids", CLI_GPU,
+                             "--num_test", str(CLI3D_TEST),
+                             *volume_args(data, "cli3d", ck_dir, CLI3D_SIZE,
+                                          CLI3D_FLAGS)])
+    check_launches("cli3d evaluate", launches_eval,
+                   add_counts((CLI3D_TEST, EVAL3D_PAIR_LAUNCHES)))
+    summary = scored["summary"]
+    finite_summary(summary, CLI3D_TEST, "cli3d evaluate")
+    for i, v in enumerate(scored["label_values"]):
+        if not set(v["warped"]) <= set(v["moving"]):
+            raise AssertionError(f"cli3d evaluate pair {i}: warped label "
+                                 f"values {v['warped']} not all in "
+                                 f"{v['moving']}")
+    if len(scored["label_values"]) != CLI3D_TEST:
+        raise AssertionError("cli3d evaluate: labels not scored")
+
+    emit({"phase": "cli3d", "config": "VxmTask defaults (enc (16,32,32,32), "
+          "dec (32,32,32,32,32,16,16), 7 integration steps at half "
+          "resolution, NCC 9^3, B=1)", "vol_size": CLI3D_SIZE,
+          "flags": CLI3D_FLAGS + CLI3D_RUN,
+          "pairs": {"train": CLI3D_TRAIN, "test": CLI3D_TEST},
+          "data_write_s": write_s,
+          "launches": {"cli3d_train": launches_train,
+                       "cli3d_resume": launches_resume,
+                       "cli3d_eval": launches_eval},
+          "steps": steps, "stats_calls": n_stats,
+          "card_vs_cpu_max_abs": errs, "reload_tensors_equal": n_state,
+          "losses_first": recs[0]["losses"],
+          "losses_resumed_last": recs_resume[-1]["losses"],
+          "evaluate_summary": summary,
+          "ms_per_step_b1": statistics.median(step_s[1:]) * 1e3,
+          "engine_ms_per_step_b1": engine_ms,
+          "step_ms_b1": [x * 1e3 for x in step_s],
+          "data_ms_per_step": statistics.median(data_s) * 1e3,
+          "data_ms": [x * 1e3 for x in data_s],
+          "ckpt_save_ms": save_ms, "ckpt_load_ms": load_ms,
+          "ckpt_bytes": ckpt_bytes,
+          "evaluate_ms_per_pair": statistics.median(scored["pair_s"]) * 1e3,
+          "evaluate_dice_hd95_ms_per_pair":
+              statistics.median(scored["label_s"]) * 1e3,
+          "evaluate_pair_ms": [x * 1e3 for x in scored["pair_s"]],
+          "card": smi})
+    return {"cli3d_train": launches_train, "cli3d_eval": launches_eval}
+
+
+RECIPE_SIZE, RECIPE_TRAIN, RECIPE_TEST = 64, 24, 12
+# VXM3D_RECIPE_r05.json's recipe (the JAX package's 3-D quality record):
+# textured volumes, mse, lambda_smooth 0.01, lr 1e-3
+RECIPE_FLAGS = ["--model", "vxm", "--dataset_mode", "volume",
+                "--image_loss", "mse", "--lambda_smooth", "0.01",
+                "--lr", "1e-3"]
+
+
+def phase_recipe3d(seed, smi, epochs):
+    """Train the recipe through the command line on the card for
+    ``epochs`` epochs (half at the initial rate, half decaying), then
+    score `latest` with evaluate --ndims 3 on the held-out pairs."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_recipe3d_")
+    try:
+        data, ck_dir = os.path.join(root, "data"), os.path.join(root, "ck")
+        t0 = time.perf_counter()
+        write_volumes(data, RECIPE_TRAIN, RECIPE_TEST, RECIPE_SIZE, seed)
+        write_s = time.perf_counter() - t0
+        shape = volume_args(data, "recipe3d", ck_dir, RECIPE_SIZE, [])
+        t0 = time.perf_counter()
+        with open(os.path.join(root, "train.log"), "w") as log, \
+                contextlib.redirect_stdout(log):
+            trained = train_cli.main(
+                RECIPE_FLAGS + shape + [
+                    "--gpu_ids", CLI_GPU, "--seed", str(seed),
+                    "--print_freq", str(RECIPE_TRAIN),   # once an epoch
+                    "--save_epoch_freq", str(epochs),    # `latest` at the end
+                    "--n_epochs", str(epochs - epochs // 2),
+                    "--n_epochs_decay", str(epochs // 2)])
+        train_s = time.perf_counter() - t0
+        steps, step_s = trained["model"].step, trained["step_s"]
+        recs = losses_of(os.path.join(ck_dir, "recipe3d"))
+        del trained
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with open(os.path.join(root, "eval.log"), "w") as log, \
+                contextlib.redirect_stdout(log):
+            scored = eval_cli.main(["--ndims", "3", "--gpu_ids", CLI_GPU,
+                                    "--num_test", str(RECIPE_TEST), *shape])
+        eval_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    summary = scored["summary"]
+    finite_summary(summary, RECIPE_TEST, "recipe3d evaluate")
+    gains = [r["dice_after"] - r["dice_before"] for r in scored["records"]]
+    emit({"phase": "recipe3d", "recipe": "VXM3D_RECIPE_r05.json",
+          "flags": RECIPE_FLAGS, "vol_size": RECIPE_SIZE,
+          "pairs": {"train": RECIPE_TRAIN, "test": RECIPE_TEST},
+          "epochs": epochs, "n_epochs": epochs - epochs // 2,
+          "n_epochs_decay": epochs // 2, "steps": steps,
+          "data_write_s": write_s, "train_wall_s": train_s,
+          "ms_per_step": statistics.median(step_s) * 1e3,
+          "step_ms_max": max(step_s) * 1e3,
+          "wall_ms_per_step": train_s * 1e3 / max(steps, 1),
+          "eval_wall_s": eval_s,
+          "losses": [recs[i]["losses"] for i in
+                     sorted({0, len(recs) // 4, len(recs) // 2,
+                             3 * len(recs) // 4, len(recs) - 1})],
+          "summary": summary, "pairs_regressing": sum(g < 0 for g in gains),
+          "min_pair_dice_gain": min(gains),
+          "evaluate_ms_per_pair": statistics.median(scored["pair_s"]) * 1e3,
+          "card": smi})
+    if not summary["mean_dice_after"] > summary["mean_dice_before"]:
+        raise AssertionError(f"recipe3d: Dice did not rise: {summary}")
+    return summary
+
+
 # ------------------------------------------------------------ phase 8
 CONV_OPS = ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose",
             "aten::convolution_backward")
@@ -2510,6 +2918,12 @@ def main(argv=None):
     ap.add_argument("--steps", action="store_true",
                     help="only build and phase chain_steps (the chains at "
                          "nsteps 1..7, one barrier alone); no result line")
+    ap.add_argument("--recipe3d", action="store_true",
+                    help="only build and phase recipe3d (the 64^3 recipe "
+                         "trained and scored through the command line); "
+                         "no result line")
+    ap.add_argument("--recipe_epochs", type=int, default=600,
+                    help="epochs of --recipe3d (half decaying)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2529,6 +2943,9 @@ def main(argv=None):
     run("build", phase_build)
     if args.steps:
         run("chain_steps", phase_chain_steps, args.seed)
+        return 0
+    if args.recipe3d:
+        run("recipe3d", phase_recipe3d, args.seed, smi, args.recipe_epochs)
         return 0
     fwd_rows = run("kernel", phase_kernel, args.seed, args.profile)
     bwd_rows = run("kernel_bwd", phase_kernel_bwd, args.seed, args.profile)
@@ -2555,10 +2972,12 @@ def main(argv=None):
     if args.profile:
         run("profile_train3d", phase_profile_vxm3d, eng, pair, step3d_ms)
     del eng, pair
+    torch.cuda.empty_cache()
+    cli3d_launches = run("cli3d", phase_cli3d, args.seed, smi, step3d_ms)
 
     paths = {"register": reg_launches, "train": train_launches,
              "register3d": reg3d_launches, "train3d": train3d_launches,
-             **cli_launches}
+             **cli_launches, **cli3d_launches}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}

@@ -157,25 +157,44 @@ def load_jax_params(model, params: Mapping[str, Any]) -> None:
                     net_state_from_jax(model, name, params[name]))
 
 
+def _adam_state(optimizer, count, moments) -> dict:
+    """A state_dict of ``optimizer`` from optax's one ``count`` and
+    ``moments``, ``[(module, mu state_dict, nu state_dict)]`` in the
+    optimizer's parameter order.  Optax's ``scale_by_adam`` and torch's
+    Adam agree in bias correction and in eps outside the square root, so
+    the map is exact."""
+    step = float(np.asarray(count))
+    state, index = {}, 0
+    for net, mu, nu in moments:
+        for key, _ in net.named_parameters():
+            state[index] = {"step": torch.tensor(step, dtype=torch.float32),
+                            "exp_avg": mu[key], "exp_avg_sq": nu[key]}
+            index += 1
+    return {"state": state,
+            "param_groups": optimizer.state_dict()["param_groups"]}
+
+
 def adam_state_from_jax(opt_state: Mapping[str, Any], model) -> dict:
     """An optax ``ScaleByAdamState`` over ``{G, F, R}`` (as a state dict:
     ``count``, ``mu``, ``nu``; numpy leaves) as a state_dict of
     ``model.optimizer``: per parameter ``step`` (optax's one count),
     ``exp_avg`` (mu) and ``exp_avg_sq`` (nu), through the parameters' own
-    key and layout maps.  Optax's ``scale_by_adam`` and torch's Adam agree
-    in bias correction and in eps outside the square root, so the map is
-    exact."""
-    step = float(np.asarray(opt_state["count"]))
-    state, index = {}, 0
-    for name, attr in NETS.items():
-        mu = net_state_from_jax(model, name, opt_state["mu"][name])
-        nu = net_state_from_jax(model, name, opt_state["nu"][name])
-        for key, _ in getattr(model, attr).named_parameters():
-            state[index] = {"step": torch.tensor(step, dtype=torch.float32),
-                            "exp_avg": mu[key], "exp_avg_sq": nu[key]}
-            index += 1
-    return {"state": state,
-            "param_groups": model.optimizer.state_dict()["param_groups"]}
+    key and layout maps."""
+    return _adam_state(model.optimizer, opt_state["count"], [
+        (getattr(model, attr),
+         net_state_from_jax(model, name, opt_state["mu"][name]),
+         net_state_from_jax(model, name, opt_state["nu"][name]))
+        for name, attr in NETS.items()])
+
+
+def vxm_adam_state_from_jax(opt_state: Mapping[str, Any], engine) -> dict:
+    """The JAX ``VxmEngine``'s optax ``ScaleByAdamState`` over netR's
+    params (``count``, ``mu``, ``nu``) as a state_dict of
+    ``engine.optimizer``, as ``adam_state_from_jax`` maps the 2-D one."""
+    enc, dec = engine.cfg.enc, engine.cfg.dec
+    return _adam_state(engine.optimizer, opt_state["count"], [
+        (engine.netR, netR_state_from_jax(opt_state["mu"], enc, dec),
+         netR_state_from_jax(opt_state["nu"], enc, dec))])
 
 
 # flax's msgpack extension types (flax/serialization.py::_MsgpackExtType)

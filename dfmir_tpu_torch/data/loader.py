@@ -2,7 +2,8 @@
 ``data/loader.py``): shuffle with ``default_rng((seed, epoch))``, drop the
 last partial batch in training, ``max_dataset_size``, ``set_epoch``, and a
 thread pool that decodes up to 3 batches ahead with ``--num_threads``.
-Batches are dicts of stacked NCHW arrays and lists of paths."""
+Batches are dicts of stacked NCHW (NCDHW for volumes) arrays and lists of
+paths."""
 
 from __future__ import annotations
 
@@ -13,8 +14,7 @@ from typing import Iterator
 import numpy as np
 
 # dataset modes of the JAX package that the port does not have yet
-_NOT_PORTED = {"volume": "A10b, the 3-D command line",
-               "patient_site": "A13", "triplet": "A13"}
+_NOT_PORTED = {"patient_site": "A13", "triplet": "A13"}
 
 
 def find_dataset_using_name(name: str):

@@ -45,7 +45,7 @@ class VxmConfig:
     lambda_smooth: float = 0.01  # classic vxm weight for l2 grad on the SVF
     lr: float = 1e-4
     batch_size: int = 1
-    compute_dtype: str = "float32"
+    compute_dtype: str = "float32"  # unused: netR is float32 (see VxmEngine)
     remat: bool = False          # recompute netR's forward in the backward
 
     @classmethod
@@ -63,6 +63,10 @@ class VxmEngine:
     another), its weights drawn on the CPU from ``seed`` (so one seed gives
     the same weights on every device), and one Adam over them.
 
+    netR computes in float32 whatever ``cfg.compute_dtype`` says: the JAX
+    engine never passes that field to its VxmDense either, so ``--model
+    vxm --compute_dtype bfloat16`` trains in float32 in both packages.
+
     Volumes are (B, 1, *spatial), NCDHW at 3-D."""
 
     def __init__(self, cfg: VxmConfig, device=None, seed: int = 0):
@@ -74,8 +78,7 @@ class VxmEngine:
         self.netR = VxmDense(
             ndims=cfg.ndims, nb_features=(tuple(cfg.enc), tuple(cfg.dec)),
             int_steps=cfg.int_steps, int_downsize=cfg.int_downsize,
-            bidir=cfg.bidir, compute_dtype=cfg.compute_dtype,
-            generator=torch.Generator().manual_seed(seed),
+            bidir=cfg.bidir, generator=torch.Generator().manual_seed(seed),
         ).to(self.device).eval()
         self.optimizer = torch.optim.Adam(
             self.netR.parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)

@@ -6,14 +6,8 @@ from __future__ import annotations
 
 import importlib
 
-# models of the JAX package that the port does not have yet
-_NOT_PORTED = {"vxm": "A10b, the 3-D command line"}
-
 
 def find_model_using_name(name: str):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"--model {name}: not ported yet (ROADMAP {_NOT_PORTED[name]})")
     module = importlib.import_module(f"dfmir_tpu_torch.models.{name}")
     target = name.replace("_", "") + "task"
     for attr in dir(module):

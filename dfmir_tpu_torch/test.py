@@ -11,6 +11,11 @@ Jacobian-determinant overlay and its statistics to ``{dataroot}/jac_vis/``
 ``{results_dir}/{name}/{phase}_{epoch}``.  The per-pair tensors come from
 ``infer.register_pair_outputs``.  ``main`` returns the number of pairs
 and the seconds of each.
+
+It serves the paper's model only: ``--model vxm`` is refused before any
+model is built (the JAX package's ``test.py`` cannot serve it either); a
+volumetric checkpoint is scored by ``python -m dfmir_tpu_torch.evaluate
+--ndims 3``.
 """
 
 import json
@@ -39,6 +44,11 @@ def save_gray(img01, path):
 
 def main(argv=None):
     opt = TestOptions(argv).parse()
+    if opt.model != "registration":
+        raise ValueError(
+            f"test.py serves --model registration, not --model {opt.model}; "
+            f"score a volumetric checkpoint with python -m "
+            f"dfmir_tpu_torch.evaluate --ndims 3")
     opt.num_threads = 0
     opt.batch_size = 1
     opt.serial_batches = True

@@ -253,9 +253,10 @@ def test_evaluate_scores_a_trained_run(run):
         "mean_ncc_global", "mean_ncc_windowed", "mean_psnr", "n_pairs"}
     assert summary["n_pairs"] == 2
     assert all(math.isfinite(v) for v in summary.values())
-    with pytest.raises(NotImplementedError, match="A10b"):
+    with pytest.raises(FileNotFoundError, match="net R"):
         evaluate.main(["--dataroot", "x", "--name", "y", "--ndims", "3",
-                       "--gpu_ids", "-1"])
+                       "--checkpoints_dir", str(run["tmp"] / "none"),
+                       "--gpu_ids", "-1"])          # the volume path's own
 
 
 @pytest.mark.parametrize("shape", [(64, 64), (12, 14, 16)])

@@ -2,7 +2,10 @@
 cli phase at crop 64 (full-width networks, 64^2 pairs it writes itself) -
 train at B=1 with exact kernel launches, a bit-equal reload, resume, card
 against CPU within 1e-3, test with exact launches and label values kept,
-a finite evaluate summary, train at B=8.
+a finite evaluate summary, train at B=8; and its cli3d phase at --vol_size
+64 (the 3-D task's full-width netR, 64^3 volumes it writes itself) -
+train with exact launches, a bit-equal reload, resume, card against CPU
+within 1e-3, evaluate --ndims 3 with exact launches and a finite summary.
 
     python -m pytest --noconftest -p no:cacheprovider -q \\
         tests/test_torch_cli_gpu.py
@@ -36,3 +39,13 @@ def test_cli_phase_at_crop_64(cuda, monkeypatch):
         chip_smoke.CLI_JAC)
     assert launches["cli_test"] == chip_smoke.add_counts(
         (chip_smoke.CLI_TEST, chip_smoke.TEST_PAIR_LAUNCHES))
+
+
+def test_cli3d_phase_at_vol_64(cuda, monkeypatch):
+    monkeypatch.setattr(chip_smoke, "CLI3D_SIZE", 64)
+    launches = chip_smoke.phase_cli3d(0, torch.cuda.get_device_name(0), None)
+    assert launches["cli3d_train"] == chip_smoke.cli3d_train_launches(
+        2 * chip_smoke.CLI3D_TRAIN, chip_smoke.CLI3D_DISPLAY,
+        chip_smoke.CLI3D_PRINT, chip_smoke.CLI3D_JAC)
+    assert launches["cli3d_eval"] == chip_smoke.add_counts(
+        (chip_smoke.CLI3D_TEST, chip_smoke.EVAL3D_PAIR_LAUNCHES))

@@ -2,8 +2,9 @@
 package's: the same argv gives the same ``vars(opt)`` for Train and Test
 options, CUT and FastCUT, but for the device (the port adds
 ``opt.device``: "cpu" for --gpu_ids -1); ``RegistrationConfig.from_opt``
-equals JAX's field by field; the device rules and the modes the port does
-not have yet raise."""
+equals JAX's field by field; so do the 3-D command line's options (--model
+vxm, --dataset_mode volume) and ``VxmConfig.from_opt``; the device rules
+and the modes the port does not have yet raise."""
 
 import argparse
 import contextlib
@@ -13,9 +14,11 @@ import io
 import pytest
 
 from dfmir_tpu.engine.config import RegistrationConfig as JaxConfig
+from dfmir_tpu.engine.vxm_engine import VxmConfig as JaxVxmConfig
 from dfmir_tpu.options import TestOptions as JaxTestOptions
 from dfmir_tpu.options import TrainOptions as JaxTrainOptions
 from dfmir_tpu_torch.engine.config import RegistrationConfig
+from dfmir_tpu_torch.engine.vxm_engine import VxmConfig
 from dfmir_tpu_torch.options import TestOptions, TrainOptions
 
 # the only key that differs, and why: the port resolves the device once,
@@ -97,13 +100,44 @@ def test_a_card_is_required_unless_the_cpu_is_named(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (("--model", "vxm"), "A10b"),
-    (("--dataset_mode", "volume"), "A10b"),
     (("--dataset_mode", "patient_site"), "A13"),
+    (("--dataset_mode", "triplet"), "A13"),
 ])
 def test_modes_not_ported_raise(tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
         parse(TrainOptions, base_argv(tmp_path, *flags))
+
+
+ARGVS_3D = {
+    "vxm_defaults": ("--model", "vxm"),
+    "vxm_small": ("--model", "vxm", "--vol_size", "64", "--enc", "8,16",
+                  "--dec", "16,16,8", "--image_loss", "mse", "--bidir",
+                  "--lambda_smooth", "0.02",
+                  "--compute_dtype", "bfloat16"),
+    "volume_mode": ("--dataset_mode", "volume", "--vol_size", "96"),
+}
+
+
+@pytest.mark.parametrize("kind", ["train", "test"])
+@pytest.mark.parametrize("case", list(ARGVS_3D))
+def test_3d_modes_parse_as_jax(tmp_path, case, kind):
+    """--model vxm and --dataset_mode volume (the 3-D command line): the
+    same options as the JAX package's, and the same VxmConfig."""
+    argv = base_argv(tmp_path, *ARGVS_3D[case])
+    mine_cls, ref_cls = ((TrainOptions, JaxTrainOptions) if kind == "train"
+                         else (TestOptions, JaxTestOptions))
+    mine, ref = vars(parse(mine_cls, argv)), vars(parse(ref_cls, argv))
+    assert set(mine) - set(ref) == PORT_ONLY and set(ref) <= set(mine)
+    assert {k: (mine[k], ref[k]) for k in ref if mine[k] != ref[k]} == {}
+    assert mine["dataset_mode"] == "volume"
+    assert mine["vol_size"] == {"vxm_small": 64, "volume_mode": 96}.get(
+        case, 160)
+    if case != "volume_mode":
+        assert mine["model"] == "vxm"
+        assert mine.get("lr", 1e-4) == 1e-4   # the task's default (train)
+    cfg = VxmConfig.from_opt(argparse.Namespace(**mine))
+    jcfg = JaxVxmConfig.from_opt(argparse.Namespace(**ref))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
 
 
 def test_help_lists_the_flags(capsys):

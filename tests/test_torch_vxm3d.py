@@ -349,6 +349,24 @@ def test_engine_launches_per_call(jax_params, counted_kernels, ndims):
         assert L[s3] == 0
 
 
+def test_bfloat16_config_computes_what_jax_computes(jax_params, jax_run):
+    """--compute_dtype bfloat16 on the 3-D engine: JAX's VxmEngine never
+    hands the field to its VxmDense (the same module as at float32), so
+    it computes in float32, and so does the port's."""
+    cfg = dict(SMALL, compute_dtype="bfloat16")
+    assert JaxVxmEngine(JaxVxmConfig(**cfg)).netR == \
+        JaxVxmEngine(JaxVxmConfig(**SMALL)).netR
+    eng = port_engine(jax_params, compute_dtype="bfloat16")
+    assert eng.cfg.compute_dtype == "bfloat16"
+    assert all(p.dtype == torch.float32 for p in eng.netR.parameters())
+    r = jax_run
+    _, metrics = eng.loss_fn(t(r["src"]), t(r["tgt"]))
+    for k, v in metrics.items():
+        assert v.dtype == torch.float32
+        assert abs(float(v.detach()) - r["metrics"][k]) <= 1e-4 * abs(
+            r["metrics"][k]), k
+
+
 def test_config_and_refusals(jax_params):
     opt = argparse.Namespace(ndims=3, vol_size=32, enc="4,8", dec="8,4,4",
                              lr=2e-4, name="not a field")
@@ -360,9 +378,6 @@ def test_config_and_refusals(jax_params):
     eng = VxmEngine(VxmConfig(enc=(), dec=()), device="cpu")
     assert eng.cfg.enc == (16, 32, 32, 32)
     assert eng.cfg.dec == (32, 32, 32, 32, 32, 16, 16)
-    with pytest.raises(NotImplementedError, match="float32"):
-        VxmEngine(VxmConfig(**dict(SMALL, compute_dtype="bfloat16")),
-                  device="cpu")
     eng = VxmEngine(VxmConfig(**SMALL), device="cpu")
     short = dict(jax_params)
     short.pop("flow")
