@@ -50,6 +50,23 @@ Phases, each printing one JSON line:
               64, ngf 8) card against CPU (metrics 1e-3 relative; gradients
               within 1e-2 * the network's max |g| of the CPU in float32 and
               1e-3 of the CPU in float64); then ms/step at B=1 and B=8
+  fastcut     the paper model's training options at the same full width,
+  gan         each from --seed with the flow head scaled: FastCUT (flip
+  bf16        equivariance, nce_idt off, lambda_NCE 10: card vs CPU loss_fn
+  dropout     at each coin within 1e-3 relative); lambda_GAN 1 (netD
+              basic, lsgan: one two-phase step card vs CPU, D's metrics
+              too, netD moving); compute_dtype bfloat16 (the flow head
+              scaled to a field of about 0.1 px: register and loss_fn card
+              vs the CPU's bf16 under the JAX suite's bf16 bars, fake_B
+              0.1, pos_flow 1e-3, y_source 1e-2, metrics 1e-2 relative;
+              master parameters float32; register ms at B=1 by CUDA events
+              beside phase register's); each 1 warm-up + 5 timed steps at
+              B=1 (ms/step beside phase train's, peak memory), launches
+              exactly the CUT step's (bf16 register 1 + 1 a call);
+              no_dropout False (2 counted steps, finite; the masks' keep
+              rate 0.5 within 5 binomial sigmas on the card's generator;
+              one seed twice the same masks; register bit-equal to the
+              no_dropout=True model's)
   cli         the 2-D command line in-process at the options' defaults
               (the paper's model at full width), in a temporary directory
               removed after, its prints in a log there: 16 train and 4
@@ -65,6 +82,9 @@ Phases, each printing one JSON line:
               registered on the card and on the CPU within 1e-3; test.main
               over the 4 test pairs (2 chain forwards + 3 B1 a pair; label
               values kept); evaluate.main (1 + 1 a pair; a finite summary);
+              train.main --CUT_mode FastCUT and --lambda_GAN 1, 2 steps
+              each (launches exact; the GAN run's `latest` with net_D and
+              netD's Adam state reloaded bit-equal; test.main of it);
               train.main at B=8 for one epoch; then ms a step beside phase
               train's, data ms a step, PNG decode ms an image, checkpoint
               save and load ms and bytes, test and evaluate ms a pair
@@ -128,8 +148,9 @@ Phases, each printing one JSON line:
               and load ms and bytes, evaluate ms a pair and its Dice /
               HD95 part
 Each phase's wall seconds follow it.  Then the kernels line (all nine
-kernels, their launches by path: register, train, cli_train, cli_test,
-register3d, train3d, cli3d_train, cli3d_eval),
+kernels, their launches by path: register, train, fastcut, gan,
+bf16_register, bf16_train, dropout, register3d, train3d, cli_train,
+cli_test, cli_fastcut, cli_gan, cli_gan_test, cli3d_train, cli3d_eval),
 and last {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --recipe3d [--recipe_epochs 600]
@@ -154,8 +175,12 @@ grid.sync() and one cluster barrier alone (csrc/yardsticks/sync.cu); it
 prints no result line.  It calls the kernels through their wrappers
 alone, so it also runs from an earlier commit's tree.
 
-Exits non-zero, printing no result, without a CUDA card.  Every failure
-propagates.
+Exits non-zero without a CUDA card, and wherever a phase or an import
+fails, its last stdout line then {"ok": false, "error": "<type>: <message>"}
+(with "phase" where one failed); every failure propagates (its traceback on
+stderr).  It imports the port from the checkout it runs in: copied alone
+into an empty directory, or run with `python -P` from outside the repo, it
+fails so, naming the import.
 """
 
 from __future__ import annotations
@@ -175,30 +200,47 @@ import tempfile
 import time
 import zlib
 
-import numpy as np
-import torch
-import torch.nn.functional as F
 
-from dfmir_tpu_torch import evaluate as eval_cli
-from dfmir_tpu_torch import infer
-from dfmir_tpu_torch import test as test_cli
-from dfmir_tpu_torch import train as train_cli
-from dfmir_tpu_torch.data.transforms import to_array
-from dfmir_tpu_torch.data.volume import (crop_or_pad, load_volume,
-                                         normalize_minmax)
-from dfmir_tpu_torch.engine.config import RegistrationConfig
-from dfmir_tpu_torch.engine.registration import RegistrationModel
-from dfmir_tpu_torch.engine.vxm_engine import VxmConfig, VxmEngine
-from dfmir_tpu_torch.models.registration import RegistrationTask
-from dfmir_tpu_torch.models.vxm import VxmTask
-from dfmir_tpu_torch.ops import _build, integrate, warp_cuda
-from dfmir_tpu_torch.ops.integrate import vecint, vecint_bwd_plain
-from dfmir_tpu_torch.ops.warp import (_kernel_takes, identity_grid, warp,
-                                      warp2d_dsrc_fixed_plain,
-                                      warp3d_dsrc_binned_plain,
-                                      warp_bwd_plain)
-from dfmir_tpu_torch.options import TestOptions, TrainOptions
-from dfmir_tpu_torch.utils.png import read_png, write_png
+def fail_line(error, phase=None):
+    """The result line of a failed run, on stdout: a run that fails is
+    never silent there."""
+    out = {"ok": False, **({"phase": phase} if phase else {}),
+           "error": error if isinstance(error, str)
+           else f"{type(error).__name__}: {error}"}
+    print(json.dumps(out), flush=True)
+
+
+# torch and the port: a checkout without them (the script copied alone, or
+# run with `python -P` from outside the repo) fails with a result line
+try:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from dfmir_tpu_torch import evaluate as eval_cli
+    from dfmir_tpu_torch import infer
+    from dfmir_tpu_torch import test as test_cli
+    from dfmir_tpu_torch import train as train_cli
+    from dfmir_tpu_torch.data.transforms import to_array
+    from dfmir_tpu_torch.data.volume import (crop_or_pad, load_volume,
+                                             normalize_minmax)
+    from dfmir_tpu_torch.engine.config import RegistrationConfig
+    from dfmir_tpu_torch.engine.registration import RegistrationModel
+    from dfmir_tpu_torch.engine.vxm_engine import VxmConfig, VxmEngine
+    from dfmir_tpu_torch.models.registration import RegistrationTask
+    from dfmir_tpu_torch.models.vxm import VxmTask
+    from dfmir_tpu_torch.nets.resnet_gen import Dropout
+    from dfmir_tpu_torch.ops import _build, integrate, warp_cuda
+    from dfmir_tpu_torch.ops.integrate import vecint, vecint_bwd_plain
+    from dfmir_tpu_torch.ops.warp import (_kernel_takes, identity_grid, warp,
+                                          warp2d_dsrc_fixed_plain,
+                                          warp3d_dsrc_binned_plain,
+                                          warp_bwd_plain)
+    from dfmir_tpu_torch.options import TestOptions, TrainOptions
+    from dfmir_tpu_torch.utils.png import read_png, write_png
+except Exception as err:
+    fail_line(err)
+    raise SystemExit(1)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
 # (non-tensor-core) FLOP/s
@@ -1355,11 +1397,11 @@ def make_pairs(n, batch, size, seed, device):
     return pairs
 
 
-def build_model(cfg, seed, device):
+def build_model(cfg, seed, device, gain=FLOW_GAIN):
     model = RegistrationModel(cfg, device=device,
                               generator=torch.Generator().manual_seed(seed))
     with torch.no_grad():
-        model.netR.flow.weight.mul_(FLOW_GAIN)
+        model.netR.flow.weight.mul_(gain)
     return model
 
 
@@ -1603,6 +1645,262 @@ def phase_train(seed, smi):
     return model, launches, ms_b1
 
 
+# ------------------------------------------------- the training options
+# the paper model's training options, each at RegistrationConfig()'s full
+# width (WIDTH: fields beside the defaults; empty on the card)
+WIDTH = {}
+FASTCUT = dict(flip_equivariance=True, nce_idt=False, lambda_NCE=10.0)
+GAN = dict(lambda_GAN=1.0, netD="basic", gan_mode="lsgan")
+BF16 = dict(compute_dtype="bfloat16")
+DROPOUT = dict(no_dropout=False)
+# bf16: a field below 0.25 px (about 0.1 at full width), where one bf16
+# ulp of the flow head's output is under the pos_flow bar; the bars are
+# the JAX suite's own bf16 ones (tests/test_perf_paths.py) and
+# tests/test_torch_bf16.py's
+BF16_GAIN = 4e3
+BF16_BARS = {"fake_B": 0.1, "idt_B": 0.1, "y_source": 1e-2,
+             "pos_flow": 1e-3}
+BF16_METRIC_TOL = 1e-2
+KEEP_SIGMAS = 5.0        # dropout keep rate: 0.5 within 5 binomial sigmas
+
+
+def option_cfg(option):
+    return RegistrationConfig(**WIDTH, **option)
+
+
+def card_cpu_metrics(card, cpu, a, b, seed, tol, what, **kw):
+    """One loss_fn (no gradient) on the card and on the CPU, the same
+    weights and patch ids: (card metrics, relative differences)."""
+    with torch.no_grad():
+        _, m_card, aux = card.loss_fn(a, b, generator=patch_gen(seed), **kw)
+        _, m_cpu, _ = cpu.loss_fn(a.cpu(), b.cpu(),
+                                  generator=patch_gen(seed), **kw)
+    card_m = {k: float(v) for k, v in m_card.items()}
+    return card_m, rel_errs(card_m, {k: float(v) for k, v in m_cpu.items()},
+                            tol, what), aux
+
+
+def counted_steps(model, pairs, lr, seed, what):
+    """1 warm-up + len(pairs) - 1 timed train steps, counted: (ms of each,
+    metrics of each, launches, peak bytes).  Every step launches exactly
+    STEP_LAUNCHES, and every metric is finite."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warp_cuda.reset_launches()
+    ms, history = time_steps(model, pairs, lr, seed)
+    launches = dict(warp_cuda.LAUNCHES)
+    check_launches(f"{what}, {len(pairs)} steps", launches,
+                   add_counts((len(pairs), STEP_LAUNCHES)))
+    bad = [(i, k) for i, m in enumerate(history) for k, v in m.items()
+           if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{what}: non-finite metrics {bad}")
+    return ms, history, launches, torch.cuda.max_memory_allocated()
+
+
+def step_summary(ms, history, launches, peak, train_ms):
+    return {"steps": len(ms), "launches": launches,
+            "launches_per_step": {k: v / len(ms)
+                                  for k, v in launches.items() if v},
+            "step_ms_b1": ms, "ms_per_step_b1": statistics.median(ms[1:]),
+            "f32_cut_ms_per_step_b1": train_ms,
+            "peak_mem_gb_b1": peak / 1e9, "metrics_first": history[0],
+            "metrics_last": history[-1]}
+
+
+def phase_fastcut(seed, smi, train_ms):
+    """FastCUT (flip equivariance, nce_idt off, lambda_NCE 10): card vs
+    CPU loss_fn at each coin, then counted and timed steps."""
+    cfg = option_cfg(FASTCUT)
+    model = build_model(cfg, seed, DEVICE)
+    pairs = make_pairs(1 + TRAIN_STEPS, 1, cfg.crop_size, seed + 5, DEVICE)
+    cpu = build_model(cfg, seed, "cpu")
+    a, b, _ = pairs[0]
+    errs = {}
+    for coin in (False, True):
+        _, errs[str(coin)], aux = card_cpu_metrics(
+            model, cpu, a, b, seed, PATH_TOL, f"fastcut coin {coin}",
+            flip=coin)
+    del cpu
+    ms, history, launches, peak = counted_steps(model, pairs, cfg.lr, seed,
+                                                "fastcut")
+    emit({"phase": "fastcut", "config": "RegistrationConfig() with "
+          "CUT_mode FastCUT's settings", **{k: getattr(cfg, k) for k in
+                                            FASTCUT},
+          "crop": cfg.crop_size, "ngf": cfg.ngf, "netG": cfg.netG,
+          "card_vs_cpu_rel_by_coin": errs,
+          "pos_flow_max_px": float(aux["pos_flow"].abs().max()),
+          **step_summary(ms, history, launches, peak, train_ms),
+          "card": smi})
+    return launches, statistics.median(ms[1:])
+
+
+def phase_gan(seed, smi, train_ms):
+    """lambda_GAN 1, netD basic, lsgan: one two-phase step on the card and
+    on the CPU from the same weights (metrics, D's among them), netD
+    moving, then counted and timed steps."""
+    cfg = option_cfg(GAN)
+    model = build_model(cfg, seed, DEVICE)
+    pairs = make_pairs(1 + TRAIN_STEPS, 1, cfg.crop_size, seed + 6, DEVICE)
+    cpu = build_model(cfg, seed, "cpu")
+    a, b, _ = pairs[0]
+    d_before = [p.detach().clone() for p in model.netD.parameters()]
+    m_card = model.train_step(a, b, cfg.lr, generator=patch_gen(seed))
+    m_cpu = cpu.train_step(a.cpu(), b.cpu(), cfg.lr,
+                           generator=patch_gen(seed))
+    del cpu
+    card_m = {k: float(v) for k, v in m_card.items()}
+    errs = rel_errs(card_m, {k: float(v) for k, v in m_cpu.items()},
+                    PATH_TOL, "gan step")
+    missing = {"G_GAN", "D", "D_fake", "D_real"} - set(errs)
+    unmoved = sum(torch.equal(p.detach(), q) for p, q in
+                  zip(model.netD.parameters(), d_before))
+    if missing or unmoved:
+        raise AssertionError(f"gan step: metrics {sorted(card_m)} lack "
+                             f"{missing}, or {unmoved} netD tensors did "
+                             f"not move")
+    ms, history, launches, peak = counted_steps(model, pairs, cfg.lr, seed,
+                                                "gan")
+    emit({"phase": "gan", "config": "RegistrationConfig() with lambda_GAN "
+          "1", "netD": cfg.netD, "ndf": cfg.ndf, "gan_mode": cfg.gan_mode,
+          "crop": cfg.crop_size, "netD_params": sum(
+              p.numel() for p in model.netD.parameters()),
+          "first_step_card_vs_cpu_rel": errs, "first_step_metrics": card_m,
+          "netD_tensors_moved": len(d_before),
+          **step_summary(ms, history, launches, peak, train_ms),
+          "card": smi})
+    return launches, statistics.median(ms[1:])
+
+
+def phase_bf16(seed, smi, register_ms, train_ms):
+    """compute_dtype bfloat16: register (B=1, CUDA events, median of 30)
+    and the step (median of 5) beside the float32 ones of phases register
+    and train; card vs CPU-bf16 under BF16_BARS; master parameters
+    float32; launches exact."""
+    cfg = option_cfg(BF16)
+    model = build_model(cfg, seed, DEVICE, BF16_GAIN)
+    pairs = make_pairs(1 + TRAIN_STEPS, 1, cfg.crop_size, seed + 7, DEVICE)
+    a, b, lab = pairs[0]
+
+    # register, counted, then card vs the CPU's bf16
+    torch.cuda.synchronize()
+    warp_cuda.reset_launches()
+    outs = [infer.register_pair_outputs(model, x, y, label=z)
+            for x, y, z in pairs[:N_PAIRS]]
+    torch.cuda.synchronize()
+    reg_launches = dict(warp_cuda.LAUNCHES)
+    check_launches(f"bf16 register, {N_PAIRS} calls", reg_launches,
+                   add_counts((N_PAIRS, REGISTER_LAUNCHES)))
+    cpu = build_model(cfg, seed, "cpu", BF16_GAIN)
+    t0 = time.perf_counter()
+    ref = infer.register_pair_outputs(cpu, a.cpu(), b.cpu(), label=lab.cpu())
+    cpu_s = time.perf_counter() - t0
+    reg_errs = {k: float((outs[0][k].cpu() - ref[k]).abs().max())
+                for k in BF16_BARS}
+    bad = {k: e for k, e in reg_errs.items() if not e <= BF16_BARS[k]}
+    dtypes = {k: str(v.dtype) for k, v in outs[0].items()}
+    if bad or any(v.dtype == torch.bfloat16 for v in outs[0].values()):
+        raise AssertionError(f"bf16 register: card vs CPU {bad} past "
+                             f"{BF16_BARS}, or outputs {dtypes}")
+    flow_max = max(float(o["pos_flow"].abs().max()) for o in outs)
+    _, loss_errs, _ = card_cpu_metrics(model, cpu, a, b, seed,
+                                       BF16_METRIC_TOL, "bf16 loss_fn")
+    del cpu, ref
+    reg_ms = time_ms(lambda: infer.register_pair_outputs(model, a, b, lab),
+                     reps=30, warmup=3)
+
+    ms, history, launches, peak = counted_steps(model, pairs, cfg.lr, seed,
+                                                "bf16")
+    wrong = [n for net in NETS for n, p in getattr(model, net)
+             .named_parameters() if p.dtype != torch.float32]
+    wrong += [str(i) for i, st in model.optimizer.state.items()
+              if st["exp_avg"].dtype != torch.float32]
+    if wrong:
+        raise AssertionError(f"bf16: master parameters or Adam state not "
+                             f"float32: {wrong[:8]}")
+    emit({"phase": "bf16", "config": "RegistrationConfig() with "
+          "compute_dtype bfloat16", "crop": cfg.crop_size,
+          "flow_gain": BF16_GAIN, "pos_flow_max_px": flow_max,
+          "register_launches": reg_launches, "bars": BF16_BARS,
+          "register_card_vs_cpu_max_abs": reg_errs, "output_dtypes": dtypes,
+          "loss_card_vs_cpu_rel": loss_errs, "cpu_register_s": cpu_s,
+          "ms_per_pair_b1": reg_ms, "f32_ms_per_pair_b1": register_ms,
+          "master_dtype": "float32",
+          **step_summary(ms, history, launches, peak, train_ms),
+          "card": smi})
+    return reg_launches, launches, reg_ms, statistics.median(ms[1:])
+
+
+def dropout_masks(model, fn):
+    """fn() with every Dropout module's mask recorded where its input is
+    not 0 (the ReLU before it zeroes about half): the masks, flat."""
+    masks = []
+
+    def hook(module, args, out):
+        live = args[0] != 0
+        masks.append((out[live] != 0).flatten())
+
+    handles = [m.register_forward_hook(hook) for m in model.netG.modules()
+               if isinstance(m, Dropout)]
+    try:
+        out = fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return out, torch.cat(masks) if masks else None
+
+
+def phase_dropout(seed, smi):
+    """no_dropout=False: a counted step with finite metrics, the masks'
+    keep rate on the card's generator, two seeded calls equal, register
+    equal to the no_dropout=True model's (the same weights)."""
+    cfg = option_cfg(DROPOUT)
+    model = build_model(cfg, seed, DEVICE)
+    pairs = make_pairs(2, 1, cfg.crop_size, seed + 8, DEVICE)
+    a, b, _ = pairs[0]
+
+    # register runs without dropout: equal to the no_dropout=True model's,
+    # whose weights the same seed draws the same
+    plain = build_model(option_cfg({}), seed, DEVICE)
+    with torch.no_grad():
+        mine, ref = model.register(a, b), plain.register(a, b)
+    reg_diff = max(float((x - y).abs().max()) for x, y in zip(mine, ref))
+    del plain, mine, ref
+    if reg_diff != 0.0:
+        raise AssertionError(f"dropout register differs from "
+                             f"no_dropout=True's by {reg_diff}")
+
+    (_, history, launches, _), masks = dropout_masks(
+        model, lambda: counted_steps(model, pairs, cfg.lr, seed, "dropout"))
+    n = masks.numel()
+    rate = float(masks.float().mean())
+    bound = KEEP_SIGMAS * math.sqrt(0.25 / n)
+    if not abs(rate - 0.5) <= bound:
+        raise AssertionError(f"dropout keep rate {rate} over {n} draws, "
+                             f"not 0.5 within {bound}")
+
+    runs = []
+    for _ in range(2):
+        gen = torch.Generator(device=model.device).manual_seed(seed + 9)
+        with torch.no_grad():
+            (_, m, _), mk = dropout_masks(model, lambda: model.loss_fn(
+                a, b, generator=patch_gen(seed), dropout_generator=gen))
+        runs.append(({k: float(v) for k, v in m.items()}, mk))
+    same_masks = torch.equal(runs[0][1], runs[1][1])
+    seeded_errs = rel_errs(runs[0][0], runs[1][0], 1e-6, "dropout reseeded")
+    if not same_masks:
+        raise AssertionError("dropout: one seed drew two different masks")
+
+    emit({"phase": "dropout", "config": "RegistrationConfig() with "
+          "no_dropout False", "crop": cfg.crop_size, "steps": len(pairs),
+          "launches": launches, "metrics_last": history[-1],
+          "mask_draws": n, "keep_rate": rate, "keep_bound": bound,
+          "reseeded_masks_equal": same_masks,
+          "reseeded_metrics_rel": seeded_errs,
+          "register_vs_no_dropout_max_abs": reg_diff, "card": smi})
+    return launches
+
+
 # ------------------------------------------------------------ phase cli
 # what each call of the task around the engine launches, from the code:
 # compute_visuals runs loss_fn without a backward (the chain + the data and
@@ -1737,12 +2035,16 @@ def decode_ms(paths):
 
 
 def state_tensors(task):
-    """Every tensor of a task's networks and Adam state, on the CPU."""
+    """Every tensor of a task's networks and Adam states (netD's too), on
+    the CPU."""
     out = {f"{n}.{k}": v.detach().cpu() for n, net in task._nets().items()
            for k, v in net.state_dict().items()}
-    for i, st in task.engine.optimizer.state_dict()["state"].items():
-        out.update({f"adam.{i}.{k}": v.detach().cpu()
-                    for k, v in st.items()})
+    eng = task.engine
+    for tag, opt in (("adam", eng.optimizer),
+                     ("adamD", getattr(eng, "optimizer_D", None))):
+        for i, st in (opt.state_dict()["state"].items() if opt else ()):
+            out.update({f"{tag}.{i}.{k}": v.detach().cpu()
+                        for k, v in st.items()})
     return out
 
 
@@ -1920,6 +2222,8 @@ def cli_paths(root, log, seed, smi, engine_ms):
             math.isfinite(summary.get(k, float("nan"))) for k in keys):
         raise AssertionError(f"cli evaluate summary {summary}")
 
+    options = cli_option_paths(root, log, common, card, ck_dir)
+
     # train at B=8: every pair, one epoch
     b8, launches_b8 = run_counted(
         log, train_cli.main, common + card + [
@@ -1960,7 +2264,7 @@ def cli_paths(root, log, seed, smi, engine_ms):
                        "cli_resume": launches_resume,
                        "cli_test": launches_test,
                        "cli_evaluate": launches_eval,
-                       "cli_train_b8": launches_b8},
+                       "cli_train_b8": launches_b8, **options["launches"]},
           "launches_per_test_pair": TEST_PAIR_LAUNCHES,
           "steps_b1": steps, "card_vs_cpu_max_abs": errs,
           "losses_first": recs[0]["losses"],
@@ -1979,8 +2283,66 @@ def cli_paths(root, log, seed, smi, engine_ms):
           "evaluate_ms_per_pair": statistics.median(scored["pair_s"]) * 1e3,
           "step_ms_b8": [x * 1e3 for x in step_s_b8],
           "train_pairs_per_s_b8": 8e3 / (step_s_b8[-1] * 1e3),
-          "card": smi})
-    return {"cli_train": launches_train, "cli_test": launches_test}
+          "options": options["summary"], "card": smi})
+    return {"cli_train": launches_train, "cli_test": launches_test,
+            **options["launches"]}
+
+
+# the command line's training options: a few steps each at B=1
+CLI_OPTION_RUNS = {"cli_fastcut": ["--CUT_mode", "FastCUT"],
+                   "cli_gan": ["--lambda_GAN", "1"]}
+CLI_OPTION_STEPS = 2
+
+
+def cli_option_paths(root, log, common, card, ck_dir):
+    """``train --CUT_mode FastCUT`` and ``train --lambda_GAN 1``,
+    CLI_OPTION_STEPS steps each (launches exact); the GAN run's `latest`
+    (net_D and netD's Adam state with the rest) reloaded on the card bit
+    for bit; ``test`` of it."""
+    launches, summary = {}, {}
+    for name, flags in CLI_OPTION_RUNS.items():
+        trained, launches[name] = run_counted(
+            log, train_cli.main, common + card + flags + [
+                "--name", name, "--max_dataset_size", str(CLI_OPTION_STEPS),
+                "--n_epochs", "1", "--n_epochs_decay", "0",
+                "--save_epoch_freq", "1", "--print_freq", "1",
+                "--display_freq", "1000", "--jac_freq", "0"])
+        steps = len(trained["step_s"])
+        check_launches(f"{name}, {steps} steps", launches[name],
+                       cli_train_launches(steps, 1, 1000, 1, 0))
+        recs = losses_of(os.path.join(ck_dir, name))
+        summary[name] = {"flags": flags, "steps": steps,
+                         "step_ms": [x * 1e3 for x in trained["step_s"]],
+                         "losses_last": recs[-1]["losses"]}
+        task = trained["model"]
+        del trained
+    gan_ck = os.path.join(ck_dir, "cli_gan")
+    if not os.path.isfile(os.path.join(gan_ck, "latest_net_D.pth")):
+        raise AssertionError(f"cli_gan wrote {sorted(os.listdir(gan_ck))}")
+    with contextlib.redirect_stdout(log):
+        opt = TrainOptions(common + card + CLI_OPTION_RUNS["cli_gan"] + [
+            "--name", "cli_gan", "--continue_train"]).parse()
+    fresh = RegistrationTask(opt)
+    fresh.setup(opt)
+    mine, ref = state_tensors(fresh), state_tensors(task)
+    unequal = [k for k in ref if k not in mine
+               or not torch.equal(mine[k], ref[k])]
+    if unequal or mine.keys() != ref.keys() or fresh.step != task.step \
+            or not any(k.startswith("adamD.") for k in mine):
+        raise AssertionError(f"cli_gan: reloaded `latest` differs: "
+                             f"{unequal[:8]} (step {fresh.step} vs "
+                             f"{task.step})")
+    summary["cli_gan"]["reload_tensors_equal"] = len(mine)
+    del fresh, mine, ref, task
+    torch.cuda.empty_cache()
+    tested, launches["cli_gan_test"] = run_counted(
+        log, test_cli.main, common + card + CLI_OPTION_RUNS["cli_gan"] + [
+            "--name", "cli_gan", "--results_dir",
+            os.path.join(root, "results_gan"), "--num_test", "1"])
+    check_launches("cli_gan test", launches["cli_gan_test"],
+                   add_counts((1, TEST_PAIR_LAUNCHES)))
+    summary["cli_gan"]["test_ms_per_pair"] = tested["pair_s"][0] * 1e3
+    return {"launches": launches, "summary": summary}
 
 
 # ------------------------------------------------------------ phase 6
@@ -2926,15 +3288,20 @@ def main(argv=None):
                     help="epochs of --recipe3d (half decaying)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs on the card only",
-              file=sys.stderr)
+        fail_line("no CUDA device: torch.cuda.is_available() is false; "
+                  "this script runs on the card only")
         return 2
 
     wall = {}
 
     def run(name, fn, *fn_args):
         t0 = time.perf_counter()
-        out = fn(*fn_args)
+        try:
+            out = fn(*fn_args)
+        except BaseException as err:
+            fail_line(err, phase=name)
+            err.chip_smoke_reported = True
+            raise
         wall[name] = time.perf_counter() - t0
         emit({"phase": name, "wall_s": wall[name]})
         return out
@@ -2963,6 +3330,13 @@ def main(argv=None):
         run("profile_train", phase_profile_train, model, args.seed, train_ms)
     del model
     torch.cuda.empty_cache()
+    fastcut_launches, _ = run("fastcut", phase_fastcut, args.seed, smi,
+                              train_ms)
+    gan_launches, _ = run("gan", phase_gan, args.seed, smi, train_ms)
+    bf16_reg_launches, bf16_launches, _, _ = run(
+        "bf16", phase_bf16, args.seed, smi, reg_ms, train_ms)
+    dropout_launches = run("dropout", phase_dropout, args.seed, smi)
+    torch.cuda.empty_cache()
     cli_launches = run("cli", phase_cli, args.seed, smi, train_ms)
     rows3d = run("kernel3d", phase_kernel3d, args.seed, args.profile)
     chain3d_rows = run("kernel_chain3d", phase_kernel_chain3d, args.seed,
@@ -2976,6 +3350,9 @@ def main(argv=None):
     cli3d_launches = run("cli3d", phase_cli3d, args.seed, smi, step3d_ms)
 
     paths = {"register": reg_launches, "train": train_launches,
+             "fastcut": fastcut_launches, "gan": gan_launches,
+             "bf16_register": bf16_reg_launches, "bf16_train": bf16_launches,
+             "dropout": dropout_launches,
              "register3d": reg3d_launches, "train3d": train3d_launches,
              **cli_launches, **cli3d_launches}
 
@@ -3012,4 +3389,12 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except SystemExit:
+        raise
+    except BaseException as err:
+        # every failure ends the run non-zero with a result line on stdout
+        if not getattr(err, "chip_smoke_reported", False):
+            fail_line(err)
+        raise

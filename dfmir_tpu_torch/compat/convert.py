@@ -8,7 +8,8 @@ The input is a JAX param tree as nested dicts of numpy arrays, e.g.
 (*k, in, out) -> torch ConvTranspose (in, out, *k).  Keys are the reference
 state_dict's: netG ``model.<i>.*``, netR (2-D or 3-D)
 ``unet_model.{downarm,uparm,extras}.<i>.main.*`` and ``flow.*``, netF
-``mlp_<i>.{0,2}.*``.  A flax Dense kernel (in, out) becomes an nn.Linear
+``mlp_<i>.{0,2}.*``, netD ``model.<i>.*`` (``net.<i>.*`` for the pixel
+discriminator).  A flax Dense kernel (in, out) becomes an nn.Linear
 weight (out, in).  Adam's moments take the same maps as their parameters.
 
 ``read_flax_msgpack`` decodes a checkpoint file that flax's
@@ -116,6 +117,25 @@ def netF_state_from_jax(
     return sd
 
 
+def netD_state_from_jax(params: Mapping[str, Any],
+                        net) -> Dict[str, torch.Tensor]:
+    """JAX discriminator params (``conv_<k>/Conv_0``; under ``nlayer`` for
+    the patch discriminator) -> the state_dict of the port's ``net``, whose
+    k-th conv in Sequential order is JAX's ``conv_<k>``."""
+    if "nlayer" in params:
+        params = params["nlayer"]
+    seq_name, seq = next(iter(net.named_children()))
+    convs = [i for i, m in enumerate(seq) if isinstance(m, torch.nn.Conv2d)]
+    if len(convs) != len(params):
+        raise KeyError(f"{type(net).__name__} has {len(convs)} convs, the "
+                       f"JAX tree {len(params)}: {sorted(params)}")
+    sd: Dict[str, torch.Tensor] = {}
+    for k, i in enumerate(convs):
+        for name, v in _conv(params[f"conv_{k}"]["Conv_0"]).items():
+            sd[f"{seq_name}.{i}.{name}"] = v
+    return sd
+
+
 def load_strict(net, sd) -> None:
     """Load ``sd`` into ``net``; every weight (not the blur layers' fixed
     ``filt`` buffers) must be given, and nothing else."""
@@ -130,12 +150,15 @@ def load_strict(net, sd) -> None:
 
 
 NETS = {"G": "netG", "F": "netF", "R": "netR"}
+# the networks of a RegistrationModel by JAX tree name, netD with
+# lambda_GAN > 0
+ALL_NETS = dict(NETS, D="netD")
 
 
 def net_state_from_jax(model, name: str,
                        tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The JAX tree of network ``name`` ("G", "F" or "R": parameters, or
-    Adam moments of them) as a state_dict of ``model`` (a
+    """The JAX tree of network ``name`` ("G", "F", "R" or "D": parameters,
+    or Adam moments of them) as a state_dict of ``model`` (a
     ``RegistrationModel``)."""
     cfg = model.cfg
     if name == "G":
@@ -145,16 +168,19 @@ def net_state_from_jax(model, name: str,
         return netF_state_from_jax(tree)
     if name == "R":
         return netR_state_from_jax(tree, cfg.vxm_enc, cfg.vxm_dec)
+    if name == "D" and model.netD is not None:
+        return netD_state_from_jax(tree, model.netD)
     raise KeyError(f"no network {name!r} in the port's RegistrationModel")
 
 
 def load_jax_params(model, params: Mapping[str, Any]) -> None:
     """Load a JAX ``{"G": ..., "F": ..., "R": ...}`` param tree (numpy
-    leaves) into a ``RegistrationModel``'s netG, netF and netR, strictly:
-    every weight of the three networks must be given."""
-    for name, attr in NETS.items():
-        load_strict(getattr(model, attr),
-                    net_state_from_jax(model, name, params[name]))
+    leaves, and ``"D"`` with lambda_GAN > 0) into a ``RegistrationModel``'s
+    networks, strictly: every weight of each network must be given."""
+    for name, attr in ALL_NETS.items():
+        if getattr(model, attr) is not None:
+            load_strict(getattr(model, attr),
+                        net_state_from_jax(model, name, params[name]))
 
 
 def _adam_state(optimizer, count, moments) -> dict:
@@ -185,6 +211,21 @@ def adam_state_from_jax(opt_state: Mapping[str, Any], model) -> dict:
          net_state_from_jax(model, name, opt_state["mu"][name]),
          net_state_from_jax(model, name, opt_state["nu"][name]))
         for name, attr in NETS.items()])
+
+
+def adam_states_from_jax(opt_state: Mapping[str, Any], model) -> dict:
+    """JAX's optimizer state as ``{"optimizer": ..., "optimizer_D": ...}``
+    state_dicts of ``model``'s two Adams: with lambda_GAN > 0 the JAX
+    engine keeps ``(opt_gfr, opt_d)`` (a flax checkpoint writes the pair
+    as ``{"0": ..., "1": ...}``), else one ``ScaleByAdamState`` over
+    {G, F, R}."""
+    if "0" not in opt_state:
+        return {"optimizer": adam_state_from_jax(opt_state, model)}
+    gfr, d = opt_state["0"], opt_state["1"]
+    return {"optimizer": adam_state_from_jax(gfr, model),
+            "optimizer_D": _adam_state(model.optimizer_D, d["count"], [
+                (model.netD, netD_state_from_jax(d["mu"], model.netD),
+                 netD_state_from_jax(d["nu"], model.netD))])}
 
 
 def vxm_adam_state_from_jax(opt_state: Mapping[str, Any], engine) -> dict:

@@ -1,5 +1,6 @@
 """The registration model: netG translates A to B, netR registers A to B,
-netF projects the generator's features for PatchNCE.
+netF projects the generator's features for PatchNCE, and with
+``lambda_GAN > 0`` netD scores fake_B.
 
 Two paths are ported:
 
@@ -12,17 +13,41 @@ Two paths are ported:
   of all three.  ``eval_step`` and ``compute_visuals`` run the same loss
   without an update.
 
-The step follows the JAX package's default branch (``fuse_nce_encodes``
-without flip equivariance): the NCE keys are the forward pass's taps, and
-the three query images go through one encoder pass.  With
-``fuse_nce_encodes=False`` the JAX package re-encodes the keys; the result
-is the same (the generator's ops are per-sample, and the JAX suite holds
-the two equal), so the port takes the same path for both settings.
+The step follows the JAX package's ``fuse_nce_encodes`` branches.  Without
+flip equivariance the NCE keys are the forward pass's taps, and the query
+images go through one encoder pass.  With ``fuse_nce_encodes=False`` the
+JAX package re-encodes the keys; the result is the same (the generator's
+ops are per-sample, and the JAX suite holds the two equal), so the port
+takes the same path for both settings.
 
-Not ported (they raise NotImplementedError): ``flip_equivariance``,
-``lambda_GAN > 0`` (the discriminator phase), dropout in training
-(``no_dropout=False``), ``netF`` other than ``mlp_sample`` / ``sample``,
-``compute_dtype="bfloat16"``.
+The training options (the JAX engine's, ``dfmir_tpu/engine/
+registration.py``):
+
+- ``flip_equivariance`` (FastCUT): on a coin, the stacked generator input
+  is flipped along W; the keys are then a fresh encode of the unflipped
+  real_A / real_B, batched with the queries in one encoder pass, and
+  every query's feature maps are flipped back (the local NCE's too, as
+  the reference does).  ``registered`` warps the flipped fake_B by the
+  unflipped field, as in JAX.
+- dropout (``no_dropout=False``): active in the steps' generator passes
+  only, its masks drawn from ``dropout_generator`` (on the model's
+  device); ``register``, ``eval_step`` and ``compute_visuals`` run
+  without it.  With the taps reused, the keys carry the forward pass's
+  masks and the query encode draws fresh ones.
+- ``compute_dtype="bfloat16"``: netG and netR run on bfloat16 copies of
+  their float32 parameters (``nets.layers.call_in``) with bfloat16 inputs,
+  and hand back float32 (netG's output and taps, netR's flow head); netF,
+  the losses, the flow math and the warps stay float32, and so do the
+  master parameters and Adam's state.  No ``torch.autocast``: it keeps
+  another set of ops in float32.
+- ``lambda_GAN > 0``: ``train_step`` is two phases on one generator pass.
+  It updates netD on the detached fake_B with its own Adam, then adds
+  ``gan_loss(netD(fake_B), True) * lambda_GAN`` against the updated netD
+  (whose parameters get no gradient) to G's loss.
+
+Not ported (they raise NotImplementedError): ``netF`` other than
+``mlp_sample`` / ``sample``, the StyleGAN2 ``netD``s, bfloat16 at
+``ndims=3``.
 """
 
 from __future__ import annotations
@@ -33,7 +58,10 @@ import torch
 
 from dfmir_tpu_torch.device import resolve_device
 from dfmir_tpu_torch.engine.config import RegistrationConfig
-from dfmir_tpu_torch.losses import masked_l1, patch_nce_loss, smoothness_loss
+from dfmir_tpu_torch.losses import (gan_loss, masked_l1, patch_nce_loss,
+                                    smoothness_loss)
+from dfmir_tpu_torch.nets.factory import define_D
+from dfmir_tpu_torch.nets.layers import call_in
 from dfmir_tpu_torch.nets.patch_sample import PatchSampleF
 from dfmir_tpu_torch.nets.resnet_gen import ResnetGenerator, nce_feature_dims
 from dfmir_tpu_torch.nets.vxm import VxmDense
@@ -62,23 +90,29 @@ def grid_image(size: int, spacing: int = 16, thickness: int = 1):
 
 
 class RegistrationModel:
-    """Builds netG, netR and netF on ``device`` (CUDA unless the caller
-    names another), initialised from ``generator`` (seed 0 when None), and
-    one Adam over the three.  The weights are drawn on the CPU, so one
-    generator seed gives the same weights on every device."""
+    """Builds netG, netR and netF (and netD with ``lambda_GAN > 0``) on
+    ``device`` (CUDA unless the caller names another), initialised from
+    ``generator`` (seed 0 when None), one Adam over netG, netF and netR and
+    one over netD.  The weights are drawn on the CPU, so one generator seed
+    gives the same weights on every device."""
 
     def __init__(self, cfg: RegistrationConfig, device=None,
                  generator: Optional[torch.Generator] = None):
         self.device = resolve_device(device)
-        if cfg.compute_dtype != "float32":
+        if cfg.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: float32 "
+                             f"or bfloat16")
+        if cfg.compute_dtype != "float32" and cfg.ndims != 2:
             raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r}: only float32 is ported")
+                f"compute_dtype={cfg.compute_dtype!r} at ndims={cfg.ndims}: "
+                f"only the 2-D model is ported in bfloat16")
         if cfg.netR != "vxm":
             raise NotImplementedError(f"netR {cfg.netR!r}: only 'vxm' is ported")
         if cfg.netF not in NETF_CHOICES:
             raise NotImplementedError(
                 f"netF {cfg.netF!r}: only {NETF_CHOICES} are ported")
         self.cfg = cfg
+        self.compute_dtype = getattr(torch, cfg.compute_dtype)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         gen_kwargs = dict(
@@ -101,18 +135,54 @@ class RegistrationModel:
             use_mlp=cfg.netF == "mlp_sample", init_type=cfg.init_type,
             init_gain=cfg.init_gain, generator=generator,
         ).to(self.device)
-        # patch ids are drawn from this when a step is given neither ids
-        # nor a generator
+        # patch ids (and FastCUT's coin) are drawn from this when a step is
+        # given neither ids nor a generator
         self.patch_generator = torch.Generator().manual_seed(
             int(torch.randint(2 ** 62, (1,), generator=generator)))
+        # the dropout masks, on the model's device
+        self.dropout_generator = torch.Generator(
+            device=self.device).manual_seed(
+                int(torch.randint(2 ** 62, (1,), generator=generator)))
         self.optimizer = torch.optim.Adam(
             self.parameters(), lr=cfg.lr, betas=(cfg.beta1, cfg.beta2),
             eps=1e-8)
+        self.netD = self.optimizer_D = None
+        if cfg.lambda_GAN > 0:
+            self.netD = define_D(
+                input_nc=cfg.output_nc, ndf=cfg.ndf, netD=cfg.netD,
+                n_layers_D=cfg.n_layers_D, norm=cfg.normD,
+                init_type=cfg.init_type, init_gain=cfg.init_gain,
+                no_antialias=cfg.no_antialias, generator=generator,
+            ).to(self.device)
+            self.optimizer_D = torch.optim.Adam(
+                self.netD.parameters(), lr=cfg.lr,
+                betas=(cfg.beta1, cfg.beta2), eps=1e-8)
 
     def parameters(self) -> List[torch.nn.Parameter]:
-        """The trained parameters: netG's, netF's and netR's."""
+        """The parameters of the main update: netG's, netF's and netR's."""
         return [p for net in (self.netG, self.netF, self.netR)
                 for p in net.parameters()]
+
+    # ------------------------------------------------- the networks' calls
+
+    def _G(self, x, dropout: Optional[torch.Generator] = None, **kw):
+        """netG in the compute dtype: its output (or taps) in float32.
+        ``dropout``: the masks' generator of a training pass; None runs
+        without dropout."""
+        low = self.compute_dtype != torch.float32
+        out = call_in(self.compute_dtype, self.netG,
+                      x.to(self.compute_dtype) if low else x,
+                      train=dropout is not None, generator=dropout, **kw)
+        if not low:
+            return out
+        if isinstance(out, list):
+            return [f.float() for f in out]
+        if isinstance(out, tuple):
+            return out[0].float(), [f.float() for f in out[1]]
+        return out.float()
+
+    def _R(self, *args, **kw):
+        return call_in(self.compute_dtype, self.netR, *args, **kw)
 
     # ------------------------------------------------------------ inference
 
@@ -123,8 +193,8 @@ class RegistrationModel:
         real_A, real_B: (B, C, H, W).  Returns (fake_B, idt_B, y_source,
         pos_flow)."""
         B = real_A.shape[0]
-        fake = self.netG(torch.cat([real_A, real_B], dim=0))
-        y_source, pos_flow = self.netR(real_A, real_B, registration=True)
+        fake = self._G(torch.cat([real_A, real_B], dim=0))
+        y_source, pos_flow = self._R(real_A, real_B, registration=True)
         return fake[:B], fake[B:], y_source, pos_flow
 
     @torch.no_grad()
@@ -145,21 +215,13 @@ class RegistrationModel:
 
     # ------------------------------------------------------------- training
 
-    def _check_trainable(self):
-        cfg = self.cfg
-        for unported, what in (
-            (cfg.flip_equivariance, "flip_equivariance=True"),
-            (cfg.lambda_GAN > 0, f"lambda_GAN={cfg.lambda_GAN} (the "
-                                 f"discriminator phase)"),
-            (not cfg.no_dropout, "dropout in training (no_dropout=False)"),
-        ):
-            if unported:
-                raise NotImplementedError(f"{what} is not ported")
-
-    def _nce(self, feat_q, feat_k, patch_ids, generator):
+    def _nce(self, feat_q, feat_k, patch_ids, generator, flip: bool):
         """The NCE loss of one (query, key) pair of tapped feature lists,
-        averaged over the layers."""
+        averaged over the layers; ``flip`` flips the queries back along
+        W first."""
         cfg = self.cfg
+        if flip:
+            feat_q = [f.flip(3) for f in feat_q]
         k_pool, ids = self.netF(feat_k, cfg.num_patches, patch_ids,
                                 generator=generator)
         q_pool, _ = self.netF(feat_q, cfg.num_patches, ids)
@@ -172,56 +234,94 @@ class RegistrationModel:
             total = total + per_patch.mean() * cfg.lambda_NCE
         return total / len(cfg.nce_layers)
 
-    def loss_fn(self, real_A, real_B,
-                patch_ids: Optional[Sequence[Sequence[torch.Tensor]]] = None,
-                generator: Optional[torch.Generator] = None):
-        """The step's losses: returns (total, metrics, aux).
+    def _forward(self, real_A, real_B, flip: Optional[bool], generator,
+                 dropout: Optional[torch.Generator]):
+        """The step's network passes before any loss: the generator (on
+        the flipped input when the coin says so), the registration net and
+        the warp of fake_B.  Returns a dict of what the losses read."""
+        cfg = self.cfg
+        B = real_A.shape[0]
+        if cfg.flip_equivariance:
+            if flip is None:
+                flip = bool(torch.rand((), generator=generator) < 0.5)
+        else:
+            flip = False
+        real = torch.cat([real_A, real_B], dim=0)
+        if flip:
+            real = real.flip(3)
+        layers = tuple(cfg.nce_layers)
+        feats_fwd = None
+        if cfg.flip_equivariance:
+            fake = self._G(real, dropout)
+        else:
+            fake, feats_fwd = self._G(real, dropout, layers=layers)
+        fake_B, idt_B = fake[:B], fake[B:]
+        y_source, _, pos_flow = self._R(real_A, real_B)
+        registered = warp(fake_B, pos_flow)
+        return {"fake_B": fake_B, "idt_B": idt_B, "y_source": y_source,
+                "pos_flow": pos_flow, "registered": registered,
+                "feats_fwd": feats_fwd, "flip": flip}
 
-        real_A, real_B: (B, C, H, W).  ``patch_ids`` gives the patch
-        locations, one list per NCE call (NCE, NCE_Y when ``nce_idt``,
-        local) of one (P,) index tensor per tapped layer; without it they
-        are drawn from ``generator`` (a CPU generator), else from the
-        model's own ``patch_generator``.  metrics: G, NCE, NCE_Y (with
-        ``nce_idt``), R, smooth, local, total.  aux: fake_B, idt_B,
-        registered, regA, pos_flow."""
-        self._check_trainable()
+    def _nce_losses(self, fwd, real_A, real_B, patch_ids, generator,
+                    dropout):
+        """The NCE calls' losses (NCE, NCE_Y when ``nce_idt``, local)."""
         cfg = self.cfg
         B = real_A.shape[0]
         layers = tuple(cfg.nce_layers)
-        if generator is None:
-            generator = self.patch_generator
-
-        fake, feats_fwd = self.netG(torch.cat([real_A, real_B], dim=0),
-                                    layers=layers)
-        fake_B, idt_B = fake[:B], fake[B:]
-        y_source, _, pos_flow = self.netR(real_A, real_B)
-        registered = warp(fake_B, pos_flow)
-
-        # keys from the forward taps; the queries in one encoder pass
         use_idt = cfg.nce_idt and cfg.lambda_NCE > 0
-        q_imgs = [fake_B] + ([idt_B] if use_idt else []) + [y_source]
-        q_feats = self.netG(torch.cat(q_imgs, dim=0), layers=layers,
+        queries = ([fwd["fake_B"]] + ([fwd["idt_B"]] if use_idt else [])
+                   + [fwd["y_source"]])
+        if fwd["feats_fwd"] is not None:
+            # keys from the forward taps; the queries in one encoder pass
+            feats_A = [f[:B] for f in fwd["feats_fwd"]]
+            feats_B = [f[B:] for f in fwd["feats_fwd"]]
+            k_chunks = [feats_A] + ([feats_B] if use_idt else []) + [feats_B]
+            q_feats = self._G(torch.cat(queries, dim=0), dropout,
+                              layers=layers, encode_only=True)
+            q_chunks = [[f[i * B:(i + 1) * B] for f in q_feats]
+                        for i in range(len(queries))]
+        else:
+            # flip equivariance: the keys (the unflipped real_A / real_B)
+            # and the queries in one encoder pass, pair by pair
+            keys = [real_A] + ([real_B] if use_idt else []) + [real_B]
+            stacked = torch.cat([x for q, k in zip(queries, keys)
+                                 for x in (q, k)], dim=0)
+            feats = self._G(stacked, dropout, layers=layers,
                             encode_only=True)
-        feats_A = [f[:B] for f in feats_fwd]
-        feats_B = [f[B:] for f in feats_fwd]
-        k_chunks = [feats_A] + ([feats_B] if use_idt else []) + [feats_B]
+            chunks = [[f[i * B:(i + 1) * B] for f in feats]
+                      for i in range(2 * len(queries))]
+            q_chunks, k_chunks = chunks[0::2], chunks[1::2]
         if patch_ids is None:
-            patch_ids = [None] * len(q_imgs)
-        if len(patch_ids) != len(q_imgs):
+            patch_ids = [None] * len(queries)
+        if len(patch_ids) != len(queries):
             raise ValueError(f"patch_ids holds {len(patch_ids)} lists, the "
-                             f"step makes {len(q_imgs)} NCE calls")
-        nce_vals = [
-            self._nce([f[i * B:(i + 1) * B] for f in q_feats], k_chunks[i],
-                      patch_ids[i], generator)
-            for i in range(len(q_imgs))]
+                             f"step makes {len(queries)} NCE calls")
+        return [self._nce(q, k, ids, generator, fwd["flip"])
+                for q, k, ids in zip(q_chunks, k_chunks, patch_ids)]
 
+    def _losses(self, fwd, nce_vals, real_B, with_D: bool):
+        """(total, metrics, aux) from the passes and the NCE losses."""
+        cfg = self.cfg
+        use_idt = cfg.nce_idt and cfg.lambda_NCE > 0
+        fake_B, idt_B = fwd["fake_B"], fwd["idt_B"]
+        registered, pos_flow = fwd["registered"], fwd["pos_flow"]
         loss_NCE = nce_vals[0]
         if use_idt:
             loss_NCE_Y = nce_vals[1]
             loss_G = (loss_NCE + loss_NCE_Y) * 0.5
         else:
-            loss_NCE_Y = torch.zeros((), device=real_A.device)
+            loss_NCE_Y = torch.zeros((), device=real_B.device)
             loss_G = loss_NCE
+
+        # G's GAN term against netD, whose parameters get no gradient
+        loss_G_GAN = torch.zeros((), device=real_B.device)
+        if with_D and self.netD is not None:
+            frozen = {n: p.detach() for n, p in self.netD.named_parameters()}
+            pred_fake = torch.func.functional_call(self.netD, frozen,
+                                                   (fake_B,))
+            loss_G_GAN = gan_loss(pred_fake, True,
+                                  cfg.gan_mode) * cfg.lambda_GAN
+        loss_G = loss_G + loss_G_GAN
 
         # R losses; the masks are ORs of foreground tests
         mask = (real_B > -0.95) | (registered > -0.95)
@@ -237,23 +337,93 @@ class RegistrationModel:
                    "total": total}
         if cfg.nce_idt:
             metrics["NCE_Y"] = loss_NCE_Y
+        if cfg.lambda_GAN > 0:
+            metrics["G_GAN"] = loss_G_GAN
         aux = {"fake_B": fake_B, "idt_B": idt_B, "registered": registered,
-               "regA": y_source, "pos_flow": pos_flow}
+               "regA": fwd["y_source"], "pos_flow": pos_flow}
         return total, metrics, aux
+
+    def _step_generators(self, generator, dropout, train: bool):
+        if generator is None:
+            generator = self.patch_generator
+        if not train or self.cfg.no_dropout:
+            dropout = None
+        elif dropout is None:
+            dropout = self.dropout_generator
+        return generator, dropout
+
+    def loss_fn(self, real_A, real_B,
+                patch_ids: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+                generator: Optional[torch.Generator] = None,
+                flip: Optional[bool] = None,
+                dropout_generator: Optional[torch.Generator] = None,
+                train: bool = True):
+        """The step's losses: returns (total, metrics, aux).
+
+        real_A, real_B: (B, C, H, W).  ``patch_ids`` gives the patch
+        locations, one list per NCE call (NCE, NCE_Y when ``nce_idt``,
+        local) of one (P,) index tensor per tapped layer; without it they
+        are drawn from ``generator`` (a CPU generator), else from the
+        model's own ``patch_generator``.  ``flip``: FastCUT's coin (with
+        ``flip_equivariance``); None draws it from that generator first.
+        ``train``: dropout active (with ``no_dropout=False``), its masks
+        from ``dropout_generator``, else the model's own.  metrics: G, NCE,
+        NCE_Y (with ``nce_idt``), R, smooth, local, total, and with
+        ``lambda_GAN > 0`` G_GAN, 0 here as in the JAX package's loss
+        without netD's parameters (``train_step`` adds it against the
+        updated netD).  aux: fake_B, idt_B, registered, regA, pos_flow."""
+        generator, dropout = self._step_generators(
+            generator, dropout_generator, train)
+        fwd = self._forward(real_A, real_B, flip, generator, dropout)
+        nce_vals = self._nce_losses(fwd, real_A, real_B, patch_ids,
+                                    generator, dropout)
+        return self._losses(fwd, nce_vals, real_B, with_D=False)
 
     def train_step(self, real_A, real_B, lr: float,
                    patch_ids: Optional[Sequence[Sequence[torch.Tensor]]] = None,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   flip: Optional[bool] = None,
+                   dropout_generator: Optional[torch.Generator] = None
                    ) -> Dict[str, torch.Tensor]:
         """One optimisation step: one backward through netG, netF and netR,
         then one Adam update of all three at learning rate ``lr`` (the
-        update of ``optax.scale_by_adam`` followed by ``-lr * u``).
-        Returns the metrics, detached, on the model's device."""
+        update of ``optax.scale_by_adam`` followed by ``-lr * u``).  With
+        ``lambda_GAN > 0`` netD is updated first, on the detached fake_B of
+        the same generator pass, and G's loss is taken against the updated
+        netD.  Returns the metrics, detached, on the model's device (with
+        netD: D, D_fake and D_real too)."""
         self.optimizer.zero_grad(set_to_none=True)
-        total, metrics, _ = self.loss_fn(real_A, real_B, patch_ids, generator)
+        if self.netD is None:
+            total, metrics, _ = self.loss_fn(real_A, real_B, patch_ids,
+                                             generator, flip,
+                                             dropout_generator)
+        else:
+            generator, dropout = self._step_generators(
+                generator, dropout_generator, True)
+            fwd = self._forward(real_A, real_B, flip, generator, dropout)
+            d_metrics = self.d_step(fwd["fake_B"].detach(), real_B, lr)
+            nce_vals = self._nce_losses(fwd, real_A, real_B, patch_ids,
+                                        generator, dropout)
+            total, metrics, _ = self._losses(fwd, nce_vals, real_B, True)
+            metrics.update(d_metrics)
         total.backward()
         self.apply_gradients(lr)
         return {k: v.detach() for k, v in metrics.items()}
+
+    def d_step(self, fake_B, real_B, lr: float) -> Dict[str, torch.Tensor]:
+        """netD's update (phase 1 of a GAN step): (D(fake) loss + D(real)
+        loss) / 2, one Adam step at ``lr``.  Returns D, D_fake, D_real."""
+        gan_mode = self.cfg.gan_mode
+        self.optimizer_D.zero_grad(set_to_none=True)
+        l_fake = gan_loss(self.netD(fake_B), False, gan_mode)
+        l_real = gan_loss(self.netD(real_B), True, gan_mode)
+        loss_D = (l_fake + l_real) * 0.5
+        loss_D.backward()
+        for group in self.optimizer_D.param_groups:
+            group["lr"] = float(lr)
+        self.optimizer_D.step()
+        return {"D": loss_D.detach(), "D_fake": l_fake.detach(),
+                "D_real": l_real.detach()}
 
     def apply_gradients(self, lr: float) -> None:
         """One Adam update from the parameters' ``.grad`` at rate ``lr``."""
@@ -262,18 +432,22 @@ class RegistrationModel:
         self.optimizer.step()
 
     @torch.no_grad()
-    def eval_step(self, real_A, real_B, patch_ids=None, generator=None):
-        """Losses and outputs without an update: (metrics, aux)."""
-        _, metrics, aux = self.loss_fn(real_A, real_B, patch_ids, generator)
+    def eval_step(self, real_A, real_B, patch_ids=None, generator=None,
+                  flip=None):
+        """Losses and outputs without an update or dropout: (metrics,
+        aux)."""
+        _, metrics, aux = self.loss_fn(real_A, real_B, patch_ids, generator,
+                                       flip, train=False)
         return metrics, aux
 
     @torch.no_grad()
     def compute_visuals(self, real_A, real_B, patch_ids=None,
-                        generator=None):
-        """The reference's visual set, (visuals, metrics): real_A, fake_B,
-        real_B, dvf (the grid image warped by pos_flow), registered, regA,
-        and idt_B with ``nce_idt``."""
-        _, metrics, aux = self.loss_fn(real_A, real_B, patch_ids, generator)
+                        generator=None, flip=None):
+        """The reference's visual set, (visuals, metrics), without dropout:
+        real_A, fake_B, real_B, dvf (the grid image warped by pos_flow),
+        registered, regA, and idt_B with ``nce_idt``."""
+        _, metrics, aux = self.loss_fn(real_A, real_B, patch_ids, generator,
+                                       flip, train=False)
         grid = grid_image(self.cfg.crop_size).to(real_A.device)
         dvf = warp(grid.expand(real_A.shape[0], -1, -1, -1).contiguous(),
                    aux["pos_flow"])

@@ -6,10 +6,18 @@ and the losses and visuals the Visualizer reads.  The compute is
 ``engine.RegistrationModel``'s.
 
 Randomness comes from ``torch.Generator``s seeded from ``--seed``: the
-weights, and the patch ids through the engine's ``patch_generator``.  The
-port cannot draw JAX's streams, so one seed gives different weights in the
-two packages.  A checkpoint carries the patch generator's state beside
-Adam's, so a resumed run draws the ids an uninterrupted one would.
+weights, the patch ids (and FastCUT's coin) through the engine's
+``patch_generator``, the dropout masks through its ``dropout_generator``.
+The port cannot draw JAX's streams, so one seed gives different weights in
+the two packages.  A checkpoint carries the generators' states beside
+Adam's (and netD's Adam with ``--lambda_GAN > 0``), so a resumed run draws
+what an uninterrupted one would.
+
+With ``--lambda_GAN > 0`` ``net_D`` is saved and loaded with the others.
+The JAX package reads the port's ``net_G`` / ``net_F`` / ``net_R`` ``.pth``
+but not ``net_D.pth``: its ``_pth_converter`` has no discriminator branch
+and raises ``KeyError``.  The port reads the JAX package's ``net_D``
+``.msgpack`` and its two-optimizer state.
 """
 
 from __future__ import annotations
@@ -104,7 +112,8 @@ class RegistrationTask:
 
     def _nets(self):
         return {name: getattr(self.engine, attr)
-                for name, attr in convert.NETS.items()}
+                for name, attr in convert.ALL_NETS.items()
+                if getattr(self.engine, attr) is not None}
 
     # ---------------------------------------------------------- lifecycle
 
@@ -124,8 +133,9 @@ class RegistrationTask:
         """A no-op: one card (data parallelism is ROADMAP A12)."""
 
     def eval(self):
-        """A no-op: instance norm without dropout runs the same in
-        training and evaluation."""
+        """A no-op: the engine's evaluation paths (``register``,
+        ``eval_step``, ``compute_visuals``) run without dropout already,
+        and instance norm runs the same in training and evaluation."""
 
     # -------------------------------------------------------------- steps
 
@@ -197,16 +207,20 @@ class RegistrationTask:
     def save_networks(self, epoch):
         nets = {name: net.state_dict() for name, net in self._nets().items()
                 if name in self.model_names}
-        ckpt.save_networks(
-            self.save_dir, epoch, nets, opt_extras={
-                "optimizer": self.engine.optimizer.state_dict(),
-                "step": self.step,
-                "patch_generator": self.engine.patch_generator.get_state()})
+        eng = self.engine
+        extras = {"optimizer": eng.optimizer.state_dict(), "step": self.step,
+                  "patch_generator": eng.patch_generator.get_state()}
+        if not self.cfg.no_dropout:
+            extras["dropout_generator"] = eng.dropout_generator.get_state()
+            extras["dropout_device"] = eng.device.type
+        if eng.optimizer_D is not None:
+            extras["optimizer_D"] = eng.optimizer_D.state_dict()
+        ckpt.save_networks(self.save_dir, epoch, nets, opt_extras=extras)
 
     def _optim_from_jax(self, tree):
-        return {"optimizer": convert.adam_state_from_jax(tree["opt_state"],
-                                                         self.engine),
-                "step": int(np.asarray(tree["step"]))}
+        return dict(convert.adam_states_from_jax(tree["opt_state"],
+                                                 self.engine),
+                    step=int(np.asarray(tree["step"])))
 
     def load_networks(self, epoch):
         """The reference's load semantics, with ``--pretrained_name`` (a
@@ -226,11 +240,17 @@ class RegistrationTask:
         optim = ckpt.load_optim(load_dir, epoch,
                                 msgpack_converter=self._optim_from_jax)
         if optim is not None and set(self.model_names) >= set(nets):
-            self.engine.optimizer.load_state_dict(optim["optimizer"])
+            eng = self.engine
+            eng.optimizer.load_state_dict(optim["optimizer"])
+            if eng.optimizer_D is not None:
+                eng.optimizer_D.load_state_dict(optim["optimizer_D"])
             self.step = int(optim["step"])
             if "patch_generator" in optim:
-                self.engine.patch_generator.set_state(
-                    optim["patch_generator"])
+                eng.patch_generator.set_state(optim["patch_generator"])
+            # a CUDA generator's state means nothing to a CPU one: a run
+            # resumed on another device type draws fresh masks
+            if optim.get("dropout_device") == eng.device.type:
+                eng.dropout_generator.set_state(optim["dropout_generator"])
 
     # ----------------------------------------------------------------- lr
 

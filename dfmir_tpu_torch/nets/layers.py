@@ -8,6 +8,8 @@
   nn.ConvTranspose{2,3}d, initialised from an explicit generator.
 - ``BlurDown`` / ``BlurUp``: the antialiased resampling layers, keeping the
   reference's ``filt`` buffer so a reference state_dict loads as it is.
+- ``call_in``: a module's call with its float32 parameters cast to a
+  compute dtype (the JAX engine's ``_cast_params``).
 
 Layout NCHW / NCDHW.
 """
@@ -33,6 +35,18 @@ def instance_norm(x, eps: float = 1e-5):
     back to the input dtype."""
     stats = torch.promote_types(x.dtype, torch.float32)
     return F.instance_norm(x.to(stats), eps=eps).to(x.dtype)
+
+
+def call_in(dtype: torch.dtype, net: nn.Module, *args, **kwargs):
+    """``net(*args, **kwargs)`` with its float32 parameters cast to
+    ``dtype`` for this call alone: the master parameters stay float32, and
+    their gradients come back through the cast.  Buffers are not cast
+    (the blur filters follow their input's dtype)."""
+    if dtype == torch.float32:
+        return net(*args, **kwargs)
+    params = {name: p.to(dtype) for name, p in net.named_parameters()
+              if p.dtype == torch.float32}
+    return torch.func.functional_call(net, params, args, kwargs)
 
 
 def pad_nd(x, pad: int, mode: str = "reflect"):

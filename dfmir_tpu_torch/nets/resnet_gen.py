@@ -12,11 +12,17 @@ activations.  Default indexing (resnet_9blocks, antialias on):
   21 blur_up | 22 conv3(2ngf) | 23 norm | 24 relu
   25 blur_up | 26 conv3(ngf) | 27 norm | 28 relu
   29 pad3 | 30 conv7(output_nc) | 31 tanh
+
+Dropout (``use_dropout``, the reference's ``--no_dropout false``) sits
+after the first conv-norm-relu of each ResnetBlock.  It is active only in
+a ``train=True`` forward, and its masks come from the explicit
+``generator`` given there (a generator on the activations' device), not
+from torch's global RNG.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -86,6 +92,25 @@ def nce_feature_dims(nce_layers: Sequence[int], **gen_kwargs) -> List[int]:
             for l in nce_layers]
 
 
+class Dropout(nn.Module):
+    """Dropout at ``rate`` whose masks come from an explicit generator:
+    each element is kept with probability 1 - rate and scaled by
+    1 / (1 - rate) (exactly 2 at the reference's 0.5), as flax's
+    ``nn.Dropout`` does.  Parameterless, so it keeps the reference's
+    Sequential indices."""
+
+    def __init__(self, rate: float = 0.5):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        if generator is None:
+            return x
+        keep = torch.rand(x.shape, generator=generator, device=x.device,
+                          dtype=torch.float32) >= self.rate
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+
+
 class ResnetBlock(nn.Module):
     """pad-conv-norm-relu-[dropout]-pad-conv-norm with a residual skip;
     ``conv_block`` indices are the reference's."""
@@ -106,12 +131,17 @@ class ResnetBlock(nn.Module):
 
         layers = pad() + [conv(), norm_layer(norm), nn.ReLU()]
         if use_dropout:
-            layers.append(nn.Dropout(0.5))
+            layers.append(Dropout(0.5))
         layers += pad() + [conv(), norm_layer(norm)]
         self.conv_block = nn.Sequential(*layers)
 
-    def forward(self, x):
-        return x + self.conv_block(x)
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """``generator``: the dropout masks' source; None runs without
+        dropout."""
+        h = x
+        for op in self.conv_block:
+            h = op(h, generator) if isinstance(op, Dropout) else op(h)
+        return x + h
 
 
 class ResnetGenerator(nn.Module):
@@ -124,6 +154,7 @@ class ResnetGenerator(nn.Module):
         super().__init__()
         self.specs = resnet_generator_specs(input_nc, output_nc, ngf, n_blocks,
                                             no_antialias, no_antialias_up)
+        self.use_dropout = use_dropout
         use_bias = norm == "instance"
         init = dict(init_type=init_type, init_gain=init_gain,
                     generator=generator)
@@ -160,12 +191,22 @@ class ResnetGenerator(nn.Module):
             ch = s["channels"]
         self.model = nn.Sequential(*ops)
 
-    def forward(self, x, layers: Tuple[int, ...] = (), encode_only: bool = False):
+    def forward(self, x, layers: Tuple[int, ...] = (), encode_only: bool = False,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """Forward; with ``layers`` (Sequential indices) also returns the
         tapped activations: ``encode_only`` stops after ``layers[-1]`` and
         returns the feature list, otherwise ``(output, feats)``; with no
-        layers, the output alone.  ``-1`` taps the output."""
+        layers, the output alone.  ``-1`` taps the output.
+
+        ``train``: dropout active (where the net has it), its masks drawn
+        from ``generator``, which must then be given."""
         layers = tuple(layers)
+        if not (train and self.use_dropout):
+            generator = None
+        elif generator is None:
+            raise ValueError("a train=True forward with dropout needs a "
+                             "generator for its masks")
         n = len(self.specs)
         if -1 in layers:
             layers = tuple(l for l in layers if l != -1) + (n,)
@@ -175,14 +216,12 @@ class ResnetGenerator(nn.Module):
                 f"nce_layers {bad} out of range for this generator "
                 f"({n} sequential ops); the reference silently drops such "
                 f"taps — here that is a loud error")
-        if not layers:
-            return self.model(x)
         feats = []
         h = x
         for i, op in enumerate(self.model):
-            h = op(h)
+            h = op(h, generator) if isinstance(op, ResnetBlock) else op(h)
             if i in layers:
                 feats.append(h)
-            if encode_only and i == layers[-1]:
+            if layers and encode_only and i == layers[-1]:
                 return feats
-        return h, feats
+        return (h, feats) if layers else h

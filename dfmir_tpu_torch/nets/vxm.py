@@ -8,7 +8,11 @@ full size and the dense warps.  Parameter names are the reference's
 (``unet_model.{downarm,uparm,extras}.<i>.main.*``, ``flow.*``).
 
 The UNet convs use torch's default init, as the reference does (it never
-passes netR through init_net).  At 3-D the convs are ``nn.Conv3d``: the JAX
+passes netR through init_net).  With ``compute_dtype="bfloat16"`` the UNet
+and the flow head take their input in bfloat16 and the flow head's output
+comes back to float32; every flow op after it (resize, integrate, warp)
+stays float32.  The parameters are the caller's to cast
+(``nets.layers.call_in``), as the JAX engine's ``_cast_params`` does.  At 3-D the convs are ``nn.Conv3d``: the JAX
 package's ``Conv3DZ`` is a TPU lowering of the same conv, with the same
 parameters.
 """
@@ -95,9 +99,10 @@ class VxmDense(nn.Module):
         super().__init__()
         if ndims not in (2, 3):
             raise ValueError(f"ndims must be 2 or 3, got {ndims}")
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r}: only float32 is ported")
+        if compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype {compute_dtype!r}: float32 or "
+                             f"bfloat16")
+        self.compute_dtype = getattr(torch, compute_dtype)
         enc_nf, dec_nf = nb_features
         self.ndims = ndims
         self.int_steps, self.int_downsize, self.bidir = (int_steps,
@@ -111,8 +116,13 @@ class VxmDense(nn.Module):
 
     def forward(self, source, target, registration: bool = False,
                 return_preint: bool = False):
-        x = self.unet_model(torch.cat([source, target], dim=1))
-        flow_field = self.flow(x)
+        x = torch.cat([source, target], dim=1)
+        low = self.compute_dtype != torch.float32
+        if low:
+            x = x.to(self.compute_dtype)
+        flow_field = self.flow(self.unet_model(x))
+        if low:
+            flow_field = flow_field.float()
 
         do_resize = self.int_steps > 0 and self.int_downsize > 1
         pos_flow = flow_field

@@ -2,7 +2,9 @@
 cli phase at crop 64 (full-width networks, 64^2 pairs it writes itself) -
 train at B=1 with exact kernel launches, a bit-equal reload, resume, card
 against CPU within 1e-3, test with exact launches and label values kept,
-a finite evaluate summary, train at B=8; and its cli3d phase at --vol_size
+a finite evaluate summary, 2 steps each of --CUT_mode FastCUT and
+--lambda_GAN 1 with exact launches (the GAN run reloaded bit-equal, its
+test), train at B=8; and its cli3d phase at --vol_size
 64 (the 3-D task's full-width netR, 64^3 volumes it writes itself) -
 train with exact launches, a bit-equal reload, resume, card against CPU
 within 1e-3, evaluate --ndims 3 with exact launches and a finite summary.
@@ -39,6 +41,11 @@ def test_cli_phase_at_crop_64(cuda, monkeypatch):
         chip_smoke.CLI_JAC)
     assert launches["cli_test"] == chip_smoke.add_counts(
         (chip_smoke.CLI_TEST, chip_smoke.TEST_PAIR_LAUNCHES))
+    for name in chip_smoke.CLI_OPTION_RUNS:
+        assert launches[name] == chip_smoke.add_counts(
+            (chip_smoke.CLI_OPTION_STEPS, chip_smoke.STEP_LAUNCHES))
+    assert launches["cli_gan_test"] == chip_smoke.add_counts(
+        (1, chip_smoke.TEST_PAIR_LAUNCHES))
 
 
 def test_cli3d_phase_at_vol_64(cuda, monkeypatch):

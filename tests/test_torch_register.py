@@ -101,7 +101,6 @@ def test_no_device_means_cuda(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [
     ("netG", "unet_256"), ("netR", "vxm_transformer"),
-    ("compute_dtype", "bfloat16"),
 ])
 def test_unported_choices_raise(field, value):
     cfg = RegistrationConfig(**dict(CFG, **{field: value}))

@@ -56,13 +56,32 @@ def tap_locations(tm, x):
     return [f.shape[2] * f.shape[3] for f in feats]
 
 
+def _jax_ids(k, n_locs, num_patches):
+    """The ids JAX's PatchSampleF draws from key ``k``, one (P,) tensor a
+    tapped layer."""
+    return [torch.from_numpy(np.asarray(jax.random.permutation(
+                jax.random.fold_in(k, layer), n)[:min(num_patches, n)]
+            ).astype(np.int64)) for layer, n in enumerate(n_locs)]
+
+
 def jax_patch_ids(key, n_locs, num_patches):
     """The ids the JAX step draws for its NCE calls (kF1, kF2, kF3)."""
     kF = jax.random.split(key, 5)[:3]
-    return [[torch.from_numpy(np.asarray(jax.random.permutation(
-                 jax.random.fold_in(k, layer), n)[:min(num_patches, n)]
-             ).astype(np.int64)) for layer, n in enumerate(n_locs)]
-            for k in kF]
+    return [_jax_ids(k, n_locs, num_patches) for k in kF]
+
+
+def jax_pair_patch_ids(key, n_locs, num_patches, n_calls):
+    """The ids of the JAX step's re-encode branch (flip equivariance),
+    whose keys go by pair index: kF1, kF2[, kF3].  Without ``nce_idt``
+    (FastCUT) its two NCE calls draw with kF1 and kF2, so the local NCE
+    takes kF2's ids, where the tap-reusing branch takes kF3's."""
+    kF = jax.random.split(key, 5)[:n_calls]
+    return [_jax_ids(k, n_locs, num_patches) for k in kF]
+
+
+def jax_flip_coin(key) -> bool:
+    """The FastCUT coin the JAX step draws from its key (kFlip)."""
+    return bool(jax.random.bernoulli(jax.random.split(key, 5)[3]))
 
 
 def port_tree(tm, tree):
@@ -282,16 +301,6 @@ def test_load_jax_params_is_strict_about_F(setup):
     short_F.pop("mlp_4_1")
     with pytest.raises(KeyError, match="missing"):
         load_jax_params(tm, dict(s["params"], F=short_F))
-
-
-@pytest.mark.parametrize("field,value", [
-    ("flip_equivariance", True), ("lambda_GAN", 1.0), ("no_dropout", False),
-])
-def test_unported_training_choices_raise(setup, field, value):
-    tm = RegistrationModel(RegistrationConfig(**dict(CFG, **{field: value})),
-                           device="cpu")
-    with pytest.raises(NotImplementedError):
-        tm.train_step(setup["A"], setup["B"], LR, patch_ids=setup["ids"])
 
 
 @pytest.mark.parametrize("netF", ["global_pool", "reshape", "strided_conv"])
