@@ -147,11 +147,42 @@ Phases, each printing one JSON line:
               step beside phase vxm3d's, data ms a step, checkpoint save
               and load ms and bytes, evaluate ms a pair and its Dice /
               HD95 part
+  dp          data parallelism (dfmir_tpu_torch/parallel/) at the same
+              full width, 2 ranks sharing the one card over gloo (each its
+              own process and CUDA context), global B=4, 2 a rank: one step
+              against one process's B=4 step on the card (metrics 1e-3
+              relative; gradients 1e-2 of each network's max |g|; after
+              Adam only first-step sign flips, > 99% of components within
+              1e-5), then 5 timed steps; the ranks' parameters and Adam
+              state bit-equal after every step; each rank's launches a
+              step exactly the CUT step's; one 2-rank step each of FastCUT
+              and lambda_GAN 1; ms a step beside one process's B=4 step,
+              each rank's peak memory
+  dp_nccl     one rank in an NCCL group on the card (B=2, 2 steps, the
+              second timed): the all-reduce over one rank gives every
+              gradient back bit for bit, the first step's metrics equal one
+              process's bit for bit, gradients and parameters within phase
+              dp's bars (the plain step is not bitwise reproducible on the
+              card: two runs of it measured beside); NCCL across cards is
+              not run (one card)
+  dp3d        VxmConfig() at 160^3 over 2 ranks on the card (gloo), B=1 a
+              rank, against one process's B=2 step (total 1e-3 relative,
+              gradients 1e-2 of each tensor's max |g|, the sign-flip rule),
+              replicas bit-equal, launches a step 1 + 1 + 1 + 1 and no B5;
+              ms a step, peak memory
+  dp_cli      train.main through the launcher on [cuda:0, cuda:0] (gloo) on
+              phase cli's PNG pairs: 2 steps at B=2, 1 a rank; the one
+              set of files a run writes, a loss-log line a print, once;
+              each rank's launches train.main's derived counts; `latest`
+              loaded on the card bit-equal to rank 1's final weights
 Each phase's wall seconds follow it.  Then the kernels line (all nine
 kernels, their launches by path: register, train, fastcut, gan,
 bf16_register, bf16_train, dropout, register3d, train3d, cli_train,
-cli_test, cli_fastcut, cli_gan, cli_gan_test, cli3d_train, cli3d_eval),
-and last {"ok": true, "device": {...}}.
+cli_test, cli_fastcut, cli_gan, cli_gan_test, cli3d_train, cli3d_eval,
+dp, dp_fastcut, dp_gan, dp_nccl, dp3d, dp_cli; a dp path's summed over
+its ranks), and last {"ok": true, "device": {...}}.  A rank that fails
+fails its phase (its traceback in the error); nothing falls back to one
+process or to the CPU.
 
     python3 chip_smoke.py --recipe3d [--recipe_epochs 600]
 
@@ -237,6 +268,8 @@ try:
                                           warp3d_dsrc_binned_plain,
                                           warp_bwd_plain)
     from dfmir_tpu_torch.options import TestOptions, TrainOptions
+    from dfmir_tpu_torch.parallel import checks
+    from dfmir_tpu_torch.parallel.launch import backend_for, launch
     from dfmir_tpu_torch.utils.png import read_png, write_png
 except Exception as err:
     fail_line(err)
@@ -3063,6 +3096,288 @@ def cli3d_paths(root, log, seed, smi, engine_ms):
     return {"cli3d_train": launches_train, "cli3d_eval": launches_eval}
 
 
+# ------------------------------------------------- data parallelism
+# the card's machine has one card: two ranks share it over gloo (each its
+# own process and CUDA context, taking turns on the card), and one rank
+# drives the NCCL path alone; NCCL across cards is not run here
+DP_DEVICES = ["cuda:0", "cuda:0"]
+DP_NCCL_DEVICES = ["cuda:0"]
+DP3D_CFG = {}                # fields beside VxmConfig()'s (none on the card)
+DP_BATCH = 4                 # the 2-D global batch: 2 a rank
+DP3D_BATCH = 2               # the 3-D global batch: 1 a rank
+DP_STEPS = 1 + TRAIN_STEPS   # the compared step, then the timed ones
+DP_LIMIT = 600.0             # seconds a launch may take
+DP_COLLECTIVE_S = 300.0      # a collective waiting longer fails its rank
+DP_CLI_FLAGS = ["--batch_size", "2", "--max_dataset_size", "4",
+                "--n_epochs", "1", "--n_epochs_decay", "0",
+                "--save_epoch_freq", "1", "--print_freq", "2",
+                "--display_freq", "4", "--jac_freq", "4"]
+
+
+def dp_launch(fn, devices, *args):
+    return launch(fn, devices, args=args, timeout=DP_LIMIT,
+                  collective_timeout=DP_COLLECTIVE_S)
+
+
+def dp_ranks_agree(reports, per_step, what):
+    """Every rank's parameters and Adam state bit-equal after each step,
+    and each rank's launches ``per_step`` at every step; the launches
+    summed over the ranks and steps."""
+    for r in reports[1:]:
+        for i, (x, y) in enumerate(zip(reports[0]["checksums"],
+                                       r["checksums"])):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what}: rank {r['rank']} differs "
+                                     f"from rank 0 after step {i}")
+    for r in reports:
+        for i, got in enumerate(r["launches"]):
+            check_launches(f"{what}, rank {r['rank']} step {i}", got,
+                           dict(ZERO, **per_step))
+        bad = [(i, k) for i, m in enumerate(r["metrics"])
+               for k, v in m.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{what}: non-finite metrics {bad}")
+    return add_counts(*((1, x) for r in reports for x in r["launches"]))
+
+
+def dp_vs_single(rank0, single, lr, what, per_tensor=False):
+    """The ranks' first step against one process's on the whole batch:
+    metrics within PATH_TOL relative; gradients within GRAD_ENV of each
+    network's (``per_tensor``: each tensor's) max |g|; after Adam, only
+    first-step sign flips (|dp| <= 2.05 lr at gradients inside that band)
+    and > 99% of components within 1e-5."""
+    metric_errs = rel_errs(rank0["metrics"][0], single["metrics"][0],
+                           PATH_TOL, what)
+    grad_errs, total, mismatched = {}, 0, 0
+    for net, ref in single["grads"].items():
+        scales = {k: float(g.abs().max()) for k, g in ref.items()}
+        net_scale = max(scales.values())
+        worst = 0.0
+        for k, g in ref.items():
+            scale = max(scales[k] if per_tensor else net_scale, 1e-30)
+            err = float((rank0["grads"][net][k] - g).abs().max()) / scale
+            worst = max(worst, err)
+            if not err <= GRAD_ENV:
+                raise AssertionError(f"{what} {net}.{k}: gradient off by "
+                                     f"{err} of max |g| > {GRAD_ENV}")
+            p, q = rank0["params"][net][k], single["params"][net][k]
+            mism = ~torch.isclose(p, q, atol=1e-5, rtol=1e-4)
+            total += p.numel()
+            mismatched += int(mism.sum())
+            if mism.any() and not (
+                    float((p - q)[mism].abs().max()) <= 2.05 * lr
+                    and float(g[mism].abs().max()) <= GRAD_ENV * scale):
+                raise AssertionError(f"{what} {net}.{k}: parameters differ "
+                                     f"past a first-step sign flip")
+        grad_errs[net] = worst
+    if not mismatched < 0.01 * total:
+        raise AssertionError(f"{what}: {mismatched} of {total} parameters "
+                             f"differ past 1e-5")
+    return metric_errs, grad_errs, mismatched / total
+
+
+def step_ms(report):
+    """Median host ms a step after the first."""
+    return statistics.median(report["ms"][1:])
+
+
+def gb(nbytes):
+    """Bytes in GB (None off the card)."""
+    return None if nbytes is None else nbytes / 1e9
+
+
+def phase_dp(seed, smi):
+    """The 2-D step at full width over 2 ranks on the card (gloo), global
+    B=4, against one process's B=4 step; then FastCUT and lambda_GAN 1."""
+    cfg = option_cfg({})
+    pairs = make_pairs(DP_STEPS, DP_BATCH, cfg.crop_size, seed + 30, "cpu")
+    job = dict(cfg=dict(WIDTH), seed=seed, flow_gain=FLOW_GAIN,
+               batches=[(a, b) for a, b, _ in pairs], lr=cfg.lr,
+               patch_seed=seed)
+    single = checks.registration_steps(None, dict(job, device=DEVICE))
+    torch.cuda.empty_cache()
+    dp_ranks_agree([single], STEP_LAUNCHES, "dp one process")
+    one = dict(job, batches=job["batches"][:1], snapshot=None)
+    cases = [("cut", "registration_steps", {"job": job}),
+             ("fastcut", "registration_steps",
+              {"job": dict(one, cfg=dict(WIDTH, **FASTCUT))}),
+             ("gan", "registration_steps",
+              {"job": dict(one, cfg=dict(WIDTH, **GAN))})]
+    out = dp_launch(checks.run_cases, DP_DEVICES, cases)
+    reports = {name: [r[name] for r in out] for name, _, _ in cases}
+    launches = {f"dp{'' if name == 'cut' else '_' + name}":
+                dp_ranks_agree(reps, STEP_LAUNCHES, f"dp {name}")
+                for name, reps in reports.items()}
+    cut = reports["cut"]
+    metric_errs, grad_errs, mism = dp_vs_single(cut[0], single, cfg.lr,
+                                                "dp")
+    emit({"phase": "dp", "config": "RegistrationConfig() defaults",
+          "ranks": len(DP_DEVICES), "devices": DP_DEVICES,
+          "backend": backend_for(DP_DEVICES), "global_batch": DP_BATCH,
+          "steps": len(job["batches"]), "launches": launches,
+          "launches_per_rank_step": STEP_LAUNCHES,
+          "vs_one_process_rel": metric_errs,
+          "grad_vs_one_process": grad_errs,
+          "params_past_1e-5": mism,
+          "fastcut_metrics": reports["fastcut"][0]["metrics"][0],
+          "gan_metrics": reports["gan"][0]["metrics"][0],
+          "ms_per_step": step_ms(cut[0]), "step_ms": cut[0]["ms"],
+          "one_process_ms_per_step_b4": step_ms(single),
+          "one_process_step_ms_b4": single["ms"],
+          "peak_mem_gb_by_rank": [gb(r["peak_bytes"]) for r in cut],
+          "one_process_peak_mem_gb_b4": gb(single["peak_bytes"]),
+          "card": smi})
+    return launches
+
+
+def grad_spread(x, y):
+    """max |x - y| over each network's gradients, over its max |g|."""
+    return {net: max(float((x["grads"][net][k] - g).abs().max())
+                     for k, g in ref.items())
+            / max(float(g.abs().max()) for g in ref.values())
+            for net, ref in y["grads"].items()}
+
+
+def phase_dp_nccl(seed, smi):
+    """One rank in an NCCL group on the card, B=2, 2 steps: the step's
+    all-reduce over one rank gives back every gradient bit for bit; the
+    first step's metrics equal one process's bit for bit, its gradients
+    and parameters within phase dp's bars (the plain step is not bitwise
+    reproducible on the card: two runs of it are measured beside); the
+    second step timed."""
+    cfg = option_cfg({})
+    (a, b, _), = make_pairs(1, 2, cfg.crop_size, seed + 32, "cpu")
+    job = dict(cfg=dict(WIDTH), seed=seed, flow_gain=FLOW_GAIN,
+               batches=[(a, b)] * 2, lr=cfg.lr, patch_seed=seed)
+    single = checks.registration_steps(None, dict(job, device=DEVICE))
+    again = checks.registration_steps(None, dict(job, device=DEVICE))
+    torch.cuda.empty_cache()
+    out, = dp_launch(checks.run_cases, DP_NCCL_DEVICES,
+                     [("steps", "registration_steps", {"job": job}),
+                      ("exact", "reduce_is_exact", {"job": job})])
+    rank = out["steps"]
+    launches = dp_ranks_agree([rank], STEP_LAUNCHES, "dp_nccl")
+    if not out["exact"]["exact"]:
+        raise AssertionError("dp_nccl: the all-reduce over one NCCL rank "
+                             "changed a gradient")
+    if rank["metrics"][0] != single["metrics"][0]:
+        raise AssertionError(f"dp_nccl: metrics {rank['metrics'][0]} "
+                             f"differ from one process's "
+                             f"{single['metrics'][0]}")
+    _, grad_errs, mism = dp_vs_single(rank, single, cfg.lr, "dp_nccl")
+    emit({"phase": "dp_nccl", "config": "RegistrationConfig() defaults",
+          "ranks": len(DP_NCCL_DEVICES),
+          "backend": backend_for(DP_NCCL_DEVICES),
+          "batch": 2, "launches": launches,
+          "reduce_bit_exact": out["exact"],
+          "metrics_bit_equal": True, "metrics": rank["metrics"][0],
+          "grad_vs_one_process": grad_errs,
+          "grad_one_process_run_to_run": grad_spread(again, single),
+          "params_past_1e-5": mism, "step_ms": rank["ms"],
+          "one_process_step_ms": single["ms"],
+          "nccl_across_cards": "not run: one card", "card": smi})
+    return launches
+
+
+def phase_dp3d(seed, smi):
+    """VxmConfig() at 160^3 over 2 ranks on the card (gloo), B=1 a rank,
+    against one process's B=2 step."""
+    cfg = VxmConfig(**DP3D_CFG)
+    S = cfg.vol_size
+    pairs = make_volume_pairs(DP3D_BATCH, S, seed + 31, DEVICE)
+    A, B = (torch.cat([p[i] for p in pairs]).cpu() for i in (0, 1))
+    del pairs
+    job = dict(cfg=dict(DP3D_CFG), seed=seed, flow_gain=FLOW_GAIN,
+               batches=[(A, B)] * DP_STEPS)
+    single = checks.vxm_steps(None, dict(job, device=DEVICE))
+    torch.cuda.empty_cache()
+    dp_ranks_agree([single], STEP3D, "dp3d one process")
+    reports = dp_launch(checks.vxm_steps, DP_DEVICES, job)
+    launches = dp_ranks_agree(reports, STEP3D, "dp3d")
+    metric_errs, grad_errs, mism = dp_vs_single(
+        reports[0], single, cfg.lr, "dp3d", per_tensor=True)
+    emit({"phase": "dp3d", "config": "VxmConfig() defaults", "size": S,
+          "ranks": len(DP_DEVICES), "backend": backend_for(DP_DEVICES),
+          "global_batch": DP3D_BATCH, "steps": DP_STEPS,
+          "launches": launches, "launches_per_rank_step": STEP3D,
+          "vs_one_process_rel": metric_errs,
+          "grad_vs_one_process": grad_errs, "params_past_1e-5": mism,
+          "ms_per_step": step_ms(reports[0]), "step_ms": reports[0]["ms"],
+          "one_process_ms_per_step_b2": step_ms(single),
+          "one_process_step_ms_b2": single["ms"],
+          "peak_mem_gb_by_rank": [gb(r["peak_bytes"]) for r in reports],
+          "one_process_peak_mem_gb_b2": gb(single["peak_bytes"]),
+          "card": smi})
+    return launches
+
+
+def phase_dp_cli(seed, smi):
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_cli_")
+    try:
+        with open(os.path.join(root, "cli.log"), "w") as log:
+            return dp_cli_paths(root, log, seed, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def dp_cli_paths(root, log, seed, smi):
+    """train.main over 2 ranks on the card (gloo) on phase cli's PNG
+    pairs: 2 steps at B=2, one set of files, `latest` equal to the
+    ranks' final weights."""
+    data, ck_dir = os.path.join(root, "data"), os.path.join(root, "ck")
+    write_cli_data(data, seed, CLI_SIZE)
+    common = ["--dataroot", data, "--checkpoints_dir", ck_dir, "--seed",
+              str(seed), "--name", "dp_cli", "--gpu_ids", CLI_GPU,
+              *CLI_FLAGS, *DP_CLI_FLAGS]
+    with contextlib.redirect_stdout(log):
+        out = train_cli.main(common, devices=DP_DEVICES,
+                             timeout=DP_LIMIT)
+    ck = os.path.join(ck_dir, "dp_cli")
+    steps = len(out["step_s"])
+    want_files = sorted(
+        [f"{e}_net_{n}.pth" for e in ("1", "latest") for n in "GFR"]
+        + [f"{e}_optim.pth" for e in ("1", "latest")]
+        + ["loss_history.jsonl", "loss_log.txt", "train_opt.txt", "web"])
+    files = sorted(os.listdir(ck))
+    recs = losses_of(ck)
+    with open(os.path.join(ck, "loss_log.txt")) as f:
+        log_text = f.read()
+    # --print_freq 2 at a global batch of 2: a print every step
+    if (steps != 2 or files != want_files or len(recs) != steps
+            or log_text.count("(epoch: 1,") != steps
+            or log_text.count("Training Loss") != 1):
+        raise AssertionError(f"dp_cli: {steps} steps, files {files}, "
+                             f"{len(recs)} loss records: expected 2, "
+                             f"{want_files}, one print a step, once")
+    want = cli_train_launches(steps, 2, 4, 2, 4)
+    for r, rank in enumerate(out["ranks"]):
+        check_launches(f"dp_cli rank {r}", rank["launches"], want)
+    # `latest`, loaded on the card, is rank 1's final weights bit for bit
+    with contextlib.redirect_stdout(log):
+        opt = TrainOptions(common + ["--continue_train"]).parse()
+    fresh = RegistrationTask(opt)
+    fresh.setup(opt)
+    final = out["ranks"][1]["weights"]
+    unequal = [f"{n}.{k}" for n, sd in final.items()
+               for k, v in sd.items()
+               if not torch.equal(fresh._nets()[n].state_dict()[k].cpu(), v)]
+    if unequal:
+        raise AssertionError(f"dp_cli: `latest` differs from rank 1's "
+                             f"weights at {unequal[:8]}")
+    emit({"phase": "dp_cli", "ranks": len(DP_DEVICES),
+          "backend": backend_for(DP_DEVICES),
+          "flags": CLI_FLAGS + DP_CLI_FLAGS, "steps": steps,
+          "files": files, "loss_records": len(recs),
+          "launches_by_rank": [r["launches"] for r in out["ranks"]],
+          "reload_tensors_equal": sum(len(sd) for sd in final.values()),
+          "losses_last": recs[-1]["losses"],
+          "step_ms": [x * 1e3 for x in out["step_s"]],
+          "peak_mem_gb_by_rank": [gb(r["peak_bytes"])
+                                  for r in out["ranks"]], "card": smi})
+    return {"dp_cli": add_counts(*((1, r["launches"])
+                                   for r in out["ranks"]))}
+
+
 RECIPE_SIZE, RECIPE_TRAIN, RECIPE_TEST = 64, 24, 12
 # VXM3D_RECIPE_r05.json's recipe (the JAX package's 3-D quality record):
 # textured volumes, mse, lambda_smooth 0.01, lr 1e-3
@@ -3348,13 +3663,20 @@ def main(argv=None):
     del eng, pair
     torch.cuda.empty_cache()
     cli3d_launches = run("cli3d", phase_cli3d, args.seed, smi, step3d_ms)
+    torch.cuda.empty_cache()
+    dp_launches = run("dp", phase_dp, args.seed, smi)
+    dp_nccl_launches = run("dp_nccl", phase_dp_nccl, args.seed, smi)
+    dp3d_launches = run("dp3d", phase_dp3d, args.seed, smi)
+    dp_cli_launches = run("dp_cli", phase_dp_cli, args.seed, smi)
 
     paths = {"register": reg_launches, "train": train_launches,
              "fastcut": fastcut_launches, "gan": gan_launches,
              "bf16_register": bf16_reg_launches, "bf16_train": bf16_launches,
              "dropout": dropout_launches,
              "register3d": reg3d_launches, "train3d": train3d_launches,
-             **cli_launches, **cli3d_launches}
+             **cli_launches, **cli3d_launches, **dp_launches,
+             "dp_nccl": dp_nccl_launches, "dp3d": dp3d_launches,
+             **dp_cli_launches}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}

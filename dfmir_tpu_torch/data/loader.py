@@ -3,7 +3,11 @@
 last partial batch in training, ``max_dataset_size``, ``set_epoch``, and a
 thread pool that decodes up to 3 batches ahead with ``--num_threads``.
 Batches are dicts of stacked NCHW (NCDHW for volumes) arrays and lists of
-paths."""
+paths.
+
+Data parallel (``rank``, ``world``): each rank decodes only its slice of
+each global batch (``parallel.mesh.batch_slice``), in the order one
+process takes; ``len()`` stays the global dataset's."""
 
 from __future__ import annotations
 
@@ -12,6 +16,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
 import numpy as np
+
+from dfmir_tpu_torch.parallel.mesh import batch_slice
 
 # dataset modes of the JAX package that the port does not have yet
 _NOT_PORTED = {"patient_site": "A13", "triplet": "A13"}
@@ -35,9 +41,9 @@ def get_option_setter(name: str):
     return find_dataset_using_name(name).modify_commandline_options
 
 
-def create_dataset(opt) -> "DataLoader":
+def create_dataset(opt, rank: int = 0, world: int = 1) -> "DataLoader":
     dataset_cls = find_dataset_using_name(opt.dataset_mode)
-    return DataLoader(dataset_cls(opt), opt)
+    return DataLoader(dataset_cls(opt), opt, rank, world)
 
 
 def _stack(samples):
@@ -52,9 +58,10 @@ def _stack(samples):
 
 
 class DataLoader:
-    """Iterable over dict batches {'A': (B, C, H, W), 'B': ..., paths}."""
+    """Iterable over dict batches {'A': (B, C, H, W), 'B': ..., paths}:
+    rank ``rank`` of ``world``'s slice of each (B / world items)."""
 
-    def __init__(self, dataset, opt):
+    def __init__(self, dataset, opt, rank: int = 0, world: int = 1):
         if len(dataset) == 0:
             raise RuntimeError(
                 f"Found 0 samples under {opt.dataroot} for dataset_mode="
@@ -67,6 +74,10 @@ class DataLoader:
         self.num_threads = max(int(getattr(opt, "num_threads", 0)), 0)
         self.max_dataset_size = getattr(opt, "max_dataset_size", float("inf"))
         self.seed = int(getattr(opt, "seed", 0) or 0)
+        self.rank, self.world = rank, world
+        if self.batch_size % world:
+            raise ValueError(f"--batch_size {self.batch_size} does not "
+                             f"divide over {world} ranks")
         self._epoch = 0
 
     def load_data(self) -> "DataLoader":
@@ -96,6 +107,9 @@ class DataLoader:
         idx = self._indices()
         batches = [idx[i:i + self.batch_size]
                    for i in range(0, len(idx), self.batch_size)]
+        if self.world > 1:
+            batches = [batch_slice(b, self.rank, self.world)
+                       for b in batches]
         if self.num_threads <= 0:
             for b in batches:
                 yield _stack([self.dataset[int(i)] for i in b])

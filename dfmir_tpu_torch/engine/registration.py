@@ -45,6 +45,19 @@ registration.py``):
   ``gan_loss(netD(fake_B), True) * lambda_GAN`` against the updated netD
   (whose parameters get no gradient) to G's loss.
 
+Data parallelism (``data_parallel``, the JAX package's sharded step):
+each rank holds the whole model and steps on its slice of the global
+batch.  The training loss (``loss_fn(train=True)``, ``train_step``) is
+then the global batch's: the masked L1's sums are the global batch's
+(``parallel.mesh.global_sum``) and with
+``nce_includes_all_negatives_from_minibatch`` the keys of every rank's
+images are the negatives; the other terms are each rank's own mean.  The
+gradients of netG, netF and netR (and netD's in ``d_step``) are averaged
+over the ranks before Adam, and ``train_step``'s metrics too.  The patch
+ids and FastCUT's coin come from ``patch_generator``, equal on every rank
+(one seed); the dropout masks are each rank's own.  ``eval_step`` and
+``compute_visuals`` score the batch they are given.
+
 Not ported (they raise NotImplementedError): ``netF`` other than
 ``mlp_sample`` / ``sample``, the StyleGAN2 ``netD``s, bfloat16 at
 ``ndims=3``.
@@ -54,6 +67,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from dfmir_tpu_torch.device import resolve_device
@@ -65,8 +79,12 @@ from dfmir_tpu_torch.nets.layers import call_in
 from dfmir_tpu_torch.nets.patch_sample import PatchSampleF
 from dfmir_tpu_torch.nets.resnet_gen import ResnetGenerator, nce_feature_dims
 from dfmir_tpu_torch.nets.vxm import VxmDense
-from dfmir_tpu_torch.ops.jacobian import folding_fraction, jacobian_det
+from dfmir_tpu_torch.ops.jacobian import (field_stats, folding_fraction,
+                                          jacobian_det)
 from dfmir_tpu_torch.ops.warp import warp
+from dfmir_tpu_torch.parallel.mesh import (Mesh, all_reduce_grads,
+                                           all_reduce_metrics, replicate,
+                                           state_tensors)
 
 NETF_CHOICES = ("mlp_sample", "sample")
 
@@ -147,6 +165,7 @@ class RegistrationModel:
             self.parameters(), lr=cfg.lr, betas=(cfg.beta1, cfg.beta2),
             eps=1e-8)
         self.netD = self.optimizer_D = None
+        self.mesh: Optional[Mesh] = None
         if cfg.lambda_GAN > 0:
             self.netD = define_D(
                 input_nc=cfg.output_nc, ndf=cfg.ndf, netD=cfg.netD,
@@ -162,6 +181,30 @@ class RegistrationModel:
         """The parameters of the main update: netG's, netF's and netR's."""
         return [p for net in (self.netG, self.netF, self.netR)
                 for p in net.parameters()]
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """Every network's parameters and every Adam state tensor."""
+        nets = [self.netG, self.netF, self.netR]
+        opts = [self.optimizer]
+        if self.netD is not None:
+            nets.append(self.netD)
+            opts.append(self.optimizer_D)
+        return state_tensors(nets, opts)
+
+    def data_parallel(self, mesh: Mesh) -> None:
+        """Step as rank ``mesh.rank`` of ``mesh.world``: check that every
+        rank holds rank 0's parameters and Adam state (one seed, or one
+        checkpoint), broadcast them from rank 0 (JAX's ``replicate``), and
+        draw this rank's dropout masks from a generator of its own, seeded
+        from a draw of the model's and the rank."""
+        replicate(self.state_tensors(), mesh)
+        base = int(torch.randint(2 ** 62, (1,),
+                                 generator=self.dropout_generator,
+                                 device=self.dropout_generator.device))
+        seed = np.random.SeedSequence([base, mesh.rank]).generate_state(
+            1, np.uint64)[0]
+        self.dropout_generator.manual_seed(int(seed))
+        self.mesh = mesh
 
     # ------------------------------------------------- the networks' calls
 
@@ -205,17 +248,16 @@ class RegistrationModel:
                 "folding_fraction": folding_fraction(pos_flow)}
 
     @torch.no_grad()
-    def flow_stats(self, real_A, real_B) -> Dict[str, torch.Tensor]:
-        """Scalar field-health statistics of the registration flow."""
-        pos_flow = self.register(real_A, real_B)[3]
-        det = jacobian_det(pos_flow)
-        return {"fold": folding_fraction(pos_flow).mean(),
-                "jac_min": det.min(), "jac_max": det.max(),
-                "jac_mean": det.mean(), "flow_max": pos_flow.abs().max()}
+    def flow_stats(self, real_A, real_B,
+                   mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+        """Scalar field-health statistics of the registration flow
+        (``ops.jacobian.field_stats``); with ``mesh``, the global
+        batch's."""
+        return field_stats(self.register(real_A, real_B)[3], mesh)
 
     # ------------------------------------------------------------- training
 
-    def _nce(self, feat_q, feat_k, patch_ids, generator, flip: bool):
+    def _nce(self, feat_q, feat_k, patch_ids, generator, flip: bool, mesh):
         """The NCE loss of one (query, key) pair of tapped feature lists,
         averaged over the layers; ``flip`` flips the queries back along
         W first."""
@@ -230,7 +272,8 @@ class RegistrationModel:
             per_patch = patch_nce_loss(
                 f_q, f_k, nce_T=cfg.nce_T, batch_size=feat_q[0].shape[0],
                 all_negatives_from_minibatch=(
-                    cfg.nce_includes_all_negatives_from_minibatch))
+                    cfg.nce_includes_all_negatives_from_minibatch),
+                mesh=mesh)
             total = total + per_patch.mean() * cfg.lambda_NCE
         return total / len(cfg.nce_layers)
 
@@ -263,7 +306,7 @@ class RegistrationModel:
                 "feats_fwd": feats_fwd, "flip": flip}
 
     def _nce_losses(self, fwd, real_A, real_B, patch_ids, generator,
-                    dropout):
+                    dropout, mesh):
         """The NCE calls' losses (NCE, NCE_Y when ``nce_idt``, local)."""
         cfg = self.cfg
         B = real_A.shape[0]
@@ -296,10 +339,10 @@ class RegistrationModel:
         if len(patch_ids) != len(queries):
             raise ValueError(f"patch_ids holds {len(patch_ids)} lists, the "
                              f"step makes {len(queries)} NCE calls")
-        return [self._nce(q, k, ids, generator, fwd["flip"])
+        return [self._nce(q, k, ids, generator, fwd["flip"], mesh)
                 for q, k, ids in zip(q_chunks, k_chunks, patch_ids)]
 
-    def _losses(self, fwd, nce_vals, real_B, with_D: bool):
+    def _losses(self, fwd, nce_vals, real_B, with_D: bool, mesh):
         """(total, metrics, aux) from the passes and the NCE losses."""
         cfg = self.cfg
         use_idt = cfg.nce_idt and cfg.lambda_NCE > 0
@@ -327,8 +370,8 @@ class RegistrationModel:
         mask = (real_B > -0.95) | (registered > -0.95)
         mask2 = (idt_B > -0.95) | (registered > -0.95)
         loss_local = nce_vals[-1] * cfg.local_weight
-        loss_R = (masked_l1(registered, real_B, mask)
-                  + masked_l1(idt_B, registered, mask2) + loss_local)
+        loss_R = (masked_l1(registered, real_B, mask, mesh)
+                  + masked_l1(idt_B, registered, mask2, mesh) + loss_local)
         loss_smooth = smoothness_loss(pos_flow) * cfg.smooth_weight
 
         total = loss_R + loss_G + loss_smooth
@@ -371,13 +414,17 @@ class RegistrationModel:
         NCE_Y (with ``nce_idt``), R, smooth, local, total, and with
         ``lambda_GAN > 0`` G_GAN, 0 here as in the JAX package's loss
         without netD's parameters (``train_step`` adds it against the
-        updated netD).  aux: fake_B, idt_B, registered, regA, pos_flow."""
+        updated netD).  aux: fake_B, idt_B, registered, regA, pos_flow.
+        Data parallel, with ``train``: this rank's part of the global
+        batch's loss (its mean over the ranks is the global loss, and its
+        gradient, averaged over them, the global gradient)."""
+        mesh = self.mesh if train else None
         generator, dropout = self._step_generators(
             generator, dropout_generator, train)
         fwd = self._forward(real_A, real_B, flip, generator, dropout)
         nce_vals = self._nce_losses(fwd, real_A, real_B, patch_ids,
-                                    generator, dropout)
-        return self._losses(fwd, nce_vals, real_B, with_D=False)
+                                    generator, dropout, mesh)
+        return self._losses(fwd, nce_vals, real_B, False, mesh)
 
     def train_step(self, real_A, real_B, lr: float,
                    patch_ids: Optional[Sequence[Sequence[torch.Tensor]]] = None,
@@ -391,7 +438,8 @@ class RegistrationModel:
         ``lambda_GAN > 0`` netD is updated first, on the detached fake_B of
         the same generator pass, and G's loss is taken against the updated
         netD.  Returns the metrics, detached, on the model's device (with
-        netD: D, D_fake and D_real too)."""
+        netD: D, D_fake and D_real too); data parallel, averaged over the
+        ranks."""
         self.optimizer.zero_grad(set_to_none=True)
         if self.netD is None:
             total, metrics, _ = self.loss_fn(real_A, real_B, patch_ids,
@@ -403,12 +451,14 @@ class RegistrationModel:
             fwd = self._forward(real_A, real_B, flip, generator, dropout)
             d_metrics = self.d_step(fwd["fake_B"].detach(), real_B, lr)
             nce_vals = self._nce_losses(fwd, real_A, real_B, patch_ids,
-                                        generator, dropout)
-            total, metrics, _ = self._losses(fwd, nce_vals, real_B, True)
+                                        generator, dropout, self.mesh)
+            total, metrics, _ = self._losses(fwd, nce_vals, real_B, True,
+                                             self.mesh)
             metrics.update(d_metrics)
         total.backward()
         self.apply_gradients(lr)
-        return {k: v.detach() for k, v in metrics.items()}
+        return all_reduce_metrics({k: v.detach() for k, v in metrics.items()},
+                                  self.mesh)
 
     def d_step(self, fake_B, real_B, lr: float) -> Dict[str, torch.Tensor]:
         """netD's update (phase 1 of a GAN step): (D(fake) loss + D(real)
@@ -419,6 +469,7 @@ class RegistrationModel:
         l_real = gan_loss(self.netD(real_B), True, gan_mode)
         loss_D = (l_fake + l_real) * 0.5
         loss_D.backward()
+        all_reduce_grads(self.netD.parameters(), self.mesh)
         for group in self.optimizer_D.param_groups:
             group["lr"] = float(lr)
         self.optimizer_D.step()
@@ -426,7 +477,11 @@ class RegistrationModel:
                 "D_real": l_real.detach()}
 
     def apply_gradients(self, lr: float) -> None:
-        """One Adam update from the parameters' ``.grad`` at rate ``lr``."""
+        """One Adam update from the parameters' ``.grad`` at rate ``lr``;
+        data parallel, of their mean over the ranks (one flat all-reduce
+        a network)."""
+        for net in (self.netG, self.netF, self.netR):
+            all_reduce_grads(net.parameters(), self.mesh)
         for group in self.optimizer.param_groups:
             group["lr"] = float(lr)
         self.optimizer.step()

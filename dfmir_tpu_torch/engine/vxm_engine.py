@@ -12,6 +12,12 @@ state (``torch.optim.Adam``, betas (0.9, 0.999), eps 1e-8: the update of
 step).  ``remat`` recomputes netR's forward in the backward
 (``torch.utils.checkpoint``), as ``jax.checkpoint`` does.
 
+Data parallelism (``data_parallel``, the JAX package's sharded step):
+each rank steps on its slice of the global batch; NCC's mean is the
+global batch's (``parallel.mesh.global_mean``), MSE and the gradient loss
+are each rank's own mean, netR's gradients and the metrics are averaged
+over the ranks.  ``eval_step`` scores the batch it is given.
+
 When the tensors lie on the card, VecInt's chain runs as one kernel launch
 each way (2-D or 3-D) and the data warp on the single-warp kernels
 (bilinear or trilinear); on the CPU the plain versions run.
@@ -20,7 +26,7 @@ each way (2-D or 3-D) and the data warp on the single-warp kernels
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -28,7 +34,10 @@ from torch.utils.checkpoint import checkpoint
 from dfmir_tpu_torch.device import resolve_device
 from dfmir_tpu_torch.losses import grad_loss, mse_loss, ncc_loss
 from dfmir_tpu_torch.nets.vxm import VxmDense, default_unet_features
-from dfmir_tpu_torch.ops.jacobian import folding_fraction, jacobian_det
+from dfmir_tpu_torch.ops.jacobian import field_stats
+from dfmir_tpu_torch.parallel.mesh import (Mesh, all_reduce_grads,
+                                           all_reduce_metrics, replicate,
+                                           state_tensors)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,11 +92,24 @@ class VxmEngine:
         self.optimizer = torch.optim.Adam(
             self.netR.parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
         self.step = 0
+        self.mesh: Optional[Mesh] = None
 
-    def _sim(self, pred, target):
+    def state_tensors(self):
+        """netR's parameters and every Adam state tensor."""
+        return state_tensors([self.netR], [self.optimizer])
+
+    def data_parallel(self, mesh: Mesh) -> None:
+        """Step as rank ``mesh.rank`` of ``mesh.world``: check that every
+        rank holds rank 0's netR and Adam state, then broadcast them from
+        rank 0 (JAX's ``replicate``)."""
+        replicate(self.state_tensors(), mesh)
+        self.mesh = mesh
+
+    def _sim(self, pred, target, mesh):
         if self.cfg.image_loss == "ncc":
             return ncc_loss(pred, target,
-                            kernel_var=[self.cfg.ncc_win] * self.cfg.ndims)
+                            kernel_var=[self.cfg.ncc_win] * self.cfg.ndims,
+                            mesh=mesh)
         if self.cfg.image_loss == "mse":
             return mse_loss(pred, target)
         raise NotImplementedError(self.cfg.image_loss)
@@ -95,9 +117,12 @@ class VxmEngine:
     def _forward(self, source, target):
         return self.netR(source, target, return_preint=True)
 
-    def loss_fn(self, source, target):
-        """(total, metrics): metrics sim, smooth and total, as tensors."""
+    def loss_fn(self, source, target, train: bool = True):
+        """(total, metrics): metrics sim, smooth and total, as tensors.
+        Data parallel, with ``train``: this rank's part of the global
+        batch's loss."""
         cfg = self.cfg
+        mesh = self.mesh if train else None
         if cfg.remat and torch.is_grad_enabled():
             out = checkpoint(self._forward, source, target,
                              use_reentrant=False)
@@ -105,11 +130,11 @@ class VxmEngine:
             out = self._forward(source, target)
         if cfg.bidir:
             y_source, y_target, _, preint = out
-            sim = 0.5 * (self._sim(y_source, target)
-                         + self._sim(y_target, source))
+            sim = 0.5 * (self._sim(y_source, target, mesh)
+                         + self._sim(y_target, source, mesh))
         else:
             y_source, _, preint = out
-            sim = self._sim(y_source, target)
+            sim = self._sim(y_source, target, mesh)
         smooth = grad_loss(preint, penalty="l2") * cfg.lambda_smooth
         total = sim + smooth
         return total, {"sim": sim, "smooth": smooth, "total": total}
@@ -117,15 +142,18 @@ class VxmEngine:
     def train_step(self, source, target, lr=None) -> Dict[str, torch.Tensor]:
         """One backward through netR and one Adam update at ``lr``
         (``cfg.lr`` when None).  Returns the metrics, detached, on the
-        engine's device."""
+        engine's device; data parallel, the gradients and the metrics
+        averaged over the ranks."""
         self.optimizer.zero_grad(set_to_none=True)
         total, metrics = self.loss_fn(source, target)
         total.backward()
+        all_reduce_grads(self.netR.parameters(), self.mesh)
         for group in self.optimizer.param_groups:
             group["lr"] = float(self.cfg.lr if lr is None else lr)
         self.optimizer.step()
         self.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        return all_reduce_metrics({k: v.detach() for k, v in metrics.items()},
+                                  self.mesh)
 
     @torch.no_grad()
     def register(self, source, target):
@@ -134,13 +162,12 @@ class VxmEngine:
 
     @torch.no_grad()
     def eval_step(self, source, target) -> Dict[str, torch.Tensor]:
-        return self.loss_fn(source, target)[1]
+        return self.loss_fn(source, target, train=False)[1]
 
     @torch.no_grad()
-    def flow_stats(self, source, target) -> Dict[str, torch.Tensor]:
-        """Scalar field-health statistics of the registration flow."""
-        _, pos_flow = self.register(source, target)
-        det = jacobian_det(pos_flow)
-        return {"fold": folding_fraction(pos_flow).mean(),
-                "jac_min": det.min(), "jac_max": det.max(),
-                "jac_mean": det.mean(), "flow_max": pos_flow.abs().max()}
+    def flow_stats(self, source, target,
+                   mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+        """Scalar field-health statistics of the registration flow
+        (``ops.jacobian.field_stats``); with ``mesh``, the global
+        batch's."""
+        return field_stats(self.register(source, target)[1], mesh)

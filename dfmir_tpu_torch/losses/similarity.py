@@ -14,6 +14,12 @@
 - ``masked_l2``: the same reduction of the squared difference.
 - ``mse_loss``.
 
+``mesh`` (data parallelism, ``parallel/mesh.py``): the masked means and
+NCC reduce their sums over the global batch (``global_sum`` /
+``global_mean``), so that their value is the global batch's and their
+gradient, averaged over the ranks, the global gradient.  A mean of the
+whole batch (``mse_loss``) needs nothing: each rank's own is its share.
+
 Tensors are NCHW / NCDHW.  Plain PyTorch: none of this is a kernel in the
 JAX package either.
 """
@@ -24,18 +30,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dfmir_tpu_torch.parallel.mesh import global_mean, global_sum
 
-def _masked_mean(res, mask):
+
+def _masked_mean(res, mask, mesh=None):
     if mask is None:
-        return res.mean()
+        return global_mean(res.mean(), mesh)
     mask = mask.to(res.dtype)
-    denom = mask.sum()
-    val = (res * mask).sum() / denom.clamp_min(1.0)
+    denom = global_sum(mask.sum(), mesh)
+    val = global_sum((res * mask).sum(), mesh) / denom.clamp_min(1.0)
     return torch.where(denom == 0, torch.zeros_like(val), val)
 
 
-def masked_l1(src, tgt, mask=None):
-    return _masked_mean((src - tgt).abs(), mask)
+def masked_l1(src, tgt, mask=None, mesh=None):
+    return _masked_mean((src - tgt).abs(), mask, mesh)
 
 
 def masked_l2(src, tgt, mask=None):
@@ -129,13 +137,15 @@ def ncc_map(prediction, target, kernel_var=None, kernel_type="mean",
 
 
 def ncc_loss(prediction, target, mask=None, kernel_var=None,
-             kernel_type="mean", eps: float = 1e-5, method: str = "auto"):
+             kernel_type="mean", eps: float = 1e-5, method: str = "auto",
+             mesh=None):
     """``-sqrt(mean(cc))``, over ``mask`` where one is given (0 for an
     empty mask)."""
     cc = ncc_map(prediction, target, kernel_var, kernel_type, eps, method)
     if mask is None:
-        return -1.0 * torch.sqrt(cc.mean())
+        return -1.0 * torch.sqrt(global_mean(cc.mean(), mesh))
     mask = mask.to(cc.dtype)
-    denom = mask.sum()
-    val = -1.0 * torch.sqrt((cc * mask).sum() / denom.clamp_min(1.0))
+    denom = global_sum(mask.sum(), mesh)
+    val = -1.0 * torch.sqrt(global_sum((cc * mask).sum(), mesh)
+                            / denom.clamp_min(1.0))
     return torch.where(denom == 0, torch.zeros_like(val), val)

@@ -18,6 +18,13 @@ The JAX package reads the port's ``net_G`` / ``net_F`` / ``net_R`` ``.pth``
 but not ``net_D.pth``: its ``_pth_converter`` has no discriminator branch
 and raises ``KeyError``.  The port reads the JAX package's ``net_D``
 ``.msgpack`` and its two-optimizer state.
+
+Data parallel (``parallelize(mesh)``, one process a card): every rank
+builds the same weights from ``--seed`` (or reads the same checkpoint),
+takes its slice of each global batch, and steps with the gradients and
+losses of the global batch.  Rank 0 alone writes checkpoints.  A rank's
+dropout masks are its own, so a resumed data-parallel run draws masks
+other than an uninterrupted one would.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from dfmir_tpu_torch.engine import checkpoints as ckpt
 from dfmir_tpu_torch.engine.config import RegistrationConfig
 from dfmir_tpu_torch.engine.registration import RegistrationModel
 from dfmir_tpu_torch.engine.schedules import LRSchedule
+from dfmir_tpu_torch.parallel.mesh import barrier, check_share
 from dfmir_tpu_torch.utils.util import str2bool
 
 
@@ -103,6 +111,7 @@ class RegistrationTask:
             self.model_names += ["D"]
 
         self.step = 0
+        self.mesh = None
         self.schedule = LRSchedule(opt) if self.isTrain else None
         self.metric = 0.0  # plateau-policy input
         self._losses = {}
@@ -129,8 +138,16 @@ class RegistrationTask:
                 or not self.isTrain:
             self.load_networks(opt.epoch)
 
-    def parallelize(self):
-        """A no-op: one card (data parallelism is ROADMAP A12)."""
+    def parallelize(self, mesh=None):
+        """Data parallel as rank ``mesh.rank`` of ``mesh.world`` (the JAX
+        package's sharded batch; ``options`` gives more than one device
+        only when ``--batch_size`` divides over them): the engine checks
+        that every rank holds the same weights and Adam state and
+        broadcasts rank 0's.  Without a mesh, one device."""
+        if mesh is None:
+            return
+        self.mesh = mesh
+        self.engine.data_parallel(mesh)
 
     def eval(self):
         """A no-op: the engine's evaluation paths (``register``,
@@ -141,10 +158,12 @@ class RegistrationTask:
 
     def set_input(self, batch):
         """Moves the batch's NCHW arrays to the device; uint8 pixels are
-        normalized there."""
+        normalized there.  Data parallel, this rank's share of the global
+        batch, as the sliced loader gives it."""
         AtoB = self.opt.direction == "AtoB"
         A, B = (torch.as_tensor(np.asarray(batch[k]))
                 for k in (("A", "B") if AtoB else ("B", "A")))
+        check_share(len(A), self.opt.batch_size, self.mesh)
         if A.dtype == torch.uint8:
             A, B = (dequant_u8(x.to(self.device)) for x in (A, B))
         else:
@@ -173,9 +192,10 @@ class RegistrationTask:
     def registration_stats(self):
         """Scalar deformation-health statistics of the current batch
         (folding fraction, |J| range, max displacement), for
-        ``--jac_freq``."""
+        ``--jac_freq``; data parallel, the global batch's (every rank
+        calls it)."""
         A, B = self._batch
-        stats = self.engine.flow_stats(A, B)
+        stats = self.engine.flow_stats(A, B, self.mesh)
         return OrderedDict((k, float(v)) for k, v in stats.items())
 
     # ---------------------------------------------------------- accessors
@@ -205,6 +225,12 @@ class RegistrationTask:
     # -------------------------------------------------------- checkpoints
 
     def save_networks(self, epoch):
+        """Rank 0 writes (every rank calls it); the others wait for it."""
+        if self.mesh is None or self.mesh.rank == 0:
+            self._save(epoch)
+        barrier(self.mesh)
+
+    def _save(self, epoch):
         nets = {name: net.state_dict() for name, net in self._nets().items()
                 if name in self.model_names}
         eng = self.engine
@@ -225,7 +251,9 @@ class RegistrationTask:
     def load_networks(self, epoch):
         """The reference's load semantics, with ``--pretrained_name`` (a
         warm start from another experiment); Adam's state, the step and the
-        patch generator are restored when every network was loaded."""
+        patch generator are restored when every network was loaded.  Data
+        parallel, every rank reads the files, and ``parallelize`` then
+        checks that they read the same."""
         pretrained = getattr(self.opt, "pretrained_name", None)
         load_dir = (os.path.join(self.opt.checkpoints_dir, pretrained)
                     if pretrained else self.save_dir)

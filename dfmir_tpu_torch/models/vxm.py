@@ -9,6 +9,9 @@ cannot draw JAX's streams, so one seed gives different weights in the two
 packages.  Checkpoints are ``{epoch}_net_R.pth`` and ``{epoch}_optim.pth``
 (Adam's state and the step); where no ``.pth`` exists, the JAX package's
 ``.msgpack`` is read through ``compat/convert.py``.
+
+Data parallel (``parallelize(mesh)``), as ``models/registration.py``:
+each rank steps on its slice of the global batch, rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from dfmir_tpu_torch.device import resolve_device
 from dfmir_tpu_torch.engine import checkpoints as ckpt
 from dfmir_tpu_torch.engine.schedules import LRSchedule
 from dfmir_tpu_torch.engine.vxm_engine import VxmConfig, VxmEngine
+from dfmir_tpu_torch.parallel.mesh import barrier, check_share
 from dfmir_tpu_torch.utils.util import str2bool
 
 
@@ -62,6 +66,7 @@ class VxmTask:
         self.visual_names = ["source", "target", "registered"]
         self.model_names = ["R"]
         self.schedule = LRSchedule(opt) if self.isTrain else None
+        self.mesh = None
         self.metric = 0.0  # plateau-policy input
         self._losses = {}
         self._batch = None
@@ -87,8 +92,13 @@ class VxmTask:
                 or not self.isTrain:
             self.load_networks(opt.epoch)
 
-    def parallelize(self):
-        """A no-op: one card (data parallelism is ROADMAP A12)."""
+    def parallelize(self, mesh=None):
+        """Data parallel as rank ``mesh.rank`` of ``mesh.world`` (see
+        ``models/registration.py``); without a mesh, one device."""
+        if mesh is None:
+            return
+        self.mesh = mesh
+        self.engine.data_parallel(mesh)
 
     def eval(self):
         """A no-op: VxmDense has no dropout or batch norm."""
@@ -96,10 +106,13 @@ class VxmTask:
     # -------------------------------------------------------------- steps
 
     def set_input(self, batch):
-        """Moves the batch's (B, 1, D, H, W) float volumes to the device."""
-        self._batch = tuple(
-            torch.as_tensor(np.asarray(batch[k], np.float32)).to(self.device)
-            for k in ("A", "B"))
+        """Moves the batch's (B, 1, D, H, W) float volumes to the device;
+        data parallel, this rank's share of the global batch, as the sliced
+        loader gives it."""
+        A, B = (torch.as_tensor(np.asarray(batch[k], np.float32))
+                for k in ("A", "B"))
+        check_share(len(A), self.opt.batch_size, self.mesh)
+        self._batch = (A.to(self.device), B.to(self.device))
         self.image_paths = batch.get("A_paths")
 
     def optimize_parameters(self):
@@ -120,9 +133,10 @@ class VxmTask:
     def registration_stats(self):
         """Scalar deformation-health statistics of the current batch
         (folding fraction, |J| range, max displacement), for
-        ``--jac_freq``."""
+        ``--jac_freq``; data parallel, the global batch's (every rank
+        calls it)."""
         A, B = self._batch
-        stats = self.engine.flow_stats(A, B)
+        stats = self.engine.flow_stats(A, B, self.mesh)
         return OrderedDict((k, float(v)) for k, v in stats.items())
 
     # ---------------------------------------------------------- accessors
@@ -156,10 +170,13 @@ class VxmTask:
     # -------------------------------------------------------- checkpoints
 
     def save_networks(self, epoch):
-        ckpt.save_networks(
-            self.save_dir, epoch, {"R": self.engine.netR.state_dict()},
-            opt_extras={"optimizer": self.engine.optimizer.state_dict(),
-                        "step": self.engine.step})
+        """Rank 0 writes (every rank calls it); the others wait for it."""
+        if self.mesh is None or self.mesh.rank == 0:
+            ckpt.save_networks(
+                self.save_dir, epoch, {"R": self.engine.netR.state_dict()},
+                opt_extras={"optimizer": self.engine.optimizer.state_dict(),
+                            "step": self.engine.step})
+        barrier(self.mesh)
 
     def _optim_from_jax(self, tree):
         return {"optimizer": convert.vxm_adam_state_from_jax(
@@ -168,7 +185,9 @@ class VxmTask:
 
     def load_networks(self, epoch):
         """netR, Adam's state and the step from ``{epoch}_*.pth``, else
-        from the JAX package's ``.msgpack``."""
+        from the JAX package's ``.msgpack``.  Data parallel, every rank
+        reads the files, and ``parallelize`` then checks that they read the
+        same."""
         cfg = self.cfg
         loaded = ckpt.load_networks(
             self.save_dir, epoch, self.model_names,

@@ -7,7 +7,11 @@ and one-sided at the edges (the numpy.gradient convention).
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
+
+from dfmir_tpu_torch.parallel.mesh import all_reduce_max, all_reduce_metrics
 
 
 def _gradient(u, axis):
@@ -43,3 +47,17 @@ def folding_fraction(flow):
     """%|J|<0: the fraction of pixels where the deformation folds, (B,)."""
     det = jacobian_det(flow)
     return (det < 0).float().mean(dim=tuple(range(1, det.ndim)))
+
+
+def field_stats(flow, mesh=None) -> Dict[str, torch.Tensor]:
+    """Scalar field-health statistics of a batch of flows: the folding
+    fraction, |J|'s least, most and mean, and the largest displacement.
+    With a ``mesh`` (``parallel.mesh``, ``flow`` this rank's slice), the
+    global batch's: the extremes over the ranks, the means' mean."""
+    det = jacobian_det(flow)
+    means = all_reduce_metrics({"fold": folding_fraction(flow).mean(),
+                                "jac_mean": det.mean()}, mesh)
+    neg_min, jac_max, flow_max = all_reduce_max(
+        torch.stack([-det.min(), det.max(), flow.abs().max()]), mesh)
+    return {"fold": means["fold"], "jac_min": -neg_min, "jac_max": jac_max,
+            "jac_mean": means["jac_mean"], "flow_max": flow_max}

@@ -2,10 +2,15 @@
 package's ``options/base_options.py``): the same flags, names, defaults
 and choices, so that a command line of the JAX package is one of the port.
 
-The device: ``--gpu_ids -1`` runs on the CPU, one id ``N`` on ``cuda:N``
-(which raises without a card); more than one id raises, DDP being ROADMAP
-A12.  ``parse`` sets ``opt.device`` to ``"cpu"`` or ``"cuda:N"``.  Parsed
-options are written to ``{checkpoints_dir}/{name}/{phase}_opt.txt``.
+The devices: ``--gpu_ids -1`` runs on the CPU, one id ``N`` on
+``cuda:N`` (which raises without a card), more than one id trains data
+parallel, one process a card (``parallel/``), when ``--batch_size``
+divides over them, as the JAX package shards its batch over its devices
+then; otherwise on the first id alone, which ``parse`` prints.  ``parse``
+sets ``opt.devices`` to that list and ``opt.device`` to its first entry,
+``"cpu"`` or ``"cuda:N"``; ``test.py`` and ``evaluate.py`` run on
+``opt.device``.  Parsed options are written to
+``{checkpoints_dir}/{name}/{phase}_opt.txt``.
 """
 
 from __future__ import annotations
@@ -19,19 +24,36 @@ from dfmir_tpu_torch.utils.util import mkdirs, str2bool
 
 
 def device_from_gpu_ids(gpu_ids) -> str:
-    """``"cpu"`` for no id, ``"cuda:N"`` for one; raises without a card and
-    for more than one id."""
+    """``"cpu"`` for no id, ``"cuda:N"`` for the first; raises without a
+    card."""
     if not gpu_ids:
         return "cpu"
-    if len(gpu_ids) > 1:
-        raise NotImplementedError(
-            f"--gpu_ids {','.join(map(str, gpu_ids))}: the port trains on "
-            f"one card; DDP is ROADMAP A12")
     if not torch.cuda.is_available():
         raise RuntimeError(
-            f"--gpu_ids {gpu_ids[0]}: no CUDA device is available; pass "
-            f"--gpu_ids -1 to run on the CPU")
+            f"--gpu_ids {','.join(map(str, gpu_ids))}: no CUDA device is "
+            f"available; pass --gpu_ids -1 to run on the CPU")
     return f"cuda:{gpu_ids[0]}"
+
+
+def device_plan(gpu_ids, batch_size: int):
+    """The devices a run trains on: one rank a card when more than one id
+    is given and ``batch_size`` divides over them (the JAX package's rule
+    in ``parallelize``), else the first id alone, saying why."""
+    first = device_from_gpu_ids(gpu_ids)
+    if len(gpu_ids) < 2:
+        return [first]
+    ids = ",".join(map(str, gpu_ids))
+    if len(set(gpu_ids)) != len(gpu_ids):
+        raise ValueError(f"--gpu_ids {ids}: an id more than once")
+    cards = torch.cuda.device_count()
+    if max(gpu_ids) >= cards:
+        raise RuntimeError(f"--gpu_ids {ids}: {cards} CUDA devices")
+    if batch_size % len(gpu_ids):
+        print(f"--batch_size {batch_size} does not divide over the "
+              f"{len(gpu_ids)} cards of --gpu_ids {ids}: running on "
+              f"{first} alone")
+        return [first]
+    return [f"cuda:{i}" for i in gpu_ids]
 
 
 class BaseOptions:
@@ -53,7 +75,9 @@ class BaseOptions:
         parser.add_argument("--easy_label", type=str,
                             default="experiment_name")
         parser.add_argument("--gpu_ids", type=str, default="0",
-                            help="-1: the CPU; one id N: cuda:N")
+                            help="-1: the CPU; one id N: cuda:N; N,M,...: "
+                                 "one process a card, the batch split "
+                                 "over them")
         parser.add_argument("--checkpoints_dir", type=str,
                             default="./checkpoints")
         parser.add_argument("--seed", type=int, default=0,
@@ -181,6 +205,7 @@ class BaseOptions:
         self.print_options(opt)
         str_ids = str(opt.gpu_ids).split(",")
         opt.gpu_ids = [int(i) for i in str_ids if int(i) >= 0]
-        opt.device = device_from_gpu_ids(opt.gpu_ids)
+        opt.devices = device_plan(opt.gpu_ids, opt.batch_size)
+        opt.device = opt.devices[0]
         self.opt = opt
         return opt

@@ -38,7 +38,8 @@ MODULES = ("ops.warp_cuda", "engine.registration", "engine.schedules",
            "options.test_options", "data.image_folder", "data.transforms",
            "data.unaligned", "data.loader", "models.registration",
            "utils.png", "utils.util", "utils.html", "utils.visualizer",
-           "utils.jac_vis", "metrics.segmentation", "metrics.image")
+           "utils.jac_vis", "metrics.segmentation", "metrics.image",
+           "parallel.mesh", "parallel.launch", "parallel.checks")
 
 
 def probe(blocked=()):

@@ -1,7 +1,8 @@
 """The port's command line (dfmir_tpu_torch/options/) against the JAX
 package's: the same argv gives the same ``vars(opt)`` for Train and Test
-options, CUT and FastCUT, but for the device (the port adds
-``opt.device``: "cpu" for --gpu_ids -1); ``RegistrationConfig.from_opt``
+options, CUT and FastCUT, but for the devices (the port adds
+``opt.device``, "cpu" for --gpu_ids -1, and ``opt.devices``, its data
+parallel plan); ``RegistrationConfig.from_opt``
 equals JAX's field by field; so do the 3-D command line's options (--model
 vxm, --dataset_mode volume) and ``VxmConfig.from_opt``; the device rules
 and the modes the port does not have yet raise."""
@@ -21,9 +22,9 @@ from dfmir_tpu_torch.engine.config import RegistrationConfig
 from dfmir_tpu_torch.engine.vxm_engine import VxmConfig
 from dfmir_tpu_torch.options import TestOptions, TrainOptions
 
-# the only key that differs, and why: the port resolves the device once,
+# the only keys that differ, and why: the port resolves its devices once,
 # where the JAX package hands device choice to jax.config
-PORT_ONLY = {"device"}
+PORT_ONLY = {"device", "devices"}
 
 
 def parse(cls, argv):
@@ -95,8 +96,10 @@ def test_a_card_is_required_unless_the_cpu_is_named(tmp_path, monkeypatch):
         parse(TrainOptions, argv)                      # default --gpu_ids 0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert parse(TrainOptions, argv + ["--gpu_ids", "1"]).device == "cuda:1"
-    with pytest.raises(NotImplementedError, match="A12"):
-        parse(TrainOptions, argv + ["--gpu_ids", "0,1"])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    two = parse(TrainOptions, argv + ["--gpu_ids", "0,1", "--batch_size",
+                                      "2"])
+    assert (two.devices, two.device) == (["cuda:0", "cuda:1"], "cuda:0")
 
 
 @pytest.mark.parametrize("flags,match", [
