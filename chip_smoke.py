@@ -5,7 +5,8 @@
 
 Phases, each printing one JSON line:
   1. device   the card (nvidia-smi name and power limit); TF32 off for
-              convs and matmuls, so every comparison is float32 to float32
+              convs and matmuls (device.float32_math, as every entry point
+              of the port does), so every comparison is float32 to float32
   2. build    nvcc builds every kernel from dfmir_tpu_torch/csrc/
   3. kernel   each 2-D kernel against its plain PyTorch version on the card
               at the main paths' shapes and a few hard ones (forward max-abs
@@ -67,6 +68,23 @@ Phases, each printing one JSON line:
               rate 0.5 within 5 binomial sigmas on the card's generator;
               one seed twice the same masks; register bit-equal to the
               no_dropout=True model's)
+  zoo         the network zoo at the same full width, one choice a run
+              changed from RegistrationConfig(): netG unet_256 (taps
+              0,2,4,6), resnet_cat (0,1,2,3), stylegan2 and smallstylegan2
+              (1,2,3); netF sample, global_pool, reshape, strided_conv; netR
+              vxm_transformer, vxm_dual; netD stylegan2, patchstylegan2,
+              tilestylegan2 (lambda_GAN 1). Each run: one register call
+              counted (1 chain forward + 1 B1), for the netG and netR runs
+              against the same weights on the CPU (fake_B, y_source,
+              pos_flow max-abs <= 1e-3); register ms (CUDA events, median
+              of 10); 1 warm-up + 3 timed steps counted (the CUT step's
+              launches), every parameter moved but the noise weights no
+              loss reaches, peak memory; one train step at the narrow width
+              (crop 64, ngf 8; unet_256 at crop 256, resnet_cat at ngf 32)
+              on the card and on the CPU: metrics 1e-3 relative (absolute
+              below 1e-4), each network's gradients (netD's from its phase)
+              within 1e-2 of its max |g| on the CPU. A line a run, then a
+              summary line
   cli         the 2-D command line in-process at the options' defaults
               (the paper's model at full width), in a temporary directory
               removed after, its prints in a log there: 16 train and 4
@@ -84,7 +102,13 @@ Phases, each printing one JSON line:
               values kept); evaluate.main (1 + 1 a pair; a finite summary);
               train.main --CUT_mode FastCUT and --lambda_GAN 1, 2 steps
               each (launches exact; the GAN run's `latest` with net_D and
-              netD's Adam state reloaded bit-equal; test.main of it);
+              netD's Adam state reloaded bit-equal; test.main of it); two
+              zoo models, 2 steps each (launches exact), `latest` reloaded
+              bit-equal and test.main of one pair (2 chain forwards + 3
+              B1): --netG unet_256 --nce_layers 0,2,4,6 --netR
+              vxm_transformer --netF reshape, and --netG stylegan2
+              --nce_layers 1,2,3 --netR vxm_dual --lambda_GAN 1 --netD
+              tilestylegan2;
               train.main at B=8 for one epoch; then ms a step beside phase
               train's, data ms a step, PNG decode ms an image, checkpoint
               save and load ms and bytes, test and evaluate ms a pair
@@ -177,8 +201,10 @@ Phases, each printing one JSON line:
               loaded on the card bit-equal to rank 1's final weights
 Each phase's wall seconds follow it.  Then the kernels line (all nine
 kernels, their launches by path: register, train, fastcut, gan,
-bf16_register, bf16_train, dropout, register3d, train3d, cli_train,
-cli_test, cli_fastcut, cli_gan, cli_gan_test, cli3d_train, cli3d_eval,
+bf16_register, bf16_train, dropout, zoo_register, zoo_train (summed over
+the zoo's runs), register3d, train3d, cli_train, cli_test, cli_fastcut,
+cli_gan, cli_gan_test, cli_zoo_unet, cli_zoo_unet_test,
+cli_zoo_stylegan2, cli_zoo_stylegan2_test, cli3d_train, cli3d_eval,
 dp, dp_fastcut, dp_gan, dp_nccl, dp3d, dp_cli; a dp path's summed over
 its ranks), and last {"ok": true, "device": {...}}.  A rank that fails
 fails its phase (its traceback in the error); nothing falls back to one
@@ -255,6 +281,7 @@ try:
     from dfmir_tpu_torch.data.transforms import to_array
     from dfmir_tpu_torch.data.volume import (crop_or_pad, load_volume,
                                              normalize_minmax)
+    from dfmir_tpu_torch.device import float32_math
     from dfmir_tpu_torch.engine.config import RegistrationConfig
     from dfmir_tpu_torch.engine.registration import RegistrationModel
     from dfmir_tpu_torch.engine.vxm_engine import VxmConfig, VxmEngine
@@ -340,8 +367,7 @@ def phase_device():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    float32_math()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "nvidia_smi": smi, "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1934,6 +1960,188 @@ def phase_dropout(seed, smi):
     return launches
 
 
+# ------------------------------------------------------------ phase zoo
+# the network zoo at RegistrationConfig()'s full width (WIDTH beside it),
+# one choice a run changed from the defaults
+ZOO_RUNS = {
+    "netG_unet_256": dict(netG="unet_256", nce_layers=(0, 2, 4, 6)),
+    "netG_resnet_cat": dict(netG="resnet_cat", nce_layers=(0, 1, 2, 3)),
+    "netG_stylegan2": dict(netG="stylegan2", nce_layers=(1, 2, 3)),
+    "netG_smallstylegan2": dict(netG="smallstylegan2", nce_layers=(1, 2, 3)),
+    "netF_sample": dict(netF="sample"),
+    "netF_global_pool": dict(netF="global_pool"),
+    "netF_reshape": dict(netF="reshape"),
+    "netF_strided_conv": dict(netF="strided_conv"),
+    "netR_vxm_transformer": dict(netR="vxm_transformer"),
+    "netR_vxm_dual": dict(netR="vxm_dual"),
+    "netD_stylegan2": dict(lambda_GAN=1.0, netD="stylegan2"),
+    "netD_patchstylegan2": dict(lambda_GAN=1.0, netD="patchstylegan2"),
+    "netD_tilestylegan2": dict(lambda_GAN=1.0, netD="tilestylegan2"),
+}
+ZOO_CPU_REGISTER = ("netG", "netR")  # runs whose full-width register is
+                                     # held against the CPU
+ZOO_STEPS = 3                        # timed, after 1 warm-up
+ZOO_REGISTER_REPS = 10
+# the card-vs-CPU step: the CPU tests' narrow width, but unet_256 needs a
+# side of 2^8, and resnet_cat's tap 0 is a ReLU's output, which at 8
+# channels is all zero at some location: the L2 norm's square root then has
+# an infinite derivative there and the gradients are NaN (in the JAX
+# package as in the port), so its width is 32
+ZOO_NARROW = dict(SMALL, ndf=8)
+ZOO_NARROW_WIDTH = {"netG_unet_256": dict(crop_size=256),
+                    "netG_resnet_cat": dict(ngf=32)}
+# a metric near 0 is held absolutely: global_pool's NCE, one row an image
+# and so no negative but the masked one, is ~1e-8
+ZOO_METRIC_FLOOR = 1e-4
+
+
+def zoo_nets(model):
+    return [net for net in NETS + ("netD",)
+            if getattr(model, net, None) is not None]
+
+
+def zoo_narrow_step(name, change, seed):
+    """One train_step at the narrow width on the card and on the CPU from
+    the same weights and patch ids: metrics within PATH_TOL relative
+    (absolute below ZOO_METRIC_FLOOR), each network's gradients (netD's
+    from its phase) within GRAD_ENV of its max |g| on the CPU; the card's
+    launches the CUT step's."""
+    cfg = RegistrationConfig(**dict(ZOO_NARROW, **change,
+                                    **ZOO_NARROW_WIDTH.get(name, {})))
+    crop = cfg.crop_size
+    gen = torch.Generator().manual_seed(seed + 3)
+    a, b = (torch.tanh(2 * torch.randn((2, 1, crop, crop), generator=gen))
+            for _ in range(2))
+    out = {}
+    for run, dev in (("card", DEVICE), ("cpu", "cpu")):
+        model = build_model(cfg, seed, dev)
+        warp_cuda.reset_launches()
+        m = model.train_step(a.to(dev), b.to(dev), cfg.lr,
+                             generator=patch_gen(seed))
+        if run == "card":
+            torch.cuda.synchronize()
+            check_launches(f"zoo {name} narrow step",
+                           dict(warp_cuda.LAUNCHES), dict(ZERO,
+                                                          **STEP_LAUNCHES))
+        out[run] = ({k: float(v) for k, v in m.items()},
+                    {net: [(torch.zeros_like(p) if p.grad is None
+                            else p.grad).detach().cpu()
+                           for p in getattr(model, net).parameters()]
+                     for net in zoo_nets(model)})
+        del model
+    card_m, cpu_m = out["card"][0], out["cpu"][0]
+    metric_errs = {k: abs(card_m[k] - v) / max(abs(v), ZOO_METRIC_FLOOR)
+                   for k, v in cpu_m.items()}
+    bad = {k: e for k, e in metric_errs.items() if not e <= PATH_TOL}
+    if bad or card_m.keys() != cpu_m.keys():
+        raise AssertionError(f"zoo {name} narrow step: card vs CPU metrics "
+                             f"{bad} > {PATH_TOL}")
+    grad_errs = {}
+    for net, cpu_g in out["cpu"][1].items():
+        if not cpu_g:                  # a parameterless netF
+            continue
+        scale = max(float(g.abs().max()) for g in cpu_g)
+        err = max(float((x - y).abs().max())
+                  for x, y in zip(out["card"][1][net], cpu_g)) / scale
+        grad_errs[net] = {"net_scale": scale, "card_vs_cpu": err}
+        if not (scale > 0 and err <= GRAD_ENV):
+            raise AssertionError(f"zoo {name} narrow step {net}: gradients "
+                                 f"off by {err} of max |g| {scale} > "
+                                 f"{GRAD_ENV}")
+    return {"crop": crop, "ngf": cfg.ngf, "metrics_rel": metric_errs,
+            "grads": grad_errs}
+
+
+def zoo_run(name, change, seed, smi, pairs):
+    """One zoo choice at full width: a register call counted (and against
+    the CPU for a netG or netR run), register ms by CUDA events, 1 warm-up
+    + ZOO_STEPS timed train steps counted, every parameter moved, peak
+    memory, then the narrow card-vs-CPU step."""
+    cfg = RegistrationConfig(**dict(WIDTH, **change))
+    model = build_model(cfg, seed, DEVICE)
+    a, b, _ = pairs[0]
+    warp_cuda.reset_launches()
+    out = model.register(a, b)
+    torch.cuda.synchronize()
+    reg_launches = dict(warp_cuda.LAUNCHES)
+    check_launches(f"zoo {name} register", reg_launches,
+                   dict(ZERO, **REGISTER_LAUNCHES))
+    flow_max = float(out[3].abs().max())
+    if not (flow_max > 0.5 and all(bool(o.isfinite().all()) for o in out)):
+        raise AssertionError(f"zoo {name}: register outputs not finite or "
+                             f"pos_flow max {flow_max} px <= 0.5")
+    errs = None
+    if name.split("_")[0] in ZOO_CPU_REGISTER:
+        cpu = build_model(cfg, seed, "cpu")
+        ref = cpu.register(a.cpu(), b.cpu())
+        del cpu
+        errs = {k: float((o.cpu() - r).abs().max()) for k, o, r in
+                zip(("fake_B", "idt_B", "y_source", "pos_flow"), out, ref)}
+        bad = {k: errs[k] for k in ("fake_B", "y_source", "pos_flow")
+               if not errs[k] <= PATH_TOL}
+        if bad:
+            raise AssertionError(f"zoo {name}: register card vs CPU {bad} "
+                                 f"> {PATH_TOL}")
+    reg_ms = time_ms(lambda: model.register(a, b), reps=ZOO_REGISTER_REPS,
+                     warmup=2)
+    del out
+    before = [(net, k, p.detach().clone()) for net in zoo_nets(model)
+              for k, p in getattr(model, net).named_parameters()]
+    ms, history, launches, peak = counted_steps(model, pairs, cfg.lr, seed,
+                                                f"zoo {name}")
+    unmoved = [f"{net}.{k}" for net, k, p0 in before
+               if torch.equal(dict(getattr(model, net).named_parameters())[
+                   k].detach(), p0)]
+    # a parameter no loss reaches (the noise weights: no noise is drawn,
+    # as in JAX) stays where it is
+    unmoved = [u for u in unmoved if not u.endswith(".noise.weight")]
+    if unmoved:
+        raise AssertionError(f"zoo {name}: {len(unmoved)} parameters did "
+                             f"not move: {unmoved[:8]}")
+    nets = {net: {"type": type(getattr(model, net)).__name__,
+                  "params": sum(p.numel() for p in
+                                getattr(model, net).parameters())}
+            for net in zoo_nets(model)}
+    del model, before
+    torch.cuda.empty_cache()
+    narrow = zoo_narrow_step(name, change, seed)
+    return {"run": name, "change": {k: list(v) if isinstance(v, tuple)
+                                    else v for k, v in change.items()},
+            "nets": nets, "register_launches": reg_launches,
+            "register_ms_b1": reg_ms, "register_card_vs_cpu_max_abs": errs,
+            "pos_flow_max_px": flow_max, "step_launches": launches,
+            "step_ms_b1": ms, "ms_per_step_b1": statistics.median(ms[1:]),
+            "peak_mem_gb_b1": peak / 1e9, "metrics_last": history[-1],
+            "narrow_step_card_vs_cpu": narrow, "card": smi}
+
+
+def phase_zoo(seed, smi, register_ms, train_ms):
+    """Every ZOO_RUNS choice at full width (zoo_run), each run's line
+    printed as it ends; the launches summed over the runs' register calls
+    and steps."""
+    pairs = make_pairs(1 + ZOO_STEPS, 1, RegistrationConfig(
+        **WIDTH).crop_size, seed + 7, DEVICE)
+    reg_total, step_total = dict(ZERO), dict(ZERO)
+    summary = {}
+    for name, change in ZOO_RUNS.items():
+        t0 = time.perf_counter()
+        r = zoo_run(name, change, seed, smi, pairs)
+        r["wall_s"] = time.perf_counter() - t0
+        emit({"phase": "zoo", **r})
+        for total, got in ((reg_total, r["register_launches"]),
+                           (step_total, r["step_launches"])):
+            for k, v in got.items():
+                total[k] += v
+        summary[name] = {"register_ms_b1": r["register_ms_b1"],
+                         "ms_per_step_b1": r["ms_per_step_b1"],
+                         "peak_mem_gb_b1": r["peak_mem_gb_b1"]}
+    emit({"phase": "zoo", "runs": summary,
+          "cut_register_ms_b1": register_ms, "cut_ms_per_step_b1": train_ms,
+          "register_launches": reg_total, "step_launches": step_total,
+          "card": smi})
+    return {"zoo_register": reg_total, "zoo_train": step_total}
+
+
 # ------------------------------------------------------------ phase cli
 # what each call of the task around the engine launches, from the code:
 # compute_visuals runs loss_fn without a backward (the chain + the data and
@@ -2256,6 +2464,8 @@ def cli_paths(root, log, seed, smi, engine_ms):
         raise AssertionError(f"cli evaluate summary {summary}")
 
     options = cli_option_paths(root, log, common, card, ck_dir)
+    zoo = cli_zoo_paths(root, log, common, card, ck_dir)
+    options = {k: dict(options[k], **zoo[k]) for k in options}
 
     # train at B=8: every pair, one epoch
     b8, launches_b8 = run_counted(
@@ -2327,6 +2537,55 @@ CLI_OPTION_RUNS = {"cli_fastcut": ["--CUT_mode", "FastCUT"],
 CLI_OPTION_STEPS = 2
 
 
+def cli_short_run(log, common, card, name, flags, ck_dir):
+    """``train`` with ``flags`` for CLI_OPTION_STEPS steps (launches
+    exact): (trained, launches, summary)."""
+    trained, launches = run_counted(
+        log, train_cli.main, common + card + flags + [
+            "--name", name, "--max_dataset_size", str(CLI_OPTION_STEPS),
+            "--n_epochs", "1", "--n_epochs_decay", "0",
+            "--save_epoch_freq", "1", "--print_freq", "1",
+            "--display_freq", "1000", "--jac_freq", "0"])
+    steps = len(trained["step_s"])
+    check_launches(f"{name}, {steps} steps", launches,
+                   cli_train_launches(steps, 1, 1000, 1, 0))
+    recs = losses_of(os.path.join(ck_dir, name))
+    return trained, launches, {"flags": flags, "steps": steps,
+                               "step_ms": [x * 1e3 for x in
+                                           trained["step_s"]],
+                               "losses_last": recs[-1]["losses"]}
+
+
+def cli_reload_and_test(root, log, common, card, name, flags, task):
+    """``name``'s `latest` reloaded into a fresh task on the card bit for
+    bit (weights, Adam states, step), then ``test`` of one pair (launches
+    exact): (test launches, summary)."""
+    with contextlib.redirect_stdout(log):
+        opt = TrainOptions(common + card + flags + [
+            "--name", name, "--continue_train"]).parse()
+    fresh = RegistrationTask(opt)
+    fresh.setup(opt)
+    mine, ref = state_tensors(fresh), state_tensors(task)
+    unequal = [k for k in ref if k not in mine
+               or not torch.equal(mine[k], ref[k])]
+    if unequal or mine.keys() != ref.keys() or fresh.step != task.step:
+        raise AssertionError(f"{name}: reloaded `latest` differs: "
+                             f"{unequal[:8]} (step {fresh.step} vs "
+                             f"{task.step})")
+    summary = {"reload_tensors_equal": len(mine),
+               "reload_has_adamD": any(k.startswith("adamD.") for k in mine)}
+    del fresh, mine, ref
+    torch.cuda.empty_cache()
+    tested, launches = run_counted(
+        log, test_cli.main, common + card + flags + [
+            "--name", name, "--results_dir",
+            os.path.join(root, f"results_{name}"), "--num_test", "1"])
+    check_launches(f"{name} test", launches,
+                   add_counts((1, TEST_PAIR_LAUNCHES)))
+    summary["test_ms_per_pair"] = tested["pair_s"][0] * 1e3
+    return launches, summary
+
+
 def cli_option_paths(root, log, common, card, ck_dir):
     """``train --CUT_mode FastCUT`` and ``train --lambda_GAN 1``,
     CLI_OPTION_STEPS steps each (launches exact); the GAN run's `latest`
@@ -2334,47 +2593,46 @@ def cli_option_paths(root, log, common, card, ck_dir):
     for bit; ``test`` of it."""
     launches, summary = {}, {}
     for name, flags in CLI_OPTION_RUNS.items():
-        trained, launches[name] = run_counted(
-            log, train_cli.main, common + card + flags + [
-                "--name", name, "--max_dataset_size", str(CLI_OPTION_STEPS),
-                "--n_epochs", "1", "--n_epochs_decay", "0",
-                "--save_epoch_freq", "1", "--print_freq", "1",
-                "--display_freq", "1000", "--jac_freq", "0"])
-        steps = len(trained["step_s"])
-        check_launches(f"{name}, {steps} steps", launches[name],
-                       cli_train_launches(steps, 1, 1000, 1, 0))
-        recs = losses_of(os.path.join(ck_dir, name))
-        summary[name] = {"flags": flags, "steps": steps,
-                         "step_ms": [x * 1e3 for x in trained["step_s"]],
-                         "losses_last": recs[-1]["losses"]}
+        trained, launches[name], summary[name] = cli_short_run(
+            log, common, card, name, flags, ck_dir)
         task = trained["model"]
         del trained
     gan_ck = os.path.join(ck_dir, "cli_gan")
     if not os.path.isfile(os.path.join(gan_ck, "latest_net_D.pth")):
         raise AssertionError(f"cli_gan wrote {sorted(os.listdir(gan_ck))}")
-    with contextlib.redirect_stdout(log):
-        opt = TrainOptions(common + card + CLI_OPTION_RUNS["cli_gan"] + [
-            "--name", "cli_gan", "--continue_train"]).parse()
-    fresh = RegistrationTask(opt)
-    fresh.setup(opt)
-    mine, ref = state_tensors(fresh), state_tensors(task)
-    unequal = [k for k in ref if k not in mine
-               or not torch.equal(mine[k], ref[k])]
-    if unequal or mine.keys() != ref.keys() or fresh.step != task.step \
-            or not any(k.startswith("adamD.") for k in mine):
-        raise AssertionError(f"cli_gan: reloaded `latest` differs: "
-                             f"{unequal[:8]} (step {fresh.step} vs "
-                             f"{task.step})")
-    summary["cli_gan"]["reload_tensors_equal"] = len(mine)
-    del fresh, mine, ref, task
-    torch.cuda.empty_cache()
-    tested, launches["cli_gan_test"] = run_counted(
-        log, test_cli.main, common + card + CLI_OPTION_RUNS["cli_gan"] + [
-            "--name", "cli_gan", "--results_dir",
-            os.path.join(root, "results_gan"), "--num_test", "1"])
-    check_launches("cli_gan test", launches["cli_gan_test"],
-                   add_counts((1, TEST_PAIR_LAUNCHES)))
-    summary["cli_gan"]["test_ms_per_pair"] = tested["pair_s"][0] * 1e3
+    launches["cli_gan_test"], more = cli_reload_and_test(
+        root, log, common, card, "cli_gan", CLI_OPTION_RUNS["cli_gan"], task)
+    if not more["reload_has_adamD"]:
+        raise AssertionError("cli_gan: `latest` holds no netD Adam state")
+    summary["cli_gan"].update(more)
+    return {"launches": launches, "summary": summary}
+
+
+# the zoo through the command line: CLI_OPTION_STEPS steps each, `latest`
+# reloaded bit for bit, one test pair
+CLI_ZOO_RUNS = {
+    "cli_zoo_unet": ["--netG", "unet_256", "--nce_layers", "0,2,4,6",
+                     "--netR", "vxm_transformer", "--netF", "reshape"],
+    "cli_zoo_stylegan2": ["--netG", "stylegan2", "--nce_layers", "1,2,3",
+                          "--netR", "vxm_dual", "--lambda_GAN", "1",
+                          "--netD", "tilestylegan2"],
+}
+
+
+def cli_zoo_paths(root, log, common, card, ck_dir):
+    """Each CLI_ZOO_RUNS run: train (launches exact), `latest` reloaded
+    bit-equal, test of one pair (launches exact)."""
+    launches, summary = {}, {}
+    for name, flags in CLI_ZOO_RUNS.items():
+        trained, launches[name], summary[name] = cli_short_run(
+            log, common, card, name, flags, ck_dir)
+        task = trained["model"]
+        del trained
+        launches[f"{name}_test"], more = cli_reload_and_test(
+            root, log, common, card, name, flags, task)
+        summary[name].update(more)
+        del task
+        torch.cuda.empty_cache()
     return {"launches": launches, "summary": summary}
 
 
@@ -3652,6 +3910,8 @@ def main(argv=None):
         "bf16", phase_bf16, args.seed, smi, reg_ms, train_ms)
     dropout_launches = run("dropout", phase_dropout, args.seed, smi)
     torch.cuda.empty_cache()
+    zoo_launches = run("zoo", phase_zoo, args.seed, smi, reg_ms, train_ms)
+    torch.cuda.empty_cache()
     cli_launches = run("cli", phase_cli, args.seed, smi, train_ms)
     rows3d = run("kernel3d", phase_kernel3d, args.seed, args.profile)
     chain3d_rows = run("kernel_chain3d", phase_kernel_chain3d, args.seed,
@@ -3672,7 +3932,7 @@ def main(argv=None):
     paths = {"register": reg_launches, "train": train_launches,
              "fastcut": fastcut_launches, "gan": gan_launches,
              "bf16_register": bf16_reg_launches, "bf16_train": bf16_launches,
-             "dropout": dropout_launches,
+             "dropout": dropout_launches, **zoo_launches,
              "register3d": reg3d_launches, "train3d": train3d_launches,
              **cli_launches, **cli3d_launches, **dp_launches,
              "dp_nccl": dp_nccl_launches, "dp3d": dp3d_launches,

@@ -11,6 +11,9 @@ state_dict's: netG ``model.<i>.*``, netR (2-D or 3-D)
 ``mlp_<i>.{0,2}.*``, netD ``model.<i>.*`` (``net.<i>.*`` for the pixel
 discriminator).  A flax Dense kernel (in, out) becomes an nn.Linear
 weight (out, in).  Adam's moments take the same maps as their parameters.
+The zoo's networks (unet, munit, StyleGAN2, the transformer netR, the
+netF heads) keep flax's module names, so ``state_from_flax`` maps them
+by walking the port's modules.
 
 ``read_flax_msgpack`` decodes a checkpoint file that flax's
 ``msgpack_serialize`` wrote, with the ``msgpack`` package (imported inside
@@ -23,6 +26,12 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from dfmir_tpu_torch.nets.discriminators import (NLayerDiscriminator,
+                                                 PixelDiscriminator)
+from dfmir_tpu_torch.nets.patch_sample import PatchSampleF
+from dfmir_tpu_torch.nets.resnet_gen import ResnetGenerator
+from dfmir_tpu_torch.nets.vxm import VxmDense
 
 
 def to_nchw(a) -> np.ndarray:
@@ -136,6 +145,95 @@ def netD_state_from_jax(params: Mapping[str, Any],
     return sd
 
 
+def _tree_leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _tree_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,)
+
+
+def _flax_path(tree, segments, leaf):
+    """The key path of a port module's subtree in a flax tree: the port's
+    names are flax's, but for a wrapper segment (``VxmConvBlock.main``)
+    where flax has a single child (``ConvND_0``); then single-child
+    wrappers (``Conv_0``) are descended until ``leaf`` is found."""
+    node, path = tree, ()
+    for seg in segments:
+        if seg not in node:
+            kids = [k for k, v in node.items() if isinstance(v, Mapping)]
+            if len(kids) != 1:
+                raise KeyError(f"no {seg!r} at {'/'.join(path) or '/'}: "
+                               f"{sorted(node)}")
+            seg = kids[0]
+        node, path = node[seg], path + (seg,)
+    while leaf not in node:
+        kids = [k for k, v in node.items() if isinstance(v, Mapping)]
+        if len(kids) != 1:
+            raise KeyError(f"no {leaf!r} under {'/'.join(path)}: "
+                           f"{sorted(node)}")
+        node, path = node[kids[0]], path + (kids[0],)
+    return node, path
+
+
+def _module_state(module, node):
+    """A module's own parameters from its flax subtree, by type."""
+    if hasattr(module, "flax_state"):
+        return module.flax_state(node)
+    if isinstance(module, torch.nn.ConvTranspose2d):
+        out = {"weight": _convT_w(node["kernel"])}
+    elif isinstance(module, torch.nn.modules.conv._ConvNd):
+        out = {"weight": _conv_w(node["kernel"])}
+    elif isinstance(module, torch.nn.Linear):
+        k = np.asarray(node["kernel"]).reshape(module.in_features,
+                                               module.out_features)
+        out = {"weight": _t(k.T)}
+    elif isinstance(module, torch.nn.LayerNorm):
+        out = {"weight": _t(node["scale"])}
+    else:
+        return {name: _t(node[name])
+                for name, _ in module.named_parameters(recurse=False)}
+    if "bias" in node:
+        out["bias"] = _t(np.asarray(node["bias"]).reshape(-1))
+    return out
+
+
+def state_from_flax(net, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax param tree (or Adam moments of one) of a zoo network as the
+    state_dict of the port's ``net``, whose module names are flax's
+    (``nets/{unet_gen,munit,stylegan2,transfusion,feature_nets}.py``).
+    Every parameter of ``net`` must be found, with its shape, and every
+    leaf of ``tree`` used."""
+    sd: Dict[str, torch.Tensor] = {}
+    used = set()
+    for mpath, module in net.named_modules():
+        own = dict(module.named_parameters(recurse=False))
+        if not own:
+            continue
+        if isinstance(module, (torch.nn.modules.conv._ConvNd,
+                               torch.nn.Linear)):
+            leaf = "kernel"
+        elif isinstance(module, torch.nn.LayerNorm):
+            leaf = "scale"
+        else:
+            leaf = next(iter(own))
+        node, path = _flax_path(tree, mpath.split(".") if mpath else [],
+                                leaf)
+        for name, v in _module_state(module, node).items():
+            key = f"{mpath}.{name}" if mpath else name
+            if tuple(v.shape) != tuple(own[name].shape):
+                raise ValueError(f"{key}: {tuple(v.shape)} from the JAX tree, "
+                                 f"{tuple(own[name].shape)} in the port")
+            sd[key] = v
+        used.update(path + (k,) for k in node
+                    if not isinstance(node[k], Mapping))
+    unused = set(_tree_leaves(tree)) - used
+    if unused:
+        raise KeyError(f"{type(net).__name__}: JAX leaves not in the port: "
+                       f"{sorted('/'.join(u) for u in unused)}")
+    return sd
+
+
 def load_strict(net, sd) -> None:
     """Load ``sd`` into ``net``; every weight (not the blur layers' fixed
     ``filt`` buffers) must be given, and nothing else."""
@@ -162,14 +260,26 @@ def net_state_from_jax(model, name: str,
     ``RegistrationModel``)."""
     cfg = model.cfg
     if name == "G":
-        return netG_state_from_jax(tree, model.netG.specs,
-                                   use_dropout=not cfg.no_dropout)
+        if isinstance(model.netG, ResnetGenerator):
+            return netG_state_from_jax(tree, model.netG.specs,
+                                       use_dropout=not cfg.no_dropout)
+        return state_from_flax(model.netG, tree)
     if name == "F":
-        return netF_state_from_jax(tree)
+        if isinstance(model.netF, PatchSampleF):
+            return netF_state_from_jax(tree)
+        sd = state_from_flax(model.netF, tree)
+        # StridedConvF's EMA: zeros in the JAX engine, never saved
+        sd.update({k: torch.zeros_like(v, device="cpu")
+                   for k, v in model.netF.named_buffers()})
+        return sd
     if name == "R":
-        return netR_state_from_jax(tree, cfg.vxm_enc, cfg.vxm_dec)
+        if isinstance(model.netR, VxmDense):
+            return netR_state_from_jax(tree, cfg.vxm_enc, cfg.vxm_dec)
+        return state_from_flax(model.netR, tree)
     if name == "D" and model.netD is not None:
-        return netD_state_from_jax(tree, model.netD)
+        if isinstance(model.netD, (NLayerDiscriminator, PixelDiscriminator)):
+            return netD_state_from_jax(tree, model.netD)
+        return state_from_flax(model.netD, tree)
     raise KeyError(f"no network {name!r} in the port's RegistrationModel")
 
 

@@ -1,4 +1,5 @@
-"""The default-device rule: CUDA, unless the caller names another device."""
+"""The default-device rule: CUDA, unless the caller names another device;
+and the port's float32 rule: no TF32 in its convolutions and matmuls."""
 
 from __future__ import annotations
 
@@ -17,3 +18,12 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+def float32_math() -> None:
+    """Convolutions and matmuls in float32, as the JAX reference computes
+    them: TF32 off in cuDNN and cuBLAS (a fresh torch process convolves in
+    TF32).  Every entry point of the port and every spawned rank calls it
+    first."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False

@@ -58,9 +58,23 @@ ids and FastCUT's coin come from ``patch_generator``, equal on every rank
 (one seed); the dropout masks are each rank's own.  ``eval_step`` and
 ``compute_visuals`` score the batch they are given.
 
-Not ported (they raise NotImplementedError): ``netF`` other than
-``mlp_sample`` / ``sample``, the StyleGAN2 ``netD``s, bfloat16 at
-``ndims=3``.
+The networks come from the factories (``nets/factory.py``), as in JAX:
+every ``netG`` (``resnet_<n>blocks``, ``unet_256`` / ``unet_128``,
+``resnet_cat``, ``stylegan2`` / ``smallstylegan2``), ``netF``
+(``mlp_sample``, ``sample``, ``global_pool``, ``reshape``,
+``strided_conv``), ``netR`` (``vxm``, ``vxm_transformer``, ``vxm_dual``)
+and ``netD``.  netF maps the list of tapped maps to (one (B * P, C)
+embedding list, ids): ``global_pool`` gives one row an image,
+``reshape`` 16 and ``strided_conv`` every output location (its EMA stays
+at zero, as JAX's ``update_ema=False``).  Outside the resnet family,
+PatchSampleF's MLP widths and StridedConvF's (C, H) specs come from the
+taps' shapes, probed with one encode of a zero image at construction.
+Only the resnet and unet generators take the dropout ``train`` flag.
+
+Not ported (they raise NotImplementedError): bfloat16 at ``ndims=3``,
+bfloat16 with a zoo choice (any netG, netF, netR or netD but the paper
+model's resnet / PatchSampleF / vxm / PatchGAN family, ROADMAP A13c), and
+the zoo choices at ``ndims=3``, which the JAX package cannot run.
 """
 
 from __future__ import annotations
@@ -74,10 +88,12 @@ from dfmir_tpu_torch.device import resolve_device
 from dfmir_tpu_torch.engine.config import RegistrationConfig
 from dfmir_tpu_torch.losses import (gan_loss, masked_l1, patch_nce_loss,
                                     smoothness_loss)
-from dfmir_tpu_torch.nets.factory import define_D
+from dfmir_tpu_torch.nets.factory import (define_D, define_F, define_G,
+                                          g_family, resnet_blocks)
+from dfmir_tpu_torch.nets.feature_nets import channels_last_rows
 from dfmir_tpu_torch.nets.layers import call_in
-from dfmir_tpu_torch.nets.patch_sample import PatchSampleF
-from dfmir_tpu_torch.nets.resnet_gen import ResnetGenerator, nce_feature_dims
+from dfmir_tpu_torch.nets.resnet_gen import nce_feature_dims
+from dfmir_tpu_torch.nets.transfusion import VxmDenseTransformer
 from dfmir_tpu_torch.nets.vxm import VxmDense
 from dfmir_tpu_torch.ops.jacobian import (field_stats, folding_fraction,
                                           jacobian_det)
@@ -86,15 +102,25 @@ from dfmir_tpu_torch.parallel.mesh import (Mesh, all_reduce_grads,
                                            all_reduce_metrics, replicate,
                                            state_tensors)
 
-NETF_CHOICES = ("mlp_sample", "sample")
+NETR_CHOICES = ("vxm", "vxm_transformer", "vxm_dual")
+# the paper model's netF and netD families; any other choice is the zoo's
+PAPER_NETF = ("mlp_sample", "sample")
+PAPER_NETD = ("basic", "n_layers", "pixel", "patch")
 
 
-def resnet_blocks(netG: str) -> int:
-    """Block count of a ``resnet_<n>blocks`` generator name."""
-    if not (netG.startswith("resnet_") and netG.endswith("blocks")):
-        raise NotImplementedError(
-            f"netG {netG!r}: only the resnet_<n>blocks generators are ported")
-    return int(netG[len("resnet_"):-len("blocks")])
+def zoo_choices(cfg: RegistrationConfig) -> List[str]:
+    """The config's choices outside the paper model's families (netG
+    resnet, netF PatchSampleF, netR vxm, netD PatchGAN)."""
+    out = []
+    if g_family(cfg.netG) != "resnet":
+        out.append(f"netG={cfg.netG!r}")
+    if cfg.netF not in PAPER_NETF:
+        out.append(f"netF={cfg.netF!r}")
+    if cfg.netR != "vxm":
+        out.append(f"netR={cfg.netR!r}")
+    if cfg.lambda_GAN > 0 and cfg.netD not in PAPER_NETD:
+        out.append(f"netD={cfg.netD!r}")
+    return out
 
 
 def grid_image(size: int, spacing: int = 16, thickness: int = 1):
@@ -124,35 +150,66 @@ class RegistrationModel:
             raise NotImplementedError(
                 f"compute_dtype={cfg.compute_dtype!r} at ndims={cfg.ndims}: "
                 f"only the 2-D model is ported in bfloat16")
-        if cfg.netR != "vxm":
-            raise NotImplementedError(f"netR {cfg.netR!r}: only 'vxm' is ported")
-        if cfg.netF not in NETF_CHOICES:
+        if cfg.netR not in NETR_CHOICES:
+            raise NotImplementedError(f"netR {cfg.netR}")
+        zoo = zoo_choices(cfg)
+        if zoo and cfg.compute_dtype != "float32":
             raise NotImplementedError(
-                f"netF {cfg.netF!r}: only {NETF_CHOICES} are ported")
+                f"compute_dtype={cfg.compute_dtype!r} with {', '.join(zoo)}: "
+                f"bfloat16 is ported for the paper model's families only "
+                f"(ROADMAP A13c, bf16 with the zoo)")
+        if zoo and cfg.ndims != 2:
+            raise NotImplementedError(
+                f"{', '.join(zoo)} at ndims={cfg.ndims}: the JAX package "
+                f"cannot run these networks in 3-D (their pooling, resizes "
+                f"and 2-D convs take (B, H, W, C) maps), so there is nothing "
+                f"to port")
         self.cfg = cfg
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        gen_kwargs = dict(
+        # built on the CPU, where the taps are probed, then moved
+        netG = define_G(
             input_nc=cfg.input_nc, output_nc=cfg.output_nc, ngf=cfg.ngf,
-            n_blocks=resnet_blocks(cfg.netG),
-            no_antialias=cfg.no_antialias, no_antialias_up=cfg.no_antialias_up)
-        self.netG = ResnetGenerator(
-            **gen_kwargs, norm=cfg.normG, use_dropout=not cfg.no_dropout,
+            netG=cfg.netG, norm=cfg.normG, use_dropout=not cfg.no_dropout,
             init_type=cfg.init_type, init_gain=cfg.init_gain,
-            generator=generator,
-        ).to(self.device).eval()
-        self.netR = VxmDense(
-            ndims=cfg.ndims, nb_features=(tuple(cfg.vxm_enc),
-                                          tuple(cfg.vxm_dec)),
-            int_steps=cfg.int_steps, int_downsize=cfg.int_downsize,
-            bidir=True, compute_dtype=cfg.compute_dtype, generator=generator,
-        ).to(self.device).eval()
-        self.netF = PatchSampleF(
-            nce_feature_dims(cfg.nce_layers, **gen_kwargs), nc=cfg.netF_nc,
-            use_mlp=cfg.netF == "mlp_sample", init_type=cfg.init_type,
-            init_gain=cfg.init_gain, generator=generator,
-        ).to(self.device)
+            no_antialias=cfg.no_antialias, no_antialias_up=cfg.no_antialias_up,
+            size=cfg.crop_size,
+            stylegan2_num_downsampling=cfg.stylegan2_G_num_downsampling,
+            generator=generator)
+        if g_family(cfg.netG) == "resnet" and cfg.netF != "strided_conv":
+            dims = nce_feature_dims(
+                cfg.nce_layers, input_nc=cfg.input_nc,
+                output_nc=cfg.output_nc, ngf=cfg.ngf,
+                n_blocks=resnet_blocks(cfg.netG),
+                no_antialias=cfg.no_antialias,
+                no_antialias_up=cfg.no_antialias_up)
+            specs = None
+        else:
+            shapes = self._tap_shapes(netG)
+            dims = [s[1] for s in shapes]
+            specs = [(s[1], s[2]) for s in shapes]
+        self.netG = netG.to(self.device).eval()
+        if cfg.netR == "vxm":
+            self.netR = VxmDense(
+                ndims=cfg.ndims, nb_features=(tuple(cfg.vxm_enc),
+                                              tuple(cfg.vxm_dec)),
+                int_steps=cfg.int_steps, int_downsize=cfg.int_downsize,
+                bidir=True, compute_dtype=cfg.compute_dtype,
+                generator=generator)
+        else:
+            self.netR = VxmDenseTransformer(
+                ndims=cfg.ndims, nb_features=(tuple(cfg.vxm_enc),
+                                              tuple(cfg.vxm_dec)),
+                int_steps=cfg.int_steps, int_downsize=cfg.int_downsize,
+                bidir=True,
+                fuse="gpt" if cfg.netR == "vxm_transformer" else "none",
+                generator=generator)
+        self.netR = self.netR.to(self.device).eval()
+        self.netF = define_F(
+            netF=cfg.netF, netF_nc=cfg.netF_nc, feature_dims=dims,
+            strided_specs=specs, init_type=cfg.init_type,
+            init_gain=cfg.init_gain, generator=generator).to(self.device)
         # patch ids (and FastCUT's coin) are drawn from this when a step is
         # given neither ids nor a generator
         self.patch_generator = torch.Generator().manual_seed(
@@ -171,7 +228,8 @@ class RegistrationModel:
                 input_nc=cfg.output_nc, ndf=cfg.ndf, netD=cfg.netD,
                 n_layers_D=cfg.n_layers_D, norm=cfg.normD,
                 init_type=cfg.init_type, init_gain=cfg.init_gain,
-                no_antialias=cfg.no_antialias, generator=generator,
+                no_antialias=cfg.no_antialias, in_size=cfg.crop_size,
+                generator=generator,
             ).to(self.device)
             self.optimizer_D = torch.optim.Adam(
                 self.netD.parameters(), lr=cfg.lr,
@@ -205,6 +263,15 @@ class RegistrationModel:
             1, np.uint64)[0]
         self.dropout_generator.manual_seed(int(seed))
         self.mesh = mesh
+
+    def _tap_shapes(self, netG) -> List[torch.Size]:
+        """The (1, C, H, W) shapes of netG's taps: one encode of a zero
+        image (what JAX's ``_tap_shapes`` traces abstractly)."""
+        cfg = self.cfg
+        x0 = torch.zeros((1, cfg.input_nc) + (cfg.crop_size,) * cfg.ndims)
+        with torch.no_grad():
+            feats = netG(x0, layers=tuple(cfg.nce_layers), encode_only=True)
+        return [f.shape for f in feats]
 
     # ------------------------------------------------- the networks' calls
 
@@ -257,6 +324,17 @@ class RegistrationModel:
 
     # ------------------------------------------------------------- training
 
+    def _F(self, feats, patch_ids, generator=None):
+        """netF on a list of tapped maps: (list of (B * P, C) embeddings,
+        the patch ids; None for the heads that sample no patches)."""
+        cfg = self.cfg
+        if cfg.netF in ("sample", "mlp_sample"):
+            return self.netF(feats, cfg.num_patches, patch_ids,
+                             generator=generator)
+        if cfg.netF == "strided_conv":
+            return [channels_last_rows(o) for o in self.netF(feats)], None
+        return [self.netF(f) for f in feats], None
+
     def _nce(self, feat_q, feat_k, patch_ids, generator, flip: bool, mesh):
         """The NCE loss of one (query, key) pair of tapped feature lists,
         averaged over the layers; ``flip`` flips the queries back along
@@ -264,9 +342,8 @@ class RegistrationModel:
         cfg = self.cfg
         if flip:
             feat_q = [f.flip(3) for f in feat_q]
-        k_pool, ids = self.netF(feat_k, cfg.num_patches, patch_ids,
-                                generator=generator)
-        q_pool, _ = self.netF(feat_q, cfg.num_patches, ids)
+        k_pool, ids = self._F(feat_k, patch_ids, generator)
+        q_pool, _ = self._F(feat_q, ids)
         total = 0.0
         for f_q, f_k in zip(q_pool, k_pool):
             per_patch = patch_nce_loss(

@@ -34,6 +34,7 @@ import torch
 from dfmir_tpu_torch.compat.convert import (load_strict, net_state_from_jax,
                                             netR_state_from_jax)
 from dfmir_tpu_torch.data.image_folder import decode_image
+from dfmir_tpu_torch.device import float32_math
 from dfmir_tpu_torch.data.transforms import resize, to_array
 from dfmir_tpu_torch.data.volume import (crop_or_pad, load_volume,
                                          normalize_minmax)
@@ -51,6 +52,7 @@ from dfmir_tpu_torch.utils.png import read_png
 
 
 def main(argv=None):
+    float32_math()
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataroot", required=True)
     ap.add_argument("--name", required=True)

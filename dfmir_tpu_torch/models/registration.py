@@ -17,7 +17,9 @@ With ``--lambda_GAN > 0`` ``net_D`` is saved and loaded with the others.
 The JAX package reads the port's ``net_G`` / ``net_F`` / ``net_R`` ``.pth``
 but not ``net_D.pth``: its ``_pth_converter`` has no discriminator branch
 and raises ``KeyError``.  The port reads the JAX package's ``net_D``
-``.msgpack`` and its two-optimizer state.
+``.msgpack`` and its two-optimizer state.  A zoo network's ``.pth``
+holds the port's own names (flax's, ``compat/convert.py::state_from_flax``);
+the port reads a zoo model's JAX ``.msgpack`` too.
 
 Data parallel (``parallelize(mesh)``, one process a card): every rank
 builds the same weights from ``--seed`` (or reads the same checkpoint),

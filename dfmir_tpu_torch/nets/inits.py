@@ -54,3 +54,13 @@ def init_conv_(module, init_type: str, init_gain: float,
             module.bias.uniform_(-bound, bound, generator=generator)
         else:
             module.bias.zero_()
+
+
+@torch.no_grad()
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """flax's default kernel init: a normal truncated at 2 standard
+    deviations, of variance 1 / fan_in after the truncation."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=generator)

@@ -34,6 +34,10 @@ def instance_norm(x, eps: float = 1e-5):
     statistics in float32 at least (float64 stays float64), the result cast
     back to the input dtype."""
     stats = torch.promote_types(x.dtype, torch.float32)
+    if x[0, 0].numel() == 1:
+        # one element a channel: x - mean is 0 (torch's op refuses it)
+        xs = x.to(stats)
+        return ((xs - xs) * eps ** -0.5).to(x.dtype)
     return F.instance_norm(x.to(stats), eps=eps).to(x.dtype)
 
 

@@ -316,9 +316,15 @@ def hang(mesh, seconds):
     dp.barrier(mesh)
 
 
+def tf32_flags(mesh):
+    """The rank's TF32 flags (cuDNN, cuBLAS), as the launch left them."""
+    return {"cudnn": torch.backends.cudnn.allow_tf32,
+            "matmul": torch.backends.cuda.matmul.allow_tf32}
+
+
 CASES = {f.__name__: f for f in (registration_steps, vxm_steps,
                                  reduce_is_exact, collectives, nce,
-                                 loader)}
+                                 loader, tf32_flags)}
 
 
 def run_cases(mesh, cases):

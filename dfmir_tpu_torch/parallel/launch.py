@@ -41,6 +41,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 from torch.multiprocessing.spawn import ProcessException
 
+from dfmir_tpu_torch.device import float32_math
 from dfmir_tpu_torch.parallel.mesh import Mesh
 
 CPU_THREADS = 2      # torch's intra-op threads in a CPU rank: ranks share
@@ -63,6 +64,7 @@ def backend_for(devices: Sequence) -> str:
 
 def _rank_main(rank, fn, devices, backend, store, args,
                collective_timeout):
+    float32_math()
     device = devices[rank]
     if device.type == "cuda":
         torch.cuda.set_device(device)

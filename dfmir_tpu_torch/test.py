@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from dfmir_tpu_torch.data import create_dataset
+from dfmir_tpu_torch.device import float32_math
 from dfmir_tpu_torch.infer import register_pair_outputs
 from dfmir_tpu_torch.models import create_model
 from dfmir_tpu_torch.options import TestOptions
@@ -43,6 +44,7 @@ def save_gray(img01, path):
 
 
 def main(argv=None):
+    float32_math()
     opt = TestOptions(argv).parse()
     if opt.model != "registration":
         raise ValueError(

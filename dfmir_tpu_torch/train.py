@@ -30,6 +30,7 @@ import time
 import torch
 
 from dfmir_tpu_torch.data import create_dataset
+from dfmir_tpu_torch.device import float32_math
 from dfmir_tpu_torch.models import create_model
 from dfmir_tpu_torch.ops import warp_cuda
 from dfmir_tpu_torch.options import TrainOptions
@@ -58,6 +59,7 @@ def main(argv=None, devices=None, timeout=None):
     ``launch.backend_for``: NCCL for distinct cards, gloo for ranks that
     share one or run on the CPU) and the launch's time limit in
     seconds."""
+    float32_math()
     opt = TrainOptions(argv).parse()
     devices = [str(d) for d in (devices or opt.devices)]
     if len(devices) == 1:

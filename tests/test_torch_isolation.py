@@ -39,7 +39,9 @@ MODULES = ("ops.warp_cuda", "engine.registration", "engine.schedules",
            "data.unaligned", "data.loader", "models.registration",
            "utils.png", "utils.util", "utils.html", "utils.visualizer",
            "utils.jac_vis", "metrics.segmentation", "metrics.image",
-           "parallel.mesh", "parallel.launch", "parallel.checks")
+           "parallel.mesh", "parallel.launch", "parallel.checks",
+           "nets.factory", "nets.feature_nets", "nets.transfusion",
+           "nets.unet_gen", "nets.munit", "nets.stylegan2")
 
 
 def probe(blocked=()):

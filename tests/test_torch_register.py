@@ -100,9 +100,26 @@ def test_no_device_means_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("netG", "unet_256"), ("netR", "vxm_transformer"),
+    ("netG", "nope_9blocks"), ("netR", "nope"),
 ])
 def test_unported_choices_raise(field, value):
+    """Every JAX choice is ported: only an unknown name is refused."""
     cfg = RegistrationConfig(**dict(CFG, **{field: value}))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="nope"):
         RegistrationModel(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field,value,match", [
+    ("netG", "unet_256", "A13c"), ("netF", "reshape", "A13c"),
+    ("netR", "vxm_dual", "A13c"), ("netD", "tilestylegan2", "A13c"),
+    ("ndims", 3, "cannot run"),
+])
+def test_zoo_refusals(field, value, match):
+    """bfloat16 with a zoo choice waits for ROADMAP A13c; the zoo at
+    ndims=3 is what the JAX package cannot run."""
+    kw = dict(CFG, compute_dtype="bfloat16", lambda_GAN=1.0,
+              **{field: value})
+    if field == "ndims":
+        kw.update(compute_dtype="float32", netR="vxm_dual", lambda_GAN=0.0)
+    with pytest.raises(NotImplementedError, match=match):
+        RegistrationModel(RegistrationConfig(**kw), device="cpu")
