@@ -77,7 +77,7 @@ Phases, each printing one JSON line:
               counted (1 chain forward + 1 B1), for the netG and netR runs
               against the same weights on the CPU (fake_B, y_source,
               pos_flow max-abs <= 1e-3); register ms (CUDA events, median
-              of 10); 1 warm-up + 3 timed steps counted (the CUT step's
+              of 3); 1 warm-up + 2 timed steps counted (the CUT step's
               launches), every parameter moved but the noise weights no
               loss reaches, peak memory; one train step at the narrow width
               (crop 64, ngf 8; unet_256 at crop 256, resnet_cat at ngf 32)
@@ -85,6 +85,14 @@ Phases, each printing one JSON line:
               below 1e-4), each network's gradients (netD's from its phase)
               within 1e-2 of its max |g| on the CPU. A line a run, then a
               summary line
+  bf16_zoo    each of zoo's 13 choices in bfloat16 at the same full width
+              (the flow head scaled to about 0.1 px): a register call
+              counted (1 + 1), register ms (CUDA events, median of 3), 1
+              warm-up + 2 timed steps counted (the CUT step's launches),
+              every master parameter and Adam moment float32 (netD's too),
+              peak memory, each beside the float32 zoo run of this run; the
+              narrow model card vs the CPU's bfloat16 (register under the
+              bf16 bars, loss_fn metrics 1e-2 relative)
   cli         the 2-D command line in-process at the options' defaults
               (the paper's model at full width), in a temporary directory
               removed after, its prints in a log there: 16 train and 4
@@ -124,9 +132,12 @@ Phases, each printing one JSON line:
               two yardsticks of dsrc built here from
               csrc/yardsticks/dsrc3d.cu (its phases as 4 plain launches; an
               int64 atomic scatter of the same terms), with device us a
-              launch at the VecInt and 160^3 cases; then VecInt's 3-D
-              chain kernels (phase kernel_chain3d: (1,3,80^3) at +-10 and
-              +-2 voxels (mild), a (2,3,80^3) pos/neg stack, first steps
+              launch at the VecInt, 160^3 and joint-model cases; the
+              3-D joint step's `registered` (1,1,128^3) and its stacked
+              data warp (2,1,128^3), at fields of about a voxel; then
+              VecInt's 3-D chain kernels (phase kernel_chain3d: (1,3,80^3)
+              at +-10 and +-2 voxels (mild), a (2,3,80^3) pos/neg stack,
+              the joint model's (1,3,64^3) and (2,3,64^3) pos/neg, first steps
               moving exactly 1, 2 and 3 voxels (the halo staged and past
               it), an odd shape, a x25 N(0,1) field, a collapse, 0-2
               steps; vecint3d_fwd bit-equal to the plain loop saving its
@@ -147,6 +158,30 @@ Phases, each printing one JSON line:
               on one pair (the loss falls), a 64^3 step's gradients card vs
               CPU in float32 (1e-2 of each tensor's max |g|) and float64
               (1e-3); ms per register and per step at B=1, peak memory
+  joint3d     the joint model in 3-D (RegistrationConfig(ndims=3,
+              crop_size=128): ngf 64, resnet_9blocks, mlp_sample with 256
+              patches, the default VxmDense, 7 steps at half resolution;
+              128^3 as the netR's six stride-2 levels need a side 2^6
+              divides), random weights from --seed with the flow head
+              fitted to a field of 0.8 voxel (past a voxel y_source's
+              border voxels are 0, and a patch of 0 makes NaN gradients
+              in JAX, 1e7-scale ones here): 2 register_pair_outputs
+              calls with a label volume
+              counted (1 chain forward + 1 B3 each), register ms (CUDA
+              events, median of 10), 1 warm-up + 3 timed steps counted (1
+              chain forward + 2 B3, 1 chain backward + 2 B4 + 1 B5:
+              `registered`'s source gradient into netG), every parameter
+              moved, peak memory, one step traced (device time by kernel,
+              the idle share); a narrow model (32^3, ngf 8) card vs CPU
+              (register 1e-3 max-abs, metrics 1e-3 relative, gradients
+              1e-2 of each network's max |g|); 20 steps of the narrow
+              model at 64^3 on one pair at lr 1e-3 (the total falls)
+  bf16_3d     the same 3-D model in bfloat16 (the flow head fitted to a
+              field of 0.05 voxel): register and 1 + 3 steps counted and
+              timed beside joint3d's, master parameters and Adam state
+              float32, peak
+              memory; the narrow model card vs the CPU's bfloat16 under
+              the bf16 bars
   8. profile  (--profile only) device time by kernel and by conv shape
               over register calls, 2-D and 3-D train steps, netG / netR
               times, register calls with cuDNN's autotuner on, and each
@@ -201,12 +236,14 @@ Phases, each printing one JSON line:
               loaded on the card bit-equal to rank 1's final weights
 Each phase's wall seconds follow it.  Then the kernels line (all nine
 kernels, their launches by path: register, train, fastcut, gan,
-bf16_register, bf16_train, dropout, zoo_register, zoo_train (summed over
-the zoo's runs), register3d, train3d, cli_train, cli_test, cli_fastcut,
-cli_gan, cli_gan_test, cli_zoo_unet, cli_zoo_unet_test,
-cli_zoo_stylegan2, cli_zoo_stylegan2_test, cli3d_train, cli3d_eval,
-dp, dp_fastcut, dp_gan, dp_nccl, dp3d, dp_cli; a dp path's summed over
-its ranks), and last {"ok": true, "device": {...}}.  A rank that fails
+bf16_register, bf16_train, dropout, zoo_register, zoo_train,
+bf16_zoo_register, bf16_zoo_train (summed over the zoo's runs),
+register3d, train3d, cli_train, cli_test, cli_fastcut, cli_gan,
+cli_gan_test, cli_zoo_unet, cli_zoo_unet_test, cli_zoo_stylegan2,
+cli_zoo_stylegan2_test, cli3d_train, cli3d_eval, joint3d_register,
+joint3d_train, bf16_3d_register, bf16_3d_train, dp, dp_fastcut, dp_gan,
+dp_nccl, dp3d, dp_cli; a dp path's summed over its ranks; B5's main path
+is joint3d_train), and last {"ok": true, "device": {...}}.  A rank that fails
 fails its phase (its traceback in the error); nothing falls back to one
 process or to the CPU.
 
@@ -985,6 +1022,10 @@ CHAIN3D_CASES = [
     ("steps_0", (1, 3, 24, 28, 32), "smooth", 5.0, 0),
     ("steps_1", (1, 3, 24, 28, 32), "smooth", 5.0, 1),
     ("steps_2", (1, 3, 24, 28, 32), "smooth", 5.0, 2),
+    # the 3-D joint model's chains at 128^3 (int_downsize 2): a register
+    # call's and a step's pos / neg
+    ("joint_register", (1, 3, 64, 64, 64), "smooth", 10.0, NSTEPS),
+    ("joint_train", (2, 3, 64, 64, 64), "posneg", 10.0, NSTEPS),
 ]
 MAIN_CHAIN3D_CASE = "register"   # the chain of a 3-D register call and step
 # flops a pixel (2-D) or voxel (3-D) a step: the forward's coordinates, its
@@ -1980,13 +2021,16 @@ ZOO_RUNS = {
 }
 ZOO_CPU_REGISTER = ("netG", "netR")  # runs whose full-width register is
                                      # held against the CPU
-ZOO_STEPS = 3                        # timed, after 1 warm-up
-ZOO_REGISTER_REPS = 10
+# timing depth kept small (it was 3 timed steps and a median of 10 calls)
+# so that the script's phases stay near their time with phases joint3d,
+# bf16_3d and bf16_zoo beside them
+ZOO_STEPS = 2                        # timed, after 1 warm-up
+ZOO_REGISTER_REPS = 3
 # the card-vs-CPU step: the CPU tests' narrow width, but unet_256 needs a
 # side of 2^8, and resnet_cat's tap 0 is a ReLU's output, which at 8
-# channels is all zero at some location: the L2 norm's square root then has
-# an infinite derivative there and the gradients are NaN (in the JAX
-# package as in the port), so its width is 32
+# channels is all zero at some location: the JAX package's gradients are
+# NaN there (the L2 norm's square root) and the port's 1e7-scale (the
+# normalisation's derivative, 1 / eps), so its width is 32
 ZOO_NARROW = dict(SMALL, ndf=8)
 ZOO_NARROW_WIDTH = {"netG_unet_256": dict(crop_size=256),
                     "netG_resnet_cat": dict(ngf=32)}
@@ -2083,7 +2127,7 @@ def zoo_run(name, change, seed, smi, pairs):
             raise AssertionError(f"zoo {name}: register card vs CPU {bad} "
                                  f"> {PATH_TOL}")
     reg_ms = time_ms(lambda: model.register(a, b), reps=ZOO_REGISTER_REPS,
-                     warmup=2)
+                     warmup=1)
     del out
     before = [(net, k, p.detach().clone()) for net in zoo_nets(model)
               for k, p in getattr(model, net).named_parameters()]
@@ -2115,14 +2159,15 @@ def zoo_run(name, change, seed, smi, pairs):
             "narrow_step_card_vs_cpu": narrow, "card": smi}
 
 
-def phase_zoo(seed, smi, register_ms, train_ms):
+def phase_zoo(seed, smi, register_ms, train_ms, summary=None):
     """Every ZOO_RUNS choice at full width (zoo_run), each run's line
     printed as it ends; the launches summed over the runs' register calls
-    and steps."""
+    and steps.  ``summary``, when given, is filled with each run's times
+    and peak memory (phase bf16_zoo prints them beside its own)."""
     pairs = make_pairs(1 + ZOO_STEPS, 1, RegistrationConfig(
         **WIDTH).crop_size, seed + 7, DEVICE)
     reg_total, step_total = dict(ZERO), dict(ZERO)
-    summary = {}
+    summary = {} if summary is None else summary
     for name, change in ZOO_RUNS.items():
         t0 = time.perf_counter()
         r = zoo_run(name, change, seed, smi, pairs)
@@ -2646,14 +2691,19 @@ KERNEL3D_CASES = [
     ("violent", (1, 1, 40, 40, 40), "noise", 25.0, True, False),
     ("zero_flow", (1, 2, 32, 48, 64), "smooth", 0.0, True, False),
     ("collapse", (1, 3, 80, 80, 80), "collapse", 0.95, True, False),
+    # the 3-D joint step at 128^3: `registered` (dsrc into netG; a field of
+    # about a voxel) and the stacked data warp at B=2 (dflow alone)
+    ("joint_registered", (1, 1, 128, 128, 128), "smooth", 0.3, True, False),
+    ("joint_data_warp", (2, 1, 128, 128, 128), "smooth", 0.3, False, False),
 ]
-# the single warps' cases of the kernels line: B3 and B4 run on the main
-# path as the 160^3 data warp (VecInt's steps run in the chain kernels), B5
-# no longer runs there; its case stays VecInt's self-warp
+# the single warps' cases of the kernels line: B3 and B4 run on the
+# VxmEngine's path as the 160^3 data warp (VecInt's steps run in the chain
+# kernels); B5 runs on the 3-D joint step alone, as `registered`'s source
+# gradient
 MAIN3D_CASE = {FWD3D: "data_warp", DFLOW3D: "data_warp",
-               DSRC3D: "vecint_step"}
+               DSRC3D: "joint_registered"}
 # the cases whose device time a launch is always measured
-DEVICE3D_CASES = ("vecint_step", "data_warp")
+DEVICE3D_CASES = ("vecint_step", "data_warp", "joint_registered")
 # ~18 flops a voxel for coordinates and weights; per channel the forward's
 # 8 corners x (3 mul + 1 add), dflow's 8 x (7 mul + 3 add), dsrc's 8 x
 # (3 mul + 1 add into its source voxel's sum); 23 to combine dflow's terms
@@ -2796,6 +2846,7 @@ def phase_kernel3d(seed, profile):
                                device=dev) * scale
         src = flow if alias else torch.randn(shape, generator=gen, device=dev)
         g = torch.randn(shape, generator=gen, device=dev)
+        flow_max = float(flow.abs().max())
         kernels = {FWD3D: lambda: warp_cuda.warp3d_cuda(src, flow),
                    DFLOW3D: lambda: warp_cuda.warp3d_bwd_dflow_cuda(
                        src, flow, g),
@@ -2823,6 +2874,7 @@ def phase_kernel3d(seed, profile):
             bound_ms, bound_by = warp3d_bound(k, B, C, N, alias)
             row = {"case": name, "shape": list(shape), "flow": kind,
                    "flow_px": scale, "src_is_flow": alias,
+                   "flow_max_vox": flow_max,
                    "max_abs_err": err, "tol": tol,
                    "zero_fraction": outside,
                    "ms": time_ms(kernels[k], reps=50),
@@ -3354,6 +3406,414 @@ def cli3d_paths(root, log, seed, smi, engine_ms):
     return {"cli3d_train": launches_train, "cli3d_eval": launches_eval}
 
 
+# ------------------------------------------------------ phase joint3d
+# the joint model in 3-D at full width: RegistrationConfig() at ndims=3
+# (ngf 64, resnet_9blocks, mlp_sample with 256 patches, VxmDense
+# (16,32,32,64,64,64)/(64,64,64,32,32,32,16), 7 steps at half resolution)
+# at 128^3: the default netR's six stride-2 levels need a side that 2^6
+# divides, and at 160^3 the step's saved maps would come near the card's
+# memory.  `registered = warp(fake_B, pos_flow)` is the one 3-D warp whose
+# source needs a gradient: B5 runs there
+JOINT3D = dict(ndims=3, crop_size=128)
+# the card-vs-CPU config: what the CPU runs in seconds
+JOINT3D_NARROW = dict(ndims=3, crop_size=32, netG="resnet_4blocks", ngf=8,
+                      vxm_enc=(8, 16, 16, 16),
+                      vxm_dec=(16, 16, 16, 16, 16, 8, 8), netF_nc=16,
+                      num_patches=16)
+# the convergence check's config: the narrow width at 64^3
+JOINT3D_CONVERGE = dict(JOINT3D_NARROW, crop_size=64)
+JOINT3D_STEPS = 3              # timed, after 1 warm-up
+JOINT3D_REGISTER_REPS = 10
+JOINT3D_CONVERGE_LR = 1e-3
+# a 3-D register call: the chain and the y_source warp; a 3-D joint step:
+# the chain, the stacked data warp and `registered` forward; backward the
+# chain, both warps' dflow and `registered`'s dsrc (fake_B's gradient)
+JOINT3D_REGISTER = {VF3: 1, FWD3D: 1}
+JOINT3D_STEP = {VF3: 1, FWD3D: 2, VB3: 1, DFLOW3D: 2, DSRC3D: 1}
+# the flow head's gain is fitted to a field (max |pos_flow|, voxels) on
+# the run's first pair: past a voxel, y_source's border voxels sample
+# wholly outside the volume, where the warp gives exactly 0, and a patch
+# of 0 at tap 0 (the 1-channel input) leaves netF's MLP an output of 0:
+# the JAX package's gradients are NaN there (the L2 norm's square root),
+# the port's the normalisation's derivative, 1 / eps = 1e7 times the
+# incoming gradient.  bfloat16: a field under 1/16 voxel, where one
+# bf16 ulp of the flow head's output is 2.4e-4, so that the card's and
+# the CPU's bf16 convs, an ulp or three apart there, stay inside the
+# pos_flow bar
+JOINT3D_FIELD = 0.8
+BF16_3D_FIELD = 0.05
+
+
+def joint3d_pairs(n, size, seed, device):
+    """n (real_A, real_B, label) volume triples at B=1, make_pairs' images
+    in 3-D: smooth fields (plus noise for real_A) through a tanh, and a
+    4-valued label volume.  No voxel is exactly 0 (make_volume_pairs'
+    sources are 0 where their warp sampled outside): netF's MLP maps a
+    1-channel tap of 0 to 0, where the JAX package's gradients are NaN
+    (see JOINT3D_FIELD)."""
+    gen = torch.Generator().manual_seed(seed)
+    shape = (1, 1, size, size, size)
+    out = []
+    for _ in range(n):
+        a = torch.tanh(smooth_field3d(shape, 1.5, gen, "cpu")
+                       + 0.1 * torch.randn(shape, generator=gen))
+        b = torch.tanh(smooth_field3d(shape, 1.5, gen, "cpu"))
+        regions = smooth_field3d(shape, 1.0, gen, "cpu")
+        label = torch.bucketize(regions, torch.tensor([-0.5, 0.0, 0.5]))
+        out.append(tuple(t.to(device) for t in (a, b,
+                                                label.float() * 60 / 255)))
+    return out
+
+
+def fit_flow_head(model, a, b, field):
+    """Scale the flow head of ``model`` (built at gain 1) so that its max
+    |pos_flow| on (a, b) is about ``field``: one register (the N(0, 1e-5)
+    head's field is near linear in its gain up to a voxel).  Returns the
+    gain; build_model at that gain gives the same weights."""
+    with torch.no_grad():
+        gain = field / float(model.register(a, b)[3].abs().max())
+        model.netR.flow.weight.mul_(gain)
+    return gain
+
+
+def joint3d_steps(model, pairs, lr, seed, want, what):
+    """train_step over ``pairs`` (the first a warm-up), counted: (ms of
+    each, metrics of each, launches, peak bytes); every step launches
+    ``want`` and every metric is finite."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warp_cuda.reset_launches()
+    ms, history = time_steps(model, pairs, lr, seed)
+    launches = dict(warp_cuda.LAUNCHES)
+    check_launches(f"{what}, {len(pairs)} steps", launches,
+                   add_counts((len(pairs), want)))
+    bad = [(i, k) for i, m in enumerate(history) for k, v in m.items()
+           if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{what}: non-finite metrics {bad}")
+    return ms, history, launches, torch.cuda.max_memory_allocated()
+
+
+def joint3d_register(model, pairs, what):
+    """infer.register_pair_outputs over ``pairs``, counted (each call
+    JOINT3D_REGISTER), every output finite and of its shape; (outputs,
+    launches, max |pos_flow|)."""
+    S = model.cfg.crop_size
+    torch.cuda.synchronize()
+    warp_cuda.reset_launches()
+    outs = [infer.register_pair_outputs(model, a, b, label=lab)
+            for a, b, lab in pairs]
+    torch.cuda.synchronize()
+    launches = dict(warp_cuda.LAUNCHES)
+    check_launches(f"{what}, {len(pairs)} register calls", launches,
+                   add_counts((len(pairs), JOINT3D_REGISTER)))
+    vol = (1, 1, S, S, S)
+    shapes = {"fake_B": vol, "idt_B": vol, "y_source": vol,
+              "pos_flow": (1, 3, S, S, S), "jac_det": (1, S, S, S),
+              "folding_fraction": (1,), "label_warped": vol}
+    for o in outs:
+        for k, shape in shapes.items():
+            if (tuple(o[k].shape) != shape or o[k].dtype != torch.float32
+                    or not bool(o[k].isfinite().all())):
+                raise AssertionError(f"{what} {k}: shape {tuple(o[k].shape)}"
+                                     f" (expected {shape}), {o[k].dtype} or "
+                                     f"not finite")
+    return outs, launches, max(float(o["pos_flow"].abs().max()) for o in outs)
+
+
+def joint3d_narrow(seed, bf16):
+    """The narrow 3-D joint model on the card and on the CPU from the same
+    weights, volumes and patch ids: register (float32: 1e-3 max-abs;
+    bf16: BF16_BARS), loss_fn metrics (float32: PATH_TOL relative; bf16:
+    BF16_METRIC_TOL) and, in float32, each network's gradients within
+    GRAD_ENV of its max |g| on the CPU; the card's backward launches the
+    joint step's kernels."""
+    cfg = RegistrationConfig(**JOINT3D_NARROW, **(BF16 if bf16 else {}))
+    (a, b, lab), = joint3d_pairs(1, cfg.crop_size, seed + 11, "cpu")
+    cpu = build_model(cfg, seed, "cpu", gain=1.0)
+    gain = fit_flow_head(cpu, a, b, BF16_3D_FIELD if bf16 else JOINT3D_FIELD)
+    models = {"card": build_model(cfg, seed, DEVICE, gain), "cpu": cpu}
+    del cpu
+    out = {}
+    for run, dev in (("card", DEVICE), ("cpu", "cpu")):
+        model = models.pop(run)
+        x, y, z = (t.to(dev) for t in (a, b, lab))
+        reg = infer.register_pair_outputs(model, x, y, label=z)
+        warp_cuda.reset_launches()
+        model.optimizer.zero_grad(set_to_none=True)
+        total, metrics, _ = model.loss_fn(x, y, generator=patch_gen(seed))
+        total.backward()
+        if run == "card":
+            torch.cuda.synchronize()
+            check_launches("narrow 3-D joint step", dict(warp_cuda.LAUNCHES),
+                           dict(ZERO, **JOINT3D_STEP))
+        out[run] = ({k: v.detach().cpu() for k, v in reg.items()},
+                    {k: float(v.detach()) for k, v in metrics.items()},
+                    {net: [p.grad.detach().cpu() for p in
+                           getattr(model, net).parameters()]
+                     for net in NETS})
+        del model
+    bars = BF16_BARS if bf16 else dict.fromkeys(
+        ("fake_B", "idt_B", "y_source", "pos_flow"), PATH_TOL)
+    reg_errs = {k: float((out["card"][0][k] - out["cpu"][0][k]).abs().max())
+                for k in bars}
+    bad = {k: e for k, e in reg_errs.items() if not e <= bars[k]}
+    if bad:
+        raise AssertionError(f"narrow 3-D register (bf16 {bf16}): card vs "
+                             f"CPU {bad} past {bars}")
+    flow_max = float(out["cpu"][0]["pos_flow"].abs().max())
+    metric_errs = rel_errs(out["card"][1], out["cpu"][1],
+                           BF16_METRIC_TOL if bf16 else PATH_TOL,
+                           f"narrow 3-D loss_fn (bf16 {bf16})")
+    grad_errs = {}
+    for net in NETS:
+        cpu_g = out["cpu"][2][net]
+        scale = max(float(g.abs().max()) for g in cpu_g)
+        err = max(float((x - y).abs().max())
+                  for x, y in zip(out["card"][2][net], cpu_g)) / scale
+        grad_errs[net] = {"net_scale": scale, "card_vs_cpu": err}
+        if not bf16 and not (scale > 0 and err <= GRAD_ENV):
+            raise AssertionError(f"narrow 3-D step {net}: gradients off by "
+                                 f"{err} of max |g| {scale} > {GRAD_ENV}")
+    return {"crop": cfg.crop_size, "ngf": cfg.ngf, "netG": cfg.netG,
+            "flow_gain": gain, "pos_flow_max_vox": flow_max,
+            "register_max_abs": reg_errs,
+            "metrics_rel": metric_errs, "grads": grad_errs}
+
+
+def float32_state(model, what):
+    """Raise unless every master parameter and Adam moment is float32."""
+    wrong = [n for net in NETS for n, p in getattr(model, net)
+             .named_parameters() if p.dtype != torch.float32]
+    wrong += [str(i) for i, st in model.optimizer.state.items()
+              if not (st["exp_avg"].dtype == st["exp_avg_sq"].dtype
+                      == torch.float32)]
+    if wrong or not model.optimizer.state:
+        raise AssertionError(f"{what}: master parameters or Adam state not "
+                             f"float32: {wrong[:8]}")
+
+
+def phase_joint3d(seed, smi, profile):
+    """The joint model at ndims=3, 128^3, full width: register at B=1
+    counted (1 chain forward + 1 B3 a call; a label volume warped) and
+    timed (CUDA events, median of 10), peak memory; 1 warm-up + 3 timed
+    steps counted (1 + 2 forward, 1 chain backward + 2 B4 + 1 B5), every
+    metric finite and every parameter moved, peak memory; one step traced
+    (device time by kernel: the chains' and B5's, the idle share); the
+    narrow model card vs CPU; 20 steps of the narrow model at 64^3 on one
+    pair, the total falling."""
+    cfg = RegistrationConfig(**JOINT3D)
+    S = cfg.crop_size
+    pairs = joint3d_pairs(1 + JOINT3D_STEPS, S, seed + 10, DEVICE)
+    model = build_model(cfg, seed, DEVICE, gain=1.0)
+    gain = fit_flow_head(model, *pairs[0][:2], JOINT3D_FIELD)
+
+    torch.cuda.reset_peak_memory_stats()
+    outs, reg_launches, flow_max = joint3d_register(model, pairs[:2],
+                                                    "joint3d")
+    if not 0.5 < flow_max < 1.0:
+        raise AssertionError(f"joint3d pos_flow max {flow_max} voxels: "
+                             f"not the fitted {JOINT3D_FIELD}")
+    labels_kept = bool(torch.isin(outs[0]["label_warped"],
+                                  pairs[0][2]).all())
+    if not labels_kept:
+        raise AssertionError("joint3d: the nearest label warp made values "
+                             "the label volume does not hold")
+    a, b, _ = pairs[0]
+    reg_ms = time_ms(lambda: model.register(a, b),
+                     reps=JOINT3D_REGISTER_REPS, warmup=2)
+    peak_register = torch.cuda.max_memory_allocated()
+    folding = [float(o["folding_fraction"][0]) for o in outs]
+    del outs
+
+    before = {(net, k): p.detach().clone() for net in NETS
+              for k, p in getattr(model, net).named_parameters()}
+    ms, history, launches, peak = joint3d_steps(
+        model, pairs, cfg.lr, seed, JOINT3D_STEP, "joint3d")
+    unmoved = [f"{net}.{k}" for (net, k), p0 in before.items()
+               if torch.equal(dict(getattr(model, net).named_parameters())[
+                   k].detach(), p0)]
+    del before
+    if unmoved:
+        raise AssertionError(f"joint3d: {len(unmoved)} parameters did not "
+                             f"move: {unmoved[:8]}")
+    gen = patch_gen(seed)
+    traced = trace(lambda: model.train_step(a, b, cfg.lr, generator=gen), 1,
+                   warmup=0)
+    del model, pairs
+    torch.cuda.empty_cache()
+
+    narrow = joint3d_narrow(seed, bf16=False)
+    conv_cfg = RegistrationConfig(**JOINT3D_CONVERGE)
+    fresh = build_model(conv_cfg, seed + 1, DEVICE, gain=1.0)
+    (ca, cb, _), = joint3d_pairs(1, conv_cfg.crop_size, seed + 12, DEVICE)
+    totals = [float(fresh.train_step(ca, cb, JOINT3D_CONVERGE_LR,
+                                     generator=patch_gen(seed))["total"])
+              for _ in range(CONVERGE_STEPS)]
+    del fresh
+    if not totals[-1] < totals[0]:
+        raise AssertionError(f"joint3d: the total did not fall over "
+                             f"{CONVERGE_STEPS} steps: {totals}")
+    emit({"phase": "joint3d", "config": "RegistrationConfig(ndims=3, "
+          "crop_size=128)", "crop": S, "ngf": cfg.ngf, "netG": cfg.netG,
+          "netF": cfg.netF, "num_patches": cfg.num_patches,
+          "vxm": [list(cfg.vxm_enc), list(cfg.vxm_dec)],
+          "int_steps": cfg.int_steps, "int_downsize": cfg.int_downsize,
+          "flow_gain": gain, "pos_flow_max_vox": flow_max,
+          "folding_fraction": folding, "labels_kept": labels_kept,
+          "register_launches": reg_launches, "register_ms_b1": reg_ms,
+          "peak_mem_gb_register": peak_register / 1e9,
+          **step_summary(ms, history, launches, peak, None),
+          "trace_step": traced, "narrow_card_vs_cpu": narrow,
+          "converge": {"crop": conv_cfg.crop_size,
+                       "lr": JOINT3D_CONVERGE_LR, "totals": totals},
+          "card": smi})
+    if profile:
+        emit({"phase": "profile", "path": "joint3d_train", **traced})
+    return ({"joint3d_register": reg_launches, "joint3d_train": launches},
+            reg_ms, statistics.median(ms[1:]))
+
+
+def phase_bf16_3d(seed, smi, register_ms, train_ms):
+    """The same 3-D model in bfloat16 (the flow head scaled to a field of
+    0.05 voxel): register and 1 warm-up + 3 timed steps at full width,
+    counted and timed beside phase joint3d's float32, every master
+    parameter and Adam moment float32, peak memory; the narrow model card
+    vs the CPU's bfloat16 under BF16_BARS."""
+    cfg = RegistrationConfig(**JOINT3D, **BF16)
+    pairs = joint3d_pairs(1 + JOINT3D_STEPS, cfg.crop_size, seed + 10,
+                          DEVICE)
+    model = build_model(cfg, seed, DEVICE, gain=1.0)
+    gain = fit_flow_head(model, *pairs[0][:2], BF16_3D_FIELD)
+    torch.cuda.reset_peak_memory_stats()
+    _, reg_launches, flow_max = joint3d_register(model, pairs[:2],
+                                                 "bf16_3d")
+    a, b, _ = pairs[0]
+    reg_ms = time_ms(lambda: model.register(a, b),
+                     reps=JOINT3D_REGISTER_REPS, warmup=2)
+    peak_register = torch.cuda.max_memory_allocated()
+    ms, history, launches, peak = joint3d_steps(
+        model, pairs, cfg.lr, seed, JOINT3D_STEP, "bf16_3d")
+    float32_state(model, "bf16_3d")
+    del model, pairs
+    torch.cuda.empty_cache()
+    narrow = joint3d_narrow(seed, bf16=True)
+    emit({"phase": "bf16_3d", "config": "RegistrationConfig(ndims=3, "
+          "crop_size=128, compute_dtype='bfloat16')", "crop": cfg.crop_size,
+          "flow_gain": gain, "pos_flow_max_vox": flow_max,
+          "register_launches": reg_launches, "register_ms_b1": reg_ms,
+          "f32_register_ms_b1": register_ms,
+          "peak_mem_gb_register": peak_register / 1e9,
+          "master_dtype": "float32", "bars": BF16_BARS,
+          **step_summary(ms, history, launches, peak, None),
+          "f32_ms_per_step_b1": train_ms,
+          "narrow_card_vs_cpu_bf16": narrow, "card": smi})
+    return {"bf16_3d_register": reg_launches, "bf16_3d_train": launches}
+
+
+def bf16_zoo_narrow(name, change, seed):
+    """One zoo choice in bfloat16 at the narrow width, card vs the CPU's
+    bfloat16 from the same weights: register under BF16_BARS, loss_fn
+    metrics within BF16_METRIC_TOL relative (absolute below
+    ZOO_METRIC_FLOOR)."""
+    cfg = RegistrationConfig(**dict(ZOO_NARROW, **change, **BF16,
+                                    **ZOO_NARROW_WIDTH.get(name, {})))
+    crop = cfg.crop_size
+    gen = torch.Generator().manual_seed(seed + 3)
+    a, b = (torch.tanh(2 * torch.randn((2, 1, crop, crop), generator=gen))
+            for _ in range(2))
+    out = {}
+    for run, dev in (("card", DEVICE), ("cpu", "cpu")):
+        model = build_model(cfg, seed, dev, BF16_GAIN)
+        with torch.no_grad():
+            reg = model.register(a.to(dev), b.to(dev))
+            _, m, _ = model.loss_fn(a.to(dev), b.to(dev),
+                                    generator=patch_gen(seed))
+        out[run] = ([o.cpu() for o in reg], {k: float(v)
+                                             for k, v in m.items()})
+        del model
+    reg_errs = {k: float((x - y).abs().max()) for k, x, y in
+                zip(BF16_BARS, out["card"][0], out["cpu"][0])}
+    bad = {k: e for k, e in reg_errs.items() if not e <= BF16_BARS[k]}
+    card_m, cpu_m = out["card"][1], out["cpu"][1]
+    metric_errs = {k: abs(card_m[k] - v) / max(abs(v), ZOO_METRIC_FLOOR)
+                   for k, v in cpu_m.items()}
+    bad.update({k: e for k, e in metric_errs.items()
+                if not e <= BF16_METRIC_TOL})
+    if bad or card_m.keys() != cpu_m.keys():
+        raise AssertionError(f"bf16 zoo {name} narrow: card vs CPU {bad} "
+                             f"past {BF16_BARS} / {BF16_METRIC_TOL}")
+    return {"crop": crop, "ngf": cfg.ngf, "register_max_abs": reg_errs,
+            "metrics_rel": metric_errs,
+            "pos_flow_max_px": float(out["cpu"][0][3].abs().max())}
+
+
+def phase_bf16_zoo(seed, smi, zoo_f32):
+    """Every ZOO_RUNS choice in bfloat16 at full width (the flow head
+    scaled to about 0.1 px): a register call counted (1 + 1), register ms
+    (CUDA events, median of ZOO_REGISTER_REPS), 1 warm-up + ZOO_STEPS timed
+    steps counted (the CUT step's launches), master parameters and Adam
+    state float32 (netD's too), peak memory, beside the float32 zoo run of
+    this run (``zoo_f32``, phase zoo's summary); then the narrow
+    card-vs-CPU bf16 check (bf16_zoo_narrow).  A line a run, then a
+    summary line."""
+    pairs = make_pairs(1 + ZOO_STEPS, 1, RegistrationConfig(
+        **WIDTH).crop_size, seed + 7, DEVICE)
+    a, b, _ = pairs[0]
+    reg_total, step_total, summary = dict(ZERO), dict(ZERO), {}
+    for name, change in ZOO_RUNS.items():
+        t0 = time.perf_counter()
+        cfg = RegistrationConfig(**dict(WIDTH, **change, **BF16))
+        model = build_model(cfg, seed, DEVICE, BF16_GAIN)
+        warp_cuda.reset_launches()
+        out = model.register(a, b)
+        torch.cuda.synchronize()
+        reg_launches = dict(warp_cuda.LAUNCHES)
+        check_launches(f"bf16 zoo {name} register", reg_launches,
+                       dict(ZERO, **REGISTER_LAUNCHES))
+        if not all(o.dtype == torch.float32 and bool(o.isfinite().all())
+                   for o in out):
+            raise AssertionError(f"bf16 zoo {name}: register outputs not "
+                                 f"finite float32")
+        flow_max = float(out[3].abs().max())
+        del out
+        reg_ms = time_ms(lambda: model.register(a, b),
+                         reps=ZOO_REGISTER_REPS, warmup=1)
+        ms, history, launches, peak = counted_steps(
+            model, pairs, cfg.lr, seed, f"bf16 zoo {name}")
+        float32_state(model, f"bf16 zoo {name}")
+        if model.netD is not None and not all(
+                st["exp_avg"].dtype == torch.float32
+                for st in model.optimizer_D.state.values()):
+            raise AssertionError(f"bf16 zoo {name}: netD's Adam state not "
+                                 f"float32")
+        del model
+        torch.cuda.empty_cache()
+        narrow = bf16_zoo_narrow(name, change, seed)
+        f32 = zoo_f32.get(name, {})
+        r = {"run": name, "register_launches": reg_launches,
+             "register_ms_b1": reg_ms,
+             "f32_register_ms_b1": f32.get("register_ms_b1"),
+             "pos_flow_max_px": flow_max, "step_launches": launches,
+             "step_ms_b1": ms, "ms_per_step_b1": statistics.median(ms[1:]),
+             "f32_ms_per_step_b1": f32.get("ms_per_step_b1"),
+             "peak_mem_gb_b1": peak / 1e9,
+             "f32_peak_mem_gb_b1": f32.get("peak_mem_gb_b1"),
+             "metrics_last": history[-1], "narrow_card_vs_cpu_bf16": narrow,
+             "wall_s": time.perf_counter() - t0}
+        emit({"phase": "bf16_zoo", **r, "card": smi})
+        for total, got in ((reg_total, reg_launches), (step_total, launches)):
+            for k, v in got.items():
+                total[k] += v
+        summary[name] = {k: r[k] for k in (
+            "register_ms_b1", "f32_register_ms_b1", "ms_per_step_b1",
+            "f32_ms_per_step_b1", "peak_mem_gb_b1", "f32_peak_mem_gb_b1")}
+    emit({"phase": "bf16_zoo", "runs": summary, "flow_gain": BF16_GAIN,
+          "register_launches": reg_total, "step_launches": step_total,
+          "card": smi})
+    return {"bf16_zoo_register": reg_total, "bf16_zoo_train": step_total}
+
+
 # ------------------------------------------------- data parallelism
 # the card's machine has one card: two ranks share it over gloo (each its
 # own process and CUDA context, taking turns on the card), and one rank
@@ -3724,12 +4184,12 @@ def busy_us(prof):
     return busy + (0.0 if hi is None else hi - lo)
 
 
-def trace(call, calls):
-    """Device time by kernel and by conv op over ``calls`` calls (after 2
-    warm-up calls), with the span from CUDA events."""
+def trace(call, calls, warmup=2):
+    """Device time by kernel and by conv op over ``calls`` calls (after
+    ``warmup`` warm-up calls), with the span from CUDA events."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
+    for _ in range(warmup):
         call()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -3910,7 +4370,12 @@ def main(argv=None):
         "bf16", phase_bf16, args.seed, smi, reg_ms, train_ms)
     dropout_launches = run("dropout", phase_dropout, args.seed, smi)
     torch.cuda.empty_cache()
-    zoo_launches = run("zoo", phase_zoo, args.seed, smi, reg_ms, train_ms)
+    zoo_f32 = {}
+    zoo_launches = run("zoo", phase_zoo, args.seed, smi, reg_ms, train_ms,
+                       zoo_f32)
+    torch.cuda.empty_cache()
+    bf16_zoo_launches = run("bf16_zoo", phase_bf16_zoo, args.seed, smi,
+                            zoo_f32)
     torch.cuda.empty_cache()
     cli_launches = run("cli", phase_cli, args.seed, smi, train_ms)
     rows3d = run("kernel3d", phase_kernel3d, args.seed, args.profile)
@@ -3924,6 +4389,12 @@ def main(argv=None):
     torch.cuda.empty_cache()
     cli3d_launches = run("cli3d", phase_cli3d, args.seed, smi, step3d_ms)
     torch.cuda.empty_cache()
+    joint3d_launches, j3d_reg_ms, j3d_step_ms = run(
+        "joint3d", phase_joint3d, args.seed, smi, args.profile)
+    torch.cuda.empty_cache()
+    bf16_3d_launches = run("bf16_3d", phase_bf16_3d, args.seed, smi,
+                           j3d_reg_ms, j3d_step_ms)
+    torch.cuda.empty_cache()
     dp_launches = run("dp", phase_dp, args.seed, smi)
     dp_nccl_launches = run("dp_nccl", phase_dp_nccl, args.seed, smi)
     dp3d_launches = run("dp3d", phase_dp3d, args.seed, smi)
@@ -3933,8 +4404,10 @@ def main(argv=None):
              "fastcut": fastcut_launches, "gan": gan_launches,
              "bf16_register": bf16_reg_launches, "bf16_train": bf16_launches,
              "dropout": dropout_launches, **zoo_launches,
+             **bf16_zoo_launches,
              "register3d": reg3d_launches, "train3d": train3d_launches,
-             **cli_launches, **cli3d_launches, **dp_launches,
+             **cli_launches, **cli3d_launches, **joint3d_launches,
+             **bf16_3d_launches, **dp_launches,
              "dp_nccl": dp_nccl_launches, "dp3d": dp3d_launches,
              **dp_cli_launches}
 
@@ -3957,8 +4430,8 @@ def main(argv=None):
                    rows3d[FWD3D], MAIN3D_CASE[FWD3D]),
         kernel_row(DFLOW3D, f"{tpu}:576", src3d, by_path(DFLOW3D),
                    "train3d", rows3d[DFLOW3D], MAIN3D_CASE[DFLOW3D]),
-        kernel_row(DSRC3D, f"{tpu}:643", src3d, by_path(DSRC3D), "train3d",
-                   rows3d[DSRC3D], MAIN3D_CASE[DSRC3D]),
+        kernel_row(DSRC3D, f"{tpu}:643", src3d, by_path(DSRC3D),
+                   "joint3d_train", rows3d[DSRC3D], MAIN3D_CASE[DSRC3D]),
         kernel_row(VF3, f"{tpu}:356", src3d, by_path(VF3), "train3d",
                    chain3d_rows[VF3], MAIN_CHAIN3D_CASE),
         kernel_row(VB3, f"{tpu}:576", src3d, by_path(VB3), "train3d",

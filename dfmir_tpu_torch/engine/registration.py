@@ -39,7 +39,11 @@ registration.py``):
   and hand back float32 (netG's output and taps, netR's flow head); netF,
   the losses, the flow math and the warps stay float32, and so do the
   master parameters and Adam's state.  No ``torch.autocast``: it keeps
-  another set of ops in float32.
+  another set of ops in float32.  The same for every zoo family, as
+  JAX's ``_cast_params`` casts every float32 leaf of netG and netR: the
+  transformer netRs take float32 inputs, so they compute in float32 on
+  bfloat16-rounded weights (flax's promotion); netF and netD are not
+  cast and see float32 maps.
 - ``lambda_GAN > 0``: ``train_step`` is two phases on one generator pass.
   It updates netD on the detached fake_B with its own Adam, then adds
   ``gan_loss(netD(fake_B), True) * lambda_GAN`` against the updated netD
@@ -71,10 +75,16 @@ PatchSampleF's MLP widths and StridedConvF's (C, H) specs come from the
 taps' shapes, probed with one encode of a zero image at construction.
 Only the resnet and unet generators take the dropout ``train`` flag.
 
-Not ported (they raise NotImplementedError): bfloat16 at ``ndims=3``,
-bfloat16 with a zoo choice (any netG, netF, netR or netD but the paper
-model's resnet / PatchSampleF / vxm / PatchGAN family, ROADMAP A13c), and
-the zoo choices at ``ndims=3``, which the JAX package cannot run.
+At ``ndims=3`` the model takes (B, C, D, H, W) volumes: the resnet netG
+and VxmDense are built for 3-D, netF flattens D * H * W locations in
+JAX's order, and FastCUT flips along H (JAX's axis 2 of (B, D, H, W, C)).
+bfloat16 is ported at both ranks and with every zoo choice.
+
+Refused (NotImplementedError): at ``ndims=3`` the zoo choices the JAX
+package cannot build (``JAX_2D_ONLY``: ``jax.eval_shape`` of its
+``init_state`` and ``_loss_fn`` at 16^3 fails), and, not ported yet
+(ROADMAP A13d), the ones it builds (``unet_*``, ``global_pool``,
+``strided_conv``, ``vxm_dual``) and netD (``lambda_GAN > 0``).
 """
 
 from __future__ import annotations
@@ -106,6 +116,13 @@ NETR_CHOICES = ("vxm", "vxm_transformer", "vxm_dual")
 # the paper model's netF and netD families; any other choice is the zoo's
 PAPER_NETF = ("mlp_sample", "sample")
 PAPER_NETD = ("basic", "n_layers", "pixel", "patch")
+# the zoo choices the JAX package cannot build at ndims=3: munit's residual
+# adds, StyleGAN2's and the netDs' 2-D convs, and the 4-D unpacking of the
+# reshape head, the transformer netR and the tile netD
+JAX_2D_ONLY = {"netG": ("resnet_cat", "stylegan2", "smallstylegan2"),
+               "netF": ("reshape",), "netR": ("vxm_transformer",),
+               "netD": ("stylegan2", "patchstylegan2", "smallpatchstylegan2",
+                        "tilestylegan2")}
 
 
 def zoo_choices(cfg: RegistrationConfig) -> List[str]:
@@ -146,24 +163,10 @@ class RegistrationModel:
         if cfg.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: float32 "
                              f"or bfloat16")
-        if cfg.compute_dtype != "float32" and cfg.ndims != 2:
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r} at ndims={cfg.ndims}: "
-                f"only the 2-D model is ported in bfloat16")
         if cfg.netR not in NETR_CHOICES:
             raise NotImplementedError(f"netR {cfg.netR}")
-        zoo = zoo_choices(cfg)
-        if zoo and cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r} with {', '.join(zoo)}: "
-                f"bfloat16 is ported for the paper model's families only "
-                f"(ROADMAP A13c, bf16 with the zoo)")
-        if zoo and cfg.ndims != 2:
-            raise NotImplementedError(
-                f"{', '.join(zoo)} at ndims={cfg.ndims}: the JAX package "
-                f"cannot run these networks in 3-D (their pooling, resizes "
-                f"and 2-D convs take (B, H, W, C) maps), so there is nothing "
-                f"to port")
+        if cfg.ndims != 2:
+            self._refuse_3d(cfg)
         self.cfg = cfg
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         if generator is None:
@@ -176,7 +179,7 @@ class RegistrationModel:
             no_antialias=cfg.no_antialias, no_antialias_up=cfg.no_antialias_up,
             size=cfg.crop_size,
             stylegan2_num_downsampling=cfg.stylegan2_G_num_downsampling,
-            generator=generator)
+            ndims=cfg.ndims, generator=generator)
         if g_family(cfg.netG) == "resnet" and cfg.netF != "strided_conv":
             dims = nce_feature_dims(
                 cfg.nce_layers, input_nc=cfg.input_nc,
@@ -235,6 +238,27 @@ class RegistrationModel:
                 self.netD.parameters(), lr=cfg.lr,
                 betas=(cfg.beta1, cfg.beta2), eps=1e-8)
 
+    @staticmethod
+    def _refuse_3d(cfg: RegistrationConfig) -> None:
+        """At ndims=3: refuse the zoo choices JAX cannot build there, then
+        those it builds that are not ported in 3-D, and netD."""
+        chosen = {"netG": cfg.netG, "netF": cfg.netF, "netR": cfg.netR,
+                  "netD": cfg.netD if cfg.lambda_GAN > 0 else None}
+        jax_fails = [f"{k}={v!r}" for k, v in chosen.items()
+                     if v in JAX_2D_ONLY[k]]
+        if jax_fails:
+            raise NotImplementedError(
+                f"{', '.join(jax_fails)} at ndims={cfg.ndims}: the JAX "
+                f"package cannot run these networks in 3-D, so there is "
+                f"nothing to port")
+        # every zoo netD is in JAX_2D_ONLY: what reaches here is a PatchGAN
+        later = zoo_choices(cfg) + ([f"netD={cfg.netD!r} (lambda_GAN > 0)"]
+                                    if cfg.lambda_GAN > 0 else [])
+        if later:
+            raise NotImplementedError(
+                f"{', '.join(later)} at ndims={cfg.ndims}: not ported in 3-D "
+                f"yet (ROADMAP A13d)")
+
     def parameters(self) -> List[torch.nn.Parameter]:
         """The parameters of the main update: netG's, netF's and netR's."""
         return [p for net in (self.netG, self.netF, self.netR)
@@ -292,7 +316,12 @@ class RegistrationModel:
         return out.float()
 
     def _R(self, *args, **kw):
-        return call_in(self.compute_dtype, self.netR, *args, **kw)
+        """netR with its parameters in the compute dtype.  VxmDense casts
+        its input to it; the transformer netRs take float32 inputs, which
+        flax promotes against the cast kernels, so they compute in float32
+        on rounded weights."""
+        return call_in(self.compute_dtype, self.netR, *args,
+                       round_only=not isinstance(self.netR, VxmDense), **kw)
 
     # ------------------------------------------------------------ inference
 
@@ -300,8 +329,8 @@ class RegistrationModel:
     def register(self, real_A, real_B):
         """Inference: translation, then registration=True.
 
-        real_A, real_B: (B, C, H, W).  Returns (fake_B, idt_B, y_source,
-        pos_flow)."""
+        real_A, real_B: (B, C, *spatial), 2-D or 3-D.  Returns (fake_B,
+        idt_B, y_source, pos_flow)."""
         B = real_A.shape[0]
         fake = self._G(torch.cat([real_A, real_B], dim=0))
         y_source, pos_flow = self._R(real_A, real_B, registration=True)
@@ -480,7 +509,7 @@ class RegistrationModel:
                 train: bool = True):
         """The step's losses: returns (total, metrics, aux).
 
-        real_A, real_B: (B, C, H, W).  ``patch_ids`` gives the patch
+        real_A, real_B: (B, C, *spatial).  ``patch_ids`` gives the patch
         locations, one list per NCE call (NCE, NCE_Y when ``nce_idt``,
         local) of one (P,) index tensor per tapped layer; without it they
         are drawn from ``generator`` (a CPU generator), else from the

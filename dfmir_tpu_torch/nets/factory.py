@@ -47,14 +47,18 @@ def define_G(input_nc: int = 1, output_nc: int = 1, ngf: int = 64,
              use_dropout: bool = False, init_type: str = "xavier",
              init_gain: float = 0.02, no_antialias: bool = False,
              no_antialias_up: bool = False, size: int = 256,
-             stylegan2_num_downsampling: int = 1, *,
+             stylegan2_num_downsampling: int = 1, ndims: int = 2, *,
              generator: torch.Generator):
+    """``ndims``: the rank of the images (3 for volumes); the resnet
+    family alone is built for 3-D."""
     family = g_family(netG)
     if family == "resnet":
         return ResnetGenerator(
             input_nc, output_nc, ngf, resnet_blocks(netG), norm, use_dropout,
             no_antialias, no_antialias_up, init_type=init_type,
-            init_gain=init_gain, generator=generator)
+            init_gain=init_gain, ndims=ndims, generator=generator)
+    if ndims != 2:
+        raise NotImplementedError(f"netG {netG} at ndims={ndims}")
     if family == "unet":
         return UnetGenerator(
             input_nc, output_nc, 7 if netG == "unet_128" else 8, ngf, norm,

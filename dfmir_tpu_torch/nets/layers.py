@@ -41,14 +41,19 @@ def instance_norm(x, eps: float = 1e-5):
     return F.instance_norm(x.to(stats), eps=eps).to(x.dtype)
 
 
-def call_in(dtype: torch.dtype, net: nn.Module, *args, **kwargs):
+def call_in(dtype: torch.dtype, net: nn.Module, *args,
+            round_only: bool = False, **kwargs):
     """``net(*args, **kwargs)`` with its float32 parameters cast to
     ``dtype`` for this call alone: the master parameters stay float32, and
     their gradients come back through the cast.  Buffers are not cast
-    (the blur filters follow their input's dtype)."""
+    (the blur filters follow their input's dtype).  ``round_only``: the
+    parameters are rounded to ``dtype`` and computed in float32, what
+    flax's dtype promotion does with float32 inputs and low-precision
+    kernels."""
     if dtype == torch.float32:
         return net(*args, **kwargs)
-    params = {name: p.to(dtype) for name, p in net.named_parameters()
+    params = {name: p.to(dtype).float() if round_only else p.to(dtype)
+              for name, p in net.named_parameters()
               if p.dtype == torch.float32}
     return torch.func.functional_call(net, params, args, kwargs)
 

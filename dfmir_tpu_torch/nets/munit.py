@@ -46,14 +46,18 @@ def _flax_dense(c_in: int, c_out: int,
 
 
 class ChannelLayerNorm(nn.LayerNorm):
-    """flax ``nn.LayerNorm()`` on an NHWC map: over the channels alone."""
+    """flax ``nn.LayerNorm()`` on an NHWC map: over the channels alone,
+    in float32 at least (flax's reductions and affine are float32 for a
+    bfloat16 input), the result in the input's dtype."""
 
     def __init__(self, c: int):
         super().__init__(c, eps=1e-6)
 
     def forward(self, x):
-        return F.layer_norm(x.movedim(1, -1), self.normalized_shape,
-                            self.weight, self.bias, self.eps).movedim(-1, 1)
+        f = torch.promote_types(x.dtype, torch.float32)
+        return F.layer_norm(x.movedim(1, -1).to(f), self.normalized_shape,
+                            self.weight.to(f), self.bias.to(f),
+                            self.eps).movedim(-1, 1).to(x.dtype)
 
 
 class Conv2dBlock(nn.Module):

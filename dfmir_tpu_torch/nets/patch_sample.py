@@ -25,8 +25,13 @@ from dfmir_tpu_torch.nets.inits import init_conv_
 
 
 def l2_normalize(x, eps: float = 1e-7):
-    """The reference Normalize(2): x / (||x||_2 + eps) over the last axis."""
-    return x / (x.square().sum(dim=-1, keepdim=True).sqrt() + eps)
+    """The reference Normalize(2): x / (||x||_2 + eps) over the last axis.
+    The norm is ``torch.linalg.vector_norm``, whose gradient at a zero
+    vector is 0: a patch of exactly 0 gets the function's derivative
+    there, I / eps.  The JAX package's ``sqrt(sum(x ** 2))`` gives NaN
+    (0 times the square root's infinite slope), and so did this function,
+    and bfloat16 generators do output exact zeros."""
+    return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + eps)
 
 
 class PatchSampleF(nn.Module):

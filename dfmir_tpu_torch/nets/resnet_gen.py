@@ -13,6 +13,10 @@ activations.  Default indexing (resnet_9blocks, antialias on):
   25 blur_up | 26 conv3(ngf) | 27 norm | 28 relu
   29 pad3 | 30 conv7(output_nc) | 31 tanh
 
+``ndims`` (2 or 3) is the rank of the maps: every conv, transposed conv
+and blur is built for it (the JAX modules infer it from their input), so
+the 3-D joint model takes (B, C, D, H, W) volumes.
+
 Dropout (``use_dropout``, the reference's ``--no_dropout false``) sits
 after the first conv-norm-relu of each ResnetBlock.  It is active only in
 a ``train=True`` forward, and its masks come from the explicit
@@ -118,13 +122,15 @@ class ResnetBlock(nn.Module):
     def __init__(self, dim: int, padding_type: str = "reflect",
                  norm: str = "instance", use_dropout: bool = False,
                  use_bias: bool = True, init_type: str = "xavier",
-                 init_gain: float = 0.02, *, generator: torch.Generator):
+                 init_gain: float = 0.02, ndims: int = 2, *,
+                 generator: torch.Generator):
         super().__init__()
         p = 1 if padding_type == "zero" else 0
 
         def conv():
             return conv_nd(dim, dim, 3, 1, p, use_bias, init_type=init_type,
-                           init_gain=init_gain, generator=generator)
+                           init_gain=init_gain, ndims=ndims,
+                           generator=generator)
 
         def pad():
             return [Pad(1, padding_type)] if p == 0 else []
@@ -149,14 +155,14 @@ class ResnetGenerator(nn.Module):
                  n_blocks: int = 9, norm: str = "instance",
                  use_dropout: bool = False, no_antialias: bool = False,
                  no_antialias_up: bool = False, padding_type: str = "reflect",
-                 init_type: str = "xavier", init_gain: float = 0.02, *,
-                 generator: torch.Generator):
+                 init_type: str = "xavier", init_gain: float = 0.02,
+                 ndims: int = 2, *, generator: torch.Generator):
         super().__init__()
         self.specs = resnet_generator_specs(input_nc, output_nc, ngf, n_blocks,
                                             no_antialias, no_antialias_up)
         self.use_dropout = use_dropout
         use_bias = norm == "instance"
-        init = dict(init_type=init_type, init_gain=init_gain,
+        init = dict(init_type=init_type, init_gain=init_gain, ndims=ndims,
                     generator=generator)
         ops = []
         ch = input_nc
@@ -177,9 +183,9 @@ class ResnetGenerator(nn.Module):
             elif kind == "relu":
                 op = nn.ReLU()
             elif kind == "blur_down":
-                op = BlurDown(ch)
+                op = BlurDown(ch, ndims=ndims)
             elif kind == "blur_up":
-                op = BlurUp(ch)
+                op = BlurUp(ch, ndims=ndims)
             elif kind == "resblock":
                 op = ResnetBlock(ch, padding_type, norm, use_dropout, use_bias,
                                  **init)

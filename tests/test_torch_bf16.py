@@ -150,9 +150,8 @@ def test_register_launches(setup, counted_kernels):
 
 
 def test_bfloat16_raises_at_3d():
-    with pytest.raises(NotImplementedError, match="2-D"):
-        RegistrationModel(RegistrationConfig(**dict(BF16, ndims=3)),
-                          device="cpu")
+    """bfloat16 at ndims=3 is ported (tests/test_torch_joint3d_bf16.py);
+    a compute dtype other than float32 or bfloat16 is refused."""
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         RegistrationModel(RegistrationConfig(**dict(CFG,
                                                     compute_dtype="half")),

@@ -404,6 +404,8 @@ CASES3D = [
     ((1, 2, 20, 24, 28), 2.0, 0.0),      # a channel count the kernels
                                          # do not specialise
     ((1, 3, 40, 40, 40), "collapse", 0.0),   # thousands of targets a cell
+    ((1, 1, 128, 128, 128), 0.4, 0.0),   # the 3-D joint step's `registered`
+    ((2, 1, 128, 128, 128), 0.4, 0.0),   # and its stacked data warp
 ]
 
 
@@ -539,6 +541,8 @@ CHAIN3D_CASES = [
     ((1, 3, 40, 40, 40), "edge", 1.0, 2),      # displacements at halo 1,
     ((1, 3, 40, 40, 40), "edge", 2.0, 2),      # at the most staged, 2,
     ((1, 3, 40, 40, 40), "edge", 3.0, 2),      # and past it
+    ((1, 3, 64, 64, 64), "smooth", 10.0, 7),   # the 3-D joint model's
+    ((2, 3, 64, 64, 64), "posneg", 10.0, 7),   # register call and step
 ]
 
 
