@@ -234,6 +234,39 @@ Phases, each printing one JSON line:
               set of files a run writes, a loss-log line a print, once;
               each rank's launches train.main's derived counts; `latest`
               loaded on the card bit-equal to rank 1's final weights
+  augment     ops/augment.py at full size: augment of a (8,1,256,256)
+              batch and a (1,1,160^3) volume with a 4-label map, each call
+              counted (1 chain forward at the SVF's max(s // 8, 2) an axis
+              and 5 steps + 1 B1 / B3; the nearest label warp the plain
+              gather); labels only their values; the same draws on the
+              card and the CPU (image and flow max-abs <= 1e-4); ms a call
+              (CUDA events, median of 20), with and without the label;
+              peak memory.  kernel and kernel_chain3d also hold the chains
+              at augment's fields (8^2, 2^2, 25^2, 32^2; 20^3, 2^3 at 5
+              steps) against the plain loop
+  affine      nets/affine_net.py's AffineRegistration at (8,1,256,256)
+              (NCC) and (1,1,160^3) (L2) on a pair made by a known small
+              random affine: 5 Adam steps at lr 1e-4, the loss falling;
+              card vs CPU the first step from the initial weights and the
+              second from the card's weights after the first (loss 1e-3
+              relative, gradients 1e-2 of the network's max |g|, every
+              tensor reached at the second); no kernel launch
+              (the affine warp samples absolute coordinates with the plain
+              gather, as JAX's XLA path); ms a step, peak memory
+  losses      every losses/registry.py name on the card against the CPU at
+              the main paths' shapes (256^2 images, (8,4,256,256) logits,
+              256 patches of 256, (8,2,256,256) flows, 30^2 netD maps),
+              smooth_loss_3d and NMI at 160^3, NT-Xent: 1e-4 of the
+              largest value; deepsim with a 3-tap random conv extractor;
+              ms a call
+  cli_modes   train.main with --dataset_mode patient_site (3 sites x 4
+              slices of 256^2 PNGs written here) and triplet (phase cli's
+              layout), the default CUT model at full width, 2 steps each
+              (launches exactly the CUT step's); the triplet run with
+              --display_id 1 on a free localhost port, its page and loss
+              history fetched from 127.0.0.1 while it serves (the step's
+              losses in them); test.main on the triplet run, 2 pairs (2
+              chain forwards + 3 B1 a pair)
 Each phase's wall seconds follow it.  Then the kernels line (all nine
 kernels, their launches by path: register, train, fastcut, gan,
 bf16_register, bf16_train, dropout, zoo_register, zoo_train,
@@ -242,8 +275,9 @@ register3d, train3d, cli_train, cli_test, cli_fastcut, cli_gan,
 cli_gan_test, cli_zoo_unet, cli_zoo_unet_test, cli_zoo_stylegan2,
 cli_zoo_stylegan2_test, cli3d_train, cli3d_eval, joint3d_register,
 joint3d_train, bf16_3d_register, bf16_3d_train, dp, dp_fastcut, dp_gan,
-dp_nccl, dp3d, dp_cli; a dp path's summed over its ranks; B5's main path
-is joint3d_train), and last {"ok": true, "device": {...}}.  A rank that fails
+dp_nccl, dp3d, dp_cli, augment2d, augment3d (one call each),
+cli_patient_site, cli_triplet, cli_triplet_test; a dp path's summed over
+its ranks; B5's main path is joint3d_train), and last {"ok": true, "device": {...}}.  A rank that fails
 fails its phase (its traceback in the error); nothing falls back to one
 process or to the CPU.
 
@@ -286,12 +320,14 @@ import json
 import math
 import os
 import shutil
+import socket
 import statistics
 import struct
 import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 import zlib
 
 
@@ -322,10 +358,16 @@ try:
     from dfmir_tpu_torch.engine.config import RegistrationConfig
     from dfmir_tpu_torch.engine.registration import RegistrationModel
     from dfmir_tpu_torch.engine.vxm_engine import VxmConfig, VxmEngine
+    from dfmir_tpu_torch.losses import nt_xent_loss, smooth_loss_3d
+    from dfmir_tpu_torch.losses.registry import DICT_LOSSES, get_loss
+    from dfmir_tpu_torch.metrics.image import deepsim
     from dfmir_tpu_torch.models.registration import RegistrationTask
     from dfmir_tpu_torch.models.vxm import VxmTask
+    from dfmir_tpu_torch.nets.affine_net import AffineRegistration
     from dfmir_tpu_torch.nets.resnet_gen import Dropout
     from dfmir_tpu_torch.ops import _build, integrate, warp_cuda
+    from dfmir_tpu_torch.ops import augment as augment_ops
+    from dfmir_tpu_torch.ops.affine import affine_warp
     from dfmir_tpu_torch.ops.integrate import vecint, vecint_bwd_plain
     from dfmir_tpu_torch.ops.warp import (_kernel_takes, identity_grid, warp,
                                           warp2d_dsrc_fixed_plain,
@@ -1005,6 +1047,13 @@ CHAIN_CASES = [
     ("large_fwd", (1, 2, 512, 512), "smooth", 10.0, NSTEPS),
     ("odd_shape", (3, 2, 67, 45), "smooth", 5.0, NSTEPS),
     ("violent", (1, 2, 128, 128), "noise", 25.0, NSTEPS),    # x25 N(0, 1)
+    # augment's SVF fields (ops/augment.py: max(s // 8, 2) an axis, N(0,
+    # 1), 5 steps): a 64^2 crop's (half the cluster's bands empty), the
+    # least (14 of 16 empty), a 200^2 image's (a short last band), 256^2's
+    ("aug_crop64", (8, 2, 8, 8), "noise", 1.0, 5),
+    ("aug_least", (8, 2, 2, 2), "noise", 1.0, 5),
+    ("aug_200", (1, 2, 25, 25), "noise", 1.0, 5),
+    ("aug_256", (8, 2, 32, 32), "noise", 1.0, 5),
 ]
 MAIN_CHAIN_CASE = "train"
 CHAIN3D_CASES = [
@@ -1026,6 +1075,9 @@ CHAIN3D_CASES = [
     # call's and a step's pos / neg
     ("joint_register", (1, 3, 64, 64, 64), "smooth", 10.0, NSTEPS),
     ("joint_train", (2, 3, 64, 64, 64), "posneg", 10.0, NSTEPS),
+    # augment's SVF fields, smaller than a brick: 160^3's and the least
+    ("aug_160", (1, 3, 20, 20, 20), "noise", 1.0, 5),
+    ("aug_least", (2, 3, 2, 2, 2), "noise", 1.0, 5),
 ]
 MAIN_CHAIN3D_CASE = "register"   # the chain of a 3-D register call and step
 # flops a pixel (2-D) or voxel (3-D) a step: the forward's coordinates, its
@@ -4278,6 +4330,465 @@ def phase_profile_vxm3d(eng, pair, ms_step):
           "ms_per_step_b1": ms_step})
 
 
+# ------------------------------------------------- A13b's tail on the card
+AUG_SHAPES = {"augment2d": (8, 1, 256, 256),       # B=8 at the paper's crop
+              "augment3d": (1, 1, 160, 160, 160)}  # VxmConfig()'s volume
+AUG_LAUNCHES = {2: {VF: 1, FWD: 1}, 3: {VF3: 1, FWD3D: 1}}
+AUG_TOL = 1e-4
+AUG_REPS = 20
+
+
+def smooth_image(shape, seed):
+    """A smooth image in about [-1, 1] (B, C, *spatial) and a 4-label map
+    of it (0, 60, 120, 180 / 255, as test.py reads label PNGs), on the
+    CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    B, C, *spatial = shape
+    low = torch.randn((B, C, *(max(n // 16, 2) for n in spatial)),
+                      generator=gen)
+    img = torch.tanh(1.5 * F.interpolate(
+        low, size=tuple(spatial), align_corners=True,
+        mode="bilinear" if len(spatial) == 2 else "trilinear"))
+    lab = torch.bucketize(img, torch.tensor([-0.5, 0.0, 0.5])).float()
+    return img, lab * 60 / 255
+
+
+def augment_case(name, seed):
+    """One augment call counted, its labels' values, the same draws on
+    the card and on the CPU, ms a call and peak memory."""
+    shape = AUG_SHAPES[name]
+    nd, spatial = len(shape) - 2, shape[2:]
+    img, lab = smooth_image(shape, seed)
+    src, lab_d = img.to(DEVICE), lab.to(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    torch.cuda.synchronize()
+    warp_cuda.reset_launches()
+    out, lab_out, flow = augment_ops.augment(src, gen, label=lab_d)
+    torch.cuda.synchronize()
+    launches = dict(warp_cuda.LAUNCHES)
+    check_launches(f"{name}, one call", launches,
+                   dict(ZERO, **AUG_LAUNCHES[nd]))
+    kept = set(lab_out.unique().tolist()) <= set(lab.unique().tolist())
+    finite = bool(out.isfinite().all()) and bool(flow.isfinite().all())
+    flow_max = float(flow.abs().max())
+    draws = augment_ops.draw_deformation(gen, shape[0], spatial)
+    card = augment_ops.deform(
+        src, augment_ops.deformation_from_draws(draws, spatial), lab_d)
+    t0 = time.perf_counter()
+    cpu = augment_ops.deform(img, augment_ops.deformation_from_draws(
+        augment_ops.DeformationDraws(*(x.cpu() for x in draws)), spatial),
+        lab)
+    cpu_s = time.perf_counter() - t0
+    errs = {k: float((c.cpu() - r).abs().max())
+            for k, c, r in zip(("image", "label", "flow"), card, cpu)}
+    label_mismatch = float((card[1].cpu() != cpu[1]).float().mean())
+    ms = time_ms(lambda: augment_ops.augment(src, gen, label=lab_d),
+                 reps=AUG_REPS, warmup=3)
+    ms_image = time_ms(lambda: augment_ops.augment(src, gen),
+                       reps=AUG_REPS, warmup=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    augment_ops.augment(src, gen, label=lab_d)
+    torch.cuda.synchronize()
+    row = {"phase": "augment", "case": name, "shape": list(shape),
+           "svf_size": list(augment_ops.svf_size(spatial)),
+           "launches": launches, "labels_kept": kept, "finite": finite,
+           "flow_max_px": flow_max, "card_vs_cpu_max_abs": errs,
+           "label_mismatch_fraction": label_mismatch, "tol": AUG_TOL,
+           "ms_per_call": ms, "ms_per_call_no_label": ms_image,
+           "peak_gb": gb(torch.cuda.max_memory_allocated()),
+           "cpu_s": cpu_s}
+    emit(row)
+    if not (kept and finite and flow_max > 1.0):
+        raise AssertionError(f"{name}: labels kept {kept}, finite {finite},"
+                             f" flow max {flow_max} px")
+    for k in ("image", "flow"):
+        if not errs[k] <= AUG_TOL:
+            raise AssertionError(f"{name} {k}: card vs CPU {errs[k]} > "
+                                 f"{AUG_TOL}")
+    return launches
+
+
+def phase_augment(seed, smi):
+    """ops/augment.py at full size: 1 chain forward at the SVF's size + 1
+    B1 / B3 a call, the nearest label warp the plain gather."""
+    launches = {name: augment_case(name, seed + i)
+                for i, name in enumerate(AUG_SHAPES)}
+    emit({"phase": "augment", "launches_per_call": launches, "card": smi})
+    return launches
+
+
+AFFINE_CASES = {"affine2d": ((8, 1, 256, 256), "NCC"),
+                "affine3d": ((1, 1, 160, 160, 160), "L2")}
+AFFINE_STEPS = 5
+# the loss falls over 8 steps at 1e-4 in both cases; at 1e-3 the 3-D step
+# overshoots (fc_0 takes 256,000 inputs at 160^3)
+AFFINE_LR = 1e-4
+# the gradients' card-vs-CPU check takes NCC's conv method: through the
+# summed-area tables the float32 gradient on the 2-D pair is far from
+# float64's on the CPU itself (the row's ncc_f32_vs_f64_cpu), past the 1e-2
+# bar for any float32 program; the steps take get_loss's default
+AFFINE_CHECK_KW = {"NCC": {"method": "conv"}}
+
+
+def affine_pair(shape, seed):
+    """(moving, fixed) on the CPU: a smooth image with a texture (no
+    window of NCC without variance, where its gradient is ill-conditioned)
+    and the same warped by a known small random affine."""
+    fixed, _ = smooth_image(shape, seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    fixed = torch.tanh(fixed + 0.25 * torch.randn(shape, generator=gen))
+    matrix = augment_ops.random_affine_matrix(
+        gen, shape[0], shape[2:], max_rotation=4.0, max_scaling=0.04,
+        max_translation=3.0)
+    return affine_warp(fixed, matrix), fixed
+
+
+def affine_net(shape, seed, device, state=None):
+    net = AffineRegistration(shape[2:], ndims=len(shape) - 2,
+                             generator=torch.Generator().manual_seed(seed))
+    if state is not None:
+        net.load_state_dict(state)
+    return net.to(device)
+
+
+def affine_grads(net, loss_fn, moving, fixed):
+    """The loss and each parameter's gradient (on the CPU) at ``net``'s
+    weights."""
+    net.zero_grad()
+    warped, matrix, flow = net(moving, fixed)
+    loss = loss_fn(warped, fixed)
+    loss.backward()
+    return (float(loss.detach()),
+            [p.grad.detach().cpu().clone() for p in net.parameters()],
+            (warped, matrix, flow))
+
+
+def ncc_f32_vs_f64(shape, seed, pair, state):
+    """The first step's gradients through each of NCC's methods in float32
+    against float64, on the CPU: max error / max |g|."""
+    out = {}
+    for method in ("integral", "conv"):
+        grads = [affine_grads(affine_net(shape, seed, "cpu", state).to(dt),
+                              lambda a, b: get_loss("NCC")(a, b,
+                                                           method=method),
+                              *(x.to(dt) for x in pair))[1]
+                 for dt in (torch.float32, torch.float64)]
+        out[method] = (max(float((a.double() - b).abs().max())
+                           for a, b in zip(*grads))
+                       / max(float(b.abs().max()) for b in grads[1]))
+    return out
+
+
+def phase_affine(seed, smi):
+    """nets/affine_net.py at full size, 2-D and 3-D: AFFINE_STEPS Adam
+    steps on a pair made by a known affine, the loss falling, ms a step,
+    peak memory; card vs CPU the first two steps' losses, and the
+    gradients (AFFINE_CHECK_KW's loss) from the initial weights (fc_theta
+    starts at zero: only it has a gradient) and from the card's weights
+    after the first step (every parameter has one).  The affine warp
+    samples absolute coordinates with the plain gather (as JAX's XLA
+    path; no Pallas kernel serves it): no launch."""
+    out = {}
+    for i, (name, (shape, loss_name)) in enumerate(AFFINE_CASES.items()):
+        loss_fn = get_loss(loss_name)
+        pair = affine_pair(shape, seed + i)
+        moving, fixed = (x.to(DEVICE) for x in pair)
+        net = affine_net(shape, seed + i, DEVICE)
+        opt = torch.optim.Adam(net.parameters(), lr=AFFINE_LR)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        warp_cuda.reset_launches()
+        losses, states, ms = [], [], []
+        for _ in range(AFFINE_STEPS):
+            states.append({k: v.detach().cpu().clone()
+                           for k, v in net.state_dict().items()})
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            warped, matrix, flow = net(moving, fixed)
+            loss = loss_fn(warped, fixed)
+            loss.backward()
+            opt.step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss.detach()))
+        launches = dict(warp_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        cpu_losses = [affine_grads(affine_net(shape, seed + i, "cpu",
+                                              states[k]), loss_fn, *pair)[0]
+                      for k in (0, 1)]
+        cpu_s = time.perf_counter() - t0
+        rel = [abs(losses[k] - r) / abs(r) for k, r in enumerate(cpu_losses)]
+        check_kw = AFFINE_CHECK_KW.get(loss_name, {})
+
+        def check_fn(a, b):
+            return loss_fn(a, b, **check_kw)
+
+        grads, ref = ([affine_grads(affine_net(shape, seed + i, dev,
+                                               states[k]),
+                                    check_fn, *(x.to(dev) for x in pair))
+                       for k in (0, 1)] for dev in (DEVICE, "cpu"))
+        g_max = [max(float(g.abs().max()) for g in r[1]) for r in ref]
+        g_err = [max(float((a - b).abs().max())
+                     for a, b in zip(c[1], r[1]))
+                 for c, r in zip(grads, ref)]
+        moved = sum(int(bool(g.abs().max() > 0)) for g in ref[1][1])
+        conditioning = (ncc_f32_vs_f64(shape, seed + i, pair, states[0])
+                        if loss_name == "NCC" else None)
+        row = {"phase": "affine", "case": name, "shape": list(shape),
+               "loss": loss_name, "check_kw": check_kw, "lr": AFFINE_LR,
+               "losses": losses,
+               "card_vs_cpu_loss_rel": rel, "grad_max": g_max,
+               "grad_err_over_max": [e / m for e, m in zip(g_err, g_max)],
+               "step2_tensors_with_grad": [moved, len(ref[1][1])],
+               "ncc_f32_vs_f64_cpu": conditioning,
+               "matrix_last": matrix[0].detach().tolist(),
+               "flow_max_px": float(flow.detach().abs().max()),
+               "launches": launches, "ms_per_step": ms,
+               "ms_per_step_median": statistics.median(ms[1:]),
+               "peak_gb": gb(peak), "cpu_s": cpu_s, "card": smi}
+        emit(row)
+        if launches != ZERO:
+            raise AssertionError(f"{name}: {launches} launches; the affine "
+                                 f"path launches no kernel")
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"{name}: the loss did not fall: {losses}")
+        if not max(rel) <= PATH_TOL:
+            raise AssertionError(f"{name}: loss card vs CPU {rel}")
+        for e, m in zip(g_err, g_max):
+            if not (m > 0 and e <= GRAD_ENV * m):
+                raise AssertionError(f"{name}: gradients card vs CPU {e} > "
+                                     f"{GRAD_ENV} * {m}")
+        if conditioning and not conditioning["conv"] <= GRAD_ENV:
+            raise AssertionError(f"{name}: NCC's conv method's float32 "
+                                 f"gradient {conditioning}: no check")
+        if moved != len(ref[1][1]):
+            raise AssertionError(f"{name}: the second step reaches "
+                                 f"{moved} of {len(ref[1][1])} tensors")
+        out[name] = ms
+    return out
+
+
+LOSS_TOL = 1e-4
+LOSS_B, LOSS_S, LOSS_V = 8, 256, 160   # batch, image side, volume side
+
+
+def loss_cases(seed):
+    """Every DICT_LOSSES name (and smooth_loss_3d, NMI at 160^3, NT-Xent)
+    at the main paths' shapes: name -> (fn, CPU args, kwargs)."""
+    gen = torch.Generator().manual_seed(seed)
+    B, S, V = LOSS_B, LOSS_S, LOSS_V
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen)
+
+    a = torch.tanh(randn(B, 1, S, S))
+    b = torch.tanh(a + 0.3 * randn(B, 1, S, S))
+    mask = (torch.rand((B, 1, S, S), generator=gen) > 0.3).float()
+    logits = randn(B, 4, S, S) * 2
+    onehot = F.one_hot(torch.randint(0, 4, (B, S, S), generator=gen),
+                       4).permute(0, 3, 1, 2).float()
+    q, k = (F.normalize(randn(256, 256), dim=1) for _ in range(2))
+    va = torch.tanh(randn(1, 1, V, V, V))
+    vb = torch.tanh(va + 0.3 * randn(1, 1, V, V, V))
+    disc = randn(1, 1, 4, 4) * 0.3
+    alpha = torch.rand((B, 1, 1, 1), generator=gen)
+
+    def disc_fn(x):
+        return torch.tanh(F.conv2d(x, disc.to(x.device), stride=2))
+
+    return {
+        "L1": (get_loss("L1"), (a, b, mask), {}),
+        "L2": (get_loss("L2"), (a, b, mask), {}),
+        "TukeyBiweight": (get_loss("TukeyBiweight"), (a, 2 * b),
+                          {"mask": mask}),
+        "PatchNCE": (get_loss("PatchNCE"), (q, k), {}),
+        "Grad": (get_loss("Grad"), (randn(B, 2, S, S) * 2,), {}),
+        "NCC": (get_loss("NCC"), (a, b), {"mask": mask}),
+        "NMI": (get_loss("NMI"), (a, b), {}),
+        "CrossEntropy": (get_loss("CrossEntropy"), (logits, onehot), {}),
+        "NLL": (get_loss("NLL"), (torch.log_softmax(logits, 1), onehot), {}),
+        "Dice": (get_loss("Dice"), (torch.softmax(logits, 1), onehot), {}),
+        "WGAN": (get_loss("WGAN"), (randn(B, 1, 30, 30), True), {}),
+        "LSGAN": (get_loss("LSGAN"), (randn(B, 1, 30, 30), False), {}),
+        "GradPenGAN": (get_loss("GradPenGAN"), (disc_fn, a, b),
+                       {"alpha": alpha}),
+        "smooth_loss_3d": (smooth_loss_3d, (randn(1, 3, V, V, V),), {}),
+        "NMI_3d": (get_loss("NMI"), (va, vb), {}),
+        "nt_xent": (nt_xent_loss, (randn(256, 128), randn(256, 128)), {}),
+    }
+
+
+def to_dev(x, device):
+    return x.to(device) if isinstance(x, torch.Tensor) else x
+
+
+def phase_losses(seed, smi):
+    """The loss registry on the card against the CPU (LOSS_TOL relative of
+    the largest value; PatchNCE's per-patch losses), ms a call; deepsim
+    with a small random conv extractor (3 taps)."""
+    cases = loss_cases(seed)
+    if set(DICT_LOSSES) - set(cases):
+        raise AssertionError(f"names not driven: "
+                             f"{set(DICT_LOSSES) - set(cases)}")
+    rows = {}
+    for name, (fn, args, kw) in cases.items():
+        dargs = [to_dev(x, DEVICE) for x in args]
+        dkw = {k: to_dev(v, DEVICE) for k, v in kw.items()}
+        card = fn(*dargs, **dkw).detach()
+        ref = fn(*args, **kw).detach()
+        err = float((card.cpu() - ref).abs().max())
+        scale = float(ref.abs().max())
+        rows[name] = {"value": float(card.float().mean()),
+                      "rel_err": err / max(scale, 1e-12),
+                      "ms": time_ms(lambda: fn(*dargs, **dkw), reps=10,
+                                    warmup=2)}
+        if not err <= LOSS_TOL * scale:
+            raise AssertionError(f"loss {name}: card vs CPU {err} > "
+                                 f"{LOSS_TOL} * {scale}")
+    gen = torch.Generator().manual_seed(seed + 1)
+    widths = (1, 8, 16, 16)
+    ws = [torch.randn((co, ci, 3, 3), generator=gen) * 0.4
+          for ci, co in zip(widths, widths[1:])]
+
+    def extractor_on(device):
+        wd = [w.to(device) for w in ws]
+
+        def extract(x):
+            feats = []
+            for w in wd:
+                x = torch.tanh(F.conv2d(x, w, padding=1, stride=2))
+                feats.append(x)
+            return feats
+        return extract
+
+    a, b = cases["L1"][1][:2]
+    ds = deepsim(a.to(DEVICE), b.to(DEVICE), extractor_on(DEVICE))
+    ds_ref = deepsim(a, b, extractor_on("cpu"))
+    rows["deepsim"] = {"value": ds, "rel_err": abs(ds - ds_ref) / abs(ds_ref),
+                       "ms": time_ms(lambda: deepsim(
+                           a.to(DEVICE), b.to(DEVICE), extractor_on(DEVICE)),
+                           reps=10, warmup=2)}
+    emit({"phase": "losses", "tol": LOSS_TOL, "losses": rows, "card": smi})
+    if not rows["deepsim"]["rel_err"] <= LOSS_TOL:
+        raise AssertionError(f"deepsim: card vs CPU {rows['deepsim']}")
+    return rows
+
+
+MODES_SITES, MODES_SLICES = 3, 4
+MODES_TEST = 2                       # test pairs of the triplet run
+# 2 steps at B=1 (1 pair an epoch, 2 epochs), a print a step, no visuals
+MODES_FLAGS = ["--max_dataset_size", "1", "--n_epochs", "1",
+               "--n_epochs_decay", "1", "--save_epoch_freq", "1",
+               "--print_freq", "1", "--display_freq", "1000"]
+
+
+def write_site_data(root, seed, size):
+    """patient_site's layout: MODES_SITES sites, each t1/ and t2/ with
+    MODES_SLICES slices of the anatomy (t2 its inverted gamma)."""
+    rng = np.random.default_rng(seed)
+    for s in range(MODES_SITES):
+        for k in range(MODES_SLICES):
+            base = anatomy(rng, size)
+            for mod, img in (("t1", base ** 1.1), ("t2", (1 - base) ** 0.6)):
+                d = os.path.join(root, f"site_{s}", mod)
+                os.makedirs(d, exist_ok=True)
+                write_png(os.path.join(d, f"slice_{k:02d}.png"),
+                          np.clip(img * 255, 0, 255).astype(np.uint8))
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def fetch(url):
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return r.status, r.read()
+
+
+def phase_cli_modes(seed, smi):
+    root = tempfile.mkdtemp(prefix="chip_smoke_modes_")
+    try:
+        with open(os.path.join(root, "modes.log"), "w") as log:
+            return cli_modes_paths(root, log, seed, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def cli_modes_paths(root, log, seed, smi):
+    """train.main on --dataset_mode patient_site and triplet (the default
+    CUT model at full width), 2 steps each, launches exact; the triplet
+    run with --display_id 1 on a free localhost port, its page and loss
+    history fetched while it serves; test.main on the triplet run (JAX's
+    test.py lists {dataroot}/testA for its output names, which a
+    patient_site dataroot does not hold)."""
+    sites, trip = os.path.join(root, "sites"), os.path.join(root, "trip")
+    write_site_data(sites, seed, CLI_SIZE)
+    write_cli_data(trip, seed + 1, CLI_SIZE)
+    ck_dir = os.path.join(root, "ck")
+    card = ["--gpu_ids", CLI_GPU, "--checkpoints_dir", ck_dir, "--seed",
+            str(seed), *CLI_FLAGS]
+    want = cli_train_launches(2, 1, 1000, 1, 0)
+    out, rows = {}, {}
+    for mode, data in (("patient_site", sites), ("triplet", trip)):
+        argv = card + ["--dataroot", data, "--name", mode, "--dataset_mode",
+                       mode, *MODES_FLAGS]
+        port = free_port() if mode == "triplet" else None
+        if port:
+            argv += ["--display_id", "1", "--display_port", str(port)]
+        trained, launches = run_counted(log, train_cli.main, argv)
+        check_launches(f"cli {mode}, 2 steps", launches, want)
+        out[f"cli_{mode}"] = launches
+        losses = {k: float(v)
+                  for k, v in trained["model"].get_current_losses().items()}
+        recs = losses_of(os.path.join(ck_dir, mode))
+        row = {"steps": len(trained["step_s"]),
+               "ms_per_step": [s * 1e3 for s in trained["step_s"]],
+               "losses": losses}
+        vis = trained["visualizer"]
+        if port:
+            host, bound_port = vis.plot_server[0].server_address[:2]
+            page_status, page = fetch(f"http://127.0.0.1:{port}/")
+            _, hist = fetch(f"http://127.0.0.1:{port}/history")
+            served = json.loads(hist)
+            vis.close()
+            last = served[-1]["losses"] if served else {}
+            row["display"] = {"host": host, "port": bound_port,
+                              "page_status": page_status,
+                              "records": len(served)}
+            if not (host == "127.0.0.1" and bound_port == port
+                    and page_status == 200 and mode.encode() in page
+                    and served == recs and all(
+                        math.isclose(last.get(k, math.nan), v, rel_tol=1e-6)
+                        for k, v in losses.items())):
+                raise AssertionError(f"the dashboard on port {port} served "
+                                     f"{row['display']}, {last}; the step's "
+                                     f"losses are {losses}")
+        rows[mode] = row
+    res_dir = os.path.join(root, "results")
+    tested, launches = run_counted(
+        log, test_cli.main, card + ["--dataroot", trip, "--name", "triplet",
+                                    "--dataset_mode", "triplet",
+                                    "--results_dir", res_dir, "--num_test",
+                                    str(MODES_TEST)])
+    check_launches("test triplet", launches,
+                   add_counts((MODES_TEST, TEST_PAIR_LAUNCHES)))
+    out["cli_triplet_test"] = launches
+    written = sorted(os.listdir(os.path.join(trip, "deform_trainA")))
+    if tested["n_pairs"] != MODES_TEST or len(written) != MODES_TEST:
+        raise AssertionError(f"test triplet: {tested['n_pairs']} pairs, "
+                             f"wrote {written}")
+    rows["triplet_test"] = {"pairs": tested["n_pairs"],
+                            "ms_per_pair": [s * 1e3
+                                            for s in tested["pair_s"]]}
+    emit({"phase": "cli_modes", "runs": rows, "launches": out, "card": smi})
+    return out
+
+
 def kernel_row(name, replaces, source, launches, main_path, rows, main):
     """One kernel's entry of the kernels line: its numbers at its main
     path's case, its launches by path (``launches`` is the main path's)."""
@@ -4399,6 +4910,12 @@ def main(argv=None):
     dp_nccl_launches = run("dp_nccl", phase_dp_nccl, args.seed, smi)
     dp3d_launches = run("dp3d", phase_dp3d, args.seed, smi)
     dp_cli_launches = run("dp_cli", phase_dp_cli, args.seed, smi)
+    torch.cuda.empty_cache()
+    augment_launches = run("augment", phase_augment, args.seed, smi)
+    run("affine", phase_affine, args.seed, smi)
+    run("losses", phase_losses, args.seed, smi)
+    torch.cuda.empty_cache()
+    modes_launches = run("cli_modes", phase_cli_modes, args.seed, smi)
 
     paths = {"register": reg_launches, "train": train_launches,
              "fastcut": fastcut_launches, "gan": gan_launches,
@@ -4409,7 +4926,7 @@ def main(argv=None):
              **cli_launches, **cli3d_launches, **joint3d_launches,
              **bf16_3d_launches, **dp_launches,
              "dp_nccl": dp_nccl_launches, "dp3d": dp3d_launches,
-             **dp_cli_launches}
+             **dp_cli_launches, **augment_launches, **modes_launches}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}

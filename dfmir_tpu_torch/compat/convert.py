@@ -12,8 +12,9 @@ state_dict's: netG ``model.<i>.*``, netR (2-D or 3-D)
 discriminator).  A flax Dense kernel (in, out) becomes an nn.Linear
 weight (out, in).  Adam's moments take the same maps as their parameters.
 The zoo's networks (unet, munit, StyleGAN2, the transformer netR, the
-netF heads) keep flax's module names, so ``state_from_flax`` maps them
-by walking the port's modules.
+netF heads) and the affine net keep flax's module names, so
+``state_from_flax`` maps them by walking the port's modules
+(``affine_state_from_jax`` for the affine net).
 
 ``read_flax_msgpack`` decodes a checkpoint file that flax's
 ``msgpack_serialize`` wrote, with the ``msgpack`` package (imported inside
@@ -232,6 +233,15 @@ def state_from_flax(net, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         raise KeyError(f"{type(net).__name__}: JAX leaves not in the port: "
                        f"{sorted('/'.join(u) for u in unused)}")
     return sd
+
+
+def affine_state_from_jax(net, params: Mapping[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """JAX ``AffineRegistration`` params (``loc/loc_{i}``, ``loc/fc_0``,
+    ``loc/fc_theta``) -> the port's ``nets/affine_net.py`` module's
+    state_dict; ``fc_0``'s rows are reordered from flax's channels-last
+    flatten to the port's (``FlatDense.flax_state``)."""
+    return state_from_flax(net, params)
 
 
 def load_strict(net, sd) -> None:

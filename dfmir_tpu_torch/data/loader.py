@@ -19,15 +19,7 @@ import numpy as np
 
 from dfmir_tpu_torch.parallel.mesh import batch_slice
 
-# dataset modes of the JAX package that the port does not have yet
-_NOT_PORTED = {"patient_site": "A13", "triplet": "A13"}
-
-
 def find_dataset_using_name(name: str):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset_mode {name!r} is not ported yet (ROADMAP "
-            f"{_NOT_PORTED[name]})")
     module = importlib.import_module(f"dfmir_tpu_torch.data.{name}")
     target = name.replace("_", "") + "dataset"
     for attr in dir(module):

@@ -1,4 +1,5 @@
-"""Image-similarity losses: windowed NCC, masked L1 / L2, MSE.
+"""Image-similarity losses: windowed NCC, masked L1 / L2, MSE, Tukey's
+biweight, cross entropy, NLL, Dice and NMI.
 
 - ``ncc_map`` / ``ncc_loss``: the reference NCC_Loss.  Local sums of I, J,
   I^2, J^2 and IJ over a window, either by one depthwise conv with a mean or
@@ -13,6 +14,17 @@
   sum(mask)``, 0 for an empty mask, the plain mean without a mask.
 - ``masked_l2``: the same reduction of the squared difference.
 - ``mse_loss``.
+- ``tukey_biweight``: the reference TukeyBiweight, clamped to its
+  saturation value c^2 / 6, with the masked mean.
+- ``cross_entropy_loss`` / ``nll_loss``: softmax cross entropy of logits,
+  and the NLL of log-probabilities, against one-hot targets; the class
+  axis is dim 1 (the JAX package's is the last), a (B, 1, ...) mask is
+  taken as (B, ...).
+- ``dice_loss``: 1 - the mean soft Dice over batch and channels, each
+  reduced over dims 2.. (the JAX package's spatial axes 1..ndim-2).
+- ``nmi_loss``: the negative global mutual information, Parzen-windowed
+  with gaussian bins; each item's values flattened in one order for both
+  images, so that the joint histogram pairs the same pixels.
 
 ``mesh`` (data parallelism, ``parallel/mesh.py``): the masked means and
 NCC reduce their sums over the global batch (``global_sum`` /
@@ -149,3 +161,59 @@ def ncc_loss(prediction, target, mask=None, kernel_var=None,
     val = -1.0 * torch.sqrt(global_sum((cc * mask).sum(), mesh)
                             / denom.clamp_min(1.0))
     return torch.where(denom == 0, torch.zeros_like(val), val)
+
+
+def tukey_biweight(prediction, target, c: float = 0.8, mask=None):
+    """Tukey's biweight of the error, clamped to [0, c^2 / 6]."""
+    max_loss = c ** 2 / 6.0
+    loss = max_loss * (1.0 - (1.0 - ((prediction - target) / c).square())
+                       ** 3)
+    return _masked_mean(loss.clamp(0.0, max_loss), mask)
+
+
+def _class_mask(mask, ce):
+    """A (B, 1, ...) mask of a (B, ...) per-pixel loss as (B, ...)."""
+    if mask is not None and mask.ndim == ce.ndim + 1:
+        mask = mask.squeeze(1)
+    return mask
+
+
+def cross_entropy_loss(logits, target_onehot, mask=None):
+    """Softmax cross entropy over the class axis, dim 1."""
+    ce = -(target_onehot * torch.log_softmax(logits, dim=1)).sum(dim=1)
+    return _masked_mean(ce, _class_mask(mask, ce))
+
+
+def nll_loss(log_probs, target_onehot, mask=None):
+    """Negative log likelihood of log-probabilities over dim 1."""
+    ce = -(target_onehot * log_probs).sum(dim=1)
+    return _masked_mean(ce, _class_mask(mask, ce))
+
+
+def dice_loss(prediction, target, eps: float = 1e-5):
+    """Soft Dice over the spatial dims; returns 1 - mean Dice."""
+    dims = tuple(range(2, prediction.ndim))
+    inter = (prediction * target).sum(dim=dims)
+    denom = prediction.sum(dim=dims) + target.sum(dim=dims)
+    return 1.0 - ((2.0 * inter + eps) / (denom + eps)).mean()
+
+
+def nmi_loss(prediction, target, num_bins: int = 32, vmin: float = -1.0,
+             vmax: float = 1.0, sigma_ratio: float = 0.5):
+    """Negative global mutual information via Parzen windowing."""
+    centers = torch.linspace(vmin, vmax, num_bins, dtype=prediction.dtype,
+                             device=prediction.device)
+    sigma = (centers[1] - centers[0]) * sigma_ratio
+    preterm = 1.0 / (2 * sigma ** 2)
+
+    def soft_bin(x):
+        x = x.reshape(x.shape[0], -1, 1)
+        w = torch.exp(-preterm * (x - centers.reshape(1, 1, -1)).square())
+        return w / (w.sum(dim=-1, keepdim=True) + 1e-10)
+
+    pa = soft_bin(prediction)                       # (B, N, bins)
+    pb = soft_bin(target)
+    pab = torch.bmm(pa.transpose(1, 2), pb) / pa.shape[1]
+    papb = pa.mean(dim=1)[:, :, None] * pb.mean(dim=1)[:, None, :]
+    mi = (pab * torch.log((pab + 1e-10) / (papb + 1e-10))).sum(dim=(1, 2))
+    return -mi.mean()

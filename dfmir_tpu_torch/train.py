@@ -7,8 +7,10 @@ cadence and the LR step at each epoch's end.
 The flags are the JAX command line's (``options/``).  Each step ends in
 ``torch.cuda.synchronize()`` on the card, so the timings are the step's.
 ``--profile_dir`` writes a ``torch.profiler`` trace of ``--profile_steps``
-steps after two warm-up steps.  ``main`` returns the task and the
-seconds of each step (compute, and the wait for its batch).
+steps after two warm-up steps.  ``main`` returns the task, the
+seconds of each step (compute, and the wait for its batch) and the
+``Visualizer``, whose live dashboard (``--display_id 1``) serves until
+``close()`` or the process's end.
 
 With more than one card in ``--gpu_ids`` (and a ``--batch_size`` that
 divides over them, ``options``) ``main`` starts one process a card
@@ -189,7 +191,8 @@ def train(opt, mesh=None):
         model.update_learning_rate()
     if profiler is not None:
         profiler.stop()
-    return {"model": model, "step_s": step_s, "data_s": data_s}
+    return {"model": model, "step_s": step_s, "data_s": data_s,
+            "visualizer": visualizer}
 
 
 if __name__ == "__main__":

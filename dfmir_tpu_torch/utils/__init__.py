@@ -1,5 +1,6 @@
 """Host-side helpers: the PNG codec, option and image utilities, the HTML
-gallery, the training visualizer and the Jacobian colormap."""
+gallery, the training visualizer and its live dashboard, the Jacobian
+colormap, and the patch and N-D numpy utilities."""
 
 from dfmir_tpu_torch.utils.html import HTML
 from dfmir_tpu_torch.utils.jac_vis import (diverging_rgb, jac_det_to_rgb,

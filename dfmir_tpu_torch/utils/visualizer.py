@@ -1,7 +1,8 @@
 """Training observability (the JAX package's ``utils/visualizer.py``):
 console + ``loss_log.txt``, one ``loss_history.jsonl`` record per print,
-and the HTML gallery under ``{checkpoints_dir}/{name}/web``.  The live
-dashboard (``--display_id > 0``) is ROADMAP A13 and raises."""
+and the HTML gallery under ``{checkpoints_dir}/{name}/web``.  With
+``--display_id > 0`` the live dashboard (``utils/plot_server.py``) serves
+those files on ``--display_host``:``--display_port`` while training runs."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import time
 from typing import Dict
 
 from dfmir_tpu_torch.utils import html as html_mod
+from dfmir_tpu_torch.utils.plot_server import start_plot_server
 from dfmir_tpu_torch.utils.util import mkdirs, save_image, tensor2im
 
 
@@ -44,12 +46,6 @@ class Visualizer:
             not getattr(opt, "no_html", False)
         self.win_size = getattr(opt, "display_winsize", 256)
         self.saved = False
-        display_id = getattr(opt, "display_id", None)
-        if display_id is not None and display_id > 0:
-            raise NotImplementedError(
-                f"--display_id {display_id}: the live plot server is not "
-                f"ported (ROADMAP A13); losses go to loss_history.jsonl and "
-                f"visuals to the HTML gallery")
         expr_dir = os.path.join(opt.checkpoints_dir, opt.name)
         mkdirs(expr_dir)
         if self.use_html:
@@ -59,6 +55,14 @@ class Visualizer:
             mkdirs([self.web_dir, self.img_dir])
         self.log_name = os.path.join(expr_dir, "loss_log.txt")
         self.jsonl_name = os.path.join(expr_dir, "loss_history.jsonl")
+        self.plot_server = None
+        display_id = getattr(opt, "display_id", None)
+        if display_id is not None and display_id > 0:
+            self.plot_server = start_plot_server(
+                expr_dir, opt.name,
+                port=getattr(opt, "display_port", 8097),
+                host=getattr(opt, "display_host", "127.0.0.1"),
+                winsize=self.win_size)
         with open(self.log_name, "a") as f:
             now = time.strftime("%c")
             f.write(
@@ -66,6 +70,16 @@ class Visualizer:
 
     def reset(self) -> None:
         self.saved = False
+
+    def close(self) -> None:
+        """Stop the live dashboard, if one serves (a process that ends
+        stops it too: its thread is a daemon)."""
+        if self.plot_server is not None:
+            server, thread = self.plot_server
+            server.shutdown()
+            server.server_close()
+            thread.join()
+            self.plot_server = None
 
     def display_current_results(self, visuals: Dict, epoch: int,
                                 save_result: bool) -> None:

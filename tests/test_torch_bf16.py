@@ -34,6 +34,7 @@ from dfmir_tpu_torch.ops import integrate
 from dfmir_tpu_torch.ops import warp as warp_mod
 from test_torch_train import CFG, KEY, LR, jax_patch_ids, tap_locations
 from test_torch_vecint_chain import counted_kernels  # noqa: F401 (fixture)
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 BF16 = dict(CFG, compute_dtype="bfloat16")
 BF16_GAIN = 1e4

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_vecint_chain import counted_kernels  # noqa: F401 (fixture)
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 import chip_smoke
 
@@ -45,17 +46,6 @@ SMALL = ["--crop_size", "64", "--ngf", "8", "--netG", "resnet_4blocks",
 FLOW_GAIN = 1e5     # flow head N(0, 1e-5) -> N(0, 1): the warps deform
 VISUALS = ("real_A", "fake_B", "real_B", "dvf", "registered", "regA",
            "idt_B")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for this file's small steps: the suite runs
-    several files at once, and a pool the size of the machine in each
-    of them oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def quiet(main, argv):

@@ -25,7 +25,7 @@ import torch
 import chip_smoke
 from dfmir_tpu_torch import train
 from dfmir_tpu_torch.options import TrainOptions
-from test_torch_cli import few_threads  # noqa: F401 (autouse fixture)
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 LIMIT = 300.0

@@ -27,6 +27,7 @@ from dfmir_tpu_torch.data import create_dataset, image_folder
 from dfmir_tpu_torch.data.transforms import apply_transform
 from dfmir_tpu_torch.models.registration import dequant_u8
 from dfmir_tpu_torch.utils.png import read_png, write_png
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 

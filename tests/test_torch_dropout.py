@@ -32,6 +32,7 @@ from dfmir_tpu_torch.engine.registration import RegistrationModel
 from dfmir_tpu_torch.nets.resnet_gen import Dropout, ResnetGenerator
 from test_torch_train import (CFG, FLOW_GAIN, KEY, LR, jax_patch_ids,
                               tap_locations)
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 DROPOUT = dict(CFG, no_dropout=False)
 SIGMAS = 5.0

@@ -25,6 +25,7 @@ from dfmir_tpu_torch.compat.convert import to_nchw, to_nhwc
 from dfmir_tpu_torch.ops.warp import warp3d_dsrc_binned_plain, warp_bwd_plain
 
 from test_torch_warp import make_flow
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 SPATIAL = (12, 14, 16)
 ODD = (9, 13, 7)

@@ -30,6 +30,7 @@ from dfmir_tpu_torch.engine.registration import RegistrationModel
 from test_torch_train import (CFG, FLOW_GAIN, GRAD_ENV, LR, jax_flip_coin,
                               jax_pair_patch_ids, named_params, port_tree,
                               tap_locations)
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 FASTCUT = dict(CFG, flip_equivariance=True, nce_idt=False, lambda_NCE=10.0)
 

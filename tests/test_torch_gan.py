@@ -1,16 +1,9 @@
-"""The discriminator phase (``lambda_GAN > 0``) and what it needs:
-losses/gan.py, nets/discriminators.py with nets/factory.py::define_D, the
-netD weight bridge, the two-phase train_step, and utils/image_pool.py,
-each against the JAX package.
+"""The discriminator phase (``lambda_GAN > 0``): the netD weight bridge,
+the two-phase train_step and utils/image_pool.py, each against the JAX
+package (losses/gan.py: ``test_torch_gan_losses.py``; the discriminators:
+``test_torch_gan_nets.py``).
 
 Bars:
-- gan_loss in its four modes: 1e-6 relative;
-- gradient_penalty (real, fake, mixed with JAX's alpha given): 1e-5
-  relative;
-- the three discriminators (basic / n_layers / pixel / patch, antialiased
-  and not) against their JAX modules on converted weights: 1e-5 of
-  max(1, max |D|); ``basic`` against RefNLayerDiscriminator holding the
-  port's own state_dict: 1e-6;
 - the two-phase step: metrics 1e-4 relative; netD after phase 1 and
   G/F/R after the step under test_torch_train.py's first-step Adam
   sign-artefact rule (a component whose gradient is inside the noise band,
@@ -26,139 +19,27 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from dfmir_tpu.compat.torch_ref import RefNLayerDiscriminator
 from dfmir_tpu.engine import TrainState
 from dfmir_tpu.engine.config import RegistrationConfig as JaxConfig
 from dfmir_tpu.engine.registration import RegistrationModel as JaxModel
-from dfmir_tpu.losses import gan as jax_gan
-from dfmir_tpu.nets import define_D as jax_define_D
 from dfmir_tpu.utils.image_pool import ImagePool as JaxImagePool
 from dfmir_tpu_torch.compat.convert import (load_jax_params,
                                             netD_state_from_jax, to_nchw)
 from dfmir_tpu_torch.engine.config import RegistrationConfig
 from dfmir_tpu_torch.engine.registration import RegistrationModel
-from dfmir_tpu_torch.losses.gan import GAN_MODES, gan_loss, gradient_penalty
-from dfmir_tpu_torch.nets.factory import define_D
 from dfmir_tpu_torch.utils.image_pool import ImagePool
 from test_torch_train import (CFG, FLOW_GAIN, GRAD_ENV, KEY, LR,
                               jax_flip_coin, jax_pair_patch_ids,
                               jax_patch_ids, named_params, port_tree,
                               tap_locations)
 from test_torch_vecint_chain import counted_kernels  # noqa: F401 (fixture)
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 GAN = dict(CFG, lambda_GAN=1.0, ndf=8)
 
 
 def np_rng(seed=0):
     return np.random.default_rng(seed)
-
-
-@pytest.mark.parametrize("mode", GAN_MODES)
-@pytest.mark.parametrize("real", [True, False])
-def test_gan_loss_matches_jax(mode, real):
-    pred = (np_rng().standard_normal((3, 7, 7, 1)) * 2).astype(np.float32)
-    ref = np.asarray(jax_gan.gan_loss(jnp.asarray(pred), real, mode))
-    out = gan_loss(torch.from_numpy(to_nchw(pred)), real, mode).numpy()
-    assert out.shape == ref.shape
-    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=0)
-
-
-def test_gan_loss_unknown_mode_raises():
-    with pytest.raises(NotImplementedError):
-        gan_loss(torch.zeros(2, 1, 3, 3), True, "hinge")
-
-
-def jax_and_port_D(netD, seed=0, size=64, **kw):
-    """A JAX discriminator's init params and the port's module holding
-    them (converted)."""
-    jd = jax_define_D(input_nc=1, ndf=8, netD=netD, **kw)
-    x0 = jnp.zeros((1, size, size, 1), jnp.float32)
-    params = jax.tree.map(np.asarray,
-                          jd.init(jax.random.PRNGKey(seed), x0)["params"])
-    td = define_D(input_nc=1, ndf=8, netD=netD, **kw,
-                  generator=torch.Generator().manual_seed(0))
-    sd = dict(td.state_dict())
-    sd.update(netD_state_from_jax(params, td))
-    td.load_state_dict(sd)
-    return jd, params, td
-
-
-D_CASES = [("basic", {}), ("basic", {"no_antialias": True}),
-           ("n_layers", {"n_layers_D": 4}),
-           ("n_layers", {"n_layers_D": 2, "no_antialias": True}),
-           ("pixel", {}), ("patch", {}), ("patch", {"no_antialias": True}),
-           ("basic", {"norm": "none"})]
-
-
-@pytest.mark.parametrize("netD,kw", D_CASES)
-def test_discriminators_match_jax(netD, kw):
-    jd, params, td = jax_and_port_D(netD, **kw)
-    x = np.tanh(np_rng(1).standard_normal((2, 64, 64, 1))).astype(
-        np.float32)
-    ref = np.asarray(jd.apply({"params": params}, jnp.asarray(x)))
-    with torch.no_grad():
-        out = td(torch.from_numpy(to_nchw(x)))
-    assert out.shape == to_nchw(ref).shape
-    scale = max(1.0, float(np.abs(ref).max()))
-    np.testing.assert_allclose(out.numpy(), to_nchw(ref), rtol=0,
-                               atol=1e-5 * scale)
-
-
-@pytest.mark.parametrize("no_antialias", [False, True])
-def test_basic_matches_the_torch_reference(no_antialias):
-    td = define_D(input_nc=1, ndf=8, netD="basic", no_antialias=no_antialias,
-                  generator=torch.Generator().manual_seed(3))
-    ref = RefNLayerDiscriminator(input_nc=1, ndf=8, n_layers=3,
-                                 no_antialias=no_antialias)
-    ref.load_state_dict(td.state_dict(), strict=True)
-    x = torch.tanh(torch.randn((2, 1, 64, 64),
-                               generator=torch.Generator().manual_seed(4)))
-    with torch.no_grad():
-        torch.testing.assert_close(td(x), ref(x), rtol=0, atol=1e-6)
-
-
-@pytest.mark.parametrize("netD", ["nope"])
-def test_stylegan2_discriminators_raise(netD):
-    """The StyleGAN2 discriminators are ported (test_torch_zoo_nets.py):
-    only an unknown name is refused."""
-    with pytest.raises(NotImplementedError, match="not recognized"):
-        define_D(netD=netD, generator=torch.Generator())
-    with pytest.raises(NotImplementedError, match="not recognized"):
-        RegistrationModel(RegistrationConfig(**dict(GAN, netD=netD)),
-                          device="cpu")
-
-
-@pytest.mark.parametrize("kind", ["real", "fake", "mixed"])
-def test_gradient_penalty_matches_jax(kind):
-    jd, params, td = jax_and_port_D("basic", size=32)
-    rng = np_rng(2)
-    real, fake = (np.tanh(rng.standard_normal((3, 32, 32, 1))).astype(
-        np.float32) for _ in range(2))
-    key = jax.random.PRNGKey(5)
-    ref = float(jax_gan.gradient_penalty(
-        lambda x: jd.apply({"params": params}, x), jnp.asarray(real),
-        jnp.asarray(fake), key, kind))
-    alpha = np.array(jax.random.uniform(key, (3, 1, 1, 1)))
-    out = gradient_penalty(td, torch.from_numpy(to_nchw(real)),
-                           torch.from_numpy(to_nchw(fake)), kind,
-                           alpha=torch.from_numpy(alpha))
-    got = float(out.detach())
-    assert abs(got - ref) <= 1e-5 * abs(ref), (got, ref)
-    # differentiable in D's weights, as a penalty on D must be (no bias
-    # moves grad_x D)
-    out.backward()
-    assert all(p.grad is not None for p in td.parameters() if p.ndim > 1)
-
-
-def test_gradient_penalty_alpha_from_a_generator():
-    td = define_D(input_nc=1, ndf=8, generator=torch.Generator().manual_seed(0))
-    real, fake = torch.rand((2, 2, 1, 32, 32),
-                            generator=torch.Generator().manual_seed(1))
-    a, b = (gradient_penalty(td, real, fake,
-                             generator=torch.Generator().manual_seed(6))
-            for _ in range(2))
-    assert float(a) == float(b) > 0
-    assert gradient_penalty(td, real, fake, lambda_gp=0.0) == 0.0
 
 
 # ------------------------------------------------------- the two-phase step

@@ -33,7 +33,6 @@ from dfmir_tpu.compat import convert as jax_convert
 from dfmir_tpu.engine import TrainState
 from dfmir_tpu.engine.config import RegistrationConfig as JaxConfig
 from dfmir_tpu.engine.registration import RegistrationModel as JaxModel
-from dfmir_tpu.nets.layers import pad_nd as jax_pad_nd
 from dfmir_tpu.nets.resnet_gen import ResnetGenerator as JaxResnetGenerator
 from dfmir_tpu.ops import folding_fraction as jax_folding_fraction
 from dfmir_tpu.ops import jacobian_det as jax_jacobian_det
@@ -45,9 +44,8 @@ from dfmir_tpu_torch.compat.convert import (adam_state_from_jax,
                                             to_nhwc)
 from dfmir_tpu_torch.engine.config import RegistrationConfig
 from dfmir_tpu_torch.engine.registration import RegistrationModel
-from dfmir_tpu_torch.nets.layers import pad_nd
 from dfmir_tpu_torch.nets.resnet_gen import ResnetGenerator
-from test_torch_cli import few_threads  # noqa: F401 (autouse fixture)
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 from test_torch_gan import check_moved
 from test_torch_train import GRAD_ENV, KEY, LR, _jax_ids, named_params
 from test_torch_vecint_chain import counted_kernels  # noqa: F401 (fixture)
@@ -299,15 +297,6 @@ def test_generator_bridge_5d(no_antialias):
     for o, r in zip([t_out] + t_feats, [out] + list(feats)):
         np.testing.assert_allclose(to_nhwc(o), np.asarray(r), rtol=0,
                                    atol=1e-5)
-
-
-@pytest.mark.parametrize("mode", ["reflect", "replicate", "zero"])
-def test_pad_nd_5d_matches_jax(mode):
-    x = volumes(4, batch=2)[0][..., :5, :6, :7, :]
-    x = np.concatenate([x, -x], axis=-1)
-    got = pad_nd(torch.from_numpy(to_nchw(x)), 3, mode)
-    ref = jax_pad_nd(jnp.asarray(x), 3, mode)
-    assert np.array_equal(to_nhwc(got), np.asarray(ref))
 
 
 def test_launches_3d(setup, counted_kernels):

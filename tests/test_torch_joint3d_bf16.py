@@ -31,7 +31,7 @@ from dfmir_tpu_torch.engine.registration import RegistrationModel
 from dfmir_tpu_torch.ops import integrate
 from dfmir_tpu_torch.ops import warp as warp_mod
 from test_torch_bf16 import METRIC_BAR, REGISTER_BARS
-from test_torch_cli import few_threads  # noqa: F401 (autouse fixture)
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 from test_torch_joint3d import CFG3D, STEP3D, make_setup
 from test_torch_train import KEY, LR
 from test_torch_vecint_chain import counted_kernels  # noqa: F401 (fixture)

@@ -9,7 +9,7 @@ import json
 import pytest
 
 import chip_smoke
-from test_torch_cli import few_threads  # noqa: F401 (autouse fixture)
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 from test_torch_option_phases import cpu_card  # noqa: F401 (fixture)
 from test_torch_vecint_chain import counted_kernels  # noqa: F401 (fixture)
 

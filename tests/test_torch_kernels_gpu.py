@@ -742,3 +742,61 @@ def test_vxm_engine_3d_launches_and_matches_cpu(cuda):
         assert abs(metrics["cuda"][k] - v) <= 1e-3 * abs(v), k
     for o, r in zip(grads["cuda"], grads["cpu"]):
         assert max_err(o, r) <= 1e-2 * float(r.abs().max())
+
+
+# augment's SVF fields (ops/augment.py: max(s // 8, 2) an axis, N(0, 1), 5
+# steps): bands of a cluster with no rows (H = 8 and 2 in 16 blocks), a
+# short last band (H = 25), fields smaller than the 3-D brick (20^3, 2^3)
+SMALL_CHAIN_CASES = [(8, 2, 8, 8), (8, 2, 2, 2), (1, 2, 25, 25),
+                     (8, 2, 32, 32), (1, 3, 20, 20, 20), (2, 3, 2, 2, 2)]
+
+
+@pytest.mark.parametrize("shape", SMALL_CHAIN_CASES)
+def test_vecint_chain_small_fields(cuda, shape):
+    """At augment's field sizes and 5 steps: one chain launch, bit-equal to
+    the plain loop; the backward within its bar of autograd of the loop."""
+    vec = torch.randn(shape, device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(9))
+    chain = VF if len(shape) == 4 else VF3
+    back = VB if len(shape) == 4 else VB3
+    warp_cuda.reset_launches()
+    out = vecint(vec, 5)
+    assert warp_cuda.LAUNCHES == dict(ZERO, **{chain: 1})
+    ref = vecint(vec, 5, impl="torch")
+    torch.cuda.synchronize()
+    assert max_err(out, ref) == 0.0
+    g = torch.randn_like(vec)
+    v = vec.clone().requires_grad_()
+    vecint(v, 5).backward(g)
+    assert warp_cuda.LAUNCHES == dict(ZERO, **{chain: 2, back: 1})
+    dvec = vecint_bwd_plain(vec, 5, g)
+    assert max_err(v.grad, dvec) <= 1e-5 * max(1.0, float(dvec.abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(8, 1, 64, 64), (1, 1, 24, 24, 24)])
+def test_augment_launches_and_matches_cpu(cuda, shape):
+    """augment's deterministic part on the card: 1 chain forward + 1 B1 /
+    B3, the nearest label warp the plain gather; image and flow within
+    1e-4 of the CPU's with the same draws, labels only their values."""
+    from dfmir_tpu_torch.ops import augment
+    spatial = shape[2:]
+    draws = augment.draw_deformation(torch.Generator().manual_seed(4),
+                                     shape[0], spatial)
+    gen = torch.Generator().manual_seed(5)
+    src = torch.randn(shape, generator=gen)
+    lab = torch.randint(0, 4, shape, generator=gen).float()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        warp_cuda.reset_launches()
+        d = augment.DeformationDraws(*(x.to(dev) for x in draws))
+        flow = augment.deformation_from_draws(d, spatial)
+        out[dev] = augment.deform(src.to(dev), flow, lab.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            fwd = {VF: 1, FWD: 1} if len(spatial) == 2 else {VF3: 1,
+                                                              FWD3D: 1}
+            assert warp_cuda.LAUNCHES == dict(ZERO, **fwd)
+    (img, lb, flow), (img_c, lb_c, flow_c) = out["cuda"], out["cpu"]
+    assert max_err(flow.cpu(), flow_c) <= 1e-4
+    assert max_err(img.cpu(), img_c) <= 1e-4
+    assert set(lb.unique().tolist()) <= {0.0, 1.0, 2.0, 3.0}

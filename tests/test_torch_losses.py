@@ -17,6 +17,7 @@ from dfmir_tpu.nets.patch_sample import l2_normalize as jax_l2_normalize
 from dfmir_tpu_torch import losses
 from dfmir_tpu_torch.compat.convert import netF_state_from_jax, to_nchw
 from dfmir_tpu_torch.nets.patch_sample import PatchSampleF, l2_normalize
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 TOL = 1e-5
 

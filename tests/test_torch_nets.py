@@ -17,6 +17,7 @@ from dfmir_tpu_torch.compat.convert import (netG_state_from_jax,
                                             to_nhwc)
 from dfmir_tpu_torch.nets.resnet_gen import ResnetGenerator
 from dfmir_tpu_torch.nets.vxm import VxmDense
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 TOL = 1e-3
 H = W = 64

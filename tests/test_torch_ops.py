@@ -13,6 +13,7 @@ from dfmir_tpu.ops import integrate as jintegrate
 from dfmir_tpu.ops import jacobian as jjacobian
 from dfmir_tpu_torch.compat.convert import to_nchw, to_nhwc
 from dfmir_tpu_torch.ops import filters, integrate, jacobian
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 TOL = 1e-5
 

@@ -15,6 +15,7 @@ import torch
 
 import chip_smoke
 from test_torch_vecint_chain import counted_kernels  # noqa: F401 (fixture)
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 STEP = chip_smoke.STEP_LAUNCHES
 

@@ -4,8 +4,8 @@ options, CUT and FastCUT, but for the devices (the port adds
 ``opt.device``, "cpu" for --gpu_ids -1, and ``opt.devices``, its data
 parallel plan); ``RegistrationConfig.from_opt``
 equals JAX's field by field; so do the 3-D command line's options (--model
-vxm, --dataset_mode volume) and ``VxmConfig.from_opt``; the device rules
-and the modes the port does not have yet raise."""
+vxm, --dataset_mode volume), the patient_site and triplet modes' and
+``VxmConfig.from_opt``; the device rules raise."""
 
 import argparse
 import contextlib
@@ -21,6 +21,7 @@ from dfmir_tpu.options import TrainOptions as JaxTrainOptions
 from dfmir_tpu_torch.engine.config import RegistrationConfig
 from dfmir_tpu_torch.engine.vxm_engine import VxmConfig
 from dfmir_tpu_torch.options import TestOptions, TrainOptions
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 # the only keys that differ, and why: the port resolves its devices once,
 # where the JAX package hands device choice to jax.config
@@ -102,13 +103,20 @@ def test_a_card_is_required_unless_the_cpu_is_named(tmp_path, monkeypatch):
     assert (two.devices, two.device) == (["cuda:0", "cuda:1"], "cuda:0")
 
 
-@pytest.mark.parametrize("flags,match", [
-    (("--dataset_mode", "patient_site"), "A13"),
-    (("--dataset_mode", "triplet"), "A13"),
-])
-def test_modes_not_ported_raise(tmp_path, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        parse(TrainOptions, base_argv(tmp_path, *flags))
+@pytest.mark.parametrize("mode", ["patient_site", "triplet"])
+def test_slice_modes_parse_as_jax(tmp_path, mode):
+    """--dataset_mode patient_site and triplet: the JAX package's options,
+    their dataset classes found by name (the datasets' items:
+    tests/test_torch_data_modes.py)."""
+    argv = base_argv(tmp_path, "--dataset_mode", mode, "--display_id", "1",
+                     "--display_port", "0")
+    mine = vars(parse(TrainOptions, argv))
+    ref = vars(parse(JaxTrainOptions, argv))
+    assert {k: (mine[k], ref[k]) for k in ref if mine[k] != ref[k]} == {}
+    from dfmir_tpu_torch.data import find_dataset_using_name
+    cls = find_dataset_using_name(mode)
+    assert cls.__name__ == {"patient_site": "PatientSiteDataset",
+                            "triplet": "TripletDataset"}[mode]
 
 
 ARGVS_3D = {

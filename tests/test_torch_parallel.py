@@ -27,6 +27,7 @@ from dfmir_tpu_torch.parallel.launch import RankFailed, launch
 from dfmir_tpu_torch.ops.jacobian import field_stats
 from dfmir_tpu_torch.parallel.mesh import Mesh, batch_slice, check_share
 from dfmir_tpu_torch.utils.png import write_png
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 CPU2 = ["cpu", "cpu"]
 LIMIT = 120.0            # seconds a launch may take before it fails

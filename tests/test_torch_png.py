@@ -13,6 +13,7 @@ import pytest
 from PIL import Image
 
 from dfmir_tpu_torch.utils.png import read_png, write_png
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 MODES = {"L": (1, 0), "LA": (2, 4), "RGB": (3, 2), "RGBA": (4, 6)}
 SIZES = [(1, 1), (45, 67), (256, 256)]      # (H, W)

@@ -39,6 +39,7 @@ from dfmir_tpu_torch.compat.convert import (load_jax_params,
 from dfmir_tpu_torch.engine.config import RegistrationConfig
 from dfmir_tpu_torch.engine.registration import RegistrationModel
 from dfmir_tpu_torch.engine.schedules import LRSchedule
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 CFG = dict(crop_size=64, netG="resnet_4blocks", ngf=8,
            vxm_enc=(8, 16, 16, 16), vxm_dec=(16, 16, 16, 16, 16, 8, 8),

@@ -41,7 +41,7 @@ from dfmir_tpu_torch.engine.registration import RegistrationModel
 from dfmir_tpu_torch.parallel import checks
 from dfmir_tpu_torch.parallel.launch import launch
 from test_torch_bf16 import BF16_GAIN, METRIC_BAR, REGISTER_BARS
-from test_torch_cli import few_threads  # noqa: F401 (autouse fixture)
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 from test_torch_train import (CFG, FLOW_GAIN, GRAD_ENV, KEY, LR,
                               jax_patch_ids, port_tree, tap_locations)
 

@@ -27,6 +27,7 @@ from dfmir_tpu_torch.ops.integrate import (vecint2d_bwd_fixed_plain,
 from dfmir_tpu_torch.ops.warp import warp2d_dsrc_fixed_plain, warp_bwd_plain
 
 from test_torch_vecint_chain import field, jax_chain, plain_chain_fwd
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 FIELDS = ("smooth", "outside", "posneg", "noise")
 

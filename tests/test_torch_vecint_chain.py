@@ -26,6 +26,7 @@ from dfmir_tpu_torch.ops import integrate, warp_cuda
 from dfmir_tpu_torch.ops import warp as warp_mod
 from dfmir_tpu_torch.ops.integrate import vecint, vecint_bwd_plain
 from dfmir_tpu_torch.ops.warp import warp, warp_bwd_plain
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 TOL = 1e-5
 VF, VB = warp_cuda.VECINT_FWD, warp_cuda.VECINT_BWD

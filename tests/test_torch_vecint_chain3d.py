@@ -25,6 +25,7 @@ from dfmir_tpu_torch.ops.integrate import vecint, vecint_bwd_plain
 
 from test_torch_vecint_chain import (_counted, counted_kernels,  # noqa: F401
                                      plain_chain_bwd, plain_chain_fwd)
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 TOL = 1e-5
 VF3, VB3 = warp_cuda.VECINT3D_FWD, warp_cuda.VECINT3D_BWD

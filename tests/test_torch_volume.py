@@ -23,6 +23,7 @@ from dfmir_tpu_torch.data import create_dataset
 from dfmir_tpu_torch.data import volume
 
 import chip_smoke
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 

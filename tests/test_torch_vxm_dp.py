@@ -24,7 +24,7 @@ from dfmir_tpu_torch.compat.convert import load_jax_vxm_params, to_nchw
 from dfmir_tpu_torch.engine.vxm_engine import VxmConfig, VxmEngine
 from dfmir_tpu_torch.parallel import checks
 from dfmir_tpu_torch.parallel.launch import launch
-from test_torch_cli import few_threads  # noqa: F401 (autouse fixture)
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 B = 4
 CFG = dict(ndims=3, vol_size=16, enc=(4, 8), dec=(8, 4, 4), int_steps=3,

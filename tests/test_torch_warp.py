@@ -16,6 +16,7 @@ from dfmir_tpu.ops.warp_pallas import warp2d_banded
 from dfmir_tpu_torch.compat.convert import to_nchw, to_nhwc
 from dfmir_tpu_torch.ops import warp_cuda
 from dfmir_tpu_torch.ops.warp import warp
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 TOL = 1e-5
 SPATIAL = {1: (32,), 2: (24, 20), 3: (8, 10, 12)}

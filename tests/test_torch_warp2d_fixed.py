@@ -37,6 +37,7 @@ from dfmir_tpu_torch.ops.warp import warp2d_dsrc_fixed_plain, warp_bwd_plain
 
 from test_torch_vecint_chain import field
 from test_torch_warp import make_flow
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 TOL = 1e-5
 KINDS = ("smooth", "outside", "integer", "half", "far")

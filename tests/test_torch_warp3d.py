@@ -31,6 +31,7 @@ from dfmir_tpu_torch.ops.integrate import vecint
 from dfmir_tpu_torch.ops.warp import warp, warp_bwd_plain
 
 from test_torch_warp import FLOWS, make_flow
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 TOL = 1e-5
 SPATIAL = (8, 10, 12)

@@ -28,6 +28,7 @@ from dfmir_tpu_torch.ops import warp_cuda
 from dfmir_tpu_torch.ops.warp import warp, warp_bwd_plain
 
 from test_torch_warp import FLOWS, make_flow
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 TOL = 1e-5
 

@@ -50,7 +50,7 @@ from dfmir_tpu_torch.engine.registration import RegistrationModel
 from dfmir_tpu_torch.losses import gan_loss
 from dfmir_tpu_torch.nets.patch_sample import l2_normalize
 from test_torch_bf16 import METRIC_BAR, REGISTER_BARS
-from test_torch_cli import few_threads  # noqa: F401 (autouse fixture)
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 from test_torch_train import CFG, KEY, LR, jax_patch_ids, tap_locations
 from test_torch_vecint_chain import counted_kernels  # noqa: F401 (fixture)
 from test_torch_zoo_train import CASES_BASE, flax_from_port
@@ -172,11 +172,11 @@ def make_case(name):
                 pos_flow=np.asarray(aux["pos_flow"]))
 
 
-# the netG and netR choices here, the netF and netD ones in
-# test_torch_zoo_bf16_heads.py, so that the suite's workers share the
-# JAX compiles
+# the netR choices here, the netG ones in test_torch_zoo_bf16_netg.py, netF
+# in test_torch_zoo_bf16_heads.py and netD in test_torch_zoo_bf16_netd.py:
+# files of at most 12 cases, which the suite's workers run side by side
 @pytest.fixture(scope="module", params=[k for k in CHOICES
-                                        if k.startswith(("netG", "netR"))])
+                                        if k.startswith("netR")])
 def case(request):
     return make_case(request.param)
 

@@ -1,19 +1,18 @@
-"""The netF and netD cases of ``test_torch_zoo_bf16.py`` (its docstring
-gives the bars): bfloat16 with netF sample, global_pool, reshape,
-strided_conv and the StyleGAN2 netDs, against the JAX package's bfloat16
-``register`` and ``loss_fn``.  A file of their own, so that the suite's
-workers share the JAX compiles."""
+"""The netF cases of ``test_torch_zoo_bf16.py`` (its docstring gives the
+bars): bfloat16 with netF sample, global_pool, reshape and strided_conv,
+against the JAX package's bfloat16 ``register`` and ``loss_fn``.  A file
+of their own, which the suite's workers run beside the other choices'."""
 
 import pytest
 
-from test_torch_cli import few_threads  # noqa: F401 (autouse fixture)
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 from test_torch_vecint_chain import counted_kernels  # noqa: F401 (fixture)
 from test_torch_zoo_bf16 import (CHOICES, check_loss_fn, check_register,
                                  check_step, make_case)
 
 
 @pytest.fixture(scope="module", params=[k for k in CHOICES
-                                        if k.startswith(("netF", "netD"))])
+                                        if k.startswith("netF")])
 def case(request):
     return make_case(request.param)
 

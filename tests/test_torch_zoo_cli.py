@@ -45,7 +45,7 @@ from dfmir_tpu_torch.options import TrainOptions
 from dfmir_tpu_torch.parallel import checks
 from dfmir_tpu_torch.parallel.launch import launch
 import chip_smoke
-from test_torch_cli import few_threads  # noqa: F401 (autouse fixture)
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 from test_torch_option_phases import cpu_card  # noqa: F401 (fixture)
 from test_torch_vecint_chain import counted_kernels  # noqa: F401 (fixture)
 from test_torch_zoo_nets import random_params

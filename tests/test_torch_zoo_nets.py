@@ -35,7 +35,7 @@ from dfmir_tpu_torch.nets import factory, feature_nets, munit, stylegan2, \
     transfusion
 from dfmir_tpu_torch.nets.unet_gen import UnetGenerator
 from test_stylegan2 import upfirdn2d_numpy
-from test_torch_cli import few_threads  # noqa: F401 (autouse fixture)
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 TOL = 1e-5
 

@@ -53,7 +53,7 @@ from dfmir_tpu_torch.engine.registration import RegistrationModel
 from test_torch_gan import check_moved
 from test_torch_train import (CFG, FLOW_GAIN, GRAD_ENV, KEY, LR,
                               jax_patch_ids, named_params, tap_locations)
-from test_torch_cli import few_threads  # noqa: F401 (autouse fixture)
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 GAN = dict(lambda_GAN=1.0, ndf=8)
 # 2 integration steps: XLA:CPU's compile of the step grows with each

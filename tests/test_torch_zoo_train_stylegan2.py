@@ -6,7 +6,7 @@ the JAX compiles."""
 
 import pytest
 
-from test_torch_cli import few_threads  # noqa: F401 (autouse fixture)
+from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 from test_torch_zoo_train import check_loss_fn, check_train_step, make_case
 
 
