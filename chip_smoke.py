@@ -43,7 +43,7 @@ Phases, each printing one JSON line:
   5. train    the joint translate-and-register step at the same full width
               (mlp_sample netF, 256 patches, nce_layers 0,4,8,12,16): one
               loss_fn on the card against the same weights and patch ids on
-              the CPU (metrics within 1e-3 relative), then 1 warm-up and 5
+              the CPU (metrics within 1e-3 relative), then 1 warm-up and 3
               timed train_step calls at B=1, kernel launches counted over
               them (exactly 1 chain forward + 2 B1 and 1 chain backward + 2
               B2 a step), every metric
@@ -61,7 +61,7 @@ Phases, each printing one JSON line:
               vs the CPU's bf16 under the JAX suite's bf16 bars, fake_B
               0.1, pos_flow 1e-3, y_source 1e-2, metrics 1e-2 relative;
               master parameters float32; register ms at B=1 by CUDA events
-              beside phase register's); each 1 warm-up + 5 timed steps at
+              beside phase register's); each 1 warm-up + 3 timed steps at
               B=1 (ms/step beside phase train's, peak memory), launches
               exactly the CUT step's (bf16 register 1 + 1 a call);
               no_dropout False (2 counted steps, finite; the masks' keep
@@ -77,7 +77,7 @@ Phases, each printing one JSON line:
               counted (1 chain forward + 1 B1), for the netG and netR runs
               against the same weights on the CPU (fake_B, y_source,
               pos_flow max-abs <= 1e-3); register ms (CUDA events, median
-              of 3); 1 warm-up + 2 timed steps counted (the CUT step's
+              of 3); 1 warm-up + 1 timed step counted (the CUT step's
               launches), every parameter moved but the noise weights no
               loss reaches, peak memory; one train step at the narrow width
               (crop 64, ngf 8; unet_256 at crop 256, resnet_cat at ngf 32)
@@ -88,7 +88,7 @@ Phases, each printing one JSON line:
   bf16_zoo    each of zoo's 13 choices in bfloat16 at the same full width
               (the flow head scaled to about 0.1 px): a register call
               counted (1 + 1), register ms (CUDA events, median of 3), 1
-              warm-up + 2 timed steps counted (the CUT step's launches),
+              warm-up + 1 timed step counted (the CUT step's launches),
               every master parameter and Adam moment float32 (netD's too),
               peak memory, each beside the float32 zoo run of this run; the
               narrow model card vs the CPU's bfloat16 (register under the
@@ -168,7 +168,7 @@ Phases, each printing one JSON line:
               in JAX, 1e7-scale ones here): 2 register_pair_outputs
               calls with a label volume
               counted (1 chain forward + 1 B3 each), register ms (CUDA
-              events, median of 10), 1 warm-up + 3 timed steps counted (1
+              events, median of 3), 1 warm-up + 2 timed steps counted (1
               chain forward + 2 B3, 1 chain backward + 2 B4 + 1 B5:
               `registered`'s source gradient into netG), every parameter
               moved, peak memory, one step traced (device time by kernel,
@@ -177,11 +177,30 @@ Phases, each printing one JSON line:
               1e-2 of each network's max |g|); 20 steps of the narrow
               model at 64^3 on one pair at lr 1e-3 (the total falls)
   bf16_3d     the same 3-D model in bfloat16 (the flow head fitted to a
-              field of 0.05 voxel): register and 1 + 3 steps counted and
+              field of 0.05 voxel): register and 1 + 2 steps counted and
               timed beside joint3d's, master parameters and Adam state
               float32, peak
               memory; the narrow model card vs the CPU's bfloat16 under
               the bf16 bars
+  zoo3d       the same 3-D model with one choice of the 3-D zoo changed a
+              run: netG unet_128 (taps 0,2,4,6) and unet_256 (at 256^3,
+              the smallest cube it takes), netF global_pool and
+              strided_conv (at 64^3: its PatchNCE logits, the square of
+              about 27,000 locations a tap, do not fit beside the step at
+              128^3), netR vxm_dual, netD basic and pixel (lambda_GAN 1, a
+              two-phase step); each in float32 (the flow head fitted to
+              0.8 voxel; 1 + 2 steps) and bf16 (0.05 voxel; 1 + 1 steps):
+              a register_pair_outputs call counted (1 chain forward + 1
+              B3), register ms (CUDA events, median of 3), the steps
+              counted (1 + 2 forward, 1 chain backward + 2 B4 + 1 B5; the
+              D phase none), every parameter moved (netD's too; a tap of
+              one location leaves its MLP a zero gradient, checked), master
+              parameters and Adam state float32, peak memory; the narrow
+              model card vs CPU (32^3; unet_128 at 128^3, strided_conv at
+              16^3, unet_256 held by unet_128's): float32 register 1e-3
+              max-abs, a train step's metrics 1e-3 relative and each
+              network's gradients 1e-2 of its max |g| (netD's from its
+              phase), bf16 register and loss_fn at the bf16 bars
   8. profile  (--profile only) device time by kernel and by conv shape
               over register calls, 2-D and 3-D train steps, netG / netR
               times, register calls with cuDNN's autotuner on, and each
@@ -212,7 +231,7 @@ Phases, each printing one JSON line:
               against one process's B=4 step on the card (metrics 1e-3
               relative; gradients 1e-2 of each network's max |g|; after
               Adam only first-step sign flips, > 99% of components within
-              1e-5), then 5 timed steps; the ranks' parameters and Adam
+              1e-5), then 3 timed steps; the ranks' parameters and Adam
               state bit-equal after every step; each rank's launches a
               step exactly the CUT step's; one 2-rank step each of FastCUT
               and lambda_GAN 1; ms a step beside one process's B=4 step,
@@ -274,7 +293,9 @@ bf16_zoo_register, bf16_zoo_train (summed over the zoo's runs),
 register3d, train3d, cli_train, cli_test, cli_fastcut, cli_gan,
 cli_gan_test, cli_zoo_unet, cli_zoo_unet_test, cli_zoo_stylegan2,
 cli_zoo_stylegan2_test, cli3d_train, cli3d_eval, joint3d_register,
-joint3d_train, bf16_3d_register, bf16_3d_train, dp, dp_fastcut, dp_gan,
+joint3d_train, bf16_3d_register, bf16_3d_train, zoo3d_register,
+zoo3d_train, bf16_zoo3d_register, bf16_zoo3d_train (summed over the 3-D
+zoo's runs), dp, dp_fastcut, dp_gan,
 dp_nccl, dp3d, dp_cli, augment2d, augment3d (one call each),
 cli_patient_site, cli_triplet, cli_triplet_test; a dp path's summed over
 its ranks; B5's main path is joint3d_train), and last {"ok": true, "device": {...}}.  A rank that fails
@@ -389,7 +410,11 @@ KERNEL_TOL = 1e-5
 PATH_TOL = 1e-3
 FLOW_GAIN = 1e5          # flow head N(0, 1e-5) -> N(0, 1)
 N_PAIRS = 4
-TRAIN_STEPS = 5          # timed, after one warm-up step
+# timing depth: 5 timed steps before phase zoo3d came, cut with the
+# other phases' repetitions (the plain versions' timings, the register
+# medians, the zoos' and the 3-D joint model's steps) to hold the script
+# near 600 s beside it
+TRAIN_STEPS = 3          # timed, after one warm-up step
 # card vs CPU gradients: within GRAD_ENV * the network's max |g|, the JAX
 # suite's cross-program bar: the CPU's own float32 gradient is ~5e-3 of
 # netG's max |g| from float64 on this loss (the NCE's T = 0.07 softmax and
@@ -599,7 +624,7 @@ def phase_kernel(seed, profile):
             "zero_fraction": outside,
             "ms": time_ms(kernel),
             "plain_ms": time_ms(lambda: warp(src, flow, impl="torch"),
-                                reps=50),
+                                reps=10, warmup=2),
             "library_ms": time_ms(library),
             "library_max_abs_err": lib_err,
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -714,7 +739,7 @@ def phase_kernel_bwd(seed, profile):
             "max_abs_err": max(err_dflow, err_dsrc),
             "ms": time_ms(kernel),
             "plain_ms": time_ms(lambda: warp_bwd_plain(
-                src, flow, g, need_dsrc), reps=50),
+                src, flow, g, need_dsrc), reps=10, warmup=2),
             "library_ms": time_ms(library),
             "library_max_abs_err_dflow":
                 float((lib_dflow - ref_dflow).abs().max()),
@@ -1460,10 +1485,11 @@ def run_chains(phase, cases, names, seed, profile):
                    "max_abs_err": err if k == kf else err_bwd,
                    "tol": 0.0 if k == kf else tol_bwd,
                    "ms": time_ms(c["kernel"]),
-                   "plain_ms": time_ms(c["plain"], reps=20, warmup=2),
+                   "plain_ms": time_ms(c["plain"], reps=5, warmup=1),
                    "launch_chain_ms": time_ms(c["launches"]),
                    "launch_chain_max_abs_err": before_err[k],
-                   "grid_sample_chain_ms": time_ms(c["grid_sample"]),
+                   "grid_sample_chain_ms": time_ms(c["grid_sample"],
+                                                   reps=20, warmup=2),
                    "grid_sample_chain_max_abs_err": gs_err[k],
                    "library_ms": None,
                    "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1603,7 +1629,7 @@ def phase_register(seed, smi):
 
     a, b, lab = pairs[0]
     ms_b1 = time_ms(lambda: infer.register_pair_outputs(model, a, b, lab),
-                    reps=30, warmup=3)
+                    reps=10, warmup=2)
     (a8, b8, lab8), = make_pairs(1, 8, S, seed + 1, DEVICE)
     ms_b8 = time_ms(lambda: infer.register_pair_outputs(model, a8, b8, lab8),
                     reps=10, warmup=2)
@@ -1925,7 +1951,7 @@ def phase_gan(seed, smi, train_ms):
 
 
 def phase_bf16(seed, smi, register_ms, train_ms):
-    """compute_dtype bfloat16: register (B=1, CUDA events, median of 30)
+    """compute_dtype bfloat16: register (B=1, CUDA events, median of 10)
     and the step (median of 5) beside the float32 ones of phases register
     and train; card vs CPU-bf16 under BF16_BARS; master parameters
     float32; launches exact."""
@@ -1959,7 +1985,7 @@ def phase_bf16(seed, smi, register_ms, train_ms):
                                        BF16_METRIC_TOL, "bf16 loss_fn")
     del cpu, ref
     reg_ms = time_ms(lambda: infer.register_pair_outputs(model, a, b, lab),
-                     reps=30, warmup=3)
+                     reps=10, warmup=2)
 
     ms, history, launches, peak = counted_steps(model, pairs, cfg.lr, seed,
                                                 "bf16")
@@ -2005,7 +2031,9 @@ def dropout_masks(model, fn):
 def phase_dropout(seed, smi):
     """no_dropout=False: a counted step with finite metrics, the masks'
     keep rate on the card's generator, two seeded calls equal, register
-    equal to the no_dropout=True model's (the same weights)."""
+    equal to the no_dropout=True model's (the same weights), and
+    eval_step and compute_visuals drawing masks too (JAX's run netG in
+    training mode), each at the keep rate."""
     cfg = option_cfg(DROPOUT)
     model = build_model(cfg, seed, DEVICE)
     pairs = make_pairs(2, 1, cfg.crop_size, seed + 8, DEVICE)
@@ -2042,12 +2070,24 @@ def phase_dropout(seed, smi):
     seeded_errs = rel_errs(runs[0][0], runs[1][0], 1e-6, "dropout reseeded")
     if not same_masks:
         raise AssertionError("dropout: one seed drew two different masks")
+    eval_rates = {}
+    for name in ("eval_step", "compute_visuals"):
+        call = getattr(model, name)
+        _, mk = dropout_masks(model, lambda: call(
+            a, b, generator=patch_gen(seed)))
+        eval_rates[name] = float(mk.float().mean())
+        bound_e = KEEP_SIGMAS * math.sqrt(0.25 / mk.numel())
+        if not abs(eval_rates[name] - 0.5) <= bound_e:
+            raise AssertionError(f"dropout {name}: keep rate "
+                                 f"{eval_rates[name]}, not 0.5 within "
+                                 f"{bound_e}")
 
     emit({"phase": "dropout", "config": "RegistrationConfig() with "
           "no_dropout False", "crop": cfg.crop_size, "steps": len(pairs),
           "launches": launches, "metrics_last": history[-1],
           "mask_draws": n, "keep_rate": rate, "keep_bound": bound,
           "reseeded_masks_equal": same_masks,
+          "eval_paths_keep_rate": eval_rates,
           "reseeded_metrics_rel": seeded_errs,
           "register_vs_no_dropout_max_abs": reg_diff, "card": smi})
     return launches
@@ -2073,10 +2113,11 @@ ZOO_RUNS = {
 }
 ZOO_CPU_REGISTER = ("netG", "netR")  # runs whose full-width register is
                                      # held against the CPU
-# timing depth kept small (it was 3 timed steps and a median of 10 calls)
-# so that the script's phases stay near their time with phases joint3d,
-# bf16_3d and bf16_zoo beside them
-ZOO_STEPS = 2                        # timed, after 1 warm-up
+# timing depth kept small (it was 3 timed steps and a median of 10 calls,
+# then 2 steps before phase zoo3d came) so that the script's phases stay
+# near their time with phases joint3d, bf16_3d, bf16_zoo and zoo3d beside
+# them
+ZOO_STEPS = 1                        # timed, after 1 warm-up
 ZOO_REGISTER_REPS = 3
 # the card-vs-CPU step: the CPU tests' narrow width, but unet_256 needs a
 # side of 2^8, and resnet_cat's tap 0 is a ReLU's output, which at 8
@@ -3474,8 +3515,8 @@ JOINT3D_NARROW = dict(ndims=3, crop_size=32, netG="resnet_4blocks", ngf=8,
                       num_patches=16)
 # the convergence check's config: the narrow width at 64^3
 JOINT3D_CONVERGE = dict(JOINT3D_NARROW, crop_size=64)
-JOINT3D_STEPS = 3              # timed, after 1 warm-up
-JOINT3D_REGISTER_REPS = 10
+JOINT3D_STEPS = 2              # timed, after 1 warm-up (3 before zoo3d)
+JOINT3D_REGISTER_REPS = 3      # (10 before zoo3d)
 JOINT3D_CONVERGE_LR = 1e-3
 # a 3-D register call: the chain and the y_source warp; a 3-D joint step:
 # the chain, the stacked data warp and `registered` forward; backward the
@@ -3573,14 +3614,19 @@ def joint3d_register(model, pairs, what):
     return outs, launches, max(float(o["pos_flow"].abs().max()) for o in outs)
 
 
-def joint3d_narrow(seed, bf16):
-    """The narrow 3-D joint model on the card and on the CPU from the same
-    weights, volumes and patch ids: register (float32: 1e-3 max-abs;
-    bf16: BF16_BARS), loss_fn metrics (float32: PATH_TOL relative; bf16:
-    BF16_METRIC_TOL) and, in float32, each network's gradients within
-    GRAD_ENV of its max |g| on the CPU; the card's backward launches the
-    joint step's kernels."""
-    cfg = RegistrationConfig(**JOINT3D_NARROW, **(BF16 if bf16 else {}))
+def joint3d_narrow(seed, bf16, name="joint3d", change=None):
+    """The narrow 3-D joint model (with a zoo run's ``change``; its cube
+    ZOO3D_NARROW_CROP's for ``name``) on the card and on the CPU from the
+    same weights, volumes and patch ids (the flow head fitted on the CPU
+    model): register (float32 PATH_TOL max-abs; bf16 BF16_BARS), then in
+    float32 one train_step (metrics PATH_TOL relative, absolute below
+    ZOO_METRIC_FLOOR; each network's gradients, netD's from its phase,
+    within GRAD_ENV of its max |g| on the CPU; the card's launches the 3-D
+    joint step's), in bf16 loss_fn's metrics within BF16_METRIC_TOL."""
+    cfg = RegistrationConfig(**{
+        **JOINT3D_NARROW, **(change or {}), **(BF16 if bf16 else {}),
+        "crop_size": ZOO3D_NARROW_CROP.get(name,
+                                           JOINT3D_NARROW["crop_size"])})
     (a, b, lab), = joint3d_pairs(1, cfg.crop_size, seed + 11, "cpu")
     cpu = build_model(cfg, seed, "cpu", gain=1.0)
     gain = fit_flow_head(cpu, a, b, BF16_3D_FIELD if bf16 else JOINT3D_FIELD)
@@ -3592,45 +3638,118 @@ def joint3d_narrow(seed, bf16):
         x, y, z = (t.to(dev) for t in (a, b, lab))
         reg = infer.register_pair_outputs(model, x, y, label=z)
         warp_cuda.reset_launches()
-        model.optimizer.zero_grad(set_to_none=True)
-        total, metrics, _ = model.loss_fn(x, y, generator=patch_gen(seed))
-        total.backward()
+        if bf16:
+            with torch.no_grad():
+                _, m, _ = model.loss_fn(x, y, generator=patch_gen(seed))
+        else:
+            m = model.train_step(x, y, cfg.lr, generator=patch_gen(seed))
         if run == "card":
             torch.cuda.synchronize()
-            check_launches("narrow 3-D joint step", dict(warp_cuda.LAUNCHES),
-                           dict(ZERO, **JOINT3D_STEP))
+            if not bf16:
+                check_launches(f"{name} narrow step",
+                               dict(warp_cuda.LAUNCHES),
+                               dict(ZERO, **JOINT3D_STEP))
         out[run] = ({k: v.detach().cpu() for k, v in reg.items()},
-                    {k: float(v.detach()) for k, v in metrics.items()},
-                    {net: [p.grad.detach().cpu() for p in
-                           getattr(model, net).parameters()]
-                     for net in NETS})
+                    {k: float(v) for k, v in m.items()},
+                    {} if bf16 else
+                    {net: [(torch.zeros_like(p) if p.grad is None
+                            else p.grad).detach().cpu()
+                           for p in getattr(model, net).parameters()]
+                     for net in zoo_nets(model)})
         del model
     bars = BF16_BARS if bf16 else dict.fromkeys(
         ("fake_B", "idt_B", "y_source", "pos_flow"), PATH_TOL)
     reg_errs = {k: float((out["card"][0][k] - out["cpu"][0][k]).abs().max())
                 for k in bars}
     bad = {k: e for k, e in reg_errs.items() if not e <= bars[k]}
-    if bad:
-        raise AssertionError(f"narrow 3-D register (bf16 {bf16}): card vs "
-                             f"CPU {bad} past {bars}")
-    flow_max = float(out["cpu"][0]["pos_flow"].abs().max())
-    metric_errs = rel_errs(out["card"][1], out["cpu"][1],
-                           BF16_METRIC_TOL if bf16 else PATH_TOL,
-                           f"narrow 3-D loss_fn (bf16 {bf16})")
+    card_m, cpu_m = out["card"][1], out["cpu"][1]
+    tol = BF16_METRIC_TOL if bf16 else PATH_TOL
+    metric_errs = {k: abs(card_m[k] - v) / max(abs(v), ZOO_METRIC_FLOOR)
+                   for k, v in cpu_m.items()}
+    bad.update({k: e for k, e in metric_errs.items() if not e <= tol})
+    if bad or card_m.keys() != cpu_m.keys():
+        raise AssertionError(f"{name} narrow (bf16 {bf16}): card vs "
+                             f"CPU {bad} past {bars} / {tol}")
     grad_errs = {}
-    for net in NETS:
-        cpu_g = out["cpu"][2][net]
+    for net, cpu_g in out["cpu"][2].items():
+        if not cpu_g:                  # a parameterless netF
+            continue
         scale = max(float(g.abs().max()) for g in cpu_g)
         err = max(float((x - y).abs().max())
                   for x, y in zip(out["card"][2][net], cpu_g)) / scale
         grad_errs[net] = {"net_scale": scale, "card_vs_cpu": err}
-        if not bf16 and not (scale > 0 and err <= GRAD_ENV):
-            raise AssertionError(f"narrow 3-D step {net}: gradients off by "
-                                 f"{err} of max |g| {scale} > {GRAD_ENV}")
+        if not (scale > 0 and err <= GRAD_ENV):
+            raise AssertionError(f"{name} narrow step {net}: "
+                                 f"gradients off by {err} of max |g| "
+                                 f"{scale} > {GRAD_ENV}")
     return {"crop": cfg.crop_size, "ngf": cfg.ngf, "netG": cfg.netG,
-            "flow_gain": gain, "pos_flow_max_vox": flow_max,
-            "register_max_abs": reg_errs,
-            "metrics_rel": metric_errs, "grads": grad_errs}
+            "flow_gain": gain,
+            "pos_flow_max_vox": float(out["cpu"][0]["pos_flow"].abs().max()),
+            "register_max_abs": reg_errs, "metrics_rel": metric_errs,
+            "grads": grad_errs}
+
+
+def joint3d_full(what, cfg, seed, pairs, steps, field):
+    """One 3-D joint model at full width: built at gain 1, its flow head
+    fitted to ``field`` voxels on the first pair, a register_pair_outputs
+    call counted (JOINT3D_REGISTER), register ms (CUDA events, median of
+    JOINT3D_REGISTER_REPS), 1 warm-up + ``steps`` timed steps counted
+    (JOINT3D_STEP each), every parameter moved (netD's too; but the MLP
+    of a tap of one location, whose gradient must be 0), every master
+    parameter and Adam moment float32, peak memory of each part."""
+    model = build_model(cfg, seed, DEVICE, gain=1.0)
+    gain = fit_flow_head(model, *pairs[0][:2], field)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, reg_launches, flow_max = joint3d_register(model, pairs[:1], what)
+    if not 0.5 * field < flow_max < 1.5 * field:
+        raise AssertionError(f"{what}: pos_flow max {flow_max} voxels, not "
+                             f"the fitted {field}")
+    a, b, _ = pairs[0]
+    reg_ms = time_ms(lambda: model.register(a, b),
+                     reps=JOINT3D_REGISTER_REPS, warmup=1)
+    peak_register = torch.cuda.max_memory_allocated()
+    nets = zoo_nets(model)
+    before = [(net, k, p.detach().clone()) for net in nets
+              for k, p in getattr(model, net).named_parameters()]
+    ms, history, launches, peak = joint3d_steps(
+        model, pairs[:1 + steps], cfg.lr, seed, JOINT3D_STEP, what)
+    params = {f"{net}.{k}": p for net in nets
+              for k, p in getattr(model, net).named_parameters()}
+    unmoved = [k for net, n, p0 in before for k in [f"{net}.{n}"]
+               if torch.equal(params[k].detach(), p0)]
+    # a tap of one location (unet_128's level 6 at 128^3) gives its NCE
+    # one patch a volume at B=1, no negative but the masked one: a
+    # constant loss, so that tap's MLP has a gradient of exactly 0 (in
+    # JAX too) and stays where it is
+    one_location = [f"netF.mlp_{i}." for i, shape in enumerate(
+        model._tap_shapes(model.netG)) if math.prod(shape[2:]) == 1]
+    still = [k for k in unmoved
+             if any(k.startswith(m) for m in one_location)
+             and (params[k].grad is None or not params[k].grad.any())]
+    unmoved = [k for k in unmoved if k not in still]
+    if unmoved:
+        raise AssertionError(f"{what}: {len(unmoved)} parameters did not "
+                             f"move: {unmoved[:8]}")
+    float32_state(model, what)
+    if model.netD is not None and not all(
+            p.dtype == st["exp_avg"].dtype == st["exp_avg_sq"].dtype
+            == torch.float32 for p, st in model.optimizer_D.state.items()):
+        raise AssertionError(f"{what}: netD's master parameters or Adam "
+                             f"state not float32")
+    out = {"nets": {net: {"type": type(getattr(model, net)).__name__,
+                          "params": sum(p.numel() for p in getattr(
+                              model, net).parameters())} for net in nets},
+           "flow_gain": gain, "pos_flow_max_vox": flow_max,
+           "unmoved_zero_gradient": still,
+           "register_launches": reg_launches, "register_ms_b1": reg_ms,
+           "peak_mem_gb_register": peak_register / 1e9,
+           "step_launches": launches, "step_ms_b1": ms,
+           "ms_per_step_b1": statistics.median(ms[1:]),
+           "peak_mem_gb_b1": peak / 1e9, "metrics_last": history[-1]}
+    del model, before
+    torch.cuda.empty_cache()
+    return out
 
 
 def float32_state(model, what):
@@ -3648,7 +3767,7 @@ def float32_state(model, what):
 def phase_joint3d(seed, smi, profile):
     """The joint model at ndims=3, 128^3, full width: register at B=1
     counted (1 chain forward + 1 B3 a call; a label volume warped) and
-    timed (CUDA events, median of 10), peak memory; 1 warm-up + 3 timed
+    timed (CUDA events, median of 3), peak memory; 1 warm-up + 2 timed
     steps counted (1 + 2 forward, 1 chain backward + 2 B4 + 1 B5), every
     metric finite and every parameter moved, peak memory; one step traced
     (device time by kernel: the chains' and B5's, the idle share); the
@@ -3728,39 +3847,25 @@ def phase_joint3d(seed, smi, profile):
 
 def phase_bf16_3d(seed, smi, register_ms, train_ms):
     """The same 3-D model in bfloat16 (the flow head scaled to a field of
-    0.05 voxel): register and 1 warm-up + 3 timed steps at full width,
-    counted and timed beside phase joint3d's float32, every master
-    parameter and Adam moment float32, peak memory; the narrow model card
-    vs the CPU's bfloat16 under BF16_BARS."""
+    0.05 voxel): joint3d_full's register and 1 warm-up + JOINT3D_STEPS
+    timed steps at full width, counted and timed beside phase joint3d's
+    float32, every master parameter and Adam moment float32, peak memory;
+    the narrow model card vs the CPU's bfloat16 under BF16_BARS."""
     cfg = RegistrationConfig(**JOINT3D, **BF16)
     pairs = joint3d_pairs(1 + JOINT3D_STEPS, cfg.crop_size, seed + 10,
                           DEVICE)
-    model = build_model(cfg, seed, DEVICE, gain=1.0)
-    gain = fit_flow_head(model, *pairs[0][:2], BF16_3D_FIELD)
-    torch.cuda.reset_peak_memory_stats()
-    _, reg_launches, flow_max = joint3d_register(model, pairs[:2],
-                                                 "bf16_3d")
-    a, b, _ = pairs[0]
-    reg_ms = time_ms(lambda: model.register(a, b),
-                     reps=JOINT3D_REGISTER_REPS, warmup=2)
-    peak_register = torch.cuda.max_memory_allocated()
-    ms, history, launches, peak = joint3d_steps(
-        model, pairs, cfg.lr, seed, JOINT3D_STEP, "bf16_3d")
-    float32_state(model, "bf16_3d")
-    del model, pairs
-    torch.cuda.empty_cache()
+    full = joint3d_full("bf16_3d", cfg, seed, pairs, JOINT3D_STEPS,
+                        BF16_3D_FIELD)
+    del pairs
     narrow = joint3d_narrow(seed, bf16=True)
     emit({"phase": "bf16_3d", "config": "RegistrationConfig(ndims=3, "
           "crop_size=128, compute_dtype='bfloat16')", "crop": cfg.crop_size,
-          "flow_gain": gain, "pos_flow_max_vox": flow_max,
-          "register_launches": reg_launches, "register_ms_b1": reg_ms,
-          "f32_register_ms_b1": register_ms,
-          "peak_mem_gb_register": peak_register / 1e9,
+          **full, "f32_register_ms_b1": register_ms,
           "master_dtype": "float32", "bars": BF16_BARS,
-          **step_summary(ms, history, launches, peak, None),
           "f32_ms_per_step_b1": train_ms,
           "narrow_card_vs_cpu_bf16": narrow, "card": smi})
-    return {"bf16_3d_register": reg_launches, "bf16_3d_train": launches}
+    return {"bf16_3d_register": full["register_launches"],
+            "bf16_3d_train": full["step_launches"]}
 
 
 def bf16_zoo_narrow(name, change, seed):
@@ -3864,6 +3969,96 @@ def phase_bf16_zoo(seed, smi, zoo_f32):
           "register_launches": reg_total, "step_launches": step_total,
           "card": smi})
     return {"bf16_zoo_register": reg_total, "bf16_zoo_train": step_total}
+
+
+# ---------------------------------------------------------- phase zoo3d
+# the joint model at 128^3, full width (phase joint3d's configuration),
+# with one choice of the 3-D zoo changed a run: every network the JAX
+# package builds and trains at ndims=3.  unet_256 needs a side of 2^8:
+# 256^3 is the smallest cube it takes (its netR then at 256^3 too).
+# strided_conv makes every output location of a tap a patch, about 30 a
+# side (24,389-27,000 at 128^3), and PatchNCE's logits are that number
+# squared a tap and NCE call: at 128^3 its 15 (2.2-2.7 GiB each, kept for
+# the backward with their masks) do not fit beside the 52.5 GB step (on
+# an 80 GB H100 the step ran out of memory with 74.3 GiB allocated), so
+# it runs at 64^3, the netR's smallest cube, where two of its five taps
+# are 14^3
+ZOO3D_RUNS = {
+    "netG_unet_128": dict(netG="unet_128", nce_layers=(0, 2, 4, 6)),
+    "netG_unet_256": dict(netG="unet_256", nce_layers=(0, 2, 4, 6),
+                          crop_size=256),
+    "netF_global_pool": dict(netF="global_pool"),
+    "netF_strided_conv": dict(netF="strided_conv", crop_size=64),
+    "netR_vxm_dual": dict(netR="vxm_dual"),
+    "netD_basic": dict(lambda_GAN=1.0, netD="basic", n_layers_D=3),
+    "netD_pixel": dict(lambda_GAN=1.0, netD="pixel"),
+}
+ZOO3D_STEPS = 2                # timed, after 1 warm-up (float32)
+ZOO3D_BF16_STEPS = 1           # timed, after 1 warm-up (bfloat16)
+# the card-vs-CPU check at joint3d's narrow width and bars: 32^3, but a
+# unet needs a side of 2^num_downs, so unet_128 is held at 128^3, its
+# smallest cube; unet_256 is the same module with one more level (and
+# 256^3 on the CPU), so unet_128's check stands for it; strided_conv at
+# 16^3 (the narrow netR's smallest cube), as at 32^3 the narrow model's
+# tap 0 (38^3, no downsampling) has 36^3 = 46,656 locations, 8.7 GB of
+# logits an NCE call
+ZOO3D_NARROW_CROP = {"netG_unet_128": 128, "netF_strided_conv": 16}
+ZOO3D_NARROW_SKIP = {"netG_unet_256": "netG_unet_128"}
+
+
+def phase_zoo3d(seed, smi, register_ms, train_ms):
+    """Every ZOO3D_RUNS choice in the 3-D joint model at full width
+    (joint3d_full: float32, 1 + ZOO3D_STEPS steps, the flow head fitted to
+    JOINT3D_FIELD; bfloat16, 1 + ZOO3D_BF16_STEPS steps, BF16_3D_FIELD),
+    then the narrow card-vs-CPU checks in float32 and bf16
+    (joint3d_narrow; unet_256 stands on unet_128's); a line a run beside
+    phase joint3d's float32 times, then a summary line with the launches
+    summed over the runs."""
+    totals = {k: dict(ZERO) for k in ("zoo3d_register", "zoo3d_train",
+                                      "bf16_zoo3d_register",
+                                      "bf16_zoo3d_train")}
+    summary = {}
+    for name, change in ZOO3D_RUNS.items():
+        t0 = time.perf_counter()
+        cfg = RegistrationConfig(**dict(JOINT3D, **change))
+        pairs = joint3d_pairs(1 + ZOO3D_STEPS, cfg.crop_size, seed + 10,
+                              DEVICE)
+        f32 = joint3d_full(f"zoo3d {name}", cfg, seed, pairs, ZOO3D_STEPS,
+                           JOINT3D_FIELD)
+        low = joint3d_full(f"zoo3d {name} (bf16)", RegistrationConfig(
+            **dict(JOINT3D, **change, **BF16)), seed, pairs,
+                           ZOO3D_BF16_STEPS, BF16_3D_FIELD)
+        del pairs
+        torch.cuda.empty_cache()
+        if name in ZOO3D_NARROW_SKIP:
+            narrow = {"held_by": ZOO3D_NARROW_SKIP[name]}
+            narrow_bf16 = dict(narrow)
+        else:
+            narrow = joint3d_narrow(seed, False, name, change)
+            narrow_bf16 = joint3d_narrow(seed, True, name, change)
+        r = {"run": name, "crop": cfg.crop_size,
+             "change": {k: list(v) if isinstance(v, tuple) else v
+                        for k, v in change.items()},
+             "float32": f32, "bfloat16": low,
+             "narrow_card_vs_cpu": narrow,
+             "narrow_card_vs_cpu_bf16": narrow_bf16,
+             "wall_s": time.perf_counter() - t0}
+        emit({"phase": "zoo3d", **r, "joint3d_register_ms_b1": register_ms,
+              "joint3d_ms_per_step_b1": train_ms, "card": smi})
+        for path, got in (("zoo3d_register", f32["register_launches"]),
+                          ("zoo3d_train", f32["step_launches"]),
+                          ("bf16_zoo3d_register", low["register_launches"]),
+                          ("bf16_zoo3d_train", low["step_launches"])):
+            for k, v in got.items():
+                totals[path][k] += v
+        summary[name] = {f"{dt}_{k}": part[k] for dt, part in
+                         (("f32", f32), ("bf16", low))
+                         for k in ("register_ms_b1", "ms_per_step_b1",
+                                   "peak_mem_gb_register", "peak_mem_gb_b1")}
+    emit({"phase": "zoo3d", "runs": summary,
+          "joint3d_register_ms_b1": register_ms,
+          "joint3d_ms_per_step_b1": train_ms, **totals, "card": smi})
+    return totals
 
 
 # ------------------------------------------------- data parallelism
@@ -4906,6 +5101,9 @@ def main(argv=None):
     bf16_3d_launches = run("bf16_3d", phase_bf16_3d, args.seed, smi,
                            j3d_reg_ms, j3d_step_ms)
     torch.cuda.empty_cache()
+    zoo3d_launches = run("zoo3d", phase_zoo3d, args.seed, smi, j3d_reg_ms,
+                         j3d_step_ms)
+    torch.cuda.empty_cache()
     dp_launches = run("dp", phase_dp, args.seed, smi)
     dp_nccl_launches = run("dp_nccl", phase_dp_nccl, args.seed, smi)
     dp3d_launches = run("dp3d", phase_dp3d, args.seed, smi)
@@ -4924,7 +5122,7 @@ def main(argv=None):
              **bf16_zoo_launches,
              "register3d": reg3d_launches, "train3d": train3d_launches,
              **cli_launches, **cli3d_launches, **joint3d_launches,
-             **bf16_3d_launches, **dp_launches,
+             **bf16_3d_launches, **zoo3d_launches, **dp_launches,
              "dp_nccl": dp_nccl_launches, "dp3d": dp3d_launches,
              **dp_cli_launches, **augment_launches, **modes_launches}
 

@@ -3,10 +3,10 @@ JAX checkpoints (flax msgpack, optax Adam state) -> the port's, and the
 layout helpers the parity tests share.
 
 The input is a JAX param tree as nested dicts of numpy arrays, e.g.
-``jax.tree.map(np.asarray, state.params)``.  Layout maps: flax conv kernel
-(*k, in, out) -> torch Conv (out, in, *k); flax transposed-conv kernel
-(*k, in, out) -> torch ConvTranspose (in, out, *k).  Keys are the reference
-state_dict's: netG ``model.<i>.*``, netR (2-D or 3-D)
+``jax.tree.map(np.asarray, state.params)``.  Layout maps, at 2-D and 3-D
+alike: flax conv kernel (*k, in, out) -> torch Conv (out, in, *k); flax
+transposed-conv kernel (*k, in, out) -> torch ConvTranspose (in, out,
+*k).  Keys are the reference state_dict's: netG ``model.<i>.*``, netR
 ``unet_model.{downarm,uparm,extras}.<i>.main.*`` and ``flow.*``, netF
 ``mlp_<i>.{0,2}.*``, netD ``model.<i>.*`` (``net.<i>.*`` for the pixel
 discriminator).  A flax Dense kernel (in, out) becomes an nn.Linear
@@ -135,7 +135,8 @@ def netD_state_from_jax(params: Mapping[str, Any],
     if "nlayer" in params:
         params = params["nlayer"]
     seq_name, seq = next(iter(net.named_children()))
-    convs = [i for i, m in enumerate(seq) if isinstance(m, torch.nn.Conv2d)]
+    convs = [i for i, m in enumerate(seq)
+             if isinstance(m, torch.nn.modules.conv._ConvNd)]
     if len(convs) != len(params):
         raise KeyError(f"{type(net).__name__} has {len(convs)} convs, the "
                        f"JAX tree {len(params)}: {sorted(params)}")
@@ -181,7 +182,7 @@ def _module_state(module, node):
     """A module's own parameters from its flax subtree, by type."""
     if hasattr(module, "flax_state"):
         return module.flax_state(node)
-    if isinstance(module, torch.nn.ConvTranspose2d):
+    if isinstance(module, torch.nn.modules.conv._ConvTransposeNd):
         out = {"weight": _convT_w(node["kernel"])}
     elif isinstance(module, torch.nn.modules.conv._ConvNd):
         out = {"weight": _conv_w(node["kernel"])}

@@ -11,7 +11,8 @@ Two paths are ported:
   over): translate, register, warp, PatchNCE x3 + masked L1 x2 + local NCE
   + smoothness, one backward through netG, netF and netR, one Adam update
   of all three.  ``eval_step`` and ``compute_visuals`` run the same loss
-  without an update.
+  without an update (dropout active, as in JAX's, whose ``_loss_fn``
+  runs netG in training mode).
 
 The step follows the JAX package's ``fuse_nce_encodes`` branches.  Without
 flip equivariance the NCE keys are the forward pass's taps, and the query
@@ -29,9 +30,9 @@ registration.py``):
   every query's feature maps are flipped back (the local NCE's too, as
   the reference does).  ``registered`` warps the flipped fake_B by the
   unflipped field, as in JAX.
-- dropout (``no_dropout=False``): active in the steps' generator passes
-  only, its masks drawn from ``dropout_generator`` (on the model's
-  device); ``register``, ``eval_step`` and ``compute_visuals`` run
+- dropout (``no_dropout=False``): active in the generator passes of the
+  loss (the steps, ``eval_step``, ``compute_visuals``), its masks drawn
+  from ``dropout_generator`` (on the model's device); ``register`` runs
   without it.  With the taps reused, the keys carry the forward pass's
   masks and the query encode draws fresh ones.
 - ``compute_dtype="bfloat16"``: netG and netR run on bfloat16 copies of
@@ -68,23 +69,24 @@ every ``netG`` (``resnet_<n>blocks``, ``unet_256`` / ``unet_128``,
 (``mlp_sample``, ``sample``, ``global_pool``, ``reshape``,
 ``strided_conv``), ``netR`` (``vxm``, ``vxm_transformer``, ``vxm_dual``)
 and ``netD``.  netF maps the list of tapped maps to (one (B * P, C)
-embedding list, ids): ``global_pool`` gives one row an image,
-``reshape`` 16 and ``strided_conv`` every output location (its EMA stays
-at zero, as JAX's ``update_ema=False``).  Outside the resnet family,
-PatchSampleF's MLP widths and StridedConvF's (C, H) specs come from the
-taps' shapes, probed with one encode of a zero image at construction.
-Only the resnet and unet generators take the dropout ``train`` flag.
+embedding list, ids): ``global_pool`` gives one row an image (of W * C
+at 3-D: JAX pools D and H only), ``reshape`` 16 and ``strided_conv``
+every output location (its EMA stays at zero, as JAX's
+``update_ema=False``).  Outside the resnet family, PatchSampleF's MLP
+widths and StridedConvF's (C, side) specs come from the taps' shapes,
+traced on the meta device at construction, as JAX's ``jax.eval_shape``
+traces them.  Only the resnet and unet generators take the dropout
+``train`` flag.
 
-At ``ndims=3`` the model takes (B, C, D, H, W) volumes: the resnet netG
-and VxmDense are built for 3-D, netF flattens D * H * W locations in
-JAX's order, and FastCUT flips along H (JAX's axis 2 of (B, D, H, W, C)).
-bfloat16 is ported at both ranks and with every zoo choice.
+At ``ndims=3`` the model takes (B, C, D, H, W) volumes: netG (resnet or
+unet), netF, netR (VxmDense or ``vxm_dual``) and netD (NLayer or pixel)
+are built for 3-D, netF flattens D * H * W locations in JAX's order, and
+FastCUT flips along H (JAX's axis 2 of (B, D, H, W, C)).  bfloat16 is
+ported at both ranks and with every zoo choice.
 
-Refused (NotImplementedError): at ``ndims=3`` the zoo choices the JAX
-package cannot build (``JAX_2D_ONLY``: ``jax.eval_shape`` of its
-``init_state`` and ``_loss_fn`` at 16^3 fails), and, not ported yet
-(ROADMAP A13d), the ones it builds (``unet_*``, ``global_pool``,
-``strided_conv``, ``vxm_dual``) and netD (``lambda_GAN > 0``).
+Refused (NotImplementedError): at ``ndims=3`` the choices the JAX package
+cannot build there (``JAX_2D_ONLY``: ``jax.eval_shape`` of its
+``init_state`` and ``_loss_fn`` at 16^3 fails), and unknown names.
 """
 
 from __future__ import annotations
@@ -113,31 +115,14 @@ from dfmir_tpu_torch.parallel.mesh import (Mesh, all_reduce_grads,
                                            state_tensors)
 
 NETR_CHOICES = ("vxm", "vxm_transformer", "vxm_dual")
-# the paper model's netF and netD families; any other choice is the zoo's
-PAPER_NETF = ("mlp_sample", "sample")
-PAPER_NETD = ("basic", "n_layers", "pixel", "patch")
-# the zoo choices the JAX package cannot build at ndims=3: munit's residual
-# adds, StyleGAN2's and the netDs' 2-D convs, and the 4-D unpacking of the
-# reshape head, the transformer netR and the tile netD
+# the choices the JAX package cannot build at ndims=3: munit's residual
+# adds, StyleGAN2's and the StyleGAN2 netDs' 2-D convs, and the 4-D
+# unpacking of the reshape head, the transformer netR, the tile netD and
+# the patch netD (``B, H, W, C = x.shape``)
 JAX_2D_ONLY = {"netG": ("resnet_cat", "stylegan2", "smallstylegan2"),
                "netF": ("reshape",), "netR": ("vxm_transformer",),
                "netD": ("stylegan2", "patchstylegan2", "smallpatchstylegan2",
-                        "tilestylegan2")}
-
-
-def zoo_choices(cfg: RegistrationConfig) -> List[str]:
-    """The config's choices outside the paper model's families (netG
-    resnet, netF PatchSampleF, netR vxm, netD PatchGAN)."""
-    out = []
-    if g_family(cfg.netG) != "resnet":
-        out.append(f"netG={cfg.netG!r}")
-    if cfg.netF not in PAPER_NETF:
-        out.append(f"netF={cfg.netF!r}")
-    if cfg.netR != "vxm":
-        out.append(f"netR={cfg.netR!r}")
-    if cfg.lambda_GAN > 0 and cfg.netD not in PAPER_NETD:
-        out.append(f"netD={cfg.netD!r}")
-    return out
+                        "tilestylegan2", "patch")}
 
 
 def grid_image(size: int, spacing: int = 16, thickness: int = 1):
@@ -212,7 +197,8 @@ class RegistrationModel:
         self.netF = define_F(
             netF=cfg.netF, netF_nc=cfg.netF_nc, feature_dims=dims,
             strided_specs=specs, init_type=cfg.init_type,
-            init_gain=cfg.init_gain, generator=generator).to(self.device)
+            init_gain=cfg.init_gain, ndims=cfg.ndims,
+            generator=generator).to(self.device)
         # patch ids (and FastCUT's coin) are drawn from this when a step is
         # given neither ids nor a generator
         self.patch_generator = torch.Generator().manual_seed(
@@ -232,7 +218,7 @@ class RegistrationModel:
                 n_layers_D=cfg.n_layers_D, norm=cfg.normD,
                 init_type=cfg.init_type, init_gain=cfg.init_gain,
                 no_antialias=cfg.no_antialias, in_size=cfg.crop_size,
-                generator=generator,
+                ndims=cfg.ndims, generator=generator,
             ).to(self.device)
             self.optimizer_D = torch.optim.Adam(
                 self.netD.parameters(), lr=cfg.lr,
@@ -240,8 +226,7 @@ class RegistrationModel:
 
     @staticmethod
     def _refuse_3d(cfg: RegistrationConfig) -> None:
-        """At ndims=3: refuse the zoo choices JAX cannot build there, then
-        those it builds that are not ported in 3-D, and netD."""
+        """At ndims=3: refuse the choices JAX cannot build there."""
         chosen = {"netG": cfg.netG, "netF": cfg.netF, "netR": cfg.netR,
                   "netD": cfg.netD if cfg.lambda_GAN > 0 else None}
         jax_fails = [f"{k}={v!r}" for k, v in chosen.items()
@@ -251,13 +236,6 @@ class RegistrationModel:
                 f"{', '.join(jax_fails)} at ndims={cfg.ndims}: the JAX "
                 f"package cannot run these networks in 3-D, so there is "
                 f"nothing to port")
-        # every zoo netD is in JAX_2D_ONLY: what reaches here is a PatchGAN
-        later = zoo_choices(cfg) + ([f"netD={cfg.netD!r} (lambda_GAN > 0)"]
-                                    if cfg.lambda_GAN > 0 else [])
-        if later:
-            raise NotImplementedError(
-                f"{', '.join(later)} at ndims={cfg.ndims}: not ported in 3-D "
-                f"yet (ROADMAP A13d)")
 
     def parameters(self) -> List[torch.nn.Parameter]:
         """The parameters of the main update: netG's, netF's and netR's."""
@@ -289,12 +267,17 @@ class RegistrationModel:
         self.mesh = mesh
 
     def _tap_shapes(self, netG) -> List[torch.Size]:
-        """The (1, C, H, W) shapes of netG's taps: one encode of a zero
-        image (what JAX's ``_tap_shapes`` traces abstractly)."""
+        """The (1, C, *spatial) shapes of netG's taps: one encode traced on
+        the meta device, shapes without arithmetic (JAX's ``_tap_shapes``
+        traces abstractly too)."""
         cfg = self.cfg
-        x0 = torch.zeros((1, cfg.input_nc) + (cfg.crop_size,) * cfg.ndims)
-        with torch.no_grad():
-            feats = netG(x0, layers=tuple(cfg.nce_layers), encode_only=True)
+        x0 = torch.empty((1, cfg.input_nc) + (cfg.crop_size,) * cfg.ndims,
+                         device="meta")
+        state = {k: torch.empty_like(v, device="meta") for k, v in
+                 [*netG.named_parameters(), *netG.named_buffers()]}
+        feats = torch.func.functional_call(
+            netG, state, (x0,), {"layers": tuple(cfg.nce_layers),
+                                 "encode_only": True})
         return [f.shape for f in feats]
 
     # ------------------------------------------------- the networks' calls
@@ -524,7 +507,12 @@ class RegistrationModel:
         Data parallel, with ``train``: this rank's part of the global
         batch's loss (its mean over the ranks is the global loss, and its
         gradient, averaged over them, the global gradient)."""
-        mesh = self.mesh if train else None
+        return self._loss(real_A, real_B, patch_ids, generator, flip,
+                          dropout_generator, train,
+                          self.mesh if train else None)
+
+    def _loss(self, real_A, real_B, patch_ids, generator, flip,
+              dropout_generator, train: bool, mesh):
         generator, dropout = self._step_generators(
             generator, dropout_generator, train)
         fwd = self._forward(real_A, real_B, flip, generator, dropout)
@@ -594,21 +582,25 @@ class RegistrationModel:
 
     @torch.no_grad()
     def eval_step(self, real_A, real_B, patch_ids=None, generator=None,
-                  flip=None):
-        """Losses and outputs without an update or dropout: (metrics,
-        aux)."""
-        _, metrics, aux = self.loss_fn(real_A, real_B, patch_ids, generator,
-                                       flip, train=False)
+                  flip=None, dropout_generator=None):
+        """Losses and outputs without an update: (metrics, aux).  The
+        loss of the training step on the batch given (not the global
+        batch's when data parallel), with dropout active as in JAX's
+        ``eval_step`` (with ``no_dropout=False``; its masks from
+        ``dropout_generator``, else the model's own)."""
+        _, metrics, aux = self._loss(real_A, real_B, patch_ids, generator,
+                                     flip, dropout_generator, True, None)
         return metrics, aux
 
     @torch.no_grad()
     def compute_visuals(self, real_A, real_B, patch_ids=None,
-                        generator=None, flip=None):
-        """The reference's visual set, (visuals, metrics), without dropout:
-        real_A, fake_B, real_B, dvf (the grid image warped by pos_flow),
-        registered, regA, and idt_B with ``nce_idt``."""
-        _, metrics, aux = self.loss_fn(real_A, real_B, patch_ids, generator,
-                                       flip, train=False)
+                        generator=None, flip=None, dropout_generator=None):
+        """The reference's visual set, (visuals, metrics), from
+        ``eval_step``'s loss (dropout active as there): real_A, fake_B,
+        real_B, dvf (the grid image warped by pos_flow), registered,
+        regA, and idt_B with ``nce_idt``."""
+        metrics, aux = self.eval_step(real_A, real_B, patch_ids, generator,
+                                      flip, dropout_generator)
         grid = grid_image(self.cfg.crop_size).to(real_A.device)
         dvf = warp(grid.expand(real_A.shape[0], -1, -1, -1).contiguous(),
                    aux["pos_flow"])

@@ -152,9 +152,11 @@ class RegistrationTask:
         self.engine.data_parallel(mesh)
 
     def eval(self):
-        """A no-op: the engine's evaluation paths (``register``,
-        ``eval_step``, ``compute_visuals``) run without dropout already,
-        and instance norm runs the same in training and evaluation."""
+        """A no-op: ``register`` runs without dropout already, and
+        ``eval_step`` / ``compute_visuals`` draw it (with
+        ``--no_dropout False``) as the JAX package's do, whose losses run
+        netG in training mode; instance norm runs the same in training and
+        evaluation."""
 
     # -------------------------------------------------------------- steps
 

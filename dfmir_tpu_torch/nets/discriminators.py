@@ -14,7 +14,10 @@
   batch, each scored by a 2-layer NLayer net.
 
 Every conv has a bias, and every op is per-sample (instance norm or
-none), as in the JAX package.  Layout NCHW.
+none), as in the JAX package.  Layout NCHW; ``ndims=3`` builds the
+NLayer and pixel discriminators for NCDHW volumes (3-D convs and blur),
+as JAX's ``ConvND`` and ``blur_downsample`` take the rank from their
+input.  The patch discriminator is 2-D only: JAX's unpacks four dims.
 """
 
 from __future__ import annotations
@@ -32,10 +35,10 @@ def _lrelu():
 class NLayerDiscriminator(nn.Module):
     def __init__(self, input_nc: int = 1, ndf: int = 64, n_layers: int = 3,
                  norm: str = "instance", no_antialias: bool = False,
-                 init_type: str = "xavier", init_gain: float = 0.02, *,
-                 generator: torch.Generator):
+                 init_type: str = "xavier", init_gain: float = 0.02,
+                 ndims: int = 2, *, generator: torch.Generator):
         super().__init__()
-        init = dict(init_type=init_type, init_gain=init_gain,
+        init = dict(init_type=init_type, init_gain=init_gain, ndims=ndims,
                     generator=generator)
         stride = 2 if no_antialias else 1
 
@@ -43,7 +46,7 @@ class NLayerDiscriminator(nn.Module):
             return conv_nd(c_in, c_out, 4, s, 1, True, **init)
 
         def blur(ch):
-            return [] if no_antialias else [BlurDown(ch)]
+            return [] if no_antialias else [BlurDown(ch, ndims=ndims)]
 
         seq = [conv(input_nc, ndf, stride), _lrelu()] + blur(ndf)
         mult = 1
@@ -63,9 +66,10 @@ class NLayerDiscriminator(nn.Module):
 class PixelDiscriminator(nn.Module):
     def __init__(self, input_nc: int = 1, ndf: int = 64,
                  norm: str = "instance", init_type: str = "xavier",
-                 init_gain: float = 0.02, *, generator: torch.Generator):
+                 init_gain: float = 0.02, ndims: int = 2, *,
+                 generator: torch.Generator):
         super().__init__()
-        init = dict(init_type=init_type, init_gain=init_gain,
+        init = dict(init_type=init_type, init_gain=init_gain, ndims=ndims,
                     generator=generator)
         self.net = nn.Sequential(
             conv_nd(input_nc, ndf, 1, 1, 0, True, **init), _lrelu(),

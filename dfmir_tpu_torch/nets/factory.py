@@ -49,20 +49,22 @@ def define_G(input_nc: int = 1, output_nc: int = 1, ngf: int = 64,
              no_antialias_up: bool = False, size: int = 256,
              stylegan2_num_downsampling: int = 1, ndims: int = 2, *,
              generator: torch.Generator):
-    """``ndims``: the rank of the images (3 for volumes); the resnet
-    family alone is built for 3-D."""
+    """``ndims``: the rank of the images (3 for volumes); the resnet and
+    unet families are built for 3-D, the others (2-D convs in JAX too)
+    are refused there."""
     family = g_family(netG)
     if family == "resnet":
         return ResnetGenerator(
             input_nc, output_nc, ngf, resnet_blocks(netG), norm, use_dropout,
             no_antialias, no_antialias_up, init_type=init_type,
             init_gain=init_gain, ndims=ndims, generator=generator)
-    if ndims != 2:
-        raise NotImplementedError(f"netG {netG} at ndims={ndims}")
     if family == "unet":
         return UnetGenerator(
             input_nc, output_nc, 7 if netG == "unet_128" else 8, ngf, norm,
-            use_dropout, init_type, init_gain, generator=generator)
+            use_dropout, init_type, init_gain, ndims=ndims,
+            generator=generator)
+    if ndims != 2:
+        raise NotImplementedError(f"netG {netG} at ndims={ndims}")
     if family == "munit":
         return GResnet(input_nc, output_nc, nz=0, num_downs=2, n_res=4,
                        ngf=ngf, generator=generator)
@@ -75,8 +77,10 @@ def define_G(input_nc: int = 1, output_nc: int = 1, ngf: int = 64,
 def define_F(netF: str = "mlp_sample", netF_nc: int = 256,
              feature_dims: Optional[Sequence[int]] = None,
              strided_specs: Optional[Sequence[Tuple[int, int]]] = None,
-             init_type: str = "xavier", init_gain: float = 0.02, *,
-             generator: torch.Generator):
+             init_type: str = "xavier", init_gain: float = 0.02,
+             ndims: int = 2, *, generator: torch.Generator):
+    """``ndims`` sizes StridedConvF's convs and EMA; the other heads take
+    the rank from their input."""
     if netF == "global_pool":
         return PoolingF()
     if netF == "reshape":
@@ -88,7 +92,7 @@ def define_F(netF: str = "mlp_sample", netF_nc: int = 256,
                             generator=generator)
     if netF == "strided_conv":
         return StridedConvF(tuple(strided_specs or ()), init_type, init_gain,
-                            generator=generator)
+                            ndims=ndims, generator=generator)
     raise NotImplementedError(
         f"projection model name [{netF}] is not recognized")
 
@@ -97,12 +101,16 @@ def define_D(input_nc: int = 1, ndf: int = 64, netD: str = "basic",
              n_layers_D: int = 3, norm: str = "instance",
              init_type: str = "xavier", init_gain: float = 0.02,
              no_antialias: bool = False, size: int = 256,
-             D_patch_size: int = 64, in_size: Optional[int] = None, *,
-             generator: torch.Generator):
+             D_patch_size: int = 64, in_size: Optional[int] = None,
+             ndims: int = 2, *, generator: torch.Generator):
     """The discriminator ``netD`` names.  ``size`` and ``D_patch_size``
     are the StyleGAN2 discriminators' (JAX's engine leaves them at their
     defaults); ``in_size``, the side of the images netD scores, sets the
-    plain StyleGAN2 discriminator's linear width."""
+    plain StyleGAN2 discriminator's linear width.  ``ndims=3`` builds the
+    NLayer and pixel discriminators for volumes; the others (2-D in JAX
+    too) are refused there."""
+    if ndims != 2 and netD not in ("basic", "n_layers", "pixel"):
+        raise NotImplementedError(f"netD {netD} at ndims={ndims}")
     if netD in ("stylegan2", "patchstylegan2", "smallpatchstylegan2"):
         return StyleGAN2Discriminator(
             input_nc, ndf, size, patch="patch" in netD,
@@ -116,9 +124,9 @@ def define_D(input_nc: int = 1, ndf: int = 64, netD: str = "basic",
     if netD in ("basic", "n_layers"):
         return NLayerDiscriminator(
             input_nc, ndf, 3 if netD == "basic" else n_layers_D, norm,
-            no_antialias, **init)
+            no_antialias, ndims=ndims, **init)
     if netD == "pixel":
-        return PixelDiscriminator(input_nc, ndf, norm, **init)
+        return PixelDiscriminator(input_nc, ndf, norm, ndims=ndims, **init)
     if netD == "patch":
         return PatchDiscriminator(input_nc, ndf, norm, no_antialias, **init)
     raise NotImplementedError(

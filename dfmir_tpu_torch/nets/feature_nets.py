@@ -1,18 +1,24 @@
 """The netF heads besides PatchSampleF (the JAX package's
-``nets/feature_nets.py``), on NCHW feature maps:
+``nets/feature_nets.py``), on NCHW feature maps (NCDHW at ``ndims=3``):
 
-- ``PoolingF`` (``global_pool``): global max over space, L2 norm over
-  channels: (B, C) a map.
+- ``PoolingF`` (``global_pool``): the max over the first two spatial
+  axes, L2 norm over channels, one row a map: (B, C) at 2-D.  At 3-D
+  this is what JAX computes: its ``max(axis=(1, 2))`` of (B, D, H, W, C)
+  pools D and H and keeps W, and the engine's ``reshape(B, -1)`` makes
+  one row of W * C a volume, in (W, C) order.
 - ``ReshapeF`` (``reshape``): a 4x4 adaptive mean, the 16 locations into
-  the batch, L2 norm: (B * 16, C), rows in (b, i, j) order.
-- ``StridedConvF`` (``strided_conv``): per tapped map of (C, H), ``n_down
-  = max(rint(log2(H / 32)), 0)`` stride-2 VALID 3x3 convs with ReLU
+  the batch, L2 norm: (B * 16, C), rows in (b, i, j) order (2-D only: JAX
+  unpacks four dims).
+- ``StridedConvF`` (``strided_conv``): per tapped map of (C, side), ``n_down
+  = max(rint(log2(side / 32)), 0)`` stride-2 VALID 3x3 convs with ReLU
   (channels halving down to 64), a VALID 3x3 conv to 64 channels, minus
-  an EMA buffer ``ema_<i>``, [instance norm,] L2 norm over channels.  The
-  engine never updates the EMA (JAX's ``update_ema=False``); with
-  ``update_ema=True`` the buffer moves by 0.001 toward the batch mean,
-  and the output subtracts the moved value, as JAX's ``stats`` collection
-  does.  Parameter names are JAX's: ``conv_<i>_<d>``, ``conv_<i>_out``.
+  an EMA buffer ``ema_<i>`` of (64, *spatial), [instance norm,] L2 norm
+  over channels; ``ndims=3`` builds 3x3x3 convs, ``side`` then the tap's
+  D (JAX reads ``shape[1]`` of its NDHWC tap).  The engine never updates
+  the EMA (JAX's ``update_ema=False``); with ``update_ema=True`` the
+  buffer moves by 0.001 toward the batch mean, and the output subtracts
+  the moved value, as JAX's ``stats`` collection does.  Parameter names
+  are JAX's: ``conv_<i>_<d>``, ``conv_<i>_out``.
 """
 
 from __future__ import annotations
@@ -53,7 +59,9 @@ def channels_last_rows(x):
 
 class PoolingF(nn.Module):
     def forward(self, x):
-        return l2_normalize(x.amax(dim=(2, 3)))
+        """(B, C, H, W) -> (B, C); (B, C, D, H, W) -> (B, W * C)."""
+        h = l2_normalize(x.amax(dim=(2, 3)).movedim(1, -1))
+        return h.reshape(x.shape[0], -1)
 
 
 class ReshapeF(nn.Module):
@@ -66,14 +74,14 @@ def strided_n_down(H: int) -> int:
 
 
 class StridedConvF(nn.Module):
-    """specs: per tapped layer (channels, spatial size)."""
+    """specs: per tapped layer (channels, side of its cube)."""
 
     def __init__(self, specs: Sequence[Tuple[int, int]],
-                 init_type: str = "normal", init_gain: float = 0.02, *,
-                 generator: torch.Generator):
+                 init_type: str = "normal", init_gain: float = 0.02,
+                 ndims: int = 2, *, generator: torch.Generator):
         super().__init__()
         self.specs = [tuple(s) for s in specs]
-        init = dict(init_type=init_type, init_gain=init_gain,
+        init = dict(init_type=init_type, init_gain=init_gain, ndims=ndims,
                     generator=generator)
         self.n_down = []
         for i, (C, H) in enumerate(self.specs):
@@ -87,14 +95,15 @@ class StridedConvF(nn.Module):
             setattr(self, f"conv_{i}_out",
                     conv_nd(ch, 64, 3, 1, 0, True, **init))
             side -= 2
-            self.register_buffer(f"ema_{i}", torch.zeros(64, side, side))
+            self.register_buffer(f"ema_{i}",
+                                 torch.zeros((64,) + (side,) * ndims))
             self.n_down.append(n_down)
 
     def forward(self, feats: Sequence[torch.Tensor],
                 use_instance_norm: bool = False,
                 update_ema: bool = False) -> List[torch.Tensor]:
-        """feats: list of (B, C, H, W).  Returns one (B, 64, H', W') map a
-        tap, L2-normalised over channels."""
+        """feats: list of (B, C, *spatial).  Returns one (B, 64,
+        *spatial') map a tap, L2-normalised over channels."""
         outs = []
         for i, feat in enumerate(feats):
             h = feat

@@ -21,8 +21,10 @@ shrinks (``resize_weights``).  Module and parameter names are flax's
 (``fusion_<i>.block_<j>.MultiHeadDotProductAttention_0.query``, ...);
 the convs are the port's ``VxmConvBlock`` (``down_x_<i>.main``).
 
-JAX cannot run this module at ``ndims=3`` (its pooling unpacks four
-dims), so neither does the port.
+At ``ndims=3`` only ``fuse="none"`` (``vxm_dual``) runs, with 3x3x3
+convs and the 3-D flow head (JAX's ``Conv3DZ``: the same parameters as a
+conv, N(0, 1e-5) kernel and zero bias): JAX's token pooling unpacks four
+dims, so no fusing mode runs there, in JAX or in the port.
 """
 
 from __future__ import annotations
@@ -206,14 +208,14 @@ class TransFusionUnet(nn.Module):
     def __init__(self, enc_nf: Sequence[int] = (16, 32, 32, 64, 64, 64),
                  dec_nf: Sequence[int] = (64, 64, 64, 32, 32, 32, 16),
                  n_head: int = 4, n_layer: int = 8, anchors: int = 8,
-                 fuse: str = "gpt", in_ch: int = 1, *,
+                 fuse: str = "gpt", in_ch: int = 1, ndims: int = 2, *,
                  generator: torch.Generator):
         super().__init__()
         if fuse not in FUSE_MODES:
             raise ValueError(f"unknown fuse mode {fuse!r}")
         self.fuse, self.anchors = fuse, anchors
         self.n_enc = n_enc = len(enc_nf)
-        block = dict(generator=generator)
+        block = dict(ndims=ndims, generator=generator)
         self.fused = []
         prev = in_ch
         for i, nf in enumerate(enc_nf):
@@ -222,10 +224,11 @@ class TransFusionUnet(nn.Module):
             here = (fuse in ("gpt", "cross")
                     or (fuse == "bottleneck" and i == n_enc - 1))
             if here:
-                fusion = (CrossAttentionFusion(nf, n_head, **block)
+                fusion = (CrossAttentionFusion(nf, n_head,
+                                               generator=generator)
                           if fuse == "cross" else
                           GPTFusion(nf, n_head, n_layer, anchors=anchors,
-                                    **block))
+                                    generator=generator))
                 setattr(self, f"fusion_{i}", fusion)
             self.fused.append(here)
             prev = nf
@@ -277,18 +280,20 @@ class VxmDenseTransformer(nn.Module):
                  fuse: str = "gpt", n_head: int = 4, n_layer: int = 8, *,
                  generator: torch.Generator):
         super().__init__()
-        if ndims != 2:
+        if ndims != 2 and fuse != "none":
             raise NotImplementedError(
-                f"the transformer-fusion netR at ndims={ndims}: the JAX "
-                f"package cannot run it there (its token pooling unpacks "
-                f"four dims), so there is nothing to port")
+                f"the transformer-fusion netR (fuse={fuse!r}) at "
+                f"ndims={ndims}: the JAX package cannot run it there (its "
+                f"token pooling unpacks four dims), so there is nothing to "
+                f"port")
         enc_nf, dec_nf = nb_features
         self.int_steps, self.int_downsize, self.bidir = (int_steps,
                                                          int_downsize, bidir)
         self.unet = TransFusionUnet(tuple(enc_nf), tuple(dec_nf), n_head,
-                                    n_layer, fuse=fuse, generator=generator)
+                                    n_layer, fuse=fuse, ndims=ndims,
+                                    generator=generator)
         self.flow = conv_nd(self.unet.out_channels, ndims, 3, 1, 1, True,
-                            init_type="normal", init_gain=1e-5,
+                            init_type="normal", init_gain=1e-5, ndims=ndims,
                             generator=generator)
 
     def forward(self, source, target, registration: bool = False):

@@ -11,6 +11,11 @@ concatenation ``[skip, h]``; Tanh at the output.  Widths ngf, 2ngf,
 
 Dropout is active only in a ``train=True`` forward, its masks drawn from
 the explicit ``generator`` given there (``resnet_gen.Dropout``).
+
+``ndims=3`` builds it for (B, C, D, H, W) volumes (``nn.Conv3d`` /
+``nn.ConvTranspose3d``), as JAX's ``ConvND`` / ``ConvTransposeTorch`` take
+the rank from their input; a side must then be a multiple of
+2^num_downs.
 """
 
 from __future__ import annotations
@@ -29,12 +34,13 @@ class UnetGenerator(nn.Module):
     def __init__(self, input_nc: int = 1, output_nc: int = 1,
                  num_downs: int = 8, ngf: int = 64, norm: str = "instance",
                  use_dropout: bool = False, init_type: str = "xavier",
-                 init_gain: float = 0.02, *, generator: torch.Generator):
+                 init_gain: float = 0.02, ndims: int = 2, *,
+                 generator: torch.Generator):
         super().__init__()
         self.num_downs, self.use_dropout = num_downs, use_dropout
         self.norm = norm_layer(norm)
         self.dropout = Dropout(0.5)
-        init = dict(init_type=init_type, init_gain=init_gain,
+        init = dict(init_type=init_type, init_gain=init_gain, ndims=ndims,
                     generator=generator)
         self.widths = [ngf * min(2 ** i, 8) for i in range(num_downs)]
         prev = input_nc

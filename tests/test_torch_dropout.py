@@ -12,7 +12,11 @@ load_jax_params, whose netG keys shift past the dropout slot):
 - register against JAX's register (which runs its netG with
   ``train=False``): 1e-3 max-abs (test_torch_register.py's bar);
 - loss_fn with ``train=False`` against JAX's _loss_fn of the same weights
-  with dropout off: 1e-4 relative (test_torch_train.py's bar).
+  with dropout off: 1e-4 relative (test_torch_train.py's bar);
+- ``eval_step`` and ``compute_visuals`` draw masks, as JAX's do (its
+  ``_loss_fn`` runs netG in training mode): keep rate and seed as above,
+  and with ``no_dropout=True`` bit-equal to the dropout-free loss and to
+  ``register``'s netG outputs.
 """
 
 import math
@@ -179,9 +183,9 @@ def test_register_matches_jax(setup):
 
 
 def test_inactive_loss_matches_jax(setup):
-    """loss_fn with dropout inactive (``train=False``, as eval_step and
-    compute_visuals run it) against JAX's _loss_fn on the same weights with
-    no_dropout=True (JAX's own steps always draw masks)."""
+    """loss_fn with dropout inactive (``train=False``) against JAX's
+    _loss_fn on the same weights with no_dropout=True (JAX's own steps,
+    eval_step and visuals always draw masks); eval_step draws them."""
     s = setup
     jm = JaxModel(JaxConfig(**CFG))
     jp = jax.tree.map(jnp.asarray, s["params"])
@@ -193,8 +197,81 @@ def test_inactive_loss_matches_jax(setup):
         _, m_inactive, _ = tm.loss_fn(s["A"], s["B"], patch_ids=s["ids"],
                                       train=False)
         _, m_active, _ = tm.loss_fn(s["A"], s["B"], patch_ids=s["ids"])
-    for k, v in metrics.items():
+    for k, v in m_inactive.items():
         r = float(ref[k])
         assert abs(float(v) - r) <= 1e-4 * abs(r), (k, float(v), r)
-        assert float(v) == float(m_inactive[k])
     assert float(m_active["total"]) != float(metrics["total"])
+    assert float(m_inactive["total"]) != float(metrics["total"])
+
+
+def dropout_hook_masks(tm):
+    """Hooks on netG's Dropout layers collecting each drawn mask (where
+    the input is not 0); returns (masks, handles)."""
+    masks = []
+
+    def hook(module, args, out):
+        live = args[0] != 0
+        masks.append(out[live] != 0)
+
+    return masks, [m.register_forward_hook(hook) for m in tm.netG.modules()
+                   if isinstance(m, Dropout)]
+
+
+@pytest.mark.parametrize("path", ["eval_step", "compute_visuals"])
+def test_eval_paths_draw_dropout(setup, path):
+    """C-7: eval_step and compute_visuals with ``no_dropout=False`` draw
+    masks in both generator passes, keep rate 0.5 within the binomial
+    bound; one generator seed gives the same masks and outputs twice,
+    another seed others."""
+    s = setup
+    tm = s["port_model"]()
+    fn = getattr(tm, path)
+    masks, handles = dropout_hook_masks(tm)
+    runs = [fn(s["A"], s["B"], patch_ids=s["ids"],
+               dropout_generator=torch.Generator().manual_seed(seed))
+            for seed in (3, 3, 4)]
+    for h in handles:
+        h.remove()
+    n_layers = sum(isinstance(m, Dropout) for m in tm.netG.modules())
+    assert len(masks) == 3 * 2 * n_layers     # 3 calls: forward + queries
+    first = masks[:2 * n_layers]
+    n = sum(m.numel() for m in first)
+    rate = sum(int(m.sum()) for m in first) / n
+    assert abs(rate - 0.5) <= keep_bound(n), rate
+    again = masks[2 * n_layers:4 * n_layers]
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    other = masks[4 * n_layers:]
+    assert not all(torch.equal(x, y) for x, y in zip(first, other))
+    fake = {"eval_step": lambda r: r[1]["fake_B"],
+            "compute_visuals": lambda r: r[0]["fake_B"]}[path]
+    assert torch.equal(fake(runs[0]), fake(runs[1]))
+    assert not torch.equal(fake(runs[0]), fake(runs[2]))
+    # the model's own generator when none is given: it advances
+    g0 = tm.dropout_generator.get_state()
+    fn(s["A"], s["B"], patch_ids=s["ids"])
+    assert not torch.equal(tm.dropout_generator.get_state(), g0)
+
+
+def test_eval_paths_without_dropout_unchanged(setup):
+    """C-7 at ``no_dropout=True``: eval_step's and compute_visuals'
+    metrics bit-equal to the dropout-free loss_fn (what both ran before),
+    their fake_B / idt_B bit-equal to register's netG outputs, and the
+    dropout generator untouched."""
+    s = setup
+    tm = RegistrationModel(RegistrationConfig(**CFG), device="cpu")
+    load_jax_params(tm, s["params"])
+    g0 = tm.dropout_generator.get_state()
+    metrics, aux = tm.eval_step(s["A"], s["B"], patch_ids=s["ids"])
+    visuals, v_metrics = tm.compute_visuals(s["A"], s["B"],
+                                            patch_ids=s["ids"])
+    with torch.no_grad():
+        _, ref, _ = tm.loss_fn(s["A"], s["B"], patch_ids=s["ids"],
+                               train=False)
+    fake_B, idt_B, _, _ = tm.register(s["A"], s["B"])
+    assert torch.equal(tm.dropout_generator.get_state(), g0)
+    for m in (metrics, v_metrics):
+        assert set(m) == set(ref)
+        assert all(float(m[k]) == float(ref[k]) for k in ref)
+    for got in (aux, visuals):
+        assert torch.equal(got["fake_B"], fake_B)
+        assert torch.equal(got["idt_B"], idt_B)

@@ -61,7 +61,7 @@ def test_bf16_3d_phase(small3d, capsys):
     assert launches["bf16_3d_train"] == chip_smoke.add_counts(
         (2, chip_smoke.JOINT3D_STEP))
     assert launches["bf16_3d_register"] == chip_smoke.add_counts(
-        (2, chip_smoke.JOINT3D_REGISTER))
+        (1, chip_smoke.JOINT3D_REGISTER))
     line = lines(capsys)[-1]
     assert line["phase"] == "bf16_3d" and line["master_dtype"] == "float32"
     assert 0.0 < line["pos_flow_max_vox"] < 0.5

@@ -78,6 +78,8 @@ def test_dropout_phase(cpu_card, capsys):
     assert line["reseeded_masks_equal"] is True
     assert abs(line["keep_rate"] - 0.5) <= line["keep_bound"]
     assert line["register_vs_no_dropout_max_abs"] == 0.0
+    assert set(line["eval_paths_keep_rate"]) == {"eval_step",
+                                                 "compute_visuals"}
 
 
 def test_cli_option_runs(cpu_card, tmp_path):

@@ -114,15 +114,16 @@ def test_unported_choices_raise(field, value):
     ("netG", "stylegan2", "cannot run"), ("netD", "tilestylegan2",
                                           "cannot run"),
     ("netG", "resnet_cat", "cannot run"),
-    ("netG", "unet_256", "A13d"), ("netF", "global_pool", "A13d"),
-    ("netR", "vxm_dual", "A13d"), ("lambda_GAN", 1.0, "A13d"),
-    ("ndims", 3, "cannot run"),
+    ("netG", "unet_256", None), ("netF", "global_pool", None),
+    ("netR", "vxm_dual", None), ("lambda_GAN", 1.0, None),
+    ("ndims", 3, "cannot run"), ("netD", "patch", "cannot run"),
 ])
 def test_zoo_refusals(field, value, match):
     """The zoo at ndims=3: what the JAX package cannot build there (the
-    ``ndims`` case: the transformer netR) is refused as such, and what it
-    builds but the port has not ported in 3-D (netD basic with
-    ``lambda_GAN`` too) names ROADMAP A13d.
+    ``ndims`` case: the transformer netR; netD patch, whose JAX module
+    unpacks four dims) is refused as such, and what it builds is built
+    for volumes (netD basic with ``lambda_GAN``; unet_256 at its
+    smallest cube, 256^3, whose taps are traced on the meta device).
     bfloat16 with a zoo choice is ported (tests/test_torch_zoo_bf16.py)."""
     kw = dict(CFG, ndims=3)
     kw[field] = value
@@ -130,5 +131,16 @@ def test_zoo_refusals(field, value, match):
         kw.update(netR="vxm_transformer")
     if field == "netD":
         kw.update(lambda_GAN=1.0)
-    with pytest.raises(NotImplementedError, match=match):
-        RegistrationModel(RegistrationConfig(**kw), device="cpu")
+    if value == "unet_256":
+        kw.update(crop_size=256, nce_layers=(0, 2, 4, 6))
+    cfg = RegistrationConfig(**kw)
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            RegistrationModel(cfg, device="cpu")
+        return
+    tm = RegistrationModel(cfg, device="cpu")
+    nets = [tm.netG, tm.netF, tm.netR] + ([tm.netD] if tm.netD else [])
+    convs = [m for net in nets for m in net.modules()
+             if isinstance(m, torch.nn.modules.conv._ConvNd)]
+    assert convs and all(len(m.kernel_size) == 3 for m in convs)
+    assert (tm.netD is not None) == (field == "lambda_GAN")
