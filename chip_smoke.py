@@ -248,6 +248,20 @@ Phases, each printing one JSON line:
               gradients 1e-2 of each tensor's max |g|, the sign-flip rule),
               replicas bit-equal, launches a step 1 + 1 + 1 + 1 and no B5;
               ms a step, peak memory
+  spatial3d   JAX's spatial mesh axis: B3 and B4 on slabs (the 80 planes
+              from z0 0 and 80 of a (1,1,160^3) source, a +-2 voxel field)
+              bit-equal to the whole-volume launches' rows and within 1e-5
+              of their plain versions with z0; then VxmConfig() at 160^3
+              split along D over 2 ranks (1 x 2, B=1) and 4 ranks (2 x 2,
+              global B=2) sharing the card over gloo, in one launch of 4
+              ranks (the 1 x 2 mesh its first two), each against one
+              process on the whole batch: register's slabs put together
+              (y_source, pos_flow) <= 1e-5 max-abs, the metrics of 2 steps
+              1e-5 relative, gradients 1e-2 of each tensor's max |g| (the
+              sign-flip rule), replicas bit-equal, a rank's launches a
+              step 1 + 1 + 1 + 1 and no B5, a register call 1 + 1; ms a
+              step and a register, peak memory, the bytes sent and the
+              host seconds in the exchanges a step, by rank
   dp_cli      train.main through the launcher on [cuda:0, cuda:0] (gloo) on
               phase cli's PNG pairs: 2 steps at B=2, 1 a rank; the one
               set of files a run writes, a loss-log line a print, once;
@@ -296,7 +310,8 @@ cli_zoo_stylegan2_test, cli3d_train, cli3d_eval, joint3d_register,
 joint3d_train, bf16_3d_register, bf16_3d_train, zoo3d_register,
 zoo3d_train, bf16_zoo3d_register, bf16_zoo3d_train (summed over the 3-D
 zoo's runs), dp, dp_fastcut, dp_gan,
-dp_nccl, dp3d, dp_cli, augment2d, augment3d (one call each),
+dp_nccl, dp3d, spatial3d_register, spatial3d_train (both meshes'
+ranks), dp_cli, augment2d, augment3d (one call each),
 cli_patient_site, cli_triplet, cli_triplet_test; a dp path's summed over
 its ranks; B5's main path is joint3d_train), and last {"ok": true, "device": {...}}.  A rank that fails
 fails its phase (its traceback in the error); nothing falls back to one
@@ -978,9 +993,9 @@ def host_path3d(seed):
     stream = torch._C._cuda_getCurrentRawStream(d)
     args = {
         "dfmir_warp3d_fwd": (v.data_ptr(), v.data_ptr(), out.data_ptr(),
-                             *shape),
+                             *shape, D, 0),
         "dfmir_warp3d_bwd_dflow": (v.data_ptr(), v.data_ptr(), g.data_ptr(),
-                                   dflow.data_ptr(), *shape),
+                                   dflow.data_ptr(), *shape, D, 0),
         "dfmir_warp3d_bwd_dsrc": (v.data_ptr(), g.data_ptr(),
                                   dsrc.data_ptr(), bins1.data_ptr(), *shape,
                                   0),
@@ -4276,6 +4291,188 @@ def phase_dp3d(seed, smi):
     return launches
 
 
+# ------------------------------------------------- the spatial axis
+# VxmConfig() at 160^3 split along D over ranks sharing the card (gloo):
+# (n_data, n_spatial) = (1, 2) at B=1 and (2, 2) at global B=2, each
+# against one process on the whole batch
+SPATIAL_MESHES = [(1, 2), (2, 2)]
+SPATIAL3D_CFG = {}           # fields beside VxmConfig()'s (none on the card)
+SPATIAL_STEPS = 3            # the 2 compared steps, then 1 more timed
+SPATIAL_REG_REPS = 3         # register calls a rank, the median timed
+SPATIAL_TOL = 1e-5           # register max-abs, the steps' metrics relative
+# the slab kernels: B3 and B4 on the half volumes from planes SLAB_Z0 of a
+# 160^3 source, against the whole-volume launches' rows (bit for bit)
+SLAB_SHAPE = (1, 1, 160, 160, 160)
+SLAB_Z0 = (0, 80)
+SLAB_FLOW_PX = 2.0
+
+
+def phase_slab_kernels(seed):
+    """B3 and B4 on slabs: the output and dflow of planes [z0, z0 + D/2)
+    of a (1, 1, 160^3) source under a field of about +-2 voxels, equal bit
+    for bit to the whole-volume launches' rows, and within KERNEL_TOL of
+    their plain versions with ``z0``; each launch timed."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed + 34)
+    B, C, D, H, W = SLAB_SHAPE
+    src = torch.randn(SLAB_SHAPE, generator=gen, device=dev)
+    flow = smooth_field3d((B, 3, D, H, W), SLAB_FLOW_PX, gen, dev)
+    g = torch.randn(SLAB_SHAPE, generator=gen, device=dev)
+    whole_out = warp_cuda.warp3d_cuda(src, flow)
+    whole_dflow = warp_cuda.warp3d_bwd_dflow_cuda(src, flow, g)
+    d = D // 2
+    rows = []
+    for z0 in SLAB_Z0:
+        f = flow[:, :, z0:z0 + d].contiguous()
+        gs = g[:, :, z0:z0 + d].contiguous()
+        calls = {FWD3D: lambda: warp_cuda.warp3d_cuda(src, f, z0),
+                 DFLOW3D: lambda: warp_cuda.warp3d_bwd_dflow_cuda(
+                     src, f, gs, z0)}
+        plains = {FWD3D: lambda: warp(src, f, impl="torch", z0=z0),
+                  DFLOW3D: lambda: warp_bwd_plain(src, f, gs, need_dsrc=False,
+                                                  z0=z0)[1]}
+        wholes = {FWD3D: whole_out, DFLOW3D: whole_dflow}
+        for k, call in calls.items():
+            out = call()
+            row = {"kernel": k, "shape": [B, C, d, H, W], "src_depth": D,
+                   "z0": z0, "flow_max_vox": float(f.abs().max()),
+                   "vs_whole_max_abs": float(
+                       (out - wholes[k][:, :, z0:z0 + d]).abs().max()),
+                   "max_abs_err": float((out - plains[k]()).abs().max()),
+                   "tol": KERNEL_TOL, "ms": time_ms(call, reps=20)}
+            emit({"phase": "spatial3d", "slab_kernel": row})
+            if row["vs_whole_max_abs"] != 0.0:
+                raise AssertionError(f"{k} on the slab from plane {z0} "
+                                     f"differs from the whole volume's rows: "
+                                     f"{row['vs_whole_max_abs']}")
+            if not row["max_abs_err"] <= KERNEL_TOL:
+                raise AssertionError(f"{k} on the slab from plane {z0} "
+                                     f"disagrees with its plain version: "
+                                     f"{row['max_abs_err']} > {KERNEL_TOL}")
+            rows.append(row)
+    del src, flow, g, whole_out, whole_dflow
+    torch.cuda.empty_cache()
+    return rows
+
+
+def slabs_together(reports, i):
+    """The ranks' slabs of ``register``'s output i, put back together:
+    along D in spatial order, the data ranks along the batch."""
+    n_data = 1 + max(r["data_rank"] for r in reports)
+    return torch.cat([
+        torch.cat([r["register"][i] for r in sorted(
+            reports, key=lambda q: q["spatial_rank"])
+                   if r["data_rank"] == d], dim=2) for d in range(n_data)])
+
+
+def phase_spatial3d(seed, smi):
+    """VxmConfig() at 160^3 split along D (JAX's spatial mesh axis) over 2
+    ranks (n_spatial 2, B=1) and 4 ranks (2 x 2, global B=2) sharing the
+    card over gloo, in one launch of 4 ranks, each against one process on
+    the whole batch: register
+    (y_source, pos_flow) max-abs <= SPATIAL_TOL, the metrics of 2 steps
+    within SPATIAL_TOL relative, netR's gradients within GRAD_ENV of each
+    tensor's max |g|; a rank's launches a step and a register call exact;
+    ms, peak memory and the bytes exchanged, by rank."""
+    slab_rows = phase_slab_kernels(seed)
+    cfg = VxmConfig(**SPATIAL3D_CFG)
+    S = cfg.vol_size
+    n_items = max(n for n, _ in SPATIAL_MESHES)
+    pairs = make_volume_pairs(n_items, S, seed + 35, DEVICE)
+    A, B = (torch.cat([p[i] for p in pairs]).cpu() for i in (0, 1))
+    del pairs
+    totals = {"spatial3d_register": [], "spatial3d_train": []}
+    jobs, singles, one_process_s = {}, {}, {}
+    for n_data, n_spatial in SPATIAL_MESHES:
+        name = f"{n_data}x{n_spatial}"
+        batch = (A[:n_data], B[:n_data])
+        jobs[name] = dict(cfg=dict(SPATIAL3D_CFG), seed=seed,
+                          flow_gain=FLOW_GAIN,
+                          batches=[batch] * SPATIAL_STEPS, register=batch,
+                          reg_reps=SPATIAL_REG_REPS, n_data=n_data,
+                          n_spatial=n_spatial)
+        t0 = time.perf_counter()
+        singles[name] = checks.vxm_spatial_steps(
+            None, dict(jobs[name], device=DEVICE))
+        torch.cuda.empty_cache()
+        one_process_s[name] = time.perf_counter() - t0
+        dp_ranks_agree([singles[name]], STEP3D,
+                       f"spatial3d {name} one process")
+    # one launch of the largest mesh's ranks: each smaller mesh takes its
+    # first ranks (JAX's make_mesh over the first devices), the rest wait
+    t0 = time.perf_counter()
+    ranks = dp_launch(checks.run_cases, [DP_DEVICES[0]] * max(
+        n * s for n, s in SPATIAL_MESHES), [
+            (name, "vxm_spatial_steps", {"job": job})
+            for name, job in jobs.items()])
+    launch_s = time.perf_counter() - t0
+    meshes = {}
+    for n_data, n_spatial in SPATIAL_MESHES:
+        name = f"{n_data}x{n_spatial}"
+        single = singles.pop(name)
+        reports = [r[name] for r in ranks if r[name].get("in_mesh", True)]
+        if len(reports) != n_data * n_spatial:
+            raise AssertionError(f"spatial3d {name}: {len(reports)} ranks "
+                                 f"reported, not {n_data * n_spatial}")
+        totals["spatial3d_train"].append(dp_ranks_agree(
+            reports, STEP3D, f"spatial3d {name}"))
+        for r in reports + [single]:
+            check_launches(f"spatial3d {name} register, rank "
+                           f"{r['rank']}", r["register_launches"],
+                           dict(ZERO, **REG3D))
+        totals["spatial3d_register"].append(add_counts(
+            *((1, r["register_launches"]) for r in reports)))
+        reg_errs = [float((slabs_together(reports, i)
+                           - single["register"][i]).abs().max())
+                    for i in (0, 1)]
+        if not max(reg_errs) <= SPATIAL_TOL:
+            raise AssertionError(f"spatial3d {name}: register differs from "
+                                 f"one process's by {reg_errs} > "
+                                 f"{SPATIAL_TOL}")
+        step_errs = [rel_errs(reports[0]["metrics"][i], single["metrics"][i],
+                              SPATIAL_TOL, f"spatial3d {name} step {i}")
+                     for i in range(2)]
+        _, grad_errs, mism = dp_vs_single(reports[0], single, cfg.lr,
+                                          f"spatial3d {name}",
+                                          per_tensor=True)
+        past = sum(int((~torch.isclose(p, single["params"]["R"][k],
+                                       atol=1e-5, rtol=1e-4)).sum())
+                   for k, p in reports[0]["params"]["R"].items())
+        meshes[name] = {
+            "n_data": n_data, "n_spatial": n_spatial,
+            "global_batch": n_data, "ranks": n_data * n_spatial,
+            "register_max_abs_vs_one_process": {
+                "y_source": reg_errs[0], "pos_flow": reg_errs[1]},
+            "steps_rel_vs_one_process": step_errs,
+            "grad_vs_one_process": grad_errs, "params_past_1e-5": mism,
+            "params_past_1e-5_count": past,
+            "flow_max_vox": float(single["register"][1].abs().max()),
+            "one_process_s": one_process_s[name], "launch_s": launch_s,
+            "ms_per_step_by_rank": [step_ms(r) for r in reports],
+            "step_ms_by_rank": [r["ms"] for r in reports],
+            "register_ms_by_rank": [statistics.median(r["register_ms"])
+                                    for r in reports],
+            "one_process_ms_per_step": step_ms(single),
+            "one_process_register_ms": statistics.median(
+                single["register_ms"]),
+            "peak_mem_gb_by_rank": [gb(r["peak_bytes"]) for r in reports],
+            "one_process_peak_mem_gb": gb(single["peak_bytes"]),
+            "bytes_sent_per_step_by_rank": [r["bytes_sent"][-1]
+                                            for r in reports],
+            "exchange_host_s_per_step_by_rank": [r["exchange_s"][-1]
+                                                 for r in reports]}
+        emit({"phase": "spatial3d", "mesh": name, **meshes[name]})
+    launches = {path: add_counts(*((1, c) for c in counts))
+                for path, counts in totals.items()}
+    emit({"phase": "spatial3d", "config": "VxmConfig() defaults", "size": S,
+          "backend": backend_for(DP_DEVICES), "steps": SPATIAL_STEPS,
+          "launches": launches,
+          "launches_per_rank_step": STEP3D,
+          "launches_per_rank_register": REG3D, "meshes": meshes,
+          "slab_kernels": slab_rows, "card": smi})
+    return launches
+
+
 def phase_dp_cli(seed, smi):
     root = tempfile.mkdtemp(prefix="chip_smoke_dp_cli_")
     try:
@@ -5107,6 +5304,7 @@ def main(argv=None):
     dp_launches = run("dp", phase_dp, args.seed, smi)
     dp_nccl_launches = run("dp_nccl", phase_dp_nccl, args.seed, smi)
     dp3d_launches = run("dp3d", phase_dp3d, args.seed, smi)
+    spatial3d_launches = run("spatial3d", phase_spatial3d, args.seed, smi)
     dp_cli_launches = run("dp_cli", phase_dp_cli, args.seed, smi)
     torch.cuda.empty_cache()
     augment_launches = run("augment", phase_augment, args.seed, smi)
@@ -5124,6 +5322,7 @@ def main(argv=None):
              **cli_launches, **cli3d_launches, **joint3d_launches,
              **bf16_3d_launches, **zoo3d_launches, **dp_launches,
              "dp_nccl": dp_nccl_launches, "dp3d": dp3d_launches,
+             **spatial3d_launches,
              **dp_cli_launches, **augment_launches, **modes_launches}
 
     def by_path(name):

@@ -333,17 +333,31 @@ __device__ __forceinline__ void store2(float* p, float2 v, const Pair& q) {
 }
 
 // The two voxels' displacements, (z, y, x) each, from the field fb (the
-// batch's 3 planes, dhw apart), and their Trilinear.
+// batch's 3 planes, dhw apart), and their Trilinear in a source of Ds
+// planes whose plane z0 is the field's plane 0: a slab of a volume split
+// along D (B3 and B4 on slabs), the voxel's global plane z + z0 formed in
+// int before its conversion to float, so that a slab's corners and
+// weights are the whole volume's, bit for bit.
+template <Path kPath>
+__device__ __forceinline__ void trilinear_pair_in(const float* fb,
+                                                  const Pair& q, int dhw,
+                                                  int z0, int Ds, int H,
+                                                  int W, float2 (&u)[3],
+                                                  Trilinear (&t)[2]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) u[a] = load2<kPath>(fb + a * dhw + q.p, q);
+  const int z = q.z + z0;
+  t[0] = trilinear(z, q.y, q.x, u[0].x, u[1].x, u[2].x, Ds, H, W);
+  t[1] = trilinear(z, q.y, q.x + q.half, u[0].y, u[1].y, u[2].y, Ds, H, W);
+}
+
+// The same for a whole volume of D planes (z0 0, Ds D).
 template <Path kPath>
 __device__ __forceinline__ void trilinear_pair(const float* fb, const Pair& q,
                                                int dhw, int D, int H, int W,
                                                float2 (&u)[3],
                                                Trilinear (&t)[2]) {
-#pragma unroll
-  for (int a = 0; a < 3; ++a) u[a] = load2<kPath>(fb + a * dhw + q.p, q);
-  t[0] = trilinear(q.z, q.y, q.x, u[0].x, u[1].x, u[2].x, D, H, W);
-  t[1] = trilinear(q.z, q.y, q.x + q.half, u[0].y, u[1].y, u[2].y, D, H,
-                   W);
+  trilinear_pair_in<kPath>(fb, q, dhw, 0, D, H, W, u, t);
 }
 
 // B3: one voxel's sample of `plane`, the corners summed in the plain
@@ -721,22 +735,26 @@ __device__ __forceinline__ void gather_row(const Bins& bins, int c0,
 
 // ------------------------------------------------------- the single warp
 
+// B3 and B4 take the output's (and the flow's) D planes and the source's
+// Ds, the output's plane 0 being the source's plane z0: a whole volume
+// with z0 0 and Ds D, or a slab of one split along D over ranks (the
+// source then the whole volume, gathered).
 __global__ void __launch_bounds__(kThreads, 4)
     warp3d_trilinear_fwd(const float* __restrict__ src,
                          const float* __restrict__ flow,
                          float* __restrict__ out, int npairs, int C, int D,
-                         int H, int W) {
+                         int H, int W, int Ds, int z0) {
   const int j = blockIdx.x * kThreads + threadIdx.x;
   if (j >= npairs) return;
   const Pair q = pair_at(j, D, H, W);
-  const int hw = H * W, dhw = D * hw;
+  const int hw = H * W, dhw = D * hw, shw = Ds * hw;
   float2 u[3];
   Trilinear t[2];
-  trilinear_pair<Path::kReadOnly>(flow + q.b * 3 * dhw, q, dhw, D, H, W, u,
-                                  t);
+  trilinear_pair_in<Path::kReadOnly>(flow + q.b * 3 * dhw, q, dhw, z0, Ds, H,
+                                     W, u, t);
   for (int c = 0; c < C; ++c) {
     const int plane = (q.b * C + c) * dhw;
-    const float* sp = src + plane;
+    const float* sp = src + (q.b * C + c) * shw;
     store2<false>(out + plane + q.p,
                   make_float2(blend<Path::kReadOnly>(sp, t[0], hw, W),
                               blend<Path::kReadOnly>(sp, t[1], hw, W)),
@@ -750,36 +768,40 @@ __global__ void __launch_bounds__(kThreads, 4)
 // longer issued together, and B4 at the 160^3 data warp took 2x the time
 // (119.8-120.5 against 57.7-58.7 us of device time, chip_smoke.py's phase
 // kernel3d on an NVIDIA H100 80GB HBM3 at 700 W), hence the case of its
-// own.
-template <bool kOne>
+// own.  kSlab: the output is a slab (Ds and z0 read); a whole volume
+// compiles without them, as before slabs came: with them B4 at C = 1 took
+// 40 registers in place of 32 and 59.3 us in place of 53.1-53.6 at the
+// 160^3 data warp (the same card and phase).
+template <bool kOne, bool kSlab>
 __global__ void __launch_bounds__(kThreads)
     warp3d_trilinear_bwd_dflow(const float* __restrict__ src,
                                const float* __restrict__ flow,
                                const float* __restrict__ g,
                                float* __restrict__ dflow, int npairs, int C,
-                               int D, int H, int W) {
+                               int D, int H, int W, int Ds, int z0) {
   const int j = blockIdx.x * kThreads + threadIdx.x;
   if (j >= npairs) return;
   const Pair q = pair_at(j, D, H, W);
-  const int hw = H * W, dhw = D * hw;
+  const int hw = H * W, dhw = D * hw, shw = kSlab ? Ds * hw : dhw;
   const int nc = kOne ? 1 : C;
   float2 u[3];
   Trilinear t[2];
-  trilinear_pair<Path::kReadOnly>(flow + q.b * 3 * dhw, q, dhw, D, H, W, u,
-                                  t);
-  const float* sb = src + q.b * nc * dhw;
+  trilinear_pair_in<Path::kReadOnly>(flow + q.b * 3 * dhw, q, dhw,
+                                     kSlab ? z0 : 0, kSlab ? Ds : D, H, W, u,
+                                     t);
+  const float* sb = src + q.b * nc * shw;
   const float* gb = g + q.b * nc * dhw + q.p;
   float3 d0, d1;
   if constexpr (kOne) {
     const float2 gv = load2<Path::kReadOnly>(gb, q);
-    d0 = dflow_at(sb, 1, dhw, hw, W, t[0], [&](int) { return gv.x; });
-    d1 = dflow_at(sb, 1, dhw, hw, W, t[1], [&](int) { return gv.y; });
+    d0 = dflow_at(sb, 1, shw, hw, W, t[0], [&](int) { return gv.x; });
+    d1 = dflow_at(sb, 1, shw, hw, W, t[1], [&](int) { return gv.y; });
   } else {
     const int half = q.half;
     const bool two = q.two;
-    d0 = dflow_at(sb, nc, dhw, hw, W, t[0],
+    d0 = dflow_at(sb, nc, shw, hw, W, t[0],
                   [&](int c) { return __ldg(gb + c * dhw); });
-    d1 = dflow_at(sb, nc, dhw, hw, W, t[1], [&](int c) {
+    d1 = dflow_at(sb, nc, shw, hw, W, t[1], [&](int c) {
       return two ? __ldg(gb + c * dhw + half) : 0.0f;
     });
   }
@@ -1307,37 +1329,40 @@ int dsrc_resident[kMaxDevices];
 
 }  // namespace
 
-// src (B,C,D,H,W), flow (B,3,D,H,W), out (B,C,D,H,W): float32, contiguous,
-// on the device of `stream`.  src and flow may alias; out must not.  Returns
-// the launch's cudaError_t (0 on success).
+// src (B,C,Ds,H,W), flow (B,3,D,H,W), out (B,C,D,H,W): float32, contiguous,
+// on the device of `stream`; out's plane z samples the source at global
+// depth (z + z0) + flow_z, clamped to [-2, Ds+1] (a whole volume: Ds = D,
+// z0 = 0).  src and flow may alias; out must not.  Returns the launch's
+// cudaError_t (0 on success).
 extern "C" int dfmir_warp3d_fwd(const float* src, const float* flow,
                                 float* out, int B, int C, int D, int H, int W,
-                                void* stream) {
+                                int Ds, int z0, void* stream) {
   const long long n = pairs_of(B, D, H, W);
   if (n == 0 || C == 0) return (int)cudaSuccess;
   warp3d_trilinear_fwd<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      src, flow, out, (int)n, C, D, H, W);
+      src, flow, out, (int)n, C, D, H, W, Ds, z0);
   return (int)cudaGetLastError();
 }
 
 // The flow gradient of dfmir_warp3d_fwd for the output cotangent g
-// (B,C,D,H,W): writes dflow (B,3,D,H,W), summed over channels.  float32,
-// contiguous, on the device of `stream`.  src and flow may alias; dflow must
-// not alias any input.  Returns the launch's cudaError_t.
+// (B,C,D,H,W): writes dflow (B,3,D,H,W), summed over channels; src
+// (B,C,Ds,H,W) and z0 as there.  float32, contiguous, on the device of
+// `stream`.  src and flow may alias; dflow must not alias any input.
+// Returns the launch's cudaError_t.
 extern "C" int dfmir_warp3d_bwd_dflow(const float* src, const float* flow,
                                       const float* g, float* dflow, int B,
-                                      int C, int D, int H, int W,
-                                      void* stream) {
+                                      int C, int D, int H, int W, int Ds,
+                                      int z0, void* stream) {
   const long long n = pairs_of(B, D, H, W);
   if (n == 0) return (int)cudaSuccess;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (C == 1) {
-    warp3d_trilinear_bwd_dflow<true><<<blocks_for(n), kThreads, 0, s>>>(
-        src, flow, g, dflow, (int)n, C, D, H, W);
-  } else {
-    warp3d_trilinear_bwd_dflow<false><<<blocks_for(n), kThreads, 0, s>>>(
-        src, flow, g, dflow, (int)n, C, D, H, W);
-  }
+  const bool slab = Ds != D || z0 != 0;
+  auto kernel = C == 1 ? (slab ? warp3d_trilinear_bwd_dflow<true, true>
+                               : warp3d_trilinear_bwd_dflow<true, false>)
+                       : (slab ? warp3d_trilinear_bwd_dflow<false, true>
+                               : warp3d_trilinear_bwd_dflow<false, false>);
+  kernel<<<blocks_for(n), kThreads, 0, s>>>(src, flow, g, dflow, (int)n, C,
+                                            D, H, W, Ds, z0);
   return (int)cudaGetLastError();
 }
 

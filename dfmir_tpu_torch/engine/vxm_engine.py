@@ -18,6 +18,19 @@ global batch's (``parallel.mesh.global_mean``), MSE and the gradient loss
 are each rank's own mean, netR's gradients and the metrics are averaged
 over the ranks.  ``eval_step`` scores the batch it is given.
 
+The spatial axis (``data_parallel`` with a mesh of ``make_mesh(mesh,
+n_data, n_spatial)``, n_spatial > 1; JAX's ``shard_batch(...,
+shard_spatial=True)``): each rank holds its data rank's items and, of
+those, its spatial rank's slab of D / n_spatial planes along D
+(``parallel.mesh.slab_slice``).  netR runs on the slabs with halo
+exchanges (``nets/vxm.py``), the losses and statistics are the whole
+volume's (``losses/``, ``ops/jacobian.py``), and every entry point speaks
+for the global batch: ``register`` returns this rank's slabs of
+(y_source, pos_flow), ``train_step``, ``eval_step`` and ``flow_stats``
+the global metrics.  D must be divisible by n_spatial * lcm(2^len(enc),
+int_downsize), so that every level of the UNet and the half-resolution
+SVF split into equal slabs that start on even planes (``check_slabs``).
+
 When the tensors lie on the card, VecInt's chain runs as one kernel launch
 each way (2-D or 3-D) and the data warp on the single-warp kernels
 (bilinear or trilinear); on the CPU the plain versions run.
@@ -26,6 +39,7 @@ each way (2-D or 3-D) and the data warp on the single-warp kernels
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -36,8 +50,8 @@ from dfmir_tpu_torch.losses import grad_loss, mse_loss, ncc_loss
 from dfmir_tpu_torch.nets.vxm import VxmDense, default_unet_features
 from dfmir_tpu_torch.ops.jacobian import field_stats
 from dfmir_tpu_torch.parallel.mesh import (Mesh, all_reduce_grads,
-                                           all_reduce_metrics, replicate,
-                                           state_tensors)
+                                           all_reduce_metrics, is_spatial,
+                                           replicate, state_tensors)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +79,19 @@ class VxmConfig:
             if key in kwargs and isinstance(kwargs[key], str):
                 kwargs[key] = tuple(int(v) for v in kwargs[key].split(","))
         return cls(**kwargs)
+
+
+def check_slabs(depth: int, n_spatial: int, cfg: "VxmConfig") -> None:
+    """Raise unless a volume of ``depth`` planes splits into ``n_spatial``
+    slabs that every level of netR cuts the same on every rank: D must be
+    divisible by n_spatial * lcm(2^len(enc), int_downsize)."""
+    unit = n_spatial * math.lcm(2 ** len(cfg.enc), cfg.int_downsize)
+    if depth % unit:
+        raise ValueError(
+            f"a depth of {depth} does not split over {n_spatial} spatial "
+            f"ranks: D must be divisible by n_spatial * lcm(2^len(enc), "
+            f"int_downsize) = {n_spatial} * lcm({2 ** len(cfg.enc)}, "
+            f"{cfg.int_downsize}) = {unit}")
 
 
 class VxmEngine:
@@ -101,9 +128,25 @@ class VxmEngine:
     def data_parallel(self, mesh: Mesh) -> None:
         """Step as rank ``mesh.rank`` of ``mesh.world``: check that every
         rank holds rank 0's netR and Adam state, then broadcast them from
-        rank 0 (JAX's ``replicate``)."""
+        rank 0 (JAX's ``replicate``).  A mesh with n_spatial > 1
+        (``make_mesh``) splits the volumes along D too: ``cfg.vol_size``
+        must pass ``check_slabs``, and every call takes this rank's
+        slabs."""
+        if is_spatial(mesh):
+            if self.cfg.ndims != 3:
+                raise ValueError("the spatial axis splits 3-D volumes")
+            check_slabs(self.cfg.vol_size, mesh.n_spatial, self.cfg)
         replicate(self.state_tensors(), mesh)
         self.mesh = mesh
+
+    def _spatial(self, source) -> Optional[Mesh]:
+        """The mesh when it splits the volumes (``source`` then a slab,
+        whose whole depth must pass ``check_slabs``), else None."""
+        if not is_spatial(self.mesh):
+            return None
+        check_slabs(source.shape[2] * self.mesh.n_spatial,
+                    self.mesh.n_spatial, self.cfg)
+        return self.mesh
 
     def _sim(self, pred, target, mesh):
         if self.cfg.image_loss == "ncc":
@@ -111,18 +154,21 @@ class VxmEngine:
                             kernel_var=[self.cfg.ncc_win] * self.cfg.ndims,
                             mesh=mesh)
         if self.cfg.image_loss == "mse":
-            return mse_loss(pred, target)
+            return mse_loss(pred, target, mesh if is_spatial(mesh) else None)
         raise NotImplementedError(self.cfg.image_loss)
 
     def _forward(self, source, target):
-        return self.netR(source, target, return_preint=True)
+        return self.netR(source, target, return_preint=True,
+                         mesh=self._spatial(source))
 
     def loss_fn(self, source, target, train: bool = True):
         """(total, metrics): metrics sim, smooth and total, as tensors.
         Data parallel, with ``train``: this rank's part of the global
-        batch's loss."""
+        batch's loss.  On slabs (train or not): the global volume's and
+        batch's loss, with this rank's share of its gradient."""
         cfg = self.cfg
-        mesh = self.mesh if train else None
+        spatial = self._spatial(source)
+        mesh = spatial or (self.mesh if train else None)
         if cfg.remat and torch.is_grad_enabled():
             out = checkpoint(self._forward, source, target,
                              use_reentrant=False)
@@ -135,7 +181,8 @@ class VxmEngine:
         else:
             y_source, _, preint = out
             sim = self._sim(y_source, target, mesh)
-        smooth = grad_loss(preint, penalty="l2") * cfg.lambda_smooth
+        smooth = grad_loss(preint, penalty="l2",
+                           mesh=spatial) * cfg.lambda_smooth
         total = sim + smooth
         return total, {"sim": sim, "smooth": smooth, "total": total}
 
@@ -157,11 +204,15 @@ class VxmEngine:
 
     @torch.no_grad()
     def register(self, source, target):
-        """(y_source, pos_flow): the inference path."""
-        return self.netR(source, target, registration=True)
+        """(y_source, pos_flow): the inference path; on slabs, this rank's
+        slabs of both."""
+        return self.netR(source, target, registration=True,
+                         mesh=self._spatial(source))
 
     @torch.no_grad()
     def eval_step(self, source, target) -> Dict[str, torch.Tensor]:
+        """The metrics of the batch given; on slabs, of the global batch
+        (``loss_fn``'s statistics are global there)."""
         return self.loss_fn(source, target, train=False)[1]
 
     @torch.no_grad()
@@ -169,5 +220,7 @@ class VxmEngine:
                    mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
         """Scalar field-health statistics of the registration flow
         (``ops.jacobian.field_stats``); with ``mesh``, the global
-        batch's."""
-        return field_stats(self.register(source, target)[1], mesh)
+        batch's; on slabs always the global volume's and batch's."""
+        spatial = self._spatial(source)
+        return field_stats(self.register(source, target)[1],
+                           spatial or mesh)

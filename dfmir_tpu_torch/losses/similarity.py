@@ -30,7 +30,13 @@ biweight, cross entropy, NLL, Dice and NMI.
 NCC reduce their sums over the global batch (``global_sum`` /
 ``global_mean``), so that their value is the global batch's and their
 gradient, averaged over the ranks, the global gradient.  A mean of the
-whole batch (``mse_loss``) needs nothing: each rank's own is its share.
+whole batch (``mse_loss``) needs nothing: each rank's own is its share;
+with ``mesh`` it is the global mean (``global_mean``).  A mesh that splits
+the volumes along D (``parallel.mesh.is_spatial``): NCC's inputs are
+slabs, which take a halo of the window's half (k // 2 planes of I and J
+each side, zeros past the volume's ends: the zero padding there) before
+the sums; its mean is the global volume's and batch's, every slab the
+same size.
 
 Tensors are NCHW / NCDHW.  Plain PyTorch: none of this is a kernel in the
 JAX package either.
@@ -42,7 +48,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dfmir_tpu_torch.parallel.mesh import global_mean, global_sum
+from dfmir_tpu_torch.parallel.mesh import (global_mean, global_sum,
+                                           halo_exchange, is_spatial)
 
 
 def _masked_mean(res, mask, mesh=None):
@@ -62,8 +69,8 @@ def masked_l2(src, tgt, mask=None):
     return _masked_mean((src - tgt).square(), mask)
 
 
-def mse_loss(prediction, target):
-    return (prediction - target).square().mean()
+def mse_loss(prediction, target, mesh=None):
+    return global_mean((prediction - target).square().mean(), mesh)
 
 
 def _window_kernel(kernel_type: str, kernel_var, nd: int) -> np.ndarray:
@@ -88,9 +95,11 @@ def _stack(I, J):
     return torch.cat([I, J, I * I, J * J, I * J], dim=1)
 
 
-def _local_sums(I, J, filt_np):
+def _local_sums(I, J, filt_np, halo: int = 0):
     """Windowed sums of I, J, I^2, J^2, IJ by one depthwise conv, zero
-    padded by the window's last size // 2 on every axis."""
+    padded by the window's last size // 2 on every axis; ``halo``: I and J
+    carry that many planes of the neighbouring slabs on each side of D,
+    which stand in for the padding there (the sums are the slab's own)."""
     nd = I.ndim - 2
     stack = _stack(I, J)
     C = stack.shape[1]
@@ -98,46 +107,65 @@ def _local_sums(I, J, filt_np):
     w = w.reshape(1, 1, *filt_np.shape).expand(C, 1,
                                                *filt_np.shape).contiguous()
     conv = (F.conv1d, F.conv2d, F.conv3d)[nd - 1]
-    out = conv(stack, w, padding=filt_np.shape[-1] // 2, groups=C)
+    pad = filt_np.shape[-1] // 2
+    out = conv(stack, w, padding=(0, pad, pad) if halo else pad, groups=C)
     return out.split(I.shape[1], dim=1)
 
 
-def _local_sums_integral(I, J, win):
+def _local_sums_integral(I, J, win, halo: int = 0):
     """Windowed (zero-padded 'same') box sums by summed-area tables: per
     axis, a cumsum over the padded stack (one extra leading zero for
-    S[i-1]) and the difference of two shifted slices, in float32 at least."""
+    S[i-1]) and the difference of two shifted slices, in float32 at least.
+    ``halo``: as ``_local_sums``'s, D then padded by the leading zero
+    alone."""
     nd = I.ndim - 2
     stack = _stack(I, J)
     stack = stack.to(torch.promote_types(stack.dtype, torch.float32))
     for axis, k in zip(range(2, 2 + nd), win):
         pads = [0] * (2 * (stack.ndim - axis))
-        pads[-2:] = [k // 2 + 1, k - 1 - k // 2]
-        s = torch.cumsum(F.pad(stack, pads), dim=axis)
         n = I.shape[axis]
+        if axis == 2 and halo:
+            pads[-2:] = [1, 0]
+            n -= 2 * halo
+        else:
+            pads[-2:] = [k // 2 + 1, k - 1 - k // 2]
+        s = torch.cumsum(F.pad(stack, pads), dim=axis)
         stack = s.narrow(axis, k, n) - s.narrow(axis, 0, n)
     return stack.split(I.shape[1], dim=1)
 
 
 def ncc_map(prediction, target, kernel_var=None, kernel_type="mean",
-            eps: float = 1e-5, method: str = "auto"):
+            eps: float = 1e-5, method: str = "auto", mesh=None):
     """Pointwise windowed-NCC map ``cc = cross^2 / (I_var * J_var + eps)``.
 
     method: 'conv' (depthwise window conv), 'integral' (summed-area tables,
-    mean window only), or 'auto' (integral for an odd mean window)."""
+    mean window only), or 'auto' (integral for an odd mean window).
+    ``mesh`` splitting the volumes along D: this rank's slab of the map."""
     nd = prediction.ndim - 2
     if kernel_var is None:
         kernel_var = [3] * nd if kernel_type == "gaussian" else [9] * nd
     if method == "auto":
         method = ("integral" if kernel_type == "mean"
                   and all(k % 2 == 1 for k in kernel_var) else "conv")
+    filt = (None if method == "integral"
+            else _window_kernel(kernel_type, kernel_var, nd))
+    halo = 0
+    if is_spatial(mesh):
+        k = kernel_var[0] if filt is None else filt.shape[0]
+        if k % 2 == 0 or (filt is not None and len(set(filt.shape)) > 1):
+            raise ValueError(f"NCC on slabs takes an odd cubic window, got "
+                             f"{kernel_var}")
+        halo = k // 2
+        both = halo_exchange(torch.cat([prediction, target], dim=1), halo,
+                             halo, mesh)
+        prediction, target = both.split(prediction.shape[1], dim=1)
     if method == "integral":
         if kernel_type != "mean":
             raise ValueError("integral method requires a mean kernel")
-        sums = _local_sums_integral(prediction, target, kernel_var)
+        sums = _local_sums_integral(prediction, target, kernel_var, halo)
         win_size = float(np.prod(kernel_var))
     else:
-        filt = _window_kernel(kernel_type, kernel_var, nd)
-        sums = _local_sums(prediction, target, filt)
+        sums = _local_sums(prediction, target, filt, halo)
         win_size = float(filt.sum())
     I_sum, J_sum, I2_sum, J2_sum, IJ_sum = sums
     u_I = I_sum / win_size
@@ -153,7 +181,8 @@ def ncc_loss(prediction, target, mask=None, kernel_var=None,
              mesh=None):
     """``-sqrt(mean(cc))``, over ``mask`` where one is given (0 for an
     empty mask)."""
-    cc = ncc_map(prediction, target, kernel_var, kernel_type, eps, method)
+    cc = ncc_map(prediction, target, kernel_var, kernel_type, eps, method,
+                 mesh)
     if mask is None:
         return -1.0 * torch.sqrt(global_mean(cc.mean(), mesh))
     mask = mask.to(cc.dtype)

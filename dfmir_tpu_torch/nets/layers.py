@@ -10,6 +10,9 @@
   reference's ``filt`` buffer so a reference state_dict loads as it is.
 - ``call_in``: a module's call with its float32 parameters cast to a
   compute dtype (the JAX engine's ``_cast_params``).
+- ``conv_slab``: a zero-padded conv on this rank's slab of a volume split
+  along D (``parallel/mesh.py``): a halo of the neighbours' planes in place
+  of the padding along D.
 
 Layout NCHW / NCDHW.
 """
@@ -24,6 +27,7 @@ from torch.nn.utils import skip_init
 from dfmir_tpu_torch.nets.inits import init_conv_
 from dfmir_tpu_torch.ops.filters import (PAD_MODES, blur_downsample,
                                          blur_filter, blur_upsample)
+from dfmir_tpu_torch.parallel.mesh import halo_exchange, is_spatial
 
 _CONV = {2: nn.Conv2d, 3: nn.Conv3d}
 _CONV_T = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
@@ -100,6 +104,25 @@ def conv_nd(in_ch, out_ch, kernel, stride=1, padding=0, bias=True, *,
                      padding=padding, bias=bias)
     init_conv_(conv, init_type, init_gain, generator)
     return conv
+
+
+def conv_slab(conv: nn.Module, x, mesh=None):
+    """``conv(x)`` for this rank's slab ``x`` (B, C, D, H, W) of a volume
+    split along D: the rows of the whole volume's output that this slab
+    owns.  The conv's zero padding p along D becomes a halo of p planes
+    below and k - s - p above (zeros past the volume's ends), and the conv
+    runs with no padding along D and its own along H and W: a stride-1 3^3
+    conv takes 1 plane each side, a stride-2 one 1 plane below and none
+    above.  The slab holds D = s * (its output's planes), starting on a
+    multiple of s.  ``conv(x)`` itself where ``mesh`` does not split the
+    volume."""
+    if not is_spatial(mesh):
+        return conv(x)
+    (k, _, _), (s, _, _), (p, ph, pw) = (conv.kernel_size, conv.stride,
+                                         conv.padding)
+    x = halo_exchange(x, p, k - s - p, mesh)
+    return F.conv3d(x, conv.weight, conv.bias, conv.stride, (0, ph, pw),
+                    conv.dilation, conv.groups)
 
 
 def conv_transpose_nd(in_ch, out_ch, kernel=3, stride=2, padding=1,

@@ -25,9 +25,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dfmir_tpu_torch.nets.layers import conv_nd, upsample_nearest
-from dfmir_tpu_torch.ops.integrate import resize_flow, vecint
+from dfmir_tpu_torch.nets.layers import conv_nd, conv_slab, upsample_nearest
+from dfmir_tpu_torch.ops.integrate import (resize_flow_slab,
+                                           resize_flow_to_slab, vecint)
 from dfmir_tpu_torch.ops.warp import warp
+from dfmir_tpu_torch.parallel.mesh import gather_slabs, is_spatial
 
 
 def default_unet_features():
@@ -44,8 +46,8 @@ class VxmConvBlock(nn.Module):
                             init_type="torch_default", ndims=ndims,
                             generator=generator)
 
-    def forward(self, x):
-        return F.leaky_relu(self.main(x), negative_slope=0.2)
+    def forward(self, x, mesh=None):
+        return F.leaky_relu(conv_slab(self.main, x, mesh), negative_slope=0.2)
 
 
 class VxmUnet(nn.Module):
@@ -71,16 +73,19 @@ class VxmUnet(nn.Module):
             prev = nf
         self.out_channels = prev
 
-    def forward(self, x):
+    def forward(self, x, mesh=None):
+        """``mesh`` splitting the volume along D: ``x`` is this rank's slab,
+        each conv takes a halo (``conv_slab``), the upsampling and the skip
+        concatenations stay on the slab."""
         x_enc = [x]
         for layer in self.downarm:
-            x_enc.append(layer(x_enc[-1]))
+            x_enc.append(layer(x_enc[-1], mesh))
         h = x_enc.pop()
         for layer in self.uparm:
-            h = upsample_nearest(layer(h))
+            h = upsample_nearest(layer(h, mesh))
             h = torch.cat([h, x_enc.pop()], dim=1)
         for layer in self.extras:
-            h = layer(h)
+            h = layer(h, mesh)
         return h
 
 
@@ -115,19 +120,36 @@ class VxmDense(nn.Module):
                             generator=generator)
 
     def forward(self, source, target, registration: bool = False,
-                return_preint: bool = False):
+                return_preint: bool = False, mesh=None):
+        """``mesh`` splitting a 3-D volume along D (float32): ``source`` and
+        ``target`` are this rank's slabs, and so is each field and image of
+        the tuple (the half-resolution SVF its slab of the half-resolution
+        volume).  The UNet and the flow head run on the slabs with halos;
+        the SVF is gathered whole on every spatial rank, integrated there by
+        the unchanged chain, and each rank resizes its own rows of the
+        result; the warps sample the gathered source (and target) at the
+        slab's global planes (B3 / B4 with ``z0``).  Without it each of
+        these steps is the whole volume's op."""
+        z0 = None
+        if is_spatial(mesh):
+            if self.ndims != 3 or self.compute_dtype != torch.float32:
+                raise ValueError("a volume split along D runs at 3-D in "
+                                 "float32")
+            z0 = mesh.spatial_rank * source.shape[2]
         x = torch.cat([source, target], dim=1)
         low = self.compute_dtype != torch.float32
         if low:
             x = x.to(self.compute_dtype)
-        flow_field = self.flow(self.unet_model(x))
+        flow_field = conv_slab(self.flow, self.unet_model(x, mesh), mesh)
         if low:
             flow_field = flow_field.float()
 
         do_resize = self.int_steps > 0 and self.int_downsize > 1
+        up = float(self.int_downsize) if do_resize else 1.0
         pos_flow = flow_field
         if do_resize:
-            pos_flow = resize_flow(pos_flow, 1.0 / self.int_downsize)
+            pos_flow = resize_flow_slab(pos_flow, 1.0 / self.int_downsize,
+                                        mesh)
         preint_flow = pos_flow
 
         y_target = None
@@ -135,24 +157,25 @@ class VxmDense(nn.Module):
             # pos and neg SVFs integrate as one batch: every op in the chain
             # is per-sample, so this is exact and halves the serial warps
             b = source.shape[0]
-            both = vecint(torch.cat([pos_flow, -pos_flow], dim=0),
-                          self.int_steps)
-            if do_resize:
-                both = resize_flow(both, float(self.int_downsize))
+            both = vecint(gather_slabs(torch.cat([pos_flow, -pos_flow]),
+                                       mesh), self.int_steps)
+            both = resize_flow_to_slab(both, up, mesh)
             pos_flow = both[:b]
-            warped = warp(torch.cat([source, target], dim=0), both)
+            warped = warp(gather_slabs(torch.cat([source, target]), mesh),
+                          both, z0=z0)
             y_source, y_target = warped[:b], warped[b:]
         else:
             # registration=True computes the pos chain only: its outputs
             # never use the neg one
             if self.int_steps > 0:
-                pos_flow = vecint(pos_flow, self.int_steps)
-                if do_resize:
-                    pos_flow = resize_flow(pos_flow, float(self.int_downsize))
-            y_source = warp(source, pos_flow)
+                pos_flow = resize_flow_to_slab(
+                    vecint(gather_slabs(pos_flow, mesh), self.int_steps), up,
+                    mesh)
+            y_source = warp(gather_slabs(source, mesh), pos_flow, z0=z0)
             if self.bidir and not registration:
                 # int_steps == 0 here, so the neg flow is -preint_flow
-                y_target = warp(target, -preint_flow)
+                y_target = warp(gather_slabs(target, mesh), -preint_flow,
+                                z0=z0)
 
         if registration:
             out = (y_source, pos_flow)

@@ -51,10 +51,11 @@ SIGNATURES = {
     #  stream)
     "dfmir_vecint3d_bwd": (_I, [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _P]),
-    # (src, flow, out, B, C, D, H, W, stream) -> cudaError_t
-    "dfmir_warp3d_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    # (src, flow, g, dflow, B, C, D, H, W, stream) -> cudaError_t
-    "dfmir_warp3d_bwd_dflow": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # (src, flow, out, B, C, D, H, W, Ds, z0, stream) -> cudaError_t
+    "dfmir_warp3d_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    # (src, flow, g, dflow, B, C, D, H, W, Ds, z0, stream) -> cudaError_t
+    "dfmir_warp3d_bwd_dflow": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _I, _P]),
     # (flow, g, dsrc, bins, B, C, D, H, W, blocks, stream) -> cudaError_t
     "dfmir_warp3d_bwd_dsrc": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _P]),

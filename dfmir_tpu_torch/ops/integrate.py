@@ -11,6 +11,13 @@
   ResizeTransform): a factor below 1 resizes first and then scales, a factor
   above 1 scales first and then resizes, with align-corners linear
   interpolation to ``floor(S * factor)``.
+- ``resize_flow_slab`` / ``resize_flow_to_slab``: ``resize_flow`` for a
+  volume split along D over ranks (``parallel/mesh.py``), from this
+  rank's slab or from the whole field, to this rank's slab of the result:
+  each rank computes only its own rows of the D axis's align-corners
+  matrix (an output plane o samples input plane o (n_in - 1) / (n_out -
+  1), so the slabs' edges do not line up between the two sizes), from the
+  input planes those rows reach.
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ from __future__ import annotations
 import torch
 
 from dfmir_tpu_torch.ops import warp_cuda
+from dfmir_tpu_torch.parallel.mesh import (halo_exchange, is_spatial,
+                                           slab_slice)
 from dfmir_tpu_torch.ops.warp import (warp, warp2d_dsrc_fixed_plain,
                                       warp_bwd_plain)
 
@@ -60,6 +69,84 @@ def resize_flow(flow, factor: float):
     if factor < 1:
         return resize_linear(flow, out_spatial) * factor
     return resize_linear(flow * factor, out_spatial)
+
+
+def _resize_axis(x, M, axis):
+    """``M`` (n_out, n_in) applied along ``axis`` of ``x``."""
+    return (x.movedim(axis, -1) @ M.T).movedim(-1, axis)
+
+
+def _slab_rows(n_in: int, n_out: int, rank: int, n: int):
+    """Spatial rank ``rank``'s rows of the (n_out, n_in) align-corners
+    matrix, ``[rank * n_out / n, (rank + 1) * n_out / n)``."""
+    k = n_out // n
+    return linear_resize_matrix(n_in, n_out)[rank * k:(rank + 1) * k]
+
+
+def _band(n_in: int, n_out: int, n: int):
+    """(lo, hi): the most planes below and above its own input slab that
+    any spatial rank's output rows reach, the halo every rank takes."""
+    lo = hi = 0
+    k_in = n_in // n
+    for r in range(n):
+        cols = _slab_rows(n_in, n_out, r, n).abs().sum(0).nonzero()
+        lo = max(lo, r * k_in - int(cols.min()))
+        hi = max(hi, int(cols.max()) - ((r + 1) * k_in - 1))
+    return lo, hi
+
+
+def _slab_resize(x, out_spatial, mesh, whole: bool):
+    """``resize_linear`` of a field split along D to this rank's slab of
+    the result, ``out_spatial`` the whole result's spatial shape: from the
+    whole field on every rank (``whole``), or from this rank's slab with a
+    halo of the planes its rows reach (the same on every rank)."""
+    n, r = mesh.n_spatial, mesh.spatial_rank
+    n_out = int(out_spatial[0])
+    if n_out % n:
+        raise ValueError(f"{n_out} planes do not divide into {n} slabs")
+    if whole:
+        n_in = x.shape[2]
+        M = _slab_rows(n_in, n_out, r, n)
+    else:
+        k_in = x.shape[2]
+        n_in = k_in * n
+        lo, hi = _band(n_in, n_out, n)
+        x = halo_exchange(x, lo, hi, mesh)
+        # the halo'd slab's planes, with zero columns past the volume
+        first = r * k_in - lo
+        M = torch.zeros(n_out // n, k_in + lo + hi)
+        cols = slice(max(first, 0), min(first + M.shape[1], n_in))
+        M[:, cols.start - first:cols.stop - first] = _slab_rows(
+            n_in, n_out, r, n)[:, cols]
+    x = _resize_axis(x, M.to(x.device, x.dtype), 2)
+    return resize_linear(x, (x.shape[2], *out_spatial[1:]))
+
+
+def resize_flow_slab(flow, factor: float, mesh=None):
+    """``resize_flow`` of a field split along D, from this rank's slab
+    ``flow`` to its slab of the result; ``resize_flow`` itself where
+    ``mesh`` does not split the volume."""
+    if factor == 1.0 or not is_spatial(mesh):
+        return resize_flow(flow, factor)
+    out = tuple(int(s * factor) for s in
+                (flow.shape[2] * mesh.n_spatial, *flow.shape[3:]))
+    if factor < 1:
+        return _slab_resize(flow, out, mesh, whole=False) * factor
+    return _slab_resize(flow * factor, out, mesh, whole=False)
+
+
+def resize_flow_to_slab(flow, factor: float, mesh=None):
+    """``resize_flow`` of the whole field ``flow`` (on every spatial rank)
+    to this rank's slab of the result: its own rows alone; ``resize_flow``
+    itself where ``mesh`` does not split the volume."""
+    if not is_spatial(mesh):
+        return resize_flow(flow, factor)
+    if factor == 1.0:
+        return slab_slice(flow, mesh.spatial_rank, mesh.n_spatial)
+    out = tuple(int(s * factor) for s in flow.shape[2:])
+    if factor < 1:
+        return _slab_resize(flow, out, mesh, whole=True) * factor
+    return _slab_resize(flow * factor, out, mesh, whole=True)
 
 
 def _chain_takes(vec):

@@ -16,6 +16,9 @@ bilinear and 3-D trilinear float32 CUDA tensors to the kernels and
 everything else (nearest, 1-D, CPU tensors) to the plain version.  3-D
 accepts the mode names ``"bilinear"`` and ``"trilinear"`` alike, as the JAX
 package does.  ``warp_bwd_plain`` is the backward kernels' plain version.
+With ``z0`` a 3-D warp takes a slab of a volume split along D over ranks
+(``parallel/mesh.py``): the output's planes from plane ``z0`` of the whole
+source, each sampling the source as the whole volume's rows do.
 """
 
 from __future__ import annotations
@@ -25,9 +28,12 @@ import torch
 from dfmir_tpu_torch.ops import warp_cuda
 
 
-def identity_grid(spatial, dtype=torch.float32, device=None) -> torch.Tensor:
-    """Pixel-coordinate identity grid, shape (nd, *spatial)."""
+def identity_grid(spatial, dtype=torch.float32, device=None,
+                  z0: int = 0) -> torch.Tensor:
+    """Pixel-coordinate identity grid, shape (nd, *spatial); the first
+    axis counts from ``z0`` (a slab's first plane)."""
     axes = [torch.arange(s, dtype=dtype, device=device) for s in spatial]
+    axes[0] = axes[0] + z0      # exact: integers below 2^24
     return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=0)
 
 
@@ -126,12 +132,16 @@ def _kernel_takes(src, flow, mode):
             and src.dtype == torch.float32 and flow.dtype == torch.float32)
 
 
-def warp(src, flow, mode="bilinear", impl="auto"):
+def warp(src, flow, mode="bilinear", impl="auto", z0=None):
     """Warp ``src`` by the dense displacement ``flow`` (SpatialTransformer).
 
     src:  (B, C, *spatial)
     flow: (B, nd, *spatial) pixel-unit displacements, flow[:, i] along axis i.
     impl: 'auto' | 'torch' | 'cuda'.
+    z0:   a slab (3-D): ``flow`` holds the output's planes ``[z0, z0 + D)``
+          of the whole source ``src`` (B, C, Ds, H, W), plane z sampling
+          depth (z + z0) + flow_z (``warp_cuda.Warp3dSlabFunction``; the
+          source takes no gradient there).
     """
     if impl == "auto":
         impl = "cuda" if _kernel_takes(src, flow, mode) else "torch"
@@ -140,25 +150,31 @@ def warp(src, flow, mode="bilinear", impl="auto"):
         if mode not in _KERNEL_MODES.get(nd, ()):
             raise ValueError(f"the CUDA warp kernels are 2-D bilinear and 3-D "
                              f"trilinear only, got mode={mode!r} ndims={nd}")
+        if z0 is not None:
+            if nd != 3:
+                raise ValueError(f"a slab warp is 3-D, got ndims={nd}")
+            return warp_cuda.Warp3dSlabFunction.apply(
+                src.contiguous(), flow.contiguous(), int(z0))
         fn = warp_cuda.Warp2dFunction if nd == 2 else warp_cuda.Warp3dFunction
         return fn.apply(src.contiguous(), flow.contiguous())
     if impl != "torch":
         raise ValueError(f"impl must be 'auto', 'torch' or 'cuda', got {impl!r}")
-    grid = identity_grid(flow.shape[2:], dtype=flow.dtype, device=flow.device)
+    grid = identity_grid(flow.shape[2:], dtype=flow.dtype, device=flow.device,
+                         z0=0 if z0 is None else int(z0))
     return grid_sample_pixel(src, grid[None] + flow, mode=mode)
 
 
 def warp_bwd_plain(src, flow, g, need_dsrc: bool = True,
-                   need_dflow: bool = True):
+                   need_dflow: bool = True, z0=None):
     """The backward kernels' plain version, 2-D or 3-D: the gradients of
-    ``warp(src, flow, impl="torch")`` for the output cotangent ``g``, by
-    autograd.  Returns ``(dsrc, dflow)``, each None unless asked for.
-    ``src`` and ``flow`` may be one tensor; the two gradients then come
-    back apart, as the kernels return them."""
+    ``warp(src, flow, impl="torch", z0=z0)`` for the output cotangent
+    ``g``, by autograd.  Returns ``(dsrc, dflow)``, each None unless asked
+    for.  ``src`` and ``flow`` may be one tensor; the two gradients then
+    come back apart, as the kernels return them."""
     with torch.enable_grad():
         s = src.detach().requires_grad_(need_dsrc)
         f = flow.detach().requires_grad_(need_dflow)
-        out = warp(s, f, impl="torch")
+        out = warp(s, f, impl="torch", z0=z0)
         wrt = [t for t in (s, f) if t.requires_grad]
         grads = iter(torch.autograd.grad(out, wrt, g))
     return (next(grads) if need_dsrc else None,

@@ -15,9 +15,10 @@ Each launcher replaces a Pallas kernel of ``dfmir_tpu/ops/warp_pallas.py``:
   calls it: the chain's whole gradient in one launch of a thread-block
   cluster a batch item, its source gradients summed in an int64 fixed
   point, bitwise reproducible;
-- ``warp3d_cuda``: ``_kernel3d`` / ``warp3d_banded`` (``csrc/warp3d.cu``);
+- ``warp3d_cuda``: ``_kernel3d`` / ``warp3d_banded`` (``csrc/warp3d.cu``),
+  on a whole volume or, with ``z0``, on a slab of one split along D;
 - ``warp3d_bwd_dflow_cuda``: ``_bwd_kernel3d_dflow`` /
-  ``warp3d_banded_bwd_dflow``;
+  ``warp3d_banded_bwd_dflow``, on a volume or a slab as ``warp3d_cuda``;
 - ``warp3d_bwd_dsrc_cuda``: ``_bwd_kernel3d_dsrc`` /
   ``warp3d_banded_bwd_dsrc``: a binned gather summed in an int64 fixed
   point, bitwise reproducible, in one cooperative launch;
@@ -36,9 +37,10 @@ use; the fixed-point source gradients' plain models are
 ``ops/warp.py``'s ``warp2d_dsrc_fixed_plain`` and
 ``warp3d_dsrc_binned_plain`` and ``ops/integrate.py``'s
 ``vecint2d_bwd_fixed_plain``, equal to the kernels bit for bit.
-``Warp2dFunction``, ``Warp3dFunction``, ``VecInt2dFunction`` and
-``VecInt3dFunction`` tie the kernels together for autograd, as the custom
-VJPs ``_warp2d`` / ``_warp3d`` do in the JAX package.
+``Warp2dFunction``, ``Warp3dFunction``, ``Warp3dSlabFunction``,
+``VecInt2dFunction`` and ``VecInt3dFunction`` tie the kernels together for
+autograd, as the custom VJPs ``_warp2d`` / ``_warp3d`` do in the JAX
+package.
 
 Every launcher checks its tensors with one cheap test and, only when that
 fails, the detailed checks that say what is wrong; then ``_launch`` calls
@@ -80,10 +82,12 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _check(src, flow, name, nd):
+def _check(src, flow, name, nd, z0=None):
     """Raise, naming the fault, unless src (B, C, *S) and flow (B, nd, *S),
     with ``nd`` spatial axes, are float32, contiguous and on one CUDA
-    device."""
+    device.  With ``z0`` the flow may be a slab: (B, nd, D, *S[1:]), the
+    output's planes ``[z0, z0 + D)`` of the source, ``0 <= z0 <= S[0] -
+    D``."""
     if not (src.is_cuda and flow.is_cuda):
         raise ValueError(f"{name} takes CUDA tensors; on the CPU use "
                          f"impl='torch'")
@@ -96,9 +100,19 @@ def _check(src, flow, name, nd):
         raise ValueError(f"expected {nd + 2}-D src and flow, got "
                          f"{tuple(src.shape)} and {tuple(flow.shape)}")
     B, C, *spatial = src.shape
-    if tuple(flow.shape) != (B, nd, *spatial):
-        raise ValueError(f"flow shape {tuple(flow.shape)} does not match src "
-                         f"{tuple(src.shape)}: expected {(B, nd, *spatial)}")
+    if z0 is None:
+        if tuple(flow.shape) != (B, nd, *spatial):
+            raise ValueError(f"flow shape {tuple(flow.shape)} does not match "
+                             f"src {tuple(src.shape)}: expected "
+                             f"{(B, nd, *spatial)}")
+    else:
+        D = flow.shape[2]
+        if (tuple(flow.shape) != (B, nd, D, *spatial[1:])
+                or not 0 <= z0 <= spatial[0] - D):
+            raise ValueError(f"flow {tuple(flow.shape)} from plane {z0} is "
+                             f"not a slab of src {tuple(src.shape)}: expected "
+                             f"(B, {nd}, D, ...) with 0 <= z0 <= "
+                             f"{spatial[0]} - D")
     if not (src.is_contiguous() and flow.is_contiguous()):
         raise ValueError(f"{name} takes contiguous tensors")
     if B * max(C, nd) * math.prod(spatial) >= _INT_LIMIT:
@@ -119,16 +133,17 @@ def _device(src, flow, name, nd) -> int:
     return d
 
 
-def _check_g(g, like):
-    """Raise unless the cotangent ``g`` is float32, contiguous, of ``like``'s
-    shape and on its device."""
+def _check_g(g, like, shape=None):
+    """Raise unless the cotangent ``g`` is float32, contiguous, on
+    ``like``'s device and of ``shape`` (``like``'s by default)."""
+    shape = like.shape if shape is None else torch.Size(shape)
     if not (g.get_device() == like.get_device() and g.dtype is _F32
-            and g.shape == like.shape and g.is_contiguous()):
+            and g.shape == shape and g.is_contiguous()):
         if g.device != like.device or g.dtype != torch.float32:
             raise TypeError(f"g must be float32 on {like.device}, got "
                             f"{g.dtype} on {g.device}")
-        raise ValueError(f"g must be contiguous and of src's shape "
-                         f"{tuple(like.shape)}, got {tuple(g.shape)}")
+        raise ValueError(f"g must be contiguous and of the output's shape "
+                         f"{tuple(shape)}, got {tuple(g.shape)}")
 
 
 def _launch(name, entry, device, *args):
@@ -333,27 +348,42 @@ def vecint3d_bwd_cuda(steps: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dvec
 
 
-def warp3d_cuda(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Launch the 3-D forward kernel: src (B, C, D, H, W), flow (B, 3, D, H,
-    W), both float32, contiguous and on one CUDA device; returns a fresh
-    (B, C, D, H, W).  ``src`` and ``flow`` may be the same tensor."""
-    device = _device(src, flow, "warp3d_cuda", 3)
-    out = torch.empty_like(src)
+def _slab_device(src, flow, z0, name) -> int:
+    """``_device`` for a 3-D warp whose output may be a slab of the source
+    (``_check`` with ``z0``); a whole volume (z0 0, the same D) takes
+    ``_device``'s cheap test alone."""
+    if z0 == 0 and src.shape[2:] == flow.shape[2:]:
+        return _device(src, flow, name, 3)
+    _check(src, flow, name, 3, z0)
+    return src.get_device()
+
+
+def warp3d_cuda(src: torch.Tensor, flow: torch.Tensor,
+                z0: int = 0) -> torch.Tensor:
+    """Launch the 3-D forward kernel: src (B, C, Ds, H, W), flow (B, 3, D,
+    H, W), both float32, contiguous and on one CUDA device; returns a fresh
+    (B, C, D, H, W), whose plane z samples the source at depth (z + z0) +
+    flow_z.  A whole volume: D = Ds, z0 = 0; a slab of a volume split along
+    D: the flow's D planes from plane ``z0`` of the whole source.  ``src``
+    and ``flow`` may be the same tensor."""
+    device = _slab_device(src, flow, z0, "warp3d_cuda")
+    out = src.new_empty((*src.shape[:2], *flow.shape[2:]))
     _launch(FWD3D, "dfmir_warp3d_fwd", device, src.data_ptr(),
-            flow.data_ptr(), out.data_ptr(), *src.shape)
+            flow.data_ptr(), out.data_ptr(), *out.shape, src.shape[2], z0)
     return out
 
 
 def warp3d_bwd_dflow_cuda(src: torch.Tensor, flow: torch.Tensor,
-                          g: torch.Tensor) -> torch.Tensor:
+                          g: torch.Tensor, z0: int = 0) -> torch.Tensor:
     """Launch the 3-D flow-gradient kernel for the cotangent ``g`` (B, C, D,
-    H, W) of ``warp3d_cuda(src, flow)``; returns dflow (B, 3, D, H, W),
+    H, W) of ``warp3d_cuda(src, flow, z0)``; returns dflow (B, 3, D, H, W),
     summed over channels.  Reproducible from run to run."""
-    device = _device(src, flow, "warp3d_bwd_dflow_cuda", 3)
-    _check_g(g, src)
+    device = _slab_device(src, flow, z0, "warp3d_bwd_dflow_cuda")
+    _check_g(g, src, (*src.shape[:2], *flow.shape[2:]))
     dflow = torch.empty_like(flow)
     _launch(DFLOW3D, "dfmir_warp3d_bwd_dflow", device, src.data_ptr(),
-            flow.data_ptr(), g.data_ptr(), dflow.data_ptr(), *src.shape)
+            flow.data_ptr(), g.data_ptr(), dflow.data_ptr(), *g.shape,
+            src.shape[2], z0)
     return dflow
 
 
@@ -428,6 +458,28 @@ class VecInt3dFunction(torch.autograd.Function):
     def backward(ctx, grad_out):
         (steps,) = ctx.saved_tensors
         return vecint3d_bwd_cuda(steps, grad_out.contiguous()), None
+
+
+class Warp3dSlabFunction(torch.autograd.Function):
+    """B3 and B4 behind autograd for a slab: ``apply(src, flow, z0)``, the
+    output the flow's planes from plane ``z0`` of the whole source
+    ``src``.  Only the flow has a gradient: B5 has no slab form, so a
+    source that needs one raises."""
+
+    @staticmethod
+    def forward(ctx, src, flow, z0):
+        if ctx.needs_input_grad[0]:
+            raise ValueError("a slab warp's source takes no gradient: B5 "
+                             "has no slab form")
+        ctx.save_for_backward(src, flow)
+        ctx.z0 = z0
+        return warp3d_cuda(src, flow, z0)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        src, flow = ctx.saved_tensors
+        return None, warp3d_bwd_dflow_cuda(src, flow, grad_out.contiguous(),
+                                           ctx.z0), None
 
 
 class Warp3dFunction(torch.autograd.Function):

@@ -11,6 +11,11 @@ to compare with one process.
   they run the same steps in one process on ``job["device"]`` (the card
   unless the job names another), the whole batch: the reference the ranks
   are held to.
+- ``vxm_spatial_steps``: ``vxm_steps`` over a (data, spatial) mesh, each
+  rank on its slab of its items, with ``register``, ``eval_step`` and
+  ``flow_stats`` before the steps.
+- ``spatial_pieces``: the spatial exchanges and the losses' slab forms
+  alone, each on this rank's slab.
 - ``run_cases``: several named cases in one launch (the functions below
   and the two above), so that a test file starts its ranks once.
 - ``fail`` and ``hang``: a rank that raises, and a rank whose peer never
@@ -26,6 +31,7 @@ import time
 from typing import Dict
 
 import torch
+import torch.distributed as dist
 
 from dfmir_tpu_torch.device import resolve_device
 from dfmir_tpu_torch.engine.config import RegistrationConfig
@@ -87,25 +93,32 @@ def _where(mesh, job):
     return mesh.device, mesh.rank, mesh.world
 
 
-def _steps(mesh, model, nets, step_fn, job):
+def _steps(mesh, model, nets, step_fn, job, share=None, out=None):
     """Run ``step_fn(i, a, b)`` on this rank's slice of each global batch
-    of ``job["batches"]``; the report of ``registration_steps``."""
+    of ``job["batches"]`` (``share(x)``: this rank's part of a global
+    tensor; ``batch_slice`` by default); the report of
+    ``registration_steps``, added to ``out``."""
     dev, rank, world = _where(mesh, job)
+    if share is None:
+        def share(x):
+            return dp.batch_slice(x, rank, world)
     dtype = getattr(torch, job.get("dtype", "float32"))
     snap = job.get("snapshot", 0)
-    out = {"rank": rank, "metrics": [], "ms": [], "launches": [],
-           "checksums": []}
+    out = dict(out or {}, rank=rank, metrics=[], ms=[], launches=[],
+               checksums=[], bytes_sent=[], exchange_s=[])
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     for i, (A, B) in enumerate(job["batches"]):
-        a, b = (dp.batch_slice(x, rank, world).to(dev, dtype)
-                for x in (A, B))
+        a, b = (share(x).to(dev, dtype) for x in (A, B))
         _sync(dev)
         warp_cuda.reset_launches()
+        dp.reset_exchange_counts()
         t0 = time.perf_counter()
         metrics = step_fn(i, a, b)
         _sync(dev)
         out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["bytes_sent"].append(dict(dp.BYTES_SENT))
+        out["exchange_s"].append(dict(dp.EXCHANGE_S))
         out["launches"].append(dict(warp_cuda.LAUNCHES))
         out["metrics"].append({k: float(v) for k, v in metrics.items()})
         out["checksums"].append(dp.checksum(model.state_tensors()).cpu())
@@ -215,6 +228,74 @@ def vxm_steps(mesh, job):
         return _steps(mesh, eng, {"R": eng.netR}, step, job)
 
 
+def vxm_spatial_steps(mesh, job):
+    """``vxm_steps`` with the volumes split along D as well: ``make_mesh``
+    of the launch's first ``job["n_data"]`` (all ranks by default) *
+    ``job["n_spatial"]`` ranks, each rank taking its data rank's items and
+    its spatial rank's slab of each global batch; a rank past the mesh
+    reports ``{"rank": r, "in_mesh": False}`` and nothing else.  Before the
+    steps, with netR's first weights, each rank reports its slabs of
+    ``register`` on ``job["register"]`` (a global (A, B), ``reg_reps``
+    calls timed) and, where asked, ``eval_step`` (``job["eval"]``) and
+    ``flow_stats`` (``job["stats"]``) on it, each with its launches; each
+    step also reports the bytes this rank sent in the spatial exchanges.
+    With ``mesh=None``: one process on the whole batch
+    (``job["device"]``), the reference."""
+    if mesh is not None:
+        rank = mesh.rank
+        mesh = dp.make_mesh(mesh, job.get("n_data"), job["n_spatial"])
+        if mesh is None:
+            return {"rank": rank, "in_mesh": False}
+    dev, _, _ = _where(mesh, job)
+    dtype = getattr(torch, job.get("dtype", "float32"))
+    cfg = VxmConfig(**job["cfg"])
+    eng = VxmEngine(cfg, device=dev, seed=job.get("seed", 0))
+    with torch.no_grad():
+        if "state" in job:
+            eng.netR.load_state_dict(job["state"]["R"], strict=True)
+        eng.netR.flow.weight.mul_(job.get("flow_gain", 1.0))
+    if mesh is not None:
+        eng.data_parallel(mesh)
+
+        def share(x):
+            return dp.slab_slice(dp.batch_slice(x, mesh.data_rank,
+                                                mesh.n_data),
+                                 mesh.spatial_rank, mesh.n_spatial)
+    else:
+        def share(x):
+            return x
+    out = {}
+    with _float32(dev):
+        if job.get("register") is not None:
+            a, b = (share(x).to(dev, dtype) for x in job["register"])
+            calls = {"register": lambda: eng.register(a, b)}
+            if job.get("eval"):
+                calls["eval"] = lambda: eng.eval_step(a, b)
+            if job.get("stats"):
+                calls["stats"] = lambda: eng.flow_stats(a, b)
+            for name, call in calls.items():
+                ms = []
+                for _ in range(job.get("reg_reps", 1) if name == "register"
+                               else 1):
+                    _sync(dev)
+                    warp_cuda.reset_launches()
+                    t0 = time.perf_counter()
+                    res = call()
+                    _sync(dev)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                out[name] = _host(res)
+                out[f"{name}_ms"] = ms
+                out[f"{name}_launches"] = dict(warp_cuda.LAUNCHES)
+
+        def step(i, a, b):
+            return eng.train_step(a, b, job.get("lr"))
+        report = _steps(mesh, eng, {"R": eng.netR}, step, job, share, out)
+    if mesh is not None:
+        report.update(data_rank=mesh.data_rank,
+                      spatial_rank=mesh.spatial_rank)
+    return report
+
+
 def reduce_is_exact(mesh, job):
     """One backward of the job's first global batch (this rank's slice),
     then the step's all-reduce of the gradients: whether every gradient
@@ -289,6 +370,88 @@ def nce(mesh, feat_q, feat_k, nce_T):
     return {"per_patch": per_patch.detach(), "mean": mean, "grad": q.grad}
 
 
+def spatial_pieces(mesh, n_spatial, vols, n_data=None):
+    """The spatial exchanges and the slab forms of the losses, each on
+    this rank's slab of the global tensors ``vols``, on the rank's device
+    (``make_mesh`` of the launch's first ``n_data`` (all by default) *
+    ``n_spatial`` ranks; each rank's share of the batch and its slab along
+    D; a rank past the mesh reports ``{"in_mesh": False}``), for the tests
+    to hold against the whole-tensor ops:
+
+    - ``halo``: ``halo_exchange(x, lo, hi)`` and the gradient of x under
+      ``sum(halo * w)``, w this rank's (B, C, lo + D + hi, H, W) part of
+      ``vols["halo_w"]`` (the spatial ranks' windows one after another);
+    - ``gather``: ``gather_slabs(x)`` and x's gradient under
+      ``sum(gathered * w)``, w ``vols["gather_w"][spatial_rank]``;
+    - ``down`` / ``up``: ``resize_flow_slab(flow, 1/2)`` from the slab and
+      ``resize_flow_to_slab(flow2, 2)`` from the whole half-size field,
+      each with its input's gradient under ``sum(out * g)``, g this rank's
+      slab of ``vols["g_down"]`` / ``vols["g_up"]``;
+    - ``ncc`` (window 5), ``mse`` and ``grad_l1`` / ``grad_l2``: the
+      value and the gradient of the prediction / flow;
+    - ``det`` and ``stats``: ``jacobian_det`` and ``field_stats`` of the
+      flow's slab.
+
+    Every gradient is this rank's: ``world`` times its true share."""
+    from dfmir_tpu_torch.losses.regularizers import grad_loss
+    from dfmir_tpu_torch.losses.similarity import mse_loss, ncc_loss
+    from dfmir_tpu_torch.ops.integrate import (resize_flow_slab,
+                                               resize_flow_to_slab)
+    from dfmir_tpu_torch.ops.jacobian import jacobian_det
+    mesh = dp.make_mesh(mesh, n_data, n_spatial)
+    if mesh is None:
+        return {"in_mesh": False}
+    r, n, dev = mesh.spatial_rank, mesh.n_spatial, mesh.device
+
+    def share(t, axis=2):
+        return dp.slab_slice(dp.batch_slice(t, mesh.data_rank, mesh.n_data),
+                             r, n, axis).to(dev, copy=True)
+
+    def leaf(t):
+        return share(t).requires_grad_(True)
+
+    out = {"data_rank": mesh.data_rank, "spatial_rank": r,
+           "spatial_group": dist.get_process_group_ranks(
+               mesh.spatial_group)}
+    lo, hi = vols["halo_lohi"]
+    x = leaf(vols["x"])
+    y = dp.halo_exchange(x, lo, hi, mesh)
+    (y * share(vols["halo_w"])).sum().backward()
+    out["halo"] = (y.detach(), x.grad)
+    x = leaf(vols["x"])
+    y = dp.gather_slabs(x, mesh)
+    w = dp.batch_slice(vols["gather_w"][r], mesh.data_rank,
+                       mesh.n_data).to(dev)
+    (y * w).sum().backward()
+    out["gather"] = (y.detach(), x.grad)
+    f = leaf(vols["flow"])
+    y = resize_flow_slab(f, 0.5, mesh)
+    (y * share(vols["g_down"])).sum().backward()
+    out["down"] = (y.detach(), f.grad)
+    f2 = dp.batch_slice(vols["flow2"], mesh.data_rank, mesh.n_data).to(
+        dev, copy=True).requires_grad_(True)
+    y = resize_flow_to_slab(f2, 2.0, mesh)
+    (y * share(vols["g_up"])).sum().backward()
+    out["up"] = (y.detach(), f2.grad)
+    for name, fn in (("ncc", lambda p, t: ncc_loss(p, t, kernel_var=[5] * 3,
+                                                   mesh=mesh)),
+                     ("mse", lambda p, t: mse_loss(p, t, mesh))):
+        p = leaf(vols["pred"])
+        loss = fn(p, share(vols["target"]))
+        loss.backward()
+        out[name] = (loss.detach(), p.grad)
+    for penalty in ("l1", "l2"):
+        f = leaf(vols["flow"])
+        loss = grad_loss(f, penalty, mesh)
+        loss.backward()
+        out[f"grad_{penalty}"] = (loss.detach(), f.grad)
+    with torch.no_grad():
+        f = share(vols["flow"])
+        out["det"] = jacobian_det(f, mesh)
+        out["stats"] = field_stats(f, mesh)
+    return out
+
+
 def loader(mesh, opt, epochs):
     """This rank's batches of a sliced ``DataLoader`` over ``epochs``:
     (epoch, A, A_paths) each."""
@@ -323,6 +486,7 @@ def tf32_flags(mesh):
 
 
 CASES = {f.__name__: f for f in (registration_steps, vxm_steps,
+                                 vxm_spatial_steps, spatial_pieces,
                                  reduce_is_exact, collectives, nce,
                                  loader, tf32_flags)}
 

@@ -26,9 +26,55 @@ batch's.  The JAX names map so:
   ``global_mean`` (a statistic of the global batch with this rank's
   gradient).
 
-JAX's ``spatial`` axis is not ported: JAX's own command line never uses
-it (``parallelize`` passes ``n_data`` only), and it needs halo exchanges
-around every convolution (ROADMAP A12b).
+**The spatial axis** (JAX's ``make_mesh(n_data, n_spatial)`` with
+``shard_batch(..., shard_spatial=True)``, which shards the leading spatial
+dim of (B, D, H, W, C)).  ``make_mesh(mesh, n_data, n_spatial)`` takes the
+launch's first n_data * n_spatial ranks, as JAX's takes the first devices,
+and arranges them as JAX's ``reshape(n_data, n_spatial)`` does: rank =
+data_rank * n_spatial + spatial_rank.  Each rank takes its data rank's
+items (``batch_slice``) and, of those, its spatial rank's slab of D /
+n_spatial planes along D (``slab_slice``), in spatial-rank order.  Where
+XLA inserts the exchanges itself, the port's modules call them:
+
+- ``halo_exchange(x, lo, hi, mesh)``: the slab with ``lo`` planes of the
+  spatial rank below and ``hi`` of the one above, zeros past the global
+  ends (a convolution's zero padding there); its backward sends each
+  halo's gradient back to the rank that owns the planes, which adds it;
+- ``gather_slabs(x, mesh)``: the whole volume on every spatial rank (an
+  all-gather along D); its backward sums the ranks' gradients and gives
+  each its slab (a reduce-scatter).
+
+Both run over the spatial group, made on every rank in the same order.  A
+halo's sends and receives go out as one ``batch_isend_irecv``: under NCCL
+(ranks on distinct cards) a rank's receives posted one by one ahead of its
+sends would wait on sends queued behind them.  With ``n_spatial=1`` and
+every rank of the launch ``make_mesh`` returns the mesh it was given: every
+path is the batch axis's data parallelism alone, bit for bit.  A mesh of
+fewer ranks than the launch runs its collectives over a group of its own
+(``Mesh.group``).  ``BYTES_SENT`` counts the bytes this rank sends in the
+exchanges.
+
+**Gloo and the card.** Ranks that share one card run over ``gloo``
+(``launch.backend_for``).  On an NVIDIA H100 with torch 2.11, over 2
+ranks on one card, gloo took CUDA tensors in ``all_reduce``,
+``broadcast``, ``all_gather``, ``all_gather_into_tensor``,
+``reduce_scatter`` and ``reduce_scatter_tensor``, with the right values.
+Its point-to-point calls did not: ``isend`` / ``irecv`` raised ("writev:
+Bad address", the card's pointer taken for host memory), and a blocking
+``send`` aborted its process.  So the halos' point-to-point messages go
+through host buffers under gloo when the tensors lie on a card
+(``_p2p``), as ``_staged`` moves host tensors to the card for NCCL, and
+``gather_slabs`` all-gathers and reduce-scatters the card's tensors
+directly.
+
+**The gradient scale on slabs.** Every loss keeps ``global_mean``'s
+convention over all ``world`` ranks: its value is the global one, and
+each rank's gradient is ``world`` times its true share (the terms its
+own slab and items contribute, through the exchanges' backwards).  The
+mean over all ranks (``all_reduce_grads``) is then the gradient of the
+whole step.  A statistic whose ranks hold unequal counts (the gradient
+loss: the last slab has one D difference fewer) divides its local sum by
+``N / world``, N the global count, before ``global_mean``.
 
 **Why an explicit all-reduce and not ``DistributedDataParallel``.** JAX's
 step keeps the parameters replicated and all-reduces the gradients; so
@@ -56,8 +102,10 @@ a sum over one rank, a division by 1.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Iterable, List, Sequence
+import time
+from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -65,11 +113,63 @@ import torch.distributed as dist
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank of the default process group, and its device."""
+    """This rank of the default process group, and its device; from
+    ``make_mesh`` also its place on the (data, spatial) grid, the group of
+    the mesh's ranks (where the launch has more) and the spatial group
+    through it.  The mesh's ranks are the launch's first ``world``: a
+    rank's number is the same in both."""
     rank: int
     world: int
     device: torch.device
     backend: str
+    n_spatial: int = 1
+    group: Any = None            # the mesh's ranks, where fewer than the
+                                 # launch's (None: the default group)
+    spatial_group: Any = None    # the n_spatial ranks of this data rank
+
+    @property
+    def n_data(self) -> int:
+        return self.world // self.n_spatial
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.n_spatial
+
+    @property
+    def spatial_rank(self) -> int:
+        return self.rank % self.n_spatial
+
+
+def make_mesh(mesh: Mesh, n_data: Optional[int] = None,
+              n_spatial: int = 1) -> Optional[Mesh]:
+    """JAX's ``make_mesh(n_data, n_spatial)`` over the first n_data *
+    n_spatial ranks of ``mesh`` (the launch's default group), as JAX's
+    takes the first devices: rank = data_rank * n_spatial + spatial_rank.
+    Every rank of the launch calls it, and every rank makes every group in
+    the same order (``dist.new_group``'s rule); a rank past the mesh gets
+    None.  ``n_spatial=1`` over every rank returns ``mesh`` itself."""
+    if n_data is None:
+        n_data = mesh.world // n_spatial
+    size = n_data * n_spatial
+    if n_data < 1 or n_spatial < 1 or size > mesh.world:
+        raise ValueError(f"a mesh of {n_data} x {n_spatial} ranks does not "
+                         f"fit the {mesh.world} ranks of the launch")
+    if size == mesh.world and n_spatial == 1:
+        return mesh
+    group = dist.new_group(list(range(size))) if size < mesh.world else None
+    spatial = [dist.new_group([d * n_spatial + s for s in range(n_spatial)])
+               for d in range(n_data)] if n_spatial > 1 else [None] * n_data
+    if mesh.rank >= size:
+        return None
+    return dataclasses.replace(mesh, world=size, n_spatial=n_spatial,
+                               group=group,
+                               spatial_group=spatial[mesh.rank // n_spatial])
+
+
+def is_spatial(mesh: Optional[Mesh]) -> bool:
+    """Whether ``mesh`` splits the volumes along D (their tensors are
+    slabs)."""
+    return mesh is not None and mesh.n_spatial > 1
 
 
 def check_share(n: int, batch_size: int, mesh: Mesh = None) -> None:
@@ -94,6 +194,18 @@ def batch_slice(x, rank: int, world: int):
                          f"ranks")
     k = n // world
     return x[rank * k:(rank + 1) * k]
+
+
+def slab_slice(x, spatial_rank: int, n_spatial: int, axis: int = 2):
+    """Spatial rank ``spatial_rank``'s slab of ``x`` along ``axis`` (D of
+    (B, C, D, H, W)): planes ``[r*D/n, (r+1)*D/n)``.  Raises unless
+    ``n_spatial`` divides D."""
+    n = x.shape[axis]
+    if n % n_spatial:
+        raise ValueError(f"{n} planes along axis {axis} do not divide "
+                         f"into {n_spatial} slabs")
+    k = n // n_spatial
+    return x.narrow(axis, spatial_rank * k, k)
 
 
 def _staged(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
@@ -134,7 +246,7 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter],
         return
 
     def mean(flat):
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=mesh.group)
         flat.div_(mesh.world)
     _flat_collective(grads, mesh, mean)
 
@@ -148,7 +260,7 @@ def all_reduce_metrics(metrics: Dict[str, torch.Tensor],
     out = {k: v.detach().clone() for k, v in metrics.items()}
 
     def mean(flat):
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=mesh.group)
         flat.div_(mesh.world)
     _flat_collective(list(out.values()), mesh, mean)
     return out
@@ -162,7 +274,7 @@ def all_gather(x: torch.Tensor, mesh: Mesh = None) -> torch.Tensor:
         return x
     local = _staged(mesh, x)
     parts = [torch.empty_like(local) for _ in range(mesh.world)]
-    dist.all_gather(parts, local)
+    dist.all_gather(parts, local, group=mesh.group)
     return torch.cat(parts).to(x.device)
 
 
@@ -174,7 +286,7 @@ def global_mean(x: torch.Tensor, mesh: Mesh = None) -> torch.Tensor:
     if mesh is None:
         return x
     total = x.detach().clone()
-    dist.all_reduce(total)
+    dist.all_reduce(total, group=mesh.group)
     return x + (total / mesh.world - x.detach())
 
 
@@ -191,7 +303,7 @@ def all_reduce_max(x: torch.Tensor, mesh: Mesh = None) -> torch.Tensor:
     if mesh is None:
         return x
     out = _staged(mesh, x.detach().clone())
-    dist.all_reduce(out, op=dist.ReduceOp.MAX)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=mesh.group)
     return out.to(x.device)
 
 
@@ -199,9 +311,9 @@ def barrier(mesh: Mesh = None) -> None:
     if mesh is None:
         return
     if mesh.backend == "nccl":
-        dist.barrier(device_ids=[mesh.device.index])
+        dist.barrier(mesh.group, device_ids=[mesh.device.index])
     else:
-        dist.barrier()
+        dist.barrier(mesh.group)
 
 
 def state_tensors(modules: Sequence[torch.nn.Module],
@@ -239,9 +351,149 @@ def replicate(tensors: Sequence[torch.Tensor], mesh: Mesh = None) -> None:
         return
     sums = _staged(mesh, checksum(tensors))
     parts = [torch.empty_like(sums) for _ in range(mesh.world)]
-    dist.all_gather(parts, sums)
+    dist.all_gather(parts, sums, group=mesh.group)
     bad = [r for r, p in enumerate(parts) if not torch.equal(p, parts[0])]
     if bad:
         raise RuntimeError(f"ranks {bad} hold other parameters or Adam "
                            f"state than rank 0")
-    _flat_collective(tensors, mesh, lambda flat: dist.broadcast(flat, 0))
+    _flat_collective(tensors, mesh,
+                     lambda flat: dist.broadcast(flat, 0, group=mesh.group))
+
+
+# ------------------------------------------------- the spatial exchanges
+
+# the payload bytes this rank sent in the spatial exchanges, by kind: a
+# halo's planes to each neighbour; its slab to each other spatial rank in
+# an all-gather, and their parts of the gradient in its reduce-scatter
+BYTES_SENT = {"halo": 0, "gather": 0}
+# host seconds this rank spent in them, by kind (a call on the card's
+# tensors first waits for the card to reach it)
+EXCHANGE_S = {"halo": 0.0, "gather": 0.0}
+
+
+def reset_exchange_counts() -> None:
+    for kind in BYTES_SENT:
+        BYTES_SENT[kind] = 0
+        EXCHANGE_S[kind] = 0.0
+
+
+@contextlib.contextmanager
+def _clock(kind: str):
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        EXCHANGE_S[kind] += time.perf_counter() - t0
+
+
+def _spatial_peer(mesh: Mesh, step: int) -> Optional[int]:
+    """The global rank ``step`` spatial ranks away from this one, or None
+    past either end of the volume."""
+    s = mesh.spatial_rank + step
+    if 0 <= s < mesh.n_spatial:
+        return mesh.data_rank * mesh.n_spatial + s
+    return None
+
+
+def _p2p(mesh: Mesh, to_prev: torch.Tensor, to_next: torch.Tensor):
+    """Send ``to_prev`` to the spatial rank below and ``to_next`` to the one
+    above; return (from_prev, from_next): the rank below's ``to_next`` and
+    the one above's ``to_prev`` (zeros past an end).  The receives and
+    sends go out as one batch (``batch_isend_irecv``), each direction with
+    its own tag.  Under gloo a card's tensors go through host buffers."""
+    prev, nxt = _spatial_peer(mesh, -1), _spatial_peer(mesh, 1)
+    from_prev, from_next = torch.zeros_like(to_next), torch.zeros_like(to_prev)
+    host = mesh.backend == "gloo" and to_prev.is_cuda
+
+    def wire(t):
+        return (t.detach().cpu() if host else t.detach()).contiguous()
+    with _clock("halo"):
+        ops, got = [], []
+        for t, peer, tag in ((from_prev, prev, 1), (from_next, nxt, 2)):
+            if peer is not None and t.numel():
+                buf = wire(t)
+                ops.append(dist.P2POp(dist.irecv, buf, peer,
+                                      mesh.spatial_group, tag))
+                got.append((t, buf))
+        for t, peer, tag in ((to_prev, prev, 2), (to_next, nxt, 1)):
+            if peer is not None and t.numel():
+                buf = wire(t)
+                ops.append(dist.P2POp(dist.isend, buf, peer,
+                                      mesh.spatial_group, tag))
+                BYTES_SENT["halo"] += buf.numel() * buf.element_size()
+        for w in dist.batch_isend_irecv(ops) if ops else ():
+            w.wait()
+        for t, buf in got:
+            t.copy_(buf)
+    return from_prev, from_next
+
+
+class _Halo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lo, hi, mesh):
+        D = x.shape[2]
+        if lo > D or hi > D:
+            raise ValueError(f"a halo of ({lo}, {hi}) planes reaches past "
+                             f"the neighbours' slabs of {D}")
+        ctx.lo, ctx.hi, ctx.mesh = lo, hi, mesh
+        below, above = _p2p(mesh, x.narrow(2, 0, hi), x.narrow(2, D - lo, lo))
+        return torch.cat([below, x, above], dim=2)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo, hi, mesh = ctx.lo, ctx.hi, ctx.mesh
+        D = g.shape[2] - lo - hi
+        g_below, g_mid, g_above = g.split([lo, D, hi], dim=2)
+        # the halos' gradients go back to their owners: g_below is the rank
+        # below's last lo planes', g_above the rank above's first hi planes'
+        from_prev, from_next = _p2p(mesh, g_below, g_above)
+        dx = g_mid.clone()
+        if hi:
+            dx[:, :, :hi] += from_prev
+        if lo:
+            dx[:, :, D - lo:] += from_next
+        return dx, None, None, None
+
+
+def halo_exchange(x: torch.Tensor, lo: int, hi: int,
+                  mesh: Mesh) -> torch.Tensor:
+    """This rank's slab ``x`` (B, C, D, ...) with ``lo`` planes of the
+    spatial rank below before it and ``hi`` planes of the rank above after
+    it: (B, C, lo + D + hi, ...), zeros past the volume's ends.  Every
+    spatial rank calls it with the same ``lo`` and ``hi``."""
+    return _Halo.apply(x, lo, hi, mesh)
+
+
+class _GatherSlabs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(mesh.n_spatial)]
+        with _clock("gather"):
+            dist.all_gather(parts, x, group=mesh.spatial_group)
+        BYTES_SENT["gather"] += ((mesh.n_spatial - 1) * x.numel()
+                                 * x.element_size())
+        return torch.cat(parts, dim=2)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        parts = [p.contiguous() for p in g.chunk(mesh.n_spatial, dim=2)]
+        out = torch.empty_like(parts[0])
+        with _clock("gather"):
+            dist.reduce_scatter(out, parts, group=mesh.spatial_group)
+        BYTES_SENT["gather"] += sum(p.numel() * p.element_size()
+                                    for i, p in enumerate(parts)
+                                    if i != mesh.spatial_rank)
+        return out, None
+
+
+def gather_slabs(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The spatial ranks' slabs ``x`` concatenated along D in spatial-rank
+    order: the whole volume, on every spatial rank.  The gradient of a
+    rank's slab is the sum of every rank's gradient of its planes.  ``x``
+    itself where ``mesh`` does not split the volume."""
+    if not is_spatial(mesh):
+        return x
+    return _GatherSlabs.apply(x, mesh)

@@ -490,6 +490,32 @@ def test_warp3d_kernels_take_unaligned_tensors(cuda):
                    ref_dsrc) <= 1e-5 * max(1.0, float(ref_dsrc.abs().max()))
 
 
+@pytest.mark.parametrize("z0", [0, 6, 12])
+def test_warp3d_slab_kernels_are_the_whole_volumes_rows(cuda, z0):
+    """B3 and B4 on a slab of 6 planes from plane z0 of the source: the
+    whole-volume launches' rows bit for bit, their plain versions with z0
+    within 1e-5, and the slab Function's backward launching B4 alone."""
+    src, flow, g = inputs(cuda, (2, 3, 18, 14, 16), 2.5, 0.0)
+    rows = slice(z0, z0 + 6)
+    f, gs = flow[:, :, rows].contiguous(), g[:, :, rows].contiguous()
+    out = warp_cuda.warp3d_cuda(src, f, z0)
+    dflow = warp_cuda.warp3d_bwd_dflow_cuda(src, f, gs, z0)
+    assert torch.equal(out, warp_cuda.warp3d_cuda(src, flow)[:, :, rows])
+    assert torch.equal(dflow, warp_cuda.warp3d_bwd_dflow_cuda(
+        src, flow, g)[:, :, rows])
+    assert max_err(out, warp(src, f, impl="torch", z0=z0)) <= 1e-5
+    assert max_err(dflow, warp_bwd_plain(src, f, gs, need_dsrc=False,
+                                         z0=z0)[1]) <= 1e-5
+    before = dict(warp_cuda.LAUNCHES)
+    leaf = f.clone().requires_grad_(True)
+    warp(src, leaf, z0=z0).backward(gs)
+    assert warp_cuda.LAUNCHES == dict(before, **{
+        k: before[k] + 1 for k in (FWD3D, DFLOW3D)})
+    assert torch.equal(leaf.grad, dflow)
+    with pytest.raises(ValueError, match="not a slab"):
+        warp_cuda.warp3d_cuda(src, f, 13)
+
+
 def test_warp3d_zero_flow_copies_the_source(cuda):
     src, _, _ = inputs(cuda, (1, 2, 20, 24, 28), 0.0, 0.0)
     out = warp_cuda.warp3d_cuda(src, torch.zeros((1, 3, 20, 24, 28),
