@@ -262,6 +262,27 @@ Phases, each printing one JSON line:
               step 1 + 1 + 1 + 1 and no B5, a register call 1 + 1; ms a
               step and a register, peak memory, the bytes sent and the
               host seconds in the exchanges a step, by rank
+  spatial_joint (run right after kernel_chain, while this process holds
+              little of the card: its two 3-D ranks take ~33 GB each)
+              the joint model on slabs: B1 on the 128-row halves of a
+              256^2 source (0.0 from the whole image's rows, 1e-5 from
+              its plain version) and B5 on the 64-plane halves of a 128^3
+              volume (the slabs' int64 sums, in the fixed point of max|g|
+              over the whole cotangent, 0.0 from the whole-volume B5,
+              twice the same, equal to the plain slab sums), each timed
+              beside the whole launch; then RegistrationConfig() at 256^2
+              split along H over 2 and 4 ranks and RegistrationConfig(
+              ndims=3, crop_size=128) along D over 2, in one launch of 4
+              ranks sharing the card (gloo), B=1, against one process
+              run first and freed: register's slabs put together (fake_B,
+              idt_B, y_source, pos_flow) <= 1e-4 max-abs; at 3-D the
+              metrics of 2 steps 1e-5 relative (the second from the one
+              process's state after the first), the first step's
+              gradients 1e-2 of each tensor's max |g| (a norm-fed conv
+              bias: its network's) and its update under the first-step
+              sign-flip rule, replicas bit-equal; a rank's launches exact
+              (a register 1 + 1, a step 1 + 2 and 1 + 2 + 1); ms, peak
+              memory, bytes and host seconds in the exchanges, by rank
   dp_cli      train.main through the launcher on [cuda:0, cuda:0] (gloo) on
               phase cli's PNG pairs: 2 steps at B=2, 1 a rank; the one
               set of files a run writes, a loss-log line a print, once;
@@ -352,6 +373,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import gc
 import json
 import math
 import os
@@ -4008,7 +4030,8 @@ ZOO3D_RUNS = {
     "netD_basic": dict(lambda_GAN=1.0, netD="basic", n_layers_D=3),
     "netD_pixel": dict(lambda_GAN=1.0, netD="pixel"),
 }
-ZOO3D_STEPS = 2                # timed, after 1 warm-up (float32)
+ZOO3D_STEPS = 1                # timed, after 1 warm-up (float32; 2 before
+                               # spatial_joint)
 ZOO3D_BF16_STEPS = 1           # timed, after 1 warm-up (bfloat16)
 # the card-vs-CPU check at joint3d's narrow width and bars: 32^3, but a
 # unet needs a side of 2^num_downs, so unet_128 is held at 128^3, its
@@ -4307,11 +4330,23 @@ SLAB_Z0 = (0, 80)
 SLAB_FLOW_PX = 2.0
 
 
+def slab_grid3d(flow, z0, D):
+    """grid_sample's normalised (x, y, z) grid for a slab's pixel flow:
+    its planes from global plane ``z0`` of a volume of ``D`` planes."""
+    d, H, W = flow.shape[2:]
+    locs = identity_grid((d, H, W), device=flow.device, z0=z0)[None] + flow
+    return torch.stack([2 * (locs[:, 2] / (W - 1) - 0.5),
+                        2 * (locs[:, 1] / (H - 1) - 0.5),
+                        2 * (locs[:, 0] / (D - 1) - 0.5)], dim=-1)
+
+
 def phase_slab_kernels(seed):
     """B3 and B4 on slabs: the output and dflow of planes [z0, z0 + D/2)
     of a (1, 1, 160^3) source under a field of about +-2 voxels, equal bit
     for bit to the whole-volume launches' rows, and within KERNEL_TOL of
-    their plain versions with ``z0``; each launch timed."""
+    their plain versions with ``z0``; each launch timed (CUDA events,
+    device us) beside its bound, its plain version and the library's call
+    on the slab."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(seed + 34)
     B, C, D, H, W = SLAB_SHAPE
@@ -4332,14 +4367,25 @@ def phase_slab_kernels(seed):
                   DFLOW3D: lambda: warp_bwd_plain(src, f, gs, need_dsrc=False,
                                                   z0=z0)[1]}
         wholes = {FWD3D: whole_out, DFLOW3D: whole_dflow}
+        grid = slab_grid3d(f, z0, D)
+        libs = {FWD3D: lambda: F.grid_sample(src, grid, mode="bilinear",
+                                             padding_mode="zeros",
+                                             align_corners=True),
+                DFLOW3D: lambda: torch.ops.aten.grid_sampler_3d_backward(
+                    gs, src, grid, 0, 0, True, [False, True])}
         for k, call in calls.items():
             out = call()
+            bound_ms, bound_by = warp3d_bound(k, B, C, d * H * W, False)
             row = {"kernel": k, "shape": [B, C, d, H, W], "src_depth": D,
                    "z0": z0, "flow_max_vox": float(f.abs().max()),
                    "vs_whole_max_abs": float(
                        (out - wholes[k][:, :, z0:z0 + d]).abs().max()),
                    "max_abs_err": float((out - plains[k]()).abs().max()),
-                   "tol": KERNEL_TOL, "ms": time_ms(call, reps=20)}
+                   "tol": KERNEL_TOL, "ms": time_ms(call, reps=20),
+                   "device_us_per_launch": device_us(call, k),
+                   "plain_ms": time_ms(plains[k], reps=3, warmup=1),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": time_ms(libs[k], reps=20)}
             emit({"phase": "spatial3d", "slab_kernel": row})
             if row["vs_whole_max_abs"] != 0.0:
                 raise AssertionError(f"{k} on the slab from plane {z0} "
@@ -4470,7 +4516,384 @@ def phase_spatial3d(seed, smi):
           "launches_per_rank_step": STEP3D,
           "launches_per_rank_register": REG3D, "meshes": meshes,
           "slab_kernels": slab_rows, "card": smi})
-    return launches
+    return launches, slab_rows
+
+
+# ------------------------------------------------- the joint model on slabs
+# RegistrationConfig() (2-D, 256^2) and RegistrationConfig(ndims=3,
+# crop_size=128) split along H / D over ranks sharing the card (gloo), in
+# one launch of 4 ranks: the 2-D register on 1 x 2 and 1 x 4 meshes, then
+# the 3-D register and steps on 1 x 2 (the launch's first two ranks), each
+# against one process on the whole image
+SJ_2D_CFG = {}               # fields beside RegistrationConfig()'s (none)
+SJ_2D_MESHES = [(1, 2), (1, 4)]
+SJ_3D_MESH = (1, 2)
+SJ_STEPS = 2                 # both compared with one process, the second timed
+# (the ranks take the second from the one process's state after the first:
+# Adam's first update moves each parameter by about lr * sign(g), so a
+# gradient inside float32's spread flips its parameter by 2 lr, and the
+# second step's loss then parts by ~1e-4 between any two float32 runs,
+# one-process runs on 1 and 2 CPU threads too; the update itself is held
+# to that first-step rule)
+SJ_REG_REPS = 2              # register calls a rank, the median timed
+SJ_TOL = 1e-4                # register max-abs against one process
+SJ_METRIC_TOL = 1e-5         # the steps' metrics, relative
+# the slab kernels: B1 on the 128-row halves of a 256^2 source under a
+# +-3 px field; B5 on the 64-plane halves of a 128^3 volume under a field
+# of about a voxel, against the whole-volume launch
+SJ_B1_SHAPE = (1, 1, 256, 256)
+SJ_B1_Y0 = (0, 128)
+SJ_B1_FLOW_PX = 3.0
+SJ_B5_SHAPE = (1, 1, 128, 128, 128)
+SJ_B5_Z0 = (0, 64)
+SJ_B5_FLOW_VOX = 1.0
+SJ_REGISTER = {VF: 1, FWD: 1}
+
+
+def norm_fed_biases(net):
+    """The names of the conv biases that an instance norm follows: their
+    gradient is 0 in exact arithmetic (the norm takes the mean out), so
+    what a run computes for them is rounding, which the bars measure
+    against the network's max |g|, not their own."""
+    from dfmir_tpu_torch.nets.layers import InstanceNorm
+    names = []
+    for prefix, mod in net.named_modules():
+        if isinstance(mod, torch.nn.Sequential):
+            kids = list(mod.named_children())
+            names += [f"{prefix}.{a}.bias".lstrip(".")
+                      for (a, m), (_, n) in zip(kids, kids[1:])
+                      if isinstance(n, InstanceNorm)
+                      and getattr(m, "bias", None) is not None]
+    return set(names)
+
+
+def slab_grad_errs(rank0, single, skip, lr, what):
+    """The first step's gradients: each tensor's error over its own max
+    |g| (``skip``'s over its network's), raising past GRAD_ENV; and the
+    parameters after it (``rank0["params_own"]``) under the first-step
+    rule: a component past 1e-5 only where Adam's sign(g) flipped (|dp| <=
+    2.05 lr at a gradient within GRAD_ENV of the scale), < 1% of them.
+    Returns the worst a network, both ways (and its three worst tensors
+    by their own scale), and the share past 1e-5."""
+    out, total, mism = {}, 0, 0
+    for net, gs in single["grads"].items():
+        net_scale = max(float(g.abs().max()) for g in gs.values())
+        worst_tensor = worst_net = 0.0
+        by_tensor = []
+        for k, g in gs.items():
+            err = float((rank0["grads"][net][k] - g).abs().max())
+            scale = max(net_scale if (net, k) in skip
+                        else float(g.abs().max()), 1e-30)
+            worst_tensor = max(worst_tensor, err / scale)
+            worst_net = max(worst_net, err / max(net_scale, 1e-30))
+            by_tensor.append((err / scale, k, scale / max(net_scale, 1e-30)))
+            if not err <= GRAD_ENV * scale:
+                raise AssertionError(f"{what} {net}.{k}: gradient off by "
+                                     f"{err / scale} of max |g| > {GRAD_ENV}")
+            p, q = rank0["params_own"][net][k], single["params"][net][k]
+            off = ~torch.isclose(p, q, atol=1e-5, rtol=1e-4)
+            total += p.numel()
+            mism += int(off.sum())
+            if off.any() and not (
+                    float((p - q)[off].abs().max()) <= 2.05 * lr
+                    and float(g[off].abs().max()) <= GRAD_ENV * scale):
+                raise AssertionError(f"{what} {net}.{k}: parameters differ "
+                                     f"past a first-step sign flip")
+        out[net] = {"each_tensor": worst_tensor, "network": worst_net,
+                    "worst": [{"tensor": k, "err": e, "scale_of_net": r}
+                              for e, k, r in sorted(by_tensor)[-3:]]}
+    if not mism < 0.01 * total:
+        raise AssertionError(f"{what}: {mism} of {total} parameters differ "
+                             f"past 1e-5")
+    return out, mism / total
+
+
+def phase_joint_slab_kernels(seed):
+    """B1 on a slab of rows and B5 on a slab of planes, at the main path's
+    shapes: B1's rows 0.0 from the whole image's and within KERNEL_TOL of
+    its plain version; B5's slab sums (each in the fixed point of max|g|
+    over the whole cotangent) added over the slabs 0.0 from the
+    whole-volume B5, each bitwise the same over two calls and equal to the
+    plain slab model; each timed (CUDA events, device us) beside the
+    whole-image launch, with its bound and the library's call."""
+    from dfmir_tpu_torch.ops.warp import abs_max_bits, from_fixed
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed + 40)
+    rows = {FWD: [], DSRC3D: []}
+    B, C, H, W = SJ_B1_SHAPE
+    src = torch.randn(SJ_B1_SHAPE, generator=gen, device=dev)
+    flow = smooth_field((B, 2, H, W), SJ_B1_FLOW_PX, gen, dev)
+    whole = warp_cuda.warp2d_cuda(src, flow)
+    h = H // len(SJ_B1_Y0)
+    lib = grid_sample_call(src, flow)
+    for y0 in SJ_B1_Y0:
+        f = flow[:, :, y0:y0 + h].contiguous()
+        call = lambda: warp_cuda.warp2d_slab_cuda(src, f, y0)  # noqa: E731
+        out = call()
+        # the library's call on the slab: grid_sample of the whole source
+        # at the slab's global coordinates
+        locs = identity_grid((h, W), device=dev, z0=y0)[None] + f
+        grid = torch.stack([2 * (locs[:, 1] / (W - 1) - 0.5),
+                            2 * (locs[:, 0] / (H - 1) - 0.5)], dim=-1)
+        bound_ms, bound_by = warp2d_bound(B, C, h, W)
+        row = {"kernel": FWD, "case": f"slab_y0_{y0}", "shape": [B, C, h, W],
+               "src_rows": H, "y0": y0, "flow_max_px": float(f.abs().max()),
+               "vs_whole_max_abs": float(
+                   (out - whole[:, :, y0:y0 + h]).abs().max()),
+               "max_abs_err": float(
+                   (out - warp(src, f, impl="torch", z0=y0)).abs().max()),
+               "tol": KERNEL_TOL, "ms": time_ms(call),
+               "device_us_per_launch": device_us(call, FWD),
+               "plain_ms": time_ms(lambda: warp(src, f, impl="torch", z0=y0),
+                                   reps=10, warmup=2),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": time_ms(lambda: F.grid_sample(
+                   src, grid, mode="bilinear", padding_mode="zeros",
+                   align_corners=True)),
+               "whole_ms": time_ms(lambda: warp_cuda.warp2d_cuda(src, flow)),
+               "whole_device_us_per_launch": device_us(
+                   lambda: warp_cuda.warp2d_cuda(src, flow), FWD),
+               "whole_library_ms": time_ms(lib)}
+        emit({"phase": "spatial_joint", "slab_kernel": row})
+        if row["vs_whole_max_abs"] != 0.0:
+            raise AssertionError(f"B1 on the slab from row {y0} differs "
+                                 f"from the whole image's rows: "
+                                 f"{row['vs_whole_max_abs']}")
+        if not row["max_abs_err"] <= KERNEL_TOL:
+            raise AssertionError(f"B1 on the slab from row {y0} disagrees "
+                                 f"with its plain version: "
+                                 f"{row['max_abs_err']} > {KERNEL_TOL}")
+        rows[FWD].append(row)
+    del src, flow, whole
+
+    B, C, D, H, W = SJ_B5_SHAPE
+    flow = smooth_field3d((B, 3, D, H, W), SJ_B5_FLOW_VOX, gen, dev)
+    g = torch.randn(SJ_B5_SHAPE, generator=gen, device=dev)
+    whole = warp_cuda.warp3d_bwd_dsrc_cuda(flow, g)
+    mbits = abs_max_bits(g)
+    d = D // len(SJ_B5_Z0)
+    total = 0
+    src = torch.randn(SJ_B5_SHAPE, generator=gen, device=dev)
+    lib = library3d_calls(src, flow, g)[0][DSRC3D]
+    for z0 in SJ_B5_Z0:
+        f = flow[:, :, z0:z0 + d].contiguous()
+        gs = g[:, :, z0:z0 + d].contiguous()
+        # the library's source gradient of the slab's warp of the whole
+        # source, at the slab's global coordinates
+        grid = slab_grid3d(f, z0, D)
+        call = lambda: warp_cuda.warp3d_bwd_dsrc_slab_cuda(  # noqa: E731
+            f, gs, z0, D, mbits)
+        sums = call()
+        total = total + sums
+        plain = warp3d_dsrc_binned_plain(f, gs, z0, D, mbits, sums=True)
+        vals = 3 * B * d * H * W + B * C * d * H * W
+        bound_ms, bound_by = bound(4 * vals + 8 * B * C * D * H * W,
+                                   B * d * H * W * FLOPS3D[DSRC3D][0]
+                                   + B * C * d * H * W * FLOPS3D[DSRC3D][1])
+        row = {"kernel": DSRC3D, "case": f"slab_z0_{z0}",
+               "shape": [B, C, d, H, W], "src_depth": D, "z0": z0,
+               "flow_max_vox": float(f.abs().max()),
+               "bit_reproducible": torch.equal(sums, call()),
+               "vs_plain_slab_sums_max_abs": int(
+                   (sums - plain).abs().max()),
+               "max_abs_err": float(
+                   (from_fixed(sums, mbits, D * H * W) - from_fixed(
+                       plain, mbits, D * H * W)).abs().max()),
+               "ms": time_ms(call, reps=20, warmup=2),
+               "device_us_per_launch": device_us(call, DSRC3D),
+               "plain_ms": time_ms(lambda: warp3d_dsrc_binned_plain(
+                   f, gs, z0, D, mbits, sums=True), reps=3, warmup=1),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": time_ms(
+                   lambda: torch.ops.aten.grid_sampler_3d_backward(
+                       gs, src, grid, 0, 0, True, [True, False]), reps=20,
+                   warmup=2),
+               "whole_ms": time_ms(
+                   lambda: warp_cuda.warp3d_bwd_dsrc_cuda(flow, g), reps=20,
+                   warmup=2),
+               "whole_device_us_per_launch": device_us(
+                   lambda: warp_cuda.warp3d_bwd_dsrc_cuda(flow, g), DSRC3D),
+               "whole_library_ms": time_ms(lib, reps=20, warmup=2)}
+        rows[DSRC3D].append(row)
+        if not (row["bit_reproducible"]
+                and row["vs_plain_slab_sums_max_abs"] == 0):
+            raise AssertionError(f"B5 on the slab from plane {z0}: twice "
+                                 f"the same {row['bit_reproducible']}, "
+                                 f"{row['vs_plain_slab_sums_max_abs']} from "
+                                 f"the plain slab sums")
+    err = float((from_fixed(total, mbits, D * H * W) - whole).abs().max())
+    for row in rows[DSRC3D]:
+        row["slabs_vs_whole_max_abs"] = err
+        emit({"phase": "spatial_joint", "slab_kernel": row})
+    if err != 0.0:
+        raise AssertionError(f"B5's slab sums differ from the whole-volume "
+                             f"B5 by {err}")
+    del flow, g, src, whole, total
+    torch.cuda.empty_cache()
+    return rows
+
+
+def slab_parts(reports, i):
+    """The ranks' slabs of ``register``'s output i, put back together
+    along axis 2 in spatial order, the data ranks along the batch."""
+    n_data = 1 + max(r["data_rank"] for r in reports)
+    return torch.cat([
+        torch.cat([r["register"][i] for r in sorted(
+            reports, key=lambda q: q["spatial_rank"])
+                   if r["data_rank"] == d], dim=2) for d in range(n_data)])
+
+
+def phase_spatial_joint(seed, smi):
+    """The joint model on slabs (JAX's spatial mesh axis): the slab kernels
+    (phase_joint_slab_kernels); RegistrationConfig() at 256^2 split along
+    H over 2 and 4 ranks and RegistrationConfig(ndims=3, crop_size=128)
+    along D over 2, sharing the card over gloo in one launch of 4 ranks, B=1,
+    each against one process on the whole image (run first, alone, and
+    freed): register's slabs put together (fake_B, idt_B, y_source,
+    pos_flow) <= SJ_TOL max-abs; at 3-D the metrics of SJ_STEPS steps
+    within SJ_METRIC_TOL relative and the gradients within GRAD_ENV of
+    each tensor's max |g| (a norm-fed conv bias: its network's), replicas
+    bit-equal; a rank's launches exact (a 2-D register 1 + 1, a 3-D
+    register 1 + 1, a step 1 + 2 and 1 + 2 + 1); ms, peak memory, bytes and
+    host seconds in the exchanges, by rank.  Two 3-D ranks take about 33
+    GB of the card each, so this process first lets go of what earlier
+    phases left (a collection of their reference cycles, then the cache)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    slab_rows = phase_joint_slab_kernels(seed)
+    cfg2 = RegistrationConfig(**SJ_2D_CFG)
+    cfg3 = RegistrationConfig(**JOINT3D)
+    A2, B2, _ = (t.cpu() for t in make_pairs(1, 1, cfg2.crop_size,
+                                               seed + 41, "cpu")[0])
+    (A3, B3, _), = [tuple(t.cpu() for t in p) for p in joint3d_pairs(
+        1, cfg3.crop_size, seed + 42, "cpu")]
+    fit = build_model(cfg3, seed, DEVICE, gain=1.0)
+    gain3 = fit_flow_head(fit, A3.to(DEVICE), B3.to(DEVICE), JOINT3D_FIELD)
+    skip = {("G", k) for k in norm_fed_biases(fit.netG)}
+    del fit
+    torch.cuda.empty_cache()
+    job2 = dict(cfg=dict(SJ_2D_CFG), seed=seed, flow_gain=FLOW_GAIN,
+                register=(A2, B2),
+                reg_reps=SJ_REG_REPS)
+    job3 = dict(cfg=dict(JOINT3D), seed=seed, flow_gain=gain3,
+                register=(A3, B3), reg_reps=SJ_REG_REPS,
+                batches=[(A3, B3)] * SJ_STEPS, lr=cfg3.lr)
+    state = tempfile.mkdtemp(prefix="chip_smoke_sj_")
+    path = os.path.join(state, "after_step_0.pt")
+    t0 = time.perf_counter()
+    single2 = checks.joint_spatial_steps(None, dict(job2, device=DEVICE))
+    single3 = checks.joint_spatial_steps(None, dict(job3, device=DEVICE,
+                                                    save_after=(0, path)))
+    torch.cuda.empty_cache()
+    one_process_s = time.perf_counter() - t0
+    job3["load_after"] = (0, path)
+    for r in (single2, single3):
+        check_launches("spatial_joint one process register",
+                       r["register_launches"],
+                       dict(ZERO, **(SJ_REGISTER if r is single2 else REG3D)))
+    dp_ranks_agree([single3], JOINT3D_STEP, "spatial_joint one process")
+    cases = [(f"2d_{n}x{s}", "joint_spatial_steps",
+              {"job": dict(job2, n_data=n, n_spatial=s)})
+             for n, s in SJ_2D_MESHES]
+    cases.append(("3d_{}x{}".format(*SJ_3D_MESH), "joint_spatial_steps",
+                  {"job": dict(job3, n_data=SJ_3D_MESH[0],
+                               n_spatial=SJ_3D_MESH[1])}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_gb = {"allocated": gb(torch.cuda.memory_allocated()),
+               "reserved": gb(torch.cuda.memory_reserved())}
+    emit({"phase": "spatial_joint", "this_process_mem_gb": main_gb})
+    # the ranks' allocator grows its segments in place rather than caching
+    # more of them: two 3-D ranks fill most of the card between them
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        ranks = dp_launch(checks.run_cases, [DP_DEVICES[0]] * max(
+            n * s for n, s in SJ_2D_MESHES + [SJ_3D_MESH]), cases)
+    finally:
+        shutil.rmtree(state, ignore_errors=True)
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    launch_s = time.perf_counter() - t0
+    totals = {"spatial_joint_register2d": [], "spatial_joint_register3d": [],
+              "spatial_joint_train": []}
+    meshes = {}
+    names = ("fake_B", "idt_B", "y_source", "pos_flow")
+    for name, _, kw in cases:
+        job = kw["job"]
+        single = single3 if name.startswith("3d") else single2
+        reports = [r[name] for r in ranks if r[name].get("in_mesh", True)]
+        want = job["n_data"] * job["n_spatial"]
+        if len(reports) != want:
+            raise AssertionError(f"spatial_joint {name}: {len(reports)} "
+                                 f"ranks reported, not {want}")
+        reg = SJ_REGISTER if name.startswith("2d") else REG3D
+        for r in reports:
+            check_launches(f"spatial_joint {name} register, rank "
+                           f"{r['rank']}", r["register_launches"],
+                           dict(ZERO, **reg))
+        totals["spatial_joint_register" + name[:2]].append(add_counts(
+            *((1, r["register_launches"]) for r in reports)))
+        reg_errs = {k: float((slab_parts(reports, i)
+                              - single["register"][i]).abs().max())
+                    for i, k in enumerate(names)}
+        if not max(reg_errs.values()) <= SJ_TOL:
+            raise AssertionError(f"spatial_joint {name}: register differs "
+                                 f"from one process's by {reg_errs} > "
+                                 f"{SJ_TOL}")
+        row = {"n_data": job["n_data"], "n_spatial": job["n_spatial"],
+               "ranks": want, "register_max_abs_vs_one_process": reg_errs,
+               "pos_flow_max": float(single["register"][3].abs().max()),
+               "register_ms_by_rank": [statistics.median(r["register_ms"])
+                                       for r in reports],
+               "one_process_register_ms": statistics.median(
+                   single["register_ms"]),
+               "register_bytes_sent_by_rank": [r["register_bytes"]
+                                               for r in reports],
+               "register_exchange_host_s_by_rank": [
+                   r["register_exchange_s"] for r in reports],
+               "register_peak_mem_gb_by_rank": [
+                   gb(r["register_peak_bytes"]) for r in reports],
+               "one_process_register_peak_mem_gb": gb(
+                   single["register_peak_bytes"])}
+        if job.get("batches"):
+            totals["spatial_joint_train"].append(dp_ranks_agree(
+                reports, JOINT3D_STEP, f"spatial_joint {name}"))
+            row["steps_rel_vs_one_process"] = [
+                rel_errs(reports[0]["metrics"][i], single["metrics"][i],
+                         SJ_METRIC_TOL, f"spatial_joint {name} step {i}")
+                for i in range(SJ_STEPS)]
+            row["grad_vs_one_process"], row["params_past_1e-5"] = (
+                slab_grad_errs(reports[0], single, skip, job["lr"],
+                               f"spatial_joint {name}"))
+            row.update(
+                flow_gain=gain3,
+                step_ms_by_rank=[r["ms"] for r in reports],
+                ms_per_step_by_rank=[r["ms"][-1] for r in reports],
+                one_process_ms_per_step=single["ms"][-1],
+                peak_mem_gb_by_rank=[gb(r["peak_bytes"]) for r in reports],
+                one_process_peak_mem_gb=gb(single["peak_bytes"]),
+                bytes_sent_per_step_by_rank=[r["bytes_sent"][-1]
+                                             for r in reports],
+                exchange_host_s_per_step_by_rank=[r["exchange_s"][-1]
+                                                  for r in reports])
+        meshes[name] = row
+        emit({"phase": "spatial_joint", "mesh": name, **row})
+    launches = {path: add_counts(*((1, c) for c in counts))
+                for path, counts in totals.items()}
+    emit({"phase": "spatial_joint",
+          "config": ["RegistrationConfig() (256^2)",
+                     "RegistrationConfig(ndims=3, crop_size=128)"],
+          "backend": backend_for(DP_DEVICES), "steps": SJ_STEPS,
+          "launches": launches, "launches_per_rank_step": JOINT3D_STEP,
+          "launches_per_rank_register": {"2d": SJ_REGISTER, "3d": REG3D},
+          "meshes": meshes, "one_process_s": one_process_s,
+          "launch_s": launch_s, "this_process_mem_gb": main_gb,
+          "card": smi})
+    return launches, slab_rows
 
 
 def phase_dp_cli(seed, smi):
@@ -5181,9 +5604,11 @@ def cli_modes_paths(root, log, seed, smi):
     return out
 
 
-def kernel_row(name, replaces, source, launches, main_path, rows, main):
+def kernel_row(name, replaces, source, launches, main_path, rows, main,
+               slab_cases=()):
     """One kernel's entry of the kernels line: its numbers at its main
-    path's case, its launches by path (``launches`` is the main path's)."""
+    path's case, its launches by path (``launches`` is the main path's),
+    and its slab form's cases (each with its own ms, bound and error)."""
     r = rows[main]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[main_path],
@@ -5204,7 +5629,8 @@ def kernel_row(name, replaces, source, launches, main_path, rows, main):
             **{key: r[key] for key in ("per_step_us", "fixed_us",
                                        "device_us_per_launch", "ms_inference",
                                        "inference_bound_ms")
-               if key in r}}
+               if key in r},
+            **({"slab_cases": list(slab_cases)} if slab_cases else {})}
 
 
 def main(argv=None):
@@ -5255,6 +5681,11 @@ def main(argv=None):
     run("host_path", phase_host_path, args.seed)
     chain_rows = run("kernel_chain", phase_kernel_chain, args.seed,
                      args.profile)
+    # early, while this process holds little of the card: its two 3-D
+    # ranks take about 33 GB each
+    spatial_joint_launches, slab_joint_rows = run(
+        "spatial_joint", phase_spatial_joint, args.seed, smi)
+    torch.cuda.empty_cache()
     model, reg_launches, reg_ms = run("register", phase_register, args.seed,
                                       smi)
     if args.profile:
@@ -5304,7 +5735,8 @@ def main(argv=None):
     dp_launches = run("dp", phase_dp, args.seed, smi)
     dp_nccl_launches = run("dp_nccl", phase_dp_nccl, args.seed, smi)
     dp3d_launches = run("dp3d", phase_dp3d, args.seed, smi)
-    spatial3d_launches = run("spatial3d", phase_spatial3d, args.seed, smi)
+    spatial3d_launches, slab3d_rows = run("spatial3d", phase_spatial3d,
+                                          args.seed, smi)
     dp_cli_launches = run("dp_cli", phase_dp_cli, args.seed, smi)
     torch.cuda.empty_cache()
     augment_launches = run("augment", phase_augment, args.seed, smi)
@@ -5322,7 +5754,7 @@ def main(argv=None):
              **cli_launches, **cli3d_launches, **joint3d_launches,
              **bf16_3d_launches, **zoo3d_launches, **dp_launches,
              "dp_nccl": dp_nccl_launches, "dp3d": dp3d_launches,
-             **spatial3d_launches,
+             **spatial3d_launches, **spatial_joint_launches,
              **dp_cli_launches, **augment_launches, **modes_launches}
 
     def by_path(name):
@@ -5333,7 +5765,7 @@ def main(argv=None):
     tpu = "dfmir_tpu/ops/warp_pallas.py"
     emit({"kernels": [
         kernel_row(FWD, f"{tpu}:143", src2d, by_path(FWD), "train",
-                   fwd_rows, MAIN_CASE),
+                   fwd_rows, MAIN_CASE, slab_joint_rows[FWD]),
         kernel_row(BWD, f"{tpu}:972", src2d, by_path(BWD), "train",
                    bwd_rows, MAIN_BWD_CASE),
         kernel_row(VF, f"{tpu}:143", src2d, by_path(VF), "train",
@@ -5341,11 +5773,14 @@ def main(argv=None):
         kernel_row(VB, f"{tpu}:972", src2d, by_path(VB), "train",
                    chain_rows[VB], MAIN_CHAIN_CASE),
         kernel_row(FWD3D, f"{tpu}:356", src3d, by_path(FWD3D), "train3d",
-                   rows3d[FWD3D], MAIN3D_CASE[FWD3D]),
+                   rows3d[FWD3D], MAIN3D_CASE[FWD3D],
+                   [r for r in slab3d_rows if r["kernel"] == FWD3D]),
         kernel_row(DFLOW3D, f"{tpu}:576", src3d, by_path(DFLOW3D),
-                   "train3d", rows3d[DFLOW3D], MAIN3D_CASE[DFLOW3D]),
+                   "train3d", rows3d[DFLOW3D], MAIN3D_CASE[DFLOW3D],
+                   [r for r in slab3d_rows if r["kernel"] == DFLOW3D]),
         kernel_row(DSRC3D, f"{tpu}:643", src3d, by_path(DSRC3D),
-                   "joint3d_train", rows3d[DSRC3D], MAIN3D_CASE[DSRC3D]),
+                   "joint3d_train", rows3d[DSRC3D], MAIN3D_CASE[DSRC3D],
+                   slab_joint_rows[DSRC3D]),
         kernel_row(VF3, f"{tpu}:356", src3d, by_path(VF3), "train3d",
                    chain3d_rows[VF3], MAIN_CHAIN3D_CASE),
         kernel_row(VB3, f"{tpu}:576", src3d, by_path(VB3), "train3d",

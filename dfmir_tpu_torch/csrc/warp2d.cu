@@ -81,6 +81,13 @@
 //   us each) and the two passes around them.  One cluster a batch item
 //   (the chains' design) ran 1.7-2.5x slower at B = 1, on 16 of the
 //   card's 132 SMs (PERF.md, Findings).
+// - B1 on a row slab (dfmir_warp2d_fwd_slab): the output and the flow are
+//   rows [y0, y0 + H) of an image of Hs rows split along H over ranks, and
+//   src is that whole image (gathered).  Row y samples the source at row
+//   (y + y0) + flow_y: the global row is formed in int before its
+//   conversion to float, as B3 forms z + z0 (csrc/warp3d.cu), so a slab's
+//   rows are the whole image's rows bit for bit.  The whole image keeps its
+//   own instance of the kernel (kSlab false) and its entry.
 //
 // THE VECINT CHAIN (vecint2d_fwd, vecint2d_bwd)
 //
@@ -304,10 +311,14 @@ constexpr long long kSharedBytes = 96 * 1024;
 
 // ------------------------------------------------------- the single warp
 
+// kSlab: the output's H rows are rows [y0, y0 + H) of a source of Hs rows
+// (a whole image: Hs = H, y0 = 0, not read).
+template <bool kSlab>
 __global__ void warp2d_bilinear_fwd(const float* __restrict__ src,
                                     const float* __restrict__ flow,
                                     float* __restrict__ out,
-                                    int B, int C, int H, int W) {
+                                    int B, int C, int H, int W, int Hs,
+                                    int y0) {
   const long long hw = (long long)H * W;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)B * hw) return;
@@ -317,13 +328,15 @@ __global__ void warp2d_bilinear_fwd(const float* __restrict__ src,
   const int x = (int)(p - (long long)y * W);
 
   const float* fb = flow + (long long)b * 2 * hw;
-  const Bilinear t = bilinear_at(y, x, __ldg(fb + p), __ldg(fb + hw + p), H,
-                                 W);
-  const float* sb = src + (long long)b * C * hw;
+  const Bilinear t = bilinear_at(kSlab ? y + y0 : y, x, __ldg(fb + p),
+                                 __ldg(fb + hw + p), kSlab ? Hs : H, W);
+  const float* sb = src + (long long)b * C * (kSlab ? (long long)Hs * W : hw);
   float* ob = out + (long long)b * C * hw;
   for (int c = 0; c < C; ++c) {
-    ob[(long long)c * hw + p] =
-        blend(corners<false>(sb + (long long)c * hw, W, t), t);
+    ob[(long long)c * hw + p] = blend(
+        corners<false>(sb + (long long)c * (kSlab ? (long long)Hs * W : hw),
+                       W, t),
+        t);
   }
 }
 
@@ -840,8 +853,25 @@ extern "C" int dfmir_warp2d_fwd(const float* src, const float* flow,
                                 void* stream) {
   const long long n = (long long)B * H * W;
   if (n == 0 || C == 0) return (int)cudaSuccess;
-  warp2d_bilinear_fwd<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      src, flow, out, B, C, H, W);
+  warp2d_bilinear_fwd<false>
+      <<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+          src, flow, out, B, C, H, W, H, 0);
+  return (int)cudaGetLastError();
+}
+
+// B1 on a row slab: flow (B,2,H,W) and out (B,C,H,W) are rows [y0, y0 + H)
+// of an image of Hs rows, src (B,C,Hs,W) the whole image; out's row y
+// samples the source at row (y + y0) + flow_y, clamped to [-2, Hs+1].
+// Otherwise as dfmir_warp2d_fwd.
+extern "C" int dfmir_warp2d_fwd_slab(const float* src, const float* flow,
+                                     float* out, int B, int C, int H, int W,
+                                     int Hs, int y0, void* stream) {
+  const long long n = (long long)B * H * W;
+  if (n == 0 || C == 0) return (int)cudaSuccess;
+  if (y0 < 0 || y0 + H > Hs) return (int)cudaErrorInvalidValue;
+  warp2d_bilinear_fwd<true>
+      <<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+          src, flow, out, B, C, H, W, Hs, y0);
   return (int)cudaGetLastError();
 }
 

@@ -12,6 +12,7 @@
 //   warp3d_trilinear_fwd        <- _kernel3d            (warp3d_banded)
 //   warp3d_trilinear_bwd_dflow  <- _bwd_kernel3d_dflow  (warp3d_banded_bwd_dflow)
 //   warp3d_trilinear_bwd_dsrc   <- _bwd_kernel3d_dsrc   (warp3d_banded_bwd_dsrc)
+//                                  (and its slab form, _slab)
 //   vecint3d_fwd                <- _kernel3d, called 7 times by JAX's vecint
 //                                  (dfmir_tpu/ops/integrate.py:82-95)
 //   vecint3d_bwd                <- _bwd_kernel3d_dflow and _dsrc, 7 times
@@ -128,6 +129,21 @@
 // the TPU: the data warp (source without a gradient) launches dflow alone
 // and never bins a dsrc.  src and flow may alias: the kernels only read them
 // and write fresh buffers.
+//
+// B5 ON A SLAB (warp3d_trilinear_bwd_dsrc_slab; the joint model on a volume
+// split along D over ranks, where `registered` warps the gathered fake_B
+// and fake_B's gradient goes back to its slabs).  Each rank bins its own
+// slab's targets over the whole source's cells and gathers every source
+// voxel's terms, as B5 does.  Two ranks that each took their own max|g|
+// would sum in different units, so the design is the integer one: the
+// ranks first all-reduce the bits of max|g| (a max of non-negative floats'
+// bits, order-free), each launch takes its fixed point from that and the
+// whole source's Ds*H*W voxels -- the whole-volume B5's scale -- and returns
+// its int64 sums; the ranks' integers are summed by the gather's
+// reduce-scatter, in int64, and only then turned into floats (sum * 2^-e,
+// ops/warp.py::from_fixed).  Integer addition is associative, so the
+// result is bit-equal to the whole-volume B5's, on every run, whatever the
+// number of ranks.  The whole volume keeps its own kernel and entry.
 //
 // THE VECINT CHAIN (vecint3d_fwd, vecint3d_bwd).  Scaling and squaring,
 // v_0 = vec * 2^-n, then for k = 0..n-1
@@ -461,10 +477,12 @@ long long round8(long long n) { return (n + 7) / 8 * 8; }
 // The buffer's layout for B volumes of (D, H, W), C channels and nsteps
 // steps: fills `bins` when `base` is given; returns the ints the buffer
 // holds, and in `zeroed` those the entry zeroes.  Every part starts on 32
-// bytes.
+// bytes.  Ds > 0: the targets are a slab of D planes of a source of Ds
+// (B5 on a slab), whose cells the bins cover.
 long long bins_layout(int* base, int B, int C, int D, int H, int W,
-                      int nsteps, Bins* bins, long long* zeroed) {
-  const long long nc = (long long)(D + 1) * (H + 1) * (W + 1);
+                      int nsteps, Bins* bins, long long* zeroed,
+                      int Ds = 0) {
+  const long long nc = (long long)((Ds > 0 ? Ds : D) + 1) * (H + 1) * (W + 1);
   const long long nchunks = (B * nc + 1 + kChunk - 1) / kChunk;
   const long long gmax = round8(nsteps);
   const long long csum = round8(nsteps * nchunks * kCopies);
@@ -572,17 +590,19 @@ __device__ void scan_cells(const Bins& bins, const int* csum, int* sh) {
 }
 
 // Phase 3 for pair q (of batch item b; fb its flow, gb its C cotangent
-// planes): each target takes a slot of its cell's list and writes its
-// entry there, whole float4s (one 32-byte sector for C <= 4).
+// planes, D planes each): each target takes a slot of its cell's list and
+// writes its entry there, whole float4s (one 32-byte sector for C <= 4).
+// The targets sample a source of Ds planes from plane z0 (a whole volume:
+// 0 and D).
 template <Path kPath>
 __device__ __forceinline__ void place_pair(const Bins& bins, const float* fb,
                                           const float* gb, int C,
                                           const Pair& q, int D, int H,
-                                          int W) {
+                                          int W, int z0, int Ds) {
   const int dhw = D * H * W;
   float2 u[3];
   Trilinear t[2];
-  trilinear_pair<Path::kReadOnly>(fb, q, dhw, D, H, W, u, t);
+  trilinear_pair_in<Path::kReadOnly>(fb, q, dhw, z0, Ds, H, W, u, t);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (!t[i].mask) continue;
@@ -667,17 +687,17 @@ __device__ __forceinline__ void add_terms(Acc& acc, const float4& e,
 
 // Phase 4 for the warp's row segment r, kC channels from channel c0:
 // out[c] = lane's voxel's sum of the terms of every target that has it as a
-// corner, in the fixed point f.  For each (dz, dy) the targets whose corner
+// corner, an integer in the fixed point f (gather_row: its value).  For each (dz, dy) the targets whose corner
 // 0 lies in row (z - dz, y - dy) at x_lo - 1 .. x_lo + 31 are one range of
 // the list; the lanes walk the 4 ranges as one sequence, two entries a lane
 // at a time (coalesced, and balanced however the targets crowd), and add
 // each term to its voxel's sum in shared memory (`acc`, the warp's),
 // order-free.  The whole warp calls it.
 template <int kC>
-__device__ __forceinline__ void gather_row(const Bins& bins, int c0,
-                                           const Row& r, int H, int W,
-                                           const Fixed& f, Acc& acc,
-                                           float (&out)[kC]) {
+__device__ __forceinline__ void gather_sums(const Bins& bins, int c0,
+                                            const Row& r, int H, int W,
+                                            const Fixed& f, Acc& acc,
+                                            long long (&out)[kC]) {
   const int lane = threadIdx.x & 31, x_lo = r.x - lane;
 #pragma unroll
   for (int c = 0; c < kC; ++c) acc.lo[c][lane] = acc.hi[c][lane] = 0;
@@ -726,11 +746,22 @@ __device__ __forceinline__ void gather_row(const Bins& bins, int c0,
   }
   __syncwarp();
 #pragma unroll
+  for (int c = 0; c < kC; ++c) out[c] = acc_at(acc, c, lane);
+  __syncwarp();
+}
+
+template <int kC>
+__device__ __forceinline__ void gather_row(const Bins& bins, int c0,
+                                           const Row& r, int H, int W,
+                                           const Fixed& f, Acc& acc,
+                                           float (&out)[kC]) {
+  long long sums[kC];
+  gather_sums<kC>(bins, c0, r, H, W, f, acc, sums);
+#pragma unroll
   for (int c = 0; c < kC; ++c) {
-    out[c] = f.finite ? __fmul_rn(__ll2float_rn(acc_at(acc, c, lane)), f.inv)
+    out[c] = f.finite ? __fmul_rn(__ll2float_rn(sums[c]), f.inv)
                       : __int_as_float(0x7fffffff);
   }
-  __syncwarp();
 }
 
 // ------------------------------------------------------- the single warp
@@ -852,7 +883,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = lead; j < npairs; j += stride) {
         const Pair q = pair_at(j, D, H, W);
         place_pair<Path::kReadOnly>(bins, flow + q.b * 3 * dhw,
-                                    g + q.b * C * dhw, C, q, D, H, W);
+                                    g + q.b * C * dhw, C, q, D, H, W, 0, D);
       }
     } else {
       const Fixed f = fixed_of(__ldcg(bins.gmax), dhw);
@@ -876,6 +907,70 @@ __global__ void __launch_bounds__(kThreads)
           if (r.in) out[c * dhw] = v[0];
         }
       }
+    }
+  }
+}
+
+// B5 on a slab: the targets are the D planes of flow and g (a slab of a
+// volume split along D), sampling a source of Ds planes from plane z0; the
+// bins cover the whole source's cells, and sums (B,C,Ds,H,W) receives
+// every source voxel's int64 sum of this slab's terms, in the fixed point
+// of *bins.gmax, which the entry sets to max|g| over the whole volume's
+// cotangent (every rank's, the same bits on every rank) with e from its
+// Ds*H*W voxels: the whole-volume B5's scale.  The ranks' sums then add up,
+// exactly, to the whole-volume B5's integers.  The phases as there, with no
+// max taken.
+__global__ void __launch_bounds__(kThreads)
+    warp3d_trilinear_bwd_dsrc_slab(const float* __restrict__ flow,
+                                   const float* __restrict__ g,
+                                   long long* __restrict__ sums, Bins bins,
+                                   int npairs, int C, int D, int H, int W,
+                                   int Ds, int z0) {
+  __shared__ int sh[kWarps];
+  __shared__ Acc acc[kWarps];
+  const int dhw = D * H * W, sdhw = Ds * H * W;
+  const int lead = blockIdx.x * kThreads + threadIdx.x;
+  const int stride = gridDim.x * kThreads;
+  cg::grid_group grid = cg::this_grid();
+  for (int j = lead; j < npairs; j += stride) {
+    const Pair q = pair_at(j, D, H, W);
+    float2 u[3];
+    Trilinear t[2];
+    trilinear_pair_in<Path::kReadOnly>(flow + q.b * 3 * dhw, q, dhw, z0, Ds,
+                                       H, W, u, t);
+    count_target(bins, bins.csum, q.b, t[0]);
+    count_target(bins, bins.csum, q.b, t[1]);
+  }
+  grid.sync();
+  scan_cells(bins, bins.csum, sh);
+  grid.sync();
+  for (int j = lead; j < npairs; j += stride) {
+    const Pair q = pair_at(j, D, H, W);
+    place_pair<Path::kReadOnly>(bins, flow + q.b * 3 * dhw,
+                                g + q.b * C * dhw, C, q, D, H, W, z0, Ds);
+  }
+  grid.sync();
+  const Fixed f = fixed_of(__ldcg(bins.gmax), sdhw);
+  const int B = npairs / (D * H * ((W + 1) >> 1));
+  const int ntasks = B * Ds * H * ((W + 31) >> 5);
+  Acc& wacc = acc[threadIdx.x >> 5];
+  for (int w = lead >> 5; w < ntasks; w += stride >> 5) {
+    const Row r = row_at(w, Ds, H, W);
+    long long* out = sums + (long long)r.b * C * sdhw +
+                     (r.z * H + r.y) * W + r.x;
+    int c = 0;
+    for (; c + 3 <= C; c += 3) {
+      long long v[3];
+      gather_sums<3>(bins, c, r, H, W, f, wacc, v);
+      if (r.in) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) out[(long long)(c + a) * sdhw] = v[a];
+      }
+    }
+    for (; c < C; ++c) {
+      long long v[1];
+      gather_sums<1>(bins, c, r, H, W, f, wacc, v);
+      if (r.in) out[(long long)c * sdhw] = v[0];
     }
   }
 }
@@ -1265,7 +1360,7 @@ __global__ void __launch_bounds__(kThreads, 4)
     for (int j = first; j < npairs; j += stride) {
       const Pair q = pair_at(j, D, H, W);
       place_pair<Path::kL2>(bins, v + q.b * 3 * dhw, gin + q.b * 3 * dhw, 3,
-                            q, D, H, W);
+                            q, D, H, W, 0, D);
     }
     grid.sync();
     // the gather of step k, then phase 1 of step k-1 (or the result)
@@ -1313,12 +1408,12 @@ long long pairs_of(int B, int D, int H, int W) {
 // The bins in `base` (on a 16-byte boundary, else cudaErrorInvalidValue),
 // their counted part zeroed on `s`.
 cudaError_t bins_of(int* base, int B, int C, int D, int H, int W,
-                    int nsteps, cudaStream_t s, Bins* bins) {
+                    int nsteps, cudaStream_t s, Bins* bins, int Ds = 0) {
   if (reinterpret_cast<std::uintptr_t>(base) % 16 != 0) {
     return cudaErrorInvalidValue;
   }
   long long zeroed = 0;
-  bins_layout(base, B, C, D, H, W, nsteps, bins, &zeroed);
+  bins_layout(base, B, C, D, H, W, nsteps, bins, &zeroed, Ds);
   return cudaMemsetAsync(base, 0, sizeof(int) * zeroed, s);
 }
 
@@ -1326,6 +1421,7 @@ cudaError_t bins_of(int* base, int B, int C, int D, int H, int W,
 int fwd_resident[kMaxDevices];
 int bwd_resident[kMaxDevices];
 int dsrc_resident[kMaxDevices];
+int dsrc_slab_resident[kMaxDevices];
 
 }  // namespace
 
@@ -1396,6 +1492,45 @@ extern "C" int dfmir_warp3d_bwd_dsrc(const float* flow, const float* g,
                   &D,    &H, &W,    &first, &last};
   return (int)launch_chain((const void*)warp3d_trilinear_bwd_dsrc,
                            dsrc_resident, n, blocks, args, stream);
+}
+
+// The int32s of the `bins` buffer that dfmir_warp3d_bwd_dsrc_slab takes for
+// B slabs of (D, H, W) of sources of Ds planes.
+extern "C" long long dfmir_bins3d_slab_ints(int B, int C, int D, int H,
+                                            int W, int Ds) {
+  long long zeroed = 0;
+  return bins_layout(nullptr, B, C, D, H, W, 1, nullptr, &zeroed, Ds);
+}
+
+// B5 on a slab: flow (B,3,D,H,W) and g (B,C,D,H,W) are planes [z0, z0 + D)
+// of a volume of Ds planes, as dfmir_warp3d_fwd takes them; writes every
+// voxel of sums (B,C,Ds,H,W), int64: each source voxel's sum of this
+// slab's terms in the fixed point of `gmax` (a device uint32: the bits of
+// max|g| over the whole volume's cotangent, the same on every rank), e
+// from Ds*H*W voxels.  Summed over the slabs, they are the integers of
+// dfmir_warp3d_bwd_dsrc on the whole volume, whose value is sum * 2^-e
+// (ops/warp.py::from_fixed).  `bins` holds dfmir_bins3d_slab_ints(B, C, D,
+// H, W, Ds) int32s on a 16-byte boundary.  One cooperative launch as
+// dfmir_warp3d_bwd_dsrc's.  Bitwise the same on every run.
+extern "C" int dfmir_warp3d_bwd_dsrc_slab(const float* flow, const float* g,
+                                          long long* sums, int* bins,
+                                          const unsigned* gmax, int B, int C,
+                                          int D, int H, int W, int Ds,
+                                          int z0, int blocks, void* stream) {
+  const long long n = pairs_of(B, D, H, W);
+  if (n == 0 || C == 0) return (int)cudaSuccess;
+  if (z0 < 0 || z0 + D > Ds) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  Bins b;
+  cudaError_t err = bins_of(bins, B, C, D, H, W, 1, s, &b, Ds);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemcpyAsync(b.gmax, gmax, sizeof(unsigned),
+                        cudaMemcpyDeviceToDevice, s);
+  if (err != cudaSuccess) return (int)err;
+  int npairs = (int)n;
+  void* args[] = {&flow, &g, &sums, &b, &npairs, &C, &D, &H, &W, &Ds, &z0};
+  return (int)launch_chain((const void*)warp3d_trilinear_bwd_dsrc_slab,
+                           dsrc_slab_resident, n, blocks, args, stream);
 }
 
 // The forward chain's bricks, {kBz, kBy, kBx, kHalo, kPadX}: the wrapper

@@ -84,9 +84,26 @@ are built for 3-D, netF flattens D * H * W locations in JAX's order, and
 FastCUT flips along H (JAX's axis 2 of (B, D, H, W, C)).  bfloat16 is
 ported at both ranks and with every zoo choice.
 
+The spatial axis (``data_parallel`` with a mesh of ``make_mesh(mesh,
+n_data, n_spatial)``, n_spatial > 1; JAX's ``shard_batch(...,
+shard_spatial=True)``): each rank holds its data rank's items and, of
+those, its spatial rank's slab along axis 2 (H at 2-D, D at 3-D), and
+every entry point returns this rank's rows of the whole image's results.
+netG runs on the slabs (halos, reflect pads at the global ends only, the
+norms' statistics over the spatial group, ``nets/resnet_gen.py``), netR as
+the 3-D engine's (``nets/vxm.py``), PatchSampleF takes the whole map's ids
+and gathers the samples on every spatial rank (``nets/patch_sample.py``),
+``registered`` warps the gathered fake_B (``ops.warp.warp_slabs``, B5 on
+the slab), and the masked L1s and the smoothness are the whole image's.
+``register`` runs at 2-D and 3-D; the step (``loss_fn``, ``train_step``,
+``eval_step``) at 3-D: the 2-D step waits for B2's slab form.  The image's
+extent must pass ``parallel.mesh.check_joint_slabs``.  On slabs the options
+below have no slab form and raise, each by name (``SLAB_REFUSALS``).
+
 Refused (NotImplementedError): at ``ndims=3`` the choices the JAX package
 cannot build there (``JAX_2D_ONLY``: ``jax.eval_shape`` of its
-``init_state`` and ``_loss_fn`` at 16^3 fails), and unknown names.
+``init_state`` and ``_loss_fn`` at 16^3 fails), unknown names, and on
+slabs ``SLAB_REFUSALS``.
 """
 
 from __future__ import annotations
@@ -109,10 +126,11 @@ from dfmir_tpu_torch.nets.transfusion import VxmDenseTransformer
 from dfmir_tpu_torch.nets.vxm import VxmDense
 from dfmir_tpu_torch.ops.jacobian import (field_stats, folding_fraction,
                                           jacobian_det)
-from dfmir_tpu_torch.ops.warp import warp
+from dfmir_tpu_torch.ops.warp import warp, warp_slabs
 from dfmir_tpu_torch.parallel.mesh import (Mesh, all_reduce_grads,
-                                           all_reduce_metrics, replicate,
-                                           state_tensors)
+                                           all_reduce_metrics,
+                                           check_joint_slabs, is_spatial,
+                                           replicate, state_tensors)
 
 NETR_CHOICES = ("vxm", "vxm_transformer", "vxm_dual")
 # the choices the JAX package cannot build at ndims=3: munit's residual
@@ -123,6 +141,26 @@ JAX_2D_ONLY = {"netG": ("resnet_cat", "stylegan2", "smallstylegan2"),
                "netF": ("reshape",), "netR": ("vxm_transformer",),
                "netD": ("stylegan2", "patchstylegan2", "smallpatchstylegan2",
                         "tilestylegan2", "patch")}
+
+
+# the options that have no slab form (a spatial mesh refuses each by name):
+# (option, the test on the config)
+SLAB_REFUSALS = (
+    ("lambda_GAN > 0 (netD and the GAN phase)", lambda c: c.lambda_GAN > 0),
+    ("flip_equivariance (FastCUT)", lambda c: c.flip_equivariance),
+    ("no_dropout=False (dropout)", lambda c: not c.no_dropout),
+    ("compute_dtype='bfloat16'", lambda c: c.compute_dtype != "float32"),
+    ("netG other than resnet_<n>blocks",
+     lambda c: g_family(c.netG) != "resnet"),
+    ("netF other than mlp_sample / sample",
+     lambda c: c.netF not in ("mlp_sample", "sample")),
+    ("netR other than vxm (the transformer netRs)",
+     lambda c: c.netR != "vxm"),
+    ("no_antialias_up (the transposed convs)", lambda c: c.no_antialias_up),
+    ("nce_includes_all_negatives_from_minibatch",
+     lambda c: c.nce_includes_all_negatives_from_minibatch),
+    ("num_patches=0 (every location)", lambda c: c.num_patches <= 0),
+)
 
 
 def grid_image(size: int, spacing: int = 16, thickness: int = 1):
@@ -256,7 +294,12 @@ class RegistrationModel:
         rank holds rank 0's parameters and Adam state (one seed, or one
         checkpoint), broadcast them from rank 0 (JAX's ``replicate``), and
         draw this rank's dropout masks from a generator of its own, seeded
-        from a draw of the model's and the rank."""
+        from a draw of the model's and the rank.  A mesh with n_spatial > 1
+        (``make_mesh``) splits the images along axis 2 too: the config must
+        have a slab form (``SLAB_REFUSALS``) and ``cfg.crop_size`` pass
+        ``check_joint_slabs``, and every call takes this rank's slabs."""
+        if is_spatial(mesh):
+            self._check_slabs(self.cfg.crop_size, mesh)
         replicate(self.state_tensors(), mesh)
         base = int(torch.randint(2 ** 62, (1,),
                                  generator=self.dropout_generator,
@@ -265,6 +308,26 @@ class RegistrationModel:
             1, np.uint64)[0]
         self.dropout_generator.manual_seed(int(seed))
         self.mesh = mesh
+
+    def _check_slabs(self, extent: int, mesh: Mesh) -> None:
+        """Raise unless the config has a slab form and an image of
+        ``extent`` rows splits over ``mesh``'s spatial ranks."""
+        cfg = self.cfg
+        refused = [name for name, test in SLAB_REFUSALS if test(cfg)]
+        if refused:
+            raise NotImplementedError(
+                f"{', '.join(refused)}: no slab form, so a mesh that splits "
+                f"the images (n_spatial {mesh.n_spatial}) refuses it")
+        check_joint_slabs(extent, mesh.n_spatial, len(cfg.vxm_enc),
+                          cfg.int_downsize, self.netG.slab_level_pads())
+
+    def _spatial(self, x) -> Optional[Mesh]:
+        """The mesh when it splits the images (``x`` then a slab, whose
+        whole extent must pass ``check_joint_slabs``), else None."""
+        if not is_spatial(self.mesh):
+            return None
+        self._check_slabs(x.shape[2] * self.mesh.n_spatial, self.mesh)
+        return self.mesh
 
     def _tap_shapes(self, netG) -> List[torch.Size]:
         """The (1, C, *spatial) shapes of netG's taps: one encode traced on
@@ -282,10 +345,13 @@ class RegistrationModel:
 
     # ------------------------------------------------- the networks' calls
 
-    def _G(self, x, dropout: Optional[torch.Generator] = None, **kw):
+    def _G(self, x, dropout: Optional[torch.Generator] = None, mesh=None,
+           **kw):
         """netG in the compute dtype: its output (or taps) in float32.
         ``dropout``: the masks' generator of a training pass; None runs
-        without dropout."""
+        without dropout.  ``mesh``: on slabs."""
+        if mesh is not None:
+            kw["mesh"] = mesh
         low = self.compute_dtype != torch.float32
         out = call_in(self.compute_dtype, self.netG,
                       x.to(self.compute_dtype) if low else x,
@@ -313,15 +379,20 @@ class RegistrationModel:
         """Inference: translation, then registration=True.
 
         real_A, real_B: (B, C, *spatial), 2-D or 3-D.  Returns (fake_B,
-        idt_B, y_source, pos_flow)."""
+        idt_B, y_source, pos_flow); on slabs, this rank's slabs of each."""
         B = real_A.shape[0]
-        fake = self._G(torch.cat([real_A, real_B], dim=0))
-        y_source, pos_flow = self._R(real_A, real_B, registration=True)
+        mesh = self._spatial(real_A)
+        fake = self._G(torch.cat([real_A, real_B], dim=0), mesh=mesh)
+        kw = {"mesh": mesh} if mesh is not None else {}
+        y_source, pos_flow = self._R(real_A, real_B, registration=True, **kw)
         return fake[:B], fake[B:], y_source, pos_flow
 
     @torch.no_grad()
     def registration_metrics(self, real_A, real_B) -> Dict[str, torch.Tensor]:
         """Jacobian-determinant map (B, H, W) and folding fraction (B,)."""
+        if is_spatial(self.mesh):
+            raise NotImplementedError("registration_metrics on slabs: use "
+                                      "flow_stats, the whole image's")
         pos_flow = self.register(real_A, real_B)[3]
         return {"jac_det": jacobian_det(pos_flow),
                 "folding_fraction": folding_fraction(pos_flow)}
@@ -331,18 +402,22 @@ class RegistrationModel:
                    mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
         """Scalar field-health statistics of the registration flow
         (``ops.jacobian.field_stats``); with ``mesh``, the global
-        batch's."""
-        return field_stats(self.register(real_A, real_B)[3], mesh)
+        batch's; on slabs always the whole image's and global batch's."""
+        return field_stats(self.register(real_A, real_B)[3],
+                           self._spatial(real_A) or mesh)
 
     # ------------------------------------------------------------- training
 
-    def _F(self, feats, patch_ids, generator=None):
+    def _F(self, feats, patch_ids, generator=None, mesh=None):
         """netF on a list of tapped maps: (list of (B * P, C) embeddings,
-        the patch ids; None for the heads that sample no patches)."""
+        the patch ids; None for the heads that sample no patches).
+        ``mesh``: the maps are this rank's rows (netG's taps on slabs)."""
         cfg = self.cfg
         if cfg.netF in ("sample", "mlp_sample"):
+            kw = {} if mesh is None else {
+                "mesh": mesh, "tap_pads": self.netG.tap_pads(cfg.nce_layers)}
             return self.netF(feats, cfg.num_patches, patch_ids,
-                             generator=generator)
+                             generator=generator, **kw)
         if cfg.netF == "strided_conv":
             return [channels_last_rows(o) for o in self.netF(feats)], None
         return [self.netF(f) for f in feats], None
@@ -350,12 +425,15 @@ class RegistrationModel:
     def _nce(self, feat_q, feat_k, patch_ids, generator, flip: bool, mesh):
         """The NCE loss of one (query, key) pair of tapped feature lists,
         averaged over the layers; ``flip`` flips the queries back along
-        W first."""
+        W first.  On slabs (``mesh`` splitting the images) the samples are
+        gathered on every spatial rank, and so the loss is the data rank's
+        on each of them."""
         cfg = self.cfg
         if flip:
             feat_q = [f.flip(3) for f in feat_q]
-        k_pool, ids = self._F(feat_k, patch_ids, generator)
-        q_pool, _ = self._F(feat_q, ids)
+        spatial = mesh if is_spatial(mesh) else None
+        k_pool, ids = self._F(feat_k, patch_ids, generator, spatial)
+        q_pool, _ = self._F(feat_q, ids, mesh=spatial)
         total = 0.0
         for f_q, f_k in zip(q_pool, k_pool):
             per_patch = patch_nce_loss(
@@ -367,10 +445,11 @@ class RegistrationModel:
         return total / len(cfg.nce_layers)
 
     def _forward(self, real_A, real_B, flip: Optional[bool], generator,
-                 dropout: Optional[torch.Generator]):
+                 dropout: Optional[torch.Generator], mesh=None):
         """The step's network passes before any loss: the generator (on
         the flipped input when the coin says so), the registration net and
-        the warp of fake_B.  Returns a dict of what the losses read."""
+        the warp of fake_B.  Returns a dict of what the losses read.
+        ``mesh``: on slabs."""
         cfg = self.cfg
         B = real_A.shape[0]
         if cfg.flip_equivariance:
@@ -386,10 +465,14 @@ class RegistrationModel:
         if cfg.flip_equivariance:
             fake = self._G(real, dropout)
         else:
-            fake, feats_fwd = self._G(real, dropout, layers=layers)
+            fake, feats_fwd = self._G(real, dropout, mesh, layers=layers)
         fake_B, idt_B = fake[:B], fake[B:]
-        y_source, _, pos_flow = self._R(real_A, real_B)
-        registered = warp(fake_B, pos_flow)
+        if mesh is not None:
+            y_source, _, pos_flow = self._R(real_A, real_B, mesh=mesh)
+            registered = warp_slabs(fake_B, pos_flow, mesh)
+        else:
+            y_source, _, pos_flow = self._R(real_A, real_B)
+            registered = warp(fake_B, pos_flow)
         return {"fake_B": fake_B, "idt_B": idt_B, "y_source": y_source,
                 "pos_flow": pos_flow, "registered": registered,
                 "feats_fwd": feats_fwd, "flip": flip}
@@ -409,6 +492,7 @@ class RegistrationModel:
             feats_B = [f[B:] for f in fwd["feats_fwd"]]
             k_chunks = [feats_A] + ([feats_B] if use_idt else []) + [feats_B]
             q_feats = self._G(torch.cat(queries, dim=0), dropout,
+                              mesh if is_spatial(mesh) else None,
                               layers=layers, encode_only=True)
             q_chunks = [[f[i * B:(i + 1) * B] for f in q_feats]
                         for i in range(len(queries))]
@@ -461,7 +545,8 @@ class RegistrationModel:
         loss_local = nce_vals[-1] * cfg.local_weight
         loss_R = (masked_l1(registered, real_B, mask, mesh)
                   + masked_l1(idt_B, registered, mask2, mesh) + loss_local)
-        loss_smooth = smoothness_loss(pos_flow) * cfg.smooth_weight
+        loss_smooth = smoothness_loss(
+            pos_flow, mesh if is_spatial(mesh) else None) * cfg.smooth_weight
 
         total = loss_R + loss_G + loss_smooth
         metrics = {"G": loss_G, "NCE": loss_NCE, "R": loss_R,
@@ -506,16 +591,29 @@ class RegistrationModel:
         updated netD).  aux: fake_B, idt_B, registered, regA, pos_flow.
         Data parallel, with ``train``: this rank's part of the global
         batch's loss (its mean over the ranks is the global loss, and its
-        gradient, averaged over them, the global gradient)."""
+        gradient, averaged over them, the global gradient).  On slabs
+        (train or not): the whole image's and global batch's loss, with
+        this rank's share of its gradient; at 3-D only."""
         return self._loss(real_A, real_B, patch_ids, generator, flip,
                           dropout_generator, train,
                           self.mesh if train else None)
 
+    def _step_mesh(self, real_A, mesh):
+        """(the losses' mesh, the networks' mesh on slabs or None)."""
+        spatial = self._spatial(real_A)
+        if spatial is not None and self.cfg.ndims == 2:
+            raise NotImplementedError(
+                "the 2-D step on slabs (loss_fn, train_step, eval_step) "
+                "waits for B2's slab form; register runs on slabs at 2-D")
+        return spatial or mesh, spatial
+
     def _loss(self, real_A, real_B, patch_ids, generator, flip,
               dropout_generator, train: bool, mesh):
+        mesh, spatial = self._step_mesh(real_A, mesh)
         generator, dropout = self._step_generators(
             generator, dropout_generator, train)
-        fwd = self._forward(real_A, real_B, flip, generator, dropout)
+        fwd = self._forward(real_A, real_B, flip, generator, dropout,
+                            spatial)
         nce_vals = self._nce_losses(fwd, real_A, real_B, patch_ids,
                                     generator, dropout, mesh)
         return self._losses(fwd, nce_vals, real_B, False, mesh)
@@ -542,7 +640,8 @@ class RegistrationModel:
         else:
             generator, dropout = self._step_generators(
                 generator, dropout_generator, True)
-            fwd = self._forward(real_A, real_B, flip, generator, dropout)
+            fwd = self._forward(real_A, real_B, flip, generator, dropout,
+                                self._step_mesh(real_A, self.mesh)[1])
             d_metrics = self.d_step(fwd["fake_B"].detach(), real_B, lr)
             nce_vals = self._nce_losses(fwd, real_A, real_B, patch_ids,
                                         generator, dropout, self.mesh)
@@ -585,11 +684,14 @@ class RegistrationModel:
                   flip=None, dropout_generator=None):
         """Losses and outputs without an update: (metrics, aux).  The
         loss of the training step on the batch given (not the global
-        batch's when data parallel), with dropout active as in JAX's
-        ``eval_step`` (with ``no_dropout=False``; its masks from
-        ``dropout_generator``, else the model's own)."""
+        batch's when data parallel; on slabs the whole image's and global
+        batch's), with dropout active as in JAX's ``eval_step`` (with
+        ``no_dropout=False``; its masks from ``dropout_generator``, else the
+        model's own)."""
         _, metrics, aux = self._loss(real_A, real_B, patch_ids, generator,
                                      flip, dropout_generator, True, None)
+        if is_spatial(self.mesh):
+            metrics = all_reduce_metrics(metrics, self.mesh)
         return metrics, aux
 
     @torch.no_grad()
@@ -599,6 +701,9 @@ class RegistrationModel:
         ``eval_step``'s loss (dropout active as there): real_A, fake_B,
         real_B, dvf (the grid image warped by pos_flow), registered,
         regA, and idt_B with ``nce_idt``."""
+        if is_spatial(self.mesh):
+            raise NotImplementedError("compute_visuals on slabs: the visuals "
+                                      "are the whole image's; gather them")
         metrics, aux = self.eval_step(real_A, real_B, patch_ids, generator,
                                       flip, dropout_generator)
         grid = grid_image(self.cfg.crop_size).to(real_A.device)

@@ -11,8 +11,14 @@
 - ``call_in``: a module's call with its float32 parameters cast to a
   compute dtype (the JAX engine's ``_cast_params``).
 - ``conv_slab``: a zero-padded conv on this rank's slab of a volume split
-  along D (``parallel/mesh.py``): a halo of the neighbours' planes in place
-  of the padding along D.
+  along D, or of an image split along H (``parallel/mesh.py``): a halo of
+  the neighbours' rows in place of the padding along that axis.
+
+On slabs (``mesh`` splitting the first spatial axis) ``instance_norm``
+takes the whole image's statistics (``parallel.mesh.spatial_sum``),
+``pad_nd`` pads at the global ends only and takes a halo inside
+(``ops.filters.pad_slab``), and ``Pad``, ``InstanceNorm``, ``BlurDown``
+and ``BlurUp`` take the mesh in their forward.
 
 Layout NCHW / NCDHW.
 """
@@ -26,18 +32,31 @@ from torch.nn.utils import skip_init
 
 from dfmir_tpu_torch.nets.inits import init_conv_
 from dfmir_tpu_torch.ops.filters import (PAD_MODES, blur_downsample,
-                                         blur_filter, blur_upsample)
-from dfmir_tpu_torch.parallel.mesh import halo_exchange, is_spatial
+                                         blur_filter, blur_upsample,
+                                         pad_slab)
+from dfmir_tpu_torch.parallel.mesh import (halo_exchange, is_spatial,
+                                           spatial_sum)
 
 _CONV = {2: nn.Conv2d, 3: nn.Conv3d}
 _CONV_T = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
 
 
-def instance_norm(x, eps: float = 1e-5):
+def instance_norm(x, eps: float = 1e-5, mesh=None):
     """Per-sample, per-channel spatial normalisation, no affine parameters;
     statistics in float32 at least (float64 stays float64), the result cast
-    back to the input dtype."""
+    back to the input dtype.  ``mesh`` splitting the image: ``x`` is this
+    rank's slab, and the statistics are the whole image's, summed over the
+    spatial ranks in two passes: the mean first, then the centred sum of
+    squares (the biased variance)."""
     stats = torch.promote_types(x.dtype, torch.float32)
+    if is_spatial(mesh):
+        xs = x.to(stats)
+        dims = tuple(range(2, x.ndim))
+        n = x[0, 0].numel() * mesh.n_spatial
+        mean = spatial_sum(xs.sum(dims, keepdim=True), mesh) / n
+        xc = xs - mean
+        var = spatial_sum((xc * xc).sum(dims, keepdim=True), mesh) / n
+        return (xc / torch.sqrt(var + eps)).to(x.dtype)
     if x[0, 0].numel() == 1:
         # one element a channel: x - mean is 0 (torch's op refuses it)
         xs = x.to(stats)
@@ -62,8 +81,15 @@ def call_in(dtype: torch.dtype, net: nn.Module, *args,
     return torch.func.functional_call(net, params, args, kwargs)
 
 
-def pad_nd(x, pad: int, mode: str = "reflect"):
-    """Pad every spatial axis of (B, C, *spatial) by ``pad`` on both sides."""
+def pad_nd(x, pad: int, mode: str = "reflect", mesh=None):
+    """Pad every spatial axis of (B, C, *spatial) by ``pad`` on both sides.
+    On slabs (``mesh``): the split axis takes ``pad`` rows of halo each
+    side, padded at the global ends only, so that each rank holds its
+    ``pad``-extended window of the whole padded image."""
+    if is_spatial(mesh):
+        x = pad_slab(x, pad, pad, mode, mesh)
+        return F.pad(x, [pad] * (2 * (x.ndim - 3)) + [0, 0],
+                     mode=PAD_MODES[mode])
     return F.pad(x, [pad] * (2 * (x.ndim - 2)), mode=PAD_MODES[mode])
 
 
@@ -73,8 +99,8 @@ def upsample_nearest(x, scale: int = 2):
 
 
 class InstanceNorm(nn.Module):
-    def forward(self, x):
-        return instance_norm(x)
+    def forward(self, x, mesh=None):
+        return instance_norm(x, mesh=mesh)
 
 
 def norm_layer(norm: str) -> nn.Module:
@@ -93,8 +119,8 @@ class Pad(nn.Module):
         super().__init__()
         self.pad, self.mode = pad, mode
 
-    def forward(self, x):
-        return pad_nd(x, self.pad, self.mode)
+    def forward(self, x, mesh=None):
+        return pad_nd(x, self.pad, self.mode, mesh)
 
 
 def conv_nd(in_ch, out_ch, kernel, stride=1, padding=0, bias=True, *,
@@ -108,21 +134,22 @@ def conv_nd(in_ch, out_ch, kernel, stride=1, padding=0, bias=True, *,
 
 def conv_slab(conv: nn.Module, x, mesh=None):
     """``conv(x)`` for this rank's slab ``x`` (B, C, D, H, W) of a volume
-    split along D: the rows of the whole volume's output that this slab
-    owns.  The conv's zero padding p along D becomes a halo of p planes
-    below and k - s - p above (zeros past the volume's ends), and the conv
-    runs with no padding along D and its own along H and W: a stride-1 3^3
-    conv takes 1 plane each side, a stride-2 one 1 plane below and none
-    above.  The slab holds D = s * (its output's planes), starting on a
-    multiple of s.  ``conv(x)`` itself where ``mesh`` does not split the
-    volume."""
+    split along D, or (B, C, H, W) of an image split along H: the rows of
+    the whole output that this slab owns.  The conv's zero padding p along
+    the split axis becomes a halo of p rows below and k - s - p above
+    (zeros past the ends), and the conv runs with no padding along that
+    axis and its own along the others: a stride-1 3^3 conv takes 1 plane
+    each side, a stride-2 one 1 plane below and none above.  The slab holds
+    s * (its output's rows), starting on a multiple of s.  ``conv(x)``
+    itself where ``mesh`` does not split the volume."""
     if not is_spatial(mesh):
         return conv(x)
-    (k, _, _), (s, _, _), (p, ph, pw) = (conv.kernel_size, conv.stride,
-                                         conv.padding)
+    (k, *_), (s, *_), (p, *rest) = (conv.kernel_size, conv.stride,
+                                    conv.padding)
     x = halo_exchange(x, p, k - s - p, mesh)
-    return F.conv3d(x, conv.weight, conv.bias, conv.stride, (0, ph, pw),
-                    conv.dilation, conv.groups)
+    fn = F.conv2d if x.ndim == 4 else F.conv3d
+    return fn(x, conv.weight, conv.bias, conv.stride, (0, *rest),
+              conv.dilation, conv.groups)
 
 
 def conv_transpose_nd(in_ch, out_ch, kernel=3, stride=2, padding=1,
@@ -144,9 +171,9 @@ class BlurDown(nn.Module):
         self.filt_size, self.stride, self.pad_type = filt_size, stride, pad_type
         self.register_buffer("filt", blur_filter(filt_size, ndims, channels))
 
-    def forward(self, x):
+    def forward(self, x, mesh=None):
         return blur_downsample(x, self.filt_size, self.stride, self.pad_type,
-                               filt=self.filt)
+                               filt=self.filt, mesh=mesh)
 
 
 class BlurUp(nn.Module):
@@ -159,6 +186,6 @@ class BlurUp(nn.Module):
         self.register_buffer("filt", blur_filter(
             filt_size, ndims, channels, scale=float(stride ** ndims)))
 
-    def forward(self, x):
+    def forward(self, x, mesh=None):
         return blur_upsample(x, self.filt_size, self.stride, self.pad_type,
-                             filt=self.filt)
+                             filt=self.filt, mesh=mesh)

@@ -22,6 +22,17 @@ after the first conv-norm-relu of each ResnetBlock.  It is active only in
 a ``train=True`` forward, and its masks come from the explicit
 ``generator`` given there (a generator on the activations' device), not
 from torch's global RNG.
+
+On slabs (``mesh`` splitting the first spatial axis over ranks,
+``parallel/mesh.py``) each op runs its slab form: a pad takes a halo and
+pads at the global ends only (``nets/layers.py::pad_nd``), so the
+unpadded conv after it runs as it is; a zero-padded conv takes a halo
+(``conv_slab``); the norms take the whole image's statistics; the blurs
+their halos.  A tap of a pad's output (tap 0) is cut to the rows this
+rank owns: its slab's, and at a global end the pad's rows too, so that
+the ranks' taps lie end to end along the split axis
+(``parallel.mesh.slab_rows``).  Dropout and the transposed convs
+(``no_antialias_up``) have no slab form.
 """
 
 from __future__ import annotations
@@ -31,8 +42,10 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from dfmir_tpu_torch.nets.layers import (BlurDown, BlurUp, Pad, conv_nd,
+from dfmir_tpu_torch.nets.layers import (BlurDown, BlurUp, InstanceNorm, Pad,
+                                         conv_nd, conv_slab,
                                          conv_transpose_nd, norm_layer)
+from dfmir_tpu_torch.parallel.mesh import is_spatial
 
 
 def resnet_generator_specs(
@@ -89,6 +102,21 @@ def resnet_generator_specs(
     return specs
 
 
+def _on_slab(op: nn.Module, h, mesh):
+    """One op of the generator (or a ResnetBlock's conv block) on this
+    rank's slab ``h``."""
+    if isinstance(op, (Pad, InstanceNorm, BlurDown, BlurUp)):
+        return op(h, mesh)
+    if isinstance(op, (nn.Conv2d, nn.Conv3d)):
+        # an unpadded conv follows a pad, which took its halo
+        return conv_slab(op, h, mesh) if op.padding[0] else op(h)
+    if isinstance(op, (nn.ConvTranspose2d, nn.ConvTranspose3d)):
+        raise NotImplementedError(
+            f"{type(op).__name__} has no slab form (no_antialias_up's "
+            f"transposed convs)")
+    return op(h)
+
+
 def nce_feature_dims(nce_layers: Sequence[int], **gen_kwargs) -> List[int]:
     """Channel count of each tapped activation (feeds PatchSampleF MLPs)."""
     specs = resnet_generator_specs(**gen_kwargs)
@@ -141,13 +169,26 @@ class ResnetBlock(nn.Module):
         layers += pad() + [conv(), norm_layer(norm)]
         self.conv_block = nn.Sequential(*layers)
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                mesh=None):
         """``generator``: the dropout masks' source; None runs without
-        dropout."""
+        dropout.  ``mesh``: ``x`` is this rank's slab."""
         h = x
         for op in self.conv_block:
-            h = op(h, generator) if isinstance(op, Dropout) else op(h)
+            if is_spatial(mesh):
+                h = _on_slab(op, h, mesh)
+            else:
+                h = op(h, generator) if isinstance(op, Dropout) else op(h)
         return x + h
+
+
+def _owned(h, pad: int, mesh):
+    """The rows of a pad's output on a slab (the slab and ``pad`` rows of
+    halo each side) that this rank owns: its slab's, and the pad's at a
+    global end."""
+    lo = 0 if mesh.spatial_rank == 0 else pad
+    hi = 0 if mesh.spatial_rank == mesh.n_spatial - 1 else pad
+    return h.narrow(2, lo, h.shape[2] - lo - hi)
 
 
 class ResnetGenerator(nn.Module):
@@ -161,6 +202,7 @@ class ResnetGenerator(nn.Module):
         self.specs = resnet_generator_specs(input_nc, output_nc, ngf, n_blocks,
                                             no_antialias, no_antialias_up)
         self.use_dropout = use_dropout
+        self.padding_type = padding_type
         use_bias = norm == "instance"
         init = dict(init_type=init_type, init_gain=init_gain, ndims=ndims,
                     generator=generator)
@@ -197,16 +239,42 @@ class ResnetGenerator(nn.Module):
             ch = s["channels"]
         self.model = nn.Sequential(*ops)
 
+    def slab_level_pads(self) -> List[int]:
+        """The largest reflect or replicate pad at each level of the
+        generator (level l: after l downsamplings), the rows a slab must
+        exceed there (``parallel.mesh.check_joint_slabs``)."""
+        pads: Dict[int, int] = {}
+        level = 0
+        for s in self.specs:
+            kind = s["kind"]
+            p = {"pad": s.get("pad", 0), "blur_down": 1, "blur_up": 1,
+                 "resblock": int(self.padding_type != "zero")}.get(kind, 0)
+            pads[level] = max(pads.get(level, 0), p)
+            if kind == "blur_down" or (kind == "conv" and s["stride"] == 2):
+                level += 1
+            elif kind in ("blur_up", "convT"):
+                level -= 1
+        return [pads.get(level, 0) for level in range(max(pads) + 1)]
+
+    def tap_pads(self, layers: Sequence[int]) -> List[int]:
+        """The rows a pad's output tap carries past each global end (0
+        for every other tap), as ``forward`` on slabs returns the taps."""
+        return [self.specs[l].get("pad", 0)
+                if 0 <= l < len(self.specs) and self.specs[l]["kind"] == "pad"
+                else 0 for l in layers]
+
     def forward(self, x, layers: Tuple[int, ...] = (), encode_only: bool = False,
                 train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, mesh=None):
         """Forward; with ``layers`` (Sequential indices) also returns the
         tapped activations: ``encode_only`` stops after ``layers[-1]`` and
         returns the feature list, otherwise ``(output, feats)``; with no
         layers, the output alone.  ``-1`` taps the output.
 
         ``train``: dropout active (where the net has it), its masks drawn
-        from ``generator``, which must then be given."""
+        from ``generator``, which must then be given.  ``mesh`` splitting
+        the image: ``x`` and the output are this rank's slabs, and each tap
+        its rows (a pad's output cut to the rows this rank owns)."""
         layers = tuple(layers)
         if not (train and self.use_dropout):
             generator = None
@@ -222,12 +290,19 @@ class ResnetGenerator(nn.Module):
                 f"nce_layers {bad} out of range for this generator "
                 f"({n} sequential ops); the reference silently drops such "
                 f"taps — here that is a loud error")
+        spatial = is_spatial(mesh)
+        if spatial and generator is not None:
+            raise NotImplementedError("dropout has no slab form")
         feats = []
         h = x
         for i, op in enumerate(self.model):
-            h = op(h, generator) if isinstance(op, ResnetBlock) else op(h)
+            if isinstance(op, ResnetBlock):
+                h = op(h, generator, mesh)
+            else:
+                h = _on_slab(op, h, mesh) if spatial else op(h)
             if i in layers:
-                feats.append(h)
+                feats.append(_owned(h, op.pad, mesh)
+                             if spatial and isinstance(op, Pad) else h)
             if layers and encode_only and i == layers[-1]:
                 return feats
         return (h, feats) if layers else h

@@ -121,20 +121,20 @@ class VxmDense(nn.Module):
 
     def forward(self, source, target, registration: bool = False,
                 return_preint: bool = False, mesh=None):
-        """``mesh`` splitting a 3-D volume along D (float32): ``source`` and
-        ``target`` are this rank's slabs, and so is each field and image of
-        the tuple (the half-resolution SVF its slab of the half-resolution
-        volume).  The UNet and the flow head run on the slabs with halos;
-        the SVF is gathered whole on every spatial rank, integrated there by
-        the unchanged chain, and each rank resizes its own rows of the
-        result; the warps sample the gathered source (and target) at the
-        slab's global planes (B3 / B4 with ``z0``).  Without it each of
-        these steps is the whole volume's op."""
+        """``mesh`` splitting a 3-D volume along D or a 2-D image along H
+        (float32): ``source`` and ``target`` are this rank's slabs, and so
+        is each field and image of the tuple (the half-resolution SVF its
+        slab of the half-resolution image).  The UNet and the flow head run
+        on the slabs with halos; the SVF is gathered whole on every spatial
+        rank, integrated there by the unchanged chain, and each rank resizes
+        its own rows of the result; the warps sample the gathered source
+        (and target) at the slab's global rows (B3 / B4 with ``z0``, B1 with
+        ``y0``; a 2-D warp on a slab has no backward on the card yet).
+        Without it each of these steps is the whole image's op."""
         z0 = None
         if is_spatial(mesh):
-            if self.ndims != 3 or self.compute_dtype != torch.float32:
-                raise ValueError("a volume split along D runs at 3-D in "
-                                 "float32")
+            if self.compute_dtype != torch.float32:
+                raise ValueError("an image split over ranks runs in float32")
             z0 = mesh.spatial_rank * source.shape[2]
         x = torch.cat([source, target], dim=1)
         low = self.compute_dtype != torch.float32

@@ -29,6 +29,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     # (src, flow, out, B, C, H, W, stream) -> cudaError_t
     "dfmir_warp2d_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
+    # (src, flow, out, B, C, H, W, Hs, y0, stream) -> cudaError_t
+    "dfmir_warp2d_fwd_slab": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     # (src, flow, g, dsrc or NULL, dflow, scratch, B, C, H, W, stream)
     #  -> cudaError_t
     "dfmir_warp2d_bwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
@@ -61,6 +63,12 @@ SIGNATURES = {
                                    _P]),
     # (B, C, D, H, W, nsteps) -> the int32s of the bins buffer
     "dfmir_bins3d_ints": (_L, [_I, _I, _I, _I, _I, _I]),
+    # (flow, g, sums, bins, gmax, B, C, D, H, W, Ds, z0, blocks, stream)
+    #  -> cudaError_t
+    "dfmir_warp3d_bwd_dsrc_slab": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                        _I, _I, _I, _I, _P]),
+    # (B, C, D, H, W, Ds) -> the int32s of the slab's bins buffer
+    "dfmir_bins3d_slab_ints": (_L, [_I, _I, _I, _I, _I, _I]),
 }
 
 _lib = None

@@ -16,9 +16,13 @@ bilinear and 3-D trilinear float32 CUDA tensors to the kernels and
 everything else (nearest, 1-D, CPU tensors) to the plain version.  3-D
 accepts the mode names ``"bilinear"`` and ``"trilinear"`` alike, as the JAX
 package does.  ``warp_bwd_plain`` is the backward kernels' plain version.
-With ``z0`` a 3-D warp takes a slab of a volume split along D over ranks
-(``parallel/mesh.py``): the output's planes from plane ``z0`` of the whole
-source, each sampling the source as the whole volume's rows do.
+With ``z0`` a warp takes a slab of an image split along its first spatial
+axis over ranks (``parallel/mesh.py``; H at 2-D, D at 3-D): the output's
+rows or planes from ``z0`` of the whole source, each sampling the source as
+the whole image's rows do.  ``warp_slabs`` warps the source gathered from
+the spatial ranks' slabs, with a gradient for them.  ``from_fixed`` and
+``abs_max_bits`` are the fixed point of B5 on slabs, whose plain model is
+``warp3d_dsrc_binned_plain`` with ``z0``.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from dfmir_tpu_torch.ops import warp_cuda
+from dfmir_tpu_torch.parallel.mesh import gather_slabs, is_spatial
 
 
 def identity_grid(spatial, dtype=torch.float32, device=None,
@@ -138,10 +143,11 @@ def warp(src, flow, mode="bilinear", impl="auto", z0=None):
     src:  (B, C, *spatial)
     flow: (B, nd, *spatial) pixel-unit displacements, flow[:, i] along axis i.
     impl: 'auto' | 'torch' | 'cuda'.
-    z0:   a slab (3-D): ``flow`` holds the output's planes ``[z0, z0 + D)``
-          of the whole source ``src`` (B, C, Ds, H, W), plane z sampling
-          depth (z + z0) + flow_z (``warp_cuda.Warp3dSlabFunction``; the
-          source takes no gradient there).
+    z0:   a slab: ``flow`` holds the output's rows (2-D) or planes (3-D)
+          ``[z0, z0 + D)`` of the whole source ``src`` (B, C, Ds, ...), row
+          z sampling (z + z0) + flow[:, 0] (``warp_cuda.Warp2dSlabFunction``,
+          forward only; ``Warp3dSlabFunction``, whose source takes no
+          gradient here: ``warp_slabs`` gives it one).
     """
     if impl == "auto":
         impl = "cuda" if _kernel_takes(src, flow, mode) else "torch"
@@ -151,10 +157,9 @@ def warp(src, flow, mode="bilinear", impl="auto", z0=None):
             raise ValueError(f"the CUDA warp kernels are 2-D bilinear and 3-D "
                              f"trilinear only, got mode={mode!r} ndims={nd}")
         if z0 is not None:
-            if nd != 3:
-                raise ValueError(f"a slab warp is 3-D, got ndims={nd}")
-            return warp_cuda.Warp3dSlabFunction.apply(
-                src.contiguous(), flow.contiguous(), int(z0))
+            fn = (warp_cuda.Warp2dSlabFunction if nd == 2
+                  else warp_cuda.Warp3dSlabFunction)
+            return fn.apply(src.contiguous(), flow.contiguous(), int(z0))
         fn = warp_cuda.Warp2dFunction if nd == 2 else warp_cuda.Warp3dFunction
         return fn.apply(src.contiguous(), flow.contiguous())
     if impl != "torch":
@@ -162,6 +167,28 @@ def warp(src, flow, mode="bilinear", impl="auto", z0=None):
     grid = identity_grid(flow.shape[2:], dtype=flow.dtype, device=flow.device,
                          z0=0 if z0 is None else int(z0))
     return grid_sample_pixel(src, grid[None] + flow, mode=mode)
+
+
+def warp_slabs(src, flow, mesh, impl="auto"):
+    """``warp(src, flow)`` of an image split along its first spatial axis
+    over the spatial ranks of ``mesh``: ``src`` and ``flow`` are this
+    rank's slabs, the source is gathered whole and sampled at the slab's
+    global rows, and the output is this rank's slab of the whole warp.
+    ``src``'s gradient is the whole warp's, summed over the ranks: at 3-D
+    on the card B4 and B5 on the slab, B5's int64 sums reduce-scattered as
+    integers (``warp_cuda.Warp3dSlabFunction`` with ``mesh``), so it equals
+    the whole volume's B5 bit for bit; otherwise autograd through
+    ``gather_slabs`` (the plain version; a 2-D slab on the card has no
+    backward yet).  ``warp(src, flow)`` where ``mesh`` does not split."""
+    if not is_spatial(mesh):
+        return warp(src, flow, impl=impl)
+    z0 = mesh.spatial_rank * flow.shape[2]
+    if impl == "auto":
+        impl = "cuda" if _kernel_takes(src, flow, "bilinear") else "torch"
+    if impl == "cuda" and flow.shape[1] == 3:
+        return warp_cuda.Warp3dSlabFunction.apply(
+            src.contiguous(), flow.contiguous(), z0, mesh)
+    return warp(gather_slabs(src, mesh), flow, impl=impl, z0=z0)
 
 
 def warp_bwd_plain(src, flow, g, need_dsrc: bool = True,
@@ -191,7 +218,30 @@ def _fixed_point_exponent(m: torch.Tensor, dhw: int) -> int:
     return min(61 - (max(bits >> 23, 1) - 126) - dhw.bit_length(), 100)
 
 
-def warp3d_dsrc_binned_plain(flow, g):
+def abs_max_bits(g) -> torch.Tensor:
+    """The bits of max|g| as a (1,) int32 tensor on g's device (a NaN's
+    above every finite value's and inf's, as the kernels order them)."""
+    return g.abs().amax().reshape(1).view(torch.int32) & 0x7FFFFFFF
+
+
+def from_fixed(sums, mbits, n: int) -> torch.Tensor:
+    """The float32 values of int64 fixed-point ``sums`` taken in the
+    scale of max|g|'s bits ``mbits`` (a (1,) int32 tensor) over at most
+    ``n`` terms a sum (``_fixed_point_exponent``, computed on the sums'
+    device, no host sync): sum * 2^-e as the kernels round it (the int64's
+    nearest float, then an exact power of two); NaN everywhere when max|g|
+    was not finite."""
+    bits = mbits.to(sums.device, torch.int32)
+    big_e = torch.clamp(bits >> 23, min=1) - 126
+    e = torch.clamp(61 - big_e - int(n).bit_length(), max=100)
+    inv = ((127 - e) << 23).to(torch.int32).view(torch.float32)
+    out = sums.to(torch.float32) * inv
+    return torch.where(bits >= 0x7F800000,
+                       torch.full((), float("nan"), device=sums.device), out)
+
+
+def warp3d_dsrc_binned_plain(flow, g, z0: int = 0, D_src=None, mbits=None,
+                             sums: bool = False):
     """B5's source gradient as the kernel sums it, in plain PyTorch: the
     dsrc of ``warp(src, flow, impl="torch")`` for the cotangent ``g`` (B, C,
     D, H, W), float32.  Each target's term for corner k is formed as the
@@ -199,15 +249,29 @@ def warp3d_dsrc_binned_plain(flow, g):
     [-2, S+1], scaled by 2^e, rounded to an int64 and summed exactly with
     ``index_add_``; the sum times 2^-e.  Integer sums are order-free, so
     the kernel equals this bit for bit.  A non-finite g gives NaN
-    everywhere (the kernel's rule); a zero g exactly 0."""
+    everywhere (the kernel's rule); a zero g exactly 0.
+
+    B5 on a slab: ``flow`` and ``g`` are planes ``[z0, z0 + D)`` of a
+    volume of ``D_src`` planes, the result is (B, C, D_src, H, W), e is
+    taken from ``mbits`` (``abs_max_bits`` of the whole volume's
+    cotangent; g's own by default) and D_src * H * W voxels, and with
+    ``sums`` the int64 sums come back in place of their values
+    (``from_fixed``), as the slab kernel returns them."""
     B, C, D, H, W = g.shape
-    dhw = D * H * W
-    m = g.abs().max()
+    D_src = D if D_src is None else int(D_src)
+    dhw, sdhw = D * H * W, D_src * H * W
+    if mbits is None:
+        mbits = abs_max_bits(g)
+    m = mbits.reshape(1).to(torch.int32).view(torch.float32)[0].cpu()
     if not bool(torch.isfinite(m)):
-        return torch.full_like(g, float("nan"))
-    e = _fixed_point_exponent(m.float(), dhw)
-    spatial = (D, H, W)
-    grid = identity_grid(spatial, dtype=flow.dtype, device=flow.device)
+        if sums:
+            return torch.zeros((B, C, D_src, H, W), dtype=torch.int64,
+                               device=g.device)
+        return torch.full((B, C, D_src, H, W), float("nan"), device=g.device)
+    e = _fixed_point_exponent(m.float(), sdhw)
+    spatial = (D_src, H, W)
+    grid = identity_grid((D, H, W), dtype=flow.dtype, device=flow.device,
+                         z0=z0)
     coords = (grid[None] + flow).reshape(B, 3, dhw)
     lo, w = [], []
     for i, size in enumerate(spatial):
@@ -216,13 +280,13 @@ def warp3d_dsrc_binned_plain(flow, g):
         lo.append(f.long())
         w.append((c - f)[:, None])                      # (B, 1, N)
     gf = g.reshape(B, C, dhw)
-    base = torch.arange(B * C, device=g.device).reshape(B, C, 1) * dhw
-    total = torch.zeros(B * C * dhw, dtype=torch.int64, device=g.device)
+    base = torch.arange(B * C, device=g.device).reshape(B, C, 1) * sdhw
+    total = torch.zeros(B * C * sdhw, dtype=torch.int64, device=g.device)
     for k in range(8):
         d = (k >> 2, (k >> 1) & 1, k & 1)
         idx = [lo[i] + d[i] for i in range(3)]
-        valid = ((idx[0] >= 0) & (idx[0] < D) & (idx[1] >= 0) & (idx[1] < H)
-                 & (idx[2] >= 0) & (idx[2] < W))
+        valid = ((idx[0] >= 0) & (idx[0] < D_src) & (idx[1] >= 0)
+                 & (idx[1] < H) & (idx[2] >= 0) & (idx[2] < W))
         fz, fy, fx = (w[i] if d[i] else 1.0 - w[i] for i in range(3))
         term = ((gf * fx) * fy) * fz
         q = torch.round(term * 2.0 ** e).long()
@@ -230,7 +294,10 @@ def warp3d_dsrc_binned_plain(flow, g):
         at = (base + lin[:, None]).expand(B, C, dhw)
         sel = valid[:, None].expand(B, C, dhw)
         total.index_add_(0, at[sel], q[sel])
-    return (total.to(torch.float32) * 2.0 ** -e).reshape(g.shape)
+    total = total.reshape(B, C, D_src, H, W)
+    if sums:
+        return total
+    return total.to(torch.float32) * 2.0 ** -e
 
 
 def warp2d_dsrc_fixed_plain(flow, g):

@@ -4,6 +4,8 @@ and backward, and for VecInt's 2-D and 3-D scaling-and-squaring chains.
 Each launcher replaces a Pallas kernel of ``dfmir_tpu/ops/warp_pallas.py``:
 
 - ``warp2d_cuda``: ``_kernel`` / ``warp2d_banded`` (``csrc/warp2d.cu``);
+  ``warp2d_slab_cuda`` the same on a slab of rows of an image split along
+  H;
 - ``warp2d_bwd_cuda``: ``_bwd_kernel`` / ``warp2d_banded_bwd`` (both
   gradients, one launch; the source gradient summed in an int64 fixed
   point scaled per batch item, in one cooperative launch, bitwise
@@ -22,6 +24,8 @@ Each launcher replaces a Pallas kernel of ``dfmir_tpu/ops/warp_pallas.py``:
 - ``warp3d_bwd_dsrc_cuda``: ``_bwd_kernel3d_dsrc`` /
   ``warp3d_banded_bwd_dsrc``: a binned gather summed in an int64 fixed
   point, bitwise reproducible, in one cooperative launch;
+  ``warp3d_bwd_dsrc_slab_cuda`` the same for a slab's targets over the
+  whole source, returning its int64 sums in the whole volume's scale;
 - ``vecint3d_fwd_cuda``: ``_kernel3d`` as JAX's ``vecint`` calls it at 3-D,
   the whole chain in one cooperative launch, each step reading the field
   from bricks staged in shared memory;
@@ -37,10 +41,11 @@ use; the fixed-point source gradients' plain models are
 ``ops/warp.py``'s ``warp2d_dsrc_fixed_plain`` and
 ``warp3d_dsrc_binned_plain`` and ``ops/integrate.py``'s
 ``vecint2d_bwd_fixed_plain``, equal to the kernels bit for bit.
-``Warp2dFunction``, ``Warp3dFunction``, ``Warp3dSlabFunction``,
-``VecInt2dFunction`` and ``VecInt3dFunction`` tie the kernels together for
-autograd, as the custom VJPs ``_warp2d`` / ``_warp3d`` do in the JAX
-package.
+``Warp2dFunction``, ``Warp2dSlabFunction``, ``Warp3dFunction``,
+``Warp3dSlabFunction``, ``VecInt2dFunction`` and ``VecInt3dFunction`` tie
+the kernels together for autograd, as the custom VJPs ``_warp2d`` /
+``_warp3d`` do in the JAX package.  The slab launches count under their
+kernel's name.
 
 Every launcher checks its tensors with one cheap test and, only when that
 fails, the detailed checks that say what is wrong; then ``_launch`` calls
@@ -60,6 +65,7 @@ import math
 import torch
 
 from dfmir_tpu_torch.ops import _build
+from dfmir_tpu_torch.parallel import mesh as dp
 
 FWD = "warp2d_bilinear_fwd"
 BWD = "warp2d_bilinear_bwd"
@@ -175,6 +181,19 @@ def warp2d_cuda(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(src)
     _launch(FWD, "dfmir_warp2d_fwd", device, src.data_ptr(), flow.data_ptr(),
             out.data_ptr(), *src.shape)
+    return out
+
+
+def warp2d_slab_cuda(src: torch.Tensor, flow: torch.Tensor,
+                     y0: int) -> torch.Tensor:
+    """B1 on a slab of rows: src (B, C, Hs, W) the whole image, flow (B, 2,
+    H, W) its rows ``[y0, y0 + H)``; returns a fresh (B, C, H, W) whose row
+    y samples the source at row (y + y0) + flow_y, bit-equal to those rows
+    of ``warp2d_cuda`` on the whole image."""
+    _check(src, flow, "warp2d_slab_cuda", 2, y0)
+    out = src.new_empty((*src.shape[:2], *flow.shape[2:]))
+    _launch(FWD, "dfmir_warp2d_fwd_slab", src.get_device(), src.data_ptr(),
+            flow.data_ptr(), out.data_ptr(), *out.shape, src.shape[2], y0)
     return out
 
 
@@ -403,6 +422,51 @@ def warp3d_bwd_dsrc_cuda(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dsrc
 
 
+@functools.lru_cache(maxsize=64)
+def _bins_slab_ints(B, C, D, H, W, Ds):
+    return int(_build.load().dfmir_bins3d_slab_ints(B, C, D, H, W, Ds))
+
+
+def warp3d_bwd_dsrc_slab_cuda(flow: torch.Tensor, g: torch.Tensor, z0: int,
+                              D_src: int, mbits: torch.Tensor
+                              ) -> torch.Tensor:
+    """B5 on a slab: ``flow`` (B, 3, D, H, W) and ``g`` (B, C, D, H, W)
+    the planes ``[z0, z0 + D)`` of a volume of ``D_src`` planes; returns
+    int64 (B, C, D_src, H, W), each source voxel's sum of this slab's terms
+    in the fixed point of ``mbits`` ((1,) int32 on the device: the bits of
+    max|g| over the whole volume's cotangent, ``ops.warp.abs_max_bits``)
+    and D_src * H * W voxels.  The slabs' sums add up to the whole-volume
+    B5's integers; ``ops.warp.from_fixed`` gives their values.  Equal to
+    ``ops.warp.warp3d_dsrc_binned_plain(flow, g, z0, D_src, mbits,
+    sums=True)`` bit for bit, and bitwise the same on every run."""
+    B, C, D, H, W = g.shape
+    if not (flow.is_cuda and g.is_cuda and flow.device == g.device
+            and flow.dtype is _F32 and g.dtype is _F32
+            and tuple(flow.shape) == (B, 3, D, H, W)
+            and flow.is_contiguous() and g.is_contiguous()
+            and 0 <= z0 <= D_src - D
+            and B * max(C, 3) * D_src * H * W < _INT_LIMIT):
+        raise ValueError(f"warp3d_bwd_dsrc_slab_cuda takes float32, "
+                         f"contiguous CUDA flow (B, 3, D, H, W) and g (B, C, "
+                         f"D, H, W) on one device, 0 <= z0 <= D_src - D; got "
+                         f"{tuple(flow.shape)}, {tuple(g.shape)}, z0 {z0}, "
+                         f"D_src {D_src}")
+    if not (mbits.device == g.device and mbits.dtype == torch.int32
+            and mbits.numel() == 1):
+        raise ValueError("mbits must be one int32 on g's device")
+    if B * (D_src + 1) * (H + 1) * (W + 1) + 4096 >= _INT_LIMIT:
+        raise ValueError(f"{tuple(g.shape)} from {D_src} planes has too "
+                         f"many cells for int sizes")
+    sums = torch.empty((B, C, D_src, H, W), dtype=torch.int64,
+                       device=g.device)
+    bins = torch.empty(_bins_slab_ints(B, C, D, H, W, D_src),
+                       dtype=torch.int32, device=g.device)
+    _launch(DSRC3D, "dfmir_warp3d_bwd_dsrc_slab", g.get_device(),
+            flow.data_ptr(), g.data_ptr(), sums.data_ptr(), bins.data_ptr(),
+            mbits.contiguous().data_ptr(), B, C, D, H, W, D_src, z0, 0)
+    return sums
+
+
 class Warp2dFunction(torch.autograd.Function):
     """The two 2-D kernels behind autograd.  ``backward`` computes the
     source gradient only when ``src`` needs one.  When ``src`` is ``flow``
@@ -460,26 +524,66 @@ class VecInt3dFunction(torch.autograd.Function):
         return vecint3d_bwd_cuda(steps, grad_out.contiguous()), None
 
 
-class Warp3dSlabFunction(torch.autograd.Function):
-    """B3 and B4 behind autograd for a slab: ``apply(src, flow, z0)``, the
-    output the flow's planes from plane ``z0`` of the whole source
-    ``src``.  Only the flow has a gradient: B5 has no slab form, so a
-    source that needs one raises."""
+class Warp2dSlabFunction(torch.autograd.Function):
+    """B1 for a slab of rows: ``apply(src, flow, y0)``, the output the
+    flow's rows from row ``y0`` of the whole image ``src``.  Forward only:
+    its backward raises, as B2 has no slab form yet (the 2-D step on slabs
+    waits for it)."""
 
     @staticmethod
-    def forward(ctx, src, flow, z0):
-        if ctx.needs_input_grad[0]:
-            raise ValueError("a slab warp's source takes no gradient: B5 "
-                             "has no slab form")
-        ctx.save_for_backward(src, flow)
-        ctx.z0 = z0
-        return warp3d_cuda(src, flow, z0)
+    def forward(ctx, src, flow, y0):
+        return warp2d_slab_cuda(src, flow, y0)
 
     @staticmethod
     def backward(ctx, grad_out):
-        src, flow = ctx.saved_tensors
-        return None, warp3d_bwd_dflow_cuda(src, flow, grad_out.contiguous(),
-                                           ctx.z0), None
+        raise NotImplementedError(
+            "the 2-D warp on a slab of rows has no backward: B2's slab form "
+            "is still to come")
+
+
+class Warp3dSlabFunction(torch.autograd.Function):
+    """B3, B4 and B5 behind autograd for a slab: ``apply(src, flow, z0,
+    mesh=None)``, the output the flow's planes from plane ``z0`` of the
+    whole source.  Without ``mesh``, ``src`` is that whole source and takes
+    no gradient (a source that needs one raises).  With ``mesh`` (a volume
+    split along D over its spatial ranks), ``src`` is this rank's slab of
+    the source, gathered whole here (``parallel.mesh.all_gather_slabs``);
+    its gradient is B5 on the slab in the fixed point of max|g| over every
+    rank's cotangent (all-reduced first), whose int64 sums the ranks
+    reduce-scatter and only then turn into floats: this rank's planes of
+    the whole-volume B5, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, src, flow, z0, mesh=None):
+        if mesh is None:
+            if ctx.needs_input_grad[0]:
+                raise ValueError("a slab warp's source takes a gradient only "
+                                 "from its slabs: pass the mesh "
+                                 "(ops.warp.warp_slabs)")
+            whole = src
+        else:
+            whole = dp.all_gather_slabs(src, mesh)
+        ctx.save_for_backward(whole, flow)
+        ctx.z0, ctx.mesh = z0, mesh
+        return warp3d_cuda(whole, flow, z0)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        from dfmir_tpu_torch.ops.warp import abs_max_bits, from_fixed
+        whole, flow = ctx.saved_tensors
+        need_dsrc, need_dflow = ctx.needs_input_grad[:2]
+        g = grad_out.contiguous()
+        dflow = (warp3d_bwd_dflow_cuda(whole, flow, g, ctx.z0)
+                 if need_dflow else None)
+        dsrc = None
+        if need_dsrc:
+            mesh = ctx.mesh
+            D_src, H, W = whole.shape[2:]
+            mbits = dp.spatial_max(abs_max_bits(g), mesh)
+            sums = warp3d_bwd_dsrc_slab_cuda(flow, g, ctx.z0, D_src, mbits)
+            dsrc = from_fixed(dp.reduce_scatter_slabs(sums, mesh), mbits,
+                              D_src * H * W)
+        return dsrc, dflow, None, None
 
 
 class Warp3dFunction(torch.autograd.Function):

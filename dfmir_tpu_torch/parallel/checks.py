@@ -16,6 +16,12 @@ to compare with one process.
   ``flow_stats`` before the steps.
 - ``spatial_pieces``: the spatial exchanges and the losses' slab forms
   alone, each on this rank's slab.
+- ``joint_spatial_steps``: the joint model (``RegistrationModel``) over a
+  (data, spatial) mesh, each rank on its slab of its items: ``register``,
+  one ``loss_fn`` with its gradients, ``eval_step``, and train steps.
+- ``joint_slab_pieces``: the joint model's slab forms alone (the norms,
+  pads, blurs, convs, netG's taps, the patch sampler), on this rank's
+  slab.
 - ``run_cases``: several named cases in one launch (the functions below
   and the two above), so that a test file starts its ranks once.
 - ``fail`` and ``hang``: a rank that raises, and a rank whose peer never
@@ -296,6 +302,219 @@ def vxm_spatial_steps(mesh, job):
     return report
 
 
+def _spatial_share(mesh, job):
+    """(mesh, share): ``make_mesh`` of the launch's first
+    ``job["n_data"]`` * ``job["n_spatial"]`` ranks (None for a rank past
+    it, and for one process) and this rank's part of a global tensor: its
+    data rank's items, its spatial rank's slab along axis 2."""
+    if mesh is None:
+        return None, lambda x: x
+    mesh = dp.make_mesh(mesh, job.get("n_data"), job["n_spatial"])
+    if mesh is None:
+        return None, None
+
+    def share(x):
+        return dp.slab_slice(dp.batch_slice(x, mesh.data_rank, mesh.n_data),
+                             mesh.spatial_rank, mesh.n_spatial)
+    return mesh, share
+
+
+def _timed(dev, call, reps=1):
+    """(result, host ms of each call, the launches of the last)."""
+    ms = []
+    for _ in range(reps):
+        _sync(dev)
+        warp_cuda.reset_launches()
+        dp.reset_exchange_counts()
+        t0 = time.perf_counter()
+        res = call()
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return res, ms, dict(warp_cuda.LAUNCHES)
+
+
+def joint_spatial_steps(mesh, job):
+    """The joint model with its images split along axis 2 (H at 2-D, D
+    at 3-D; JAX's ``shard_batch(..., shard_spatial=True)``) over the
+    launch's first ``job["n_data"]`` * ``job["n_spatial"]`` ranks; a rank
+    past the mesh reports ``{"rank": r, "in_mesh": False}``.  The model as
+    ``registration_steps`` builds it (``cfg``, ``seed``, ``state``,
+    ``flow_gain``), then, each on this rank's share of a global (A, B):
+
+    - ``register`` (``reg_reps`` calls timed): this rank's slabs of
+      (fake_B, idt_B, y_source, pos_flow), with ms, launches and bytes;
+    - ``loss`` (a global (A, B) and ``loss_ids``): one ``loss_fn`` and
+      backward, the gradients averaged over the ranks (rank 0 reports
+      them, and every rank the metrics averaged over the ranks, which are
+      the global ones);
+    - ``eval``: ``eval_step`` with ``loss_ids`` (the global metrics);
+    - ``batches``: ``train_step``s as ``registration_steps``'s (``lr``,
+      ``patch_ids`` one a step), with the same report.  ``save_after`` (i,
+      path): after step i, save the networks and Adam's state to ``path``
+      (rank 0); ``load_after`` (i, path): after step i, report the
+      parameters (rank 0, ``params_own``) and load that state, so that the
+      next step starts where the run that saved it stood.
+
+    With ``mesh=None``: one process on the whole batch (``job["device"]``),
+    the reference.  TF32 is off throughout."""
+    rank = mesh.rank if mesh is not None else 0
+    mesh, share = _spatial_share(mesh, job)
+    if share is None:
+        return {"rank": rank, "in_mesh": False}
+    dev, _, _ = _where(mesh, job)
+    model, nets = _registration_model(None, dict(job, device=dev))
+    if mesh is not None:
+        model.data_parallel(mesh)
+    out = {}
+    if mesh is not None:
+        out.update(data_rank=mesh.data_rank, spatial_rank=mesh.spatial_rank)
+    peak = (torch.cuda.max_memory_allocated if dev.type == "cuda"
+            else lambda _: None)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    with _float32(dev):
+        if job.get("register") is not None:
+            a, b = (share(x).to(dev) for x in job["register"])
+            res, ms, launches = _timed(dev, lambda: model.register(a, b),
+                                       job.get("reg_reps", 1))
+            out.update(register=_host(res), register_ms=ms,
+                       register_launches=launches,
+                       register_bytes=dict(dp.BYTES_SENT),
+                       register_exchange_s=dict(dp.EXCHANGE_S),
+                       register_peak_bytes=peak(dev))
+            del res
+        if job.get("loss") is not None:
+            a, b = (share(x).to(dev) for x in job["loss"])
+            ids = job.get("loss_ids")
+
+            def loss():
+                model.optimizer.zero_grad(set_to_none=True)
+                total, metrics, _ = model.loss_fn(a, b, patch_ids=ids)
+                total.backward()
+                for net in nets.values():
+                    dp.all_reduce_grads(net.parameters(), mesh)
+                return dp.all_reduce_metrics(
+                    {k: v.detach() for k, v in metrics.items()}, mesh)
+            metrics, ms, launches = _timed(dev, loss)
+            out.update(loss={k: float(v) for k, v in metrics.items()},
+                       loss_ms=ms, loss_launches=launches)
+            if rank == 0:
+                out["loss_grads"] = _named(nets, "grad")
+            model.optimizer.zero_grad(set_to_none=True)
+        if job.get("eval"):
+            a, b = (share(x).to(dev) for x in job["loss"])
+            (metrics, _), ms, launches = _timed(dev, lambda: model.eval_step(
+                a, b, patch_ids=job.get("loss_ids")))
+            out.update(eval={k: float(v) for k, v in metrics.items()},
+                       eval_ms=ms, eval_launches=launches)
+        if job.get("batches"):
+            n = len(job["batches"])
+            ids = job.get("patch_ids") or [None] * n
+
+            save = job.get("save_after") or (None, None)
+            load = job.get("load_after") or (None, None)
+            extra = {}
+
+            def step(i, a, b):
+                metrics = model.train_step(a, b, job["lr"], patch_ids=ids[i])
+                if i == save[0] and rank == 0:
+                    torch.save({"nets": {k: n.state_dict()
+                                         for k, n in nets.items()},
+                                "optimizer": model.optimizer.state_dict()},
+                               save[1])
+                if i == load[0]:
+                    if rank == 0:
+                        extra["params_own"] = _named(nets, "data")
+                    state = torch.load(load[1], map_location=dev)
+                    for k, n in nets.items():
+                        n.load_state_dict(state["nets"][k])
+                    model.optimizer.load_state_dict(state["optimizer"])
+                return metrics
+            out = _steps(mesh, model, nets, step, dict(job, device=dev),
+                         share, out)
+            out.update(extra)
+    out.setdefault("rank", rank)
+    out.setdefault("peak_bytes", peak(dev))
+    del model, nets
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def joint_slab_pieces(mesh, n_spatial, job, n_data=None):
+    """The joint model's slab forms alone, each on this rank's slab of
+    ``job``'s global tensors (``make_mesh`` of the first ``n_data`` *
+    ``n_spatial`` ranks; a rank past the mesh reports ``{"in_mesh":
+    False}``), for the tests to hold against the whole-tensor ops, each
+    value with the gradient of its input under ``sum(out * w)``, w this
+    rank's slab (or window) of ``job["w_<name>"]``:
+
+    - ``norm``: ``instance_norm``; ``pad_reflect`` / ``pad_replicate``:
+      ``pad_nd`` by ``job["pad"]`` (the rank's window of the padded
+      image, w its window); ``down`` / ``up``: ``blur_downsample`` /
+      ``blur_upsample``; ``conv``: ``conv_slab`` of ``job["conv"]`` (a
+      module);
+    - ``netG``: ``job["netG"]``'s output and taps ``job["layers"]`` on the
+      slab of ``job["x"]`` (no gradients);
+    - ``sample``: ``job["netF"]`` (PatchSampleF) on those taps with
+      ``job["ids"]``, the gathered samples and the gradient of the taps'
+      input under ``sum(samples * w_sample)`` (each spatial rank's loss
+      the whole sum: ``n_spatial`` times the whole gradient's rows);
+    - ``smooth``: ``smoothness_loss`` of the slab of ``job["flow"]`` and
+      its gradient (``world`` times this rank's share)."""
+    from dfmir_tpu_torch.losses.regularizers import smoothness_loss
+    from dfmir_tpu_torch.nets.layers import conv_slab, instance_norm, pad_nd
+    from dfmir_tpu_torch.ops.filters import blur_downsample, blur_upsample
+    mesh = dp.make_mesh(mesh, n_data, n_spatial)
+    if mesh is None:
+        return {"in_mesh": False}
+    r, n = mesh.spatial_rank, mesh.n_spatial
+
+    def share(t):
+        return dp.slab_slice(dp.batch_slice(t, mesh.data_rank, mesh.n_data),
+                             r, n).clone()
+
+    def leaf(t):
+        return share(t).requires_grad_(True)
+
+    def window(t, pad):
+        # this rank's rows of the whole padded tensor t: its slab and pad
+        # rows each side
+        t = dp.batch_slice(t, mesh.data_rank, mesh.n_data)
+        k = (t.shape[2] - 2 * pad) // n
+        return t.narrow(2, r * k, k + 2 * pad)
+
+    out = {"data_rank": mesh.data_rank, "spatial_rank": r}
+    x = job["x"]
+    cases = {"norm": (lambda v: instance_norm(v, mesh=mesh), share),
+             "down": (lambda v: blur_downsample(v, mesh=mesh), share),
+             "up": (lambda v: blur_upsample(v, mesh=mesh), share),
+             "conv": (lambda v: conv_slab(job["conv"], v, mesh), share)}
+    for mode in ("reflect", "replicate"):
+        cases[f"pad_{mode}"] = (
+            lambda v, m=mode: pad_nd(v, job["pad"], m, mesh),
+            lambda t: window(t, job["pad"]))
+    for name, (fn, part) in cases.items():
+        v = leaf(x)
+        y = fn(v)
+        (y * part(job[f"w_{name}"])).sum().backward()
+        out[name] = (y.detach(), v.grad)
+    layers = tuple(job["layers"])
+    v = leaf(job["x_g"])
+    y, feats = job["netG"](v, layers=layers, mesh=mesh)
+    out["netG"] = (y.detach(), [f.detach() for f in feats])
+    samples, ids = job["netF"](feats, job["num_patches"], job["ids"],
+                               mesh=mesh,
+                               tap_pads=job["netG"].tap_pads(layers))
+    sum((s * w).sum() for s, w in zip(samples, job["w_sample"])).backward()
+    out["sample"] = ([s.detach() for s in samples], v.grad)
+    f = leaf(job["flow"])
+    loss = smoothness_loss(f, mesh)
+    loss.backward()
+    out["smooth"] = (loss.detach(), f.grad)
+    return out
+
+
 def reduce_is_exact(mesh, job):
     """One backward of the job's first global batch (this rank's slice),
     then the step's all-reduce of the gradients: whether every gradient
@@ -487,6 +706,7 @@ def tf32_flags(mesh):
 
 CASES = {f.__name__: f for f in (registration_steps, vxm_steps,
                                  vxm_spatial_steps, spatial_pieces,
+                                 joint_spatial_steps, joint_slab_pieces,
                                  reduce_is_exact, collectives, nce,
                                  loader, tf32_flags)}
 

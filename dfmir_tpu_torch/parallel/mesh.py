@@ -42,7 +42,16 @@ XLA inserts the exchanges itself, the port's modules call them:
   halo's gradient back to the rank that owns the planes, which adds it;
 - ``gather_slabs(x, mesh)``: the whole volume on every spatial rank (an
   all-gather along D); its backward sums the ranks' gradients and gives
-  each its slab (a reduce-scatter).
+  each its slab (a reduce-scatter).  ``all_gather_slabs`` and
+  ``reduce_scatter_slabs`` are its two halves without autograd (B5 on a
+  slab reduce-scatters int64 sums, ``ops/warp_cuda.py``);
+- ``spatial_sum(x, mesh)``: the sum of the spatial ranks' ``x`` on every
+  one of them (an all-reduce), whose backward is the same all-reduce of
+  the ranks' gradients: the statistics of a norm over the whole volume
+  (``nets/layers.py::instance_norm``), and ``gather_rows``, the rows of a
+  tensor that each spatial rank owns in part (the rest zeros) put
+  together on every one of them (PatchNCE's samples of a tap split over
+  the slabs, ``nets/patch_sample.py``).
 
 Both run over the spatial group, made on every rank in the same order.  A
 halo's sends and receives go out as one ``batch_isend_irecv``: under NCCL
@@ -74,7 +83,17 @@ own slab and items contribute, through the exchanges' backwards).  The
 mean over all ranks (``all_reduce_grads``) is then the gradient of the
 whole step.  A statistic whose ranks hold unequal counts (the gradient
 loss: the last slab has one D difference fewer) divides its local sum by
-``N / world``, N the global count, before ``global_mean``.
+``N / world``, N the global count, before ``global_mean``.  A tensor that
+every spatial rank holds whole (a gathered volume, a norm's statistics,
+the gathered patch samples and all that is computed from them) carries on
+each rank that rank's consumers' part of the cotangent, ``world`` times
+their share; the backward of the collective that made it sums those parts
+over the spatial ranks (``gather_slabs``' reduce-scatter, ``spatial_sum``'s
+all-reduce), which is ``world`` times the whole cotangent, and hands each
+rank its own planes' or rows' part of that.  A loss computed alike on
+every spatial rank from such a tensor (PatchNCE on the gathered samples)
+is then the data rank's value, with ``world`` times its share of the
+gradient, as the convention asks.
 
 **Why an explicit all-reduce and not ``DistributedDataParallel``.** JAX's
 step keeps the parameters replicated and all-reduces the gradients; so
@@ -104,6 +123,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import time
 from typing import Any, Dict, Iterable, List, Optional, Sequence
 
@@ -365,10 +385,12 @@ def replicate(tensors: Sequence[torch.Tensor], mesh: Mesh = None) -> None:
 # the payload bytes this rank sent in the spatial exchanges, by kind: a
 # halo's planes to each neighbour; its slab to each other spatial rank in
 # an all-gather, and their parts of the gradient in its reduce-scatter
-BYTES_SENT = {"halo": 0, "gather": 0}
+BYTES_SENT = {"halo": 0, "gather": 0, "reduce": 0}
 # host seconds this rank spent in them, by kind (a call on the card's
-# tensors first waits for the card to reach it)
-EXCHANGE_S = {"halo": 0.0, "gather": 0.0}
+# tensors first waits for the card to reach it); "reduce": the
+# all-reduces over the spatial group (``spatial_sum``, ``spatial_max``),
+# counted as the bytes of the tensor each rank puts in
+EXCHANGE_S = {"halo": 0.0, "gather": 0.0, "reduce": 0.0}
 
 
 def reset_exchange_counts() -> None:
@@ -464,29 +486,42 @@ def halo_exchange(x: torch.Tensor, lo: int, hi: int,
     return _Halo.apply(x, lo, hi, mesh)
 
 
+def all_gather_slabs(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The spatial ranks' slabs ``x`` concatenated along D in spatial-rank
+    order, without a gradient."""
+    x = x.detach().contiguous()
+    parts = [torch.empty_like(x) for _ in range(mesh.n_spatial)]
+    with _clock("gather"):
+        dist.all_gather(parts, x, group=mesh.spatial_group)
+    BYTES_SENT["gather"] += ((mesh.n_spatial - 1) * x.numel()
+                             * x.element_size())
+    return torch.cat(parts, dim=2)
+
+
+def reduce_scatter_slabs(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This rank's slab (its D / n_spatial planes) of the sum over the
+    spatial ranks of their whole-volume ``x``, without a gradient; in
+    ``x``'s dtype (int64 sums add exactly)."""
+    parts = [p.contiguous()
+             for p in x.detach().chunk(mesh.n_spatial, dim=2)]
+    out = torch.empty_like(parts[0])
+    with _clock("gather"):
+        dist.reduce_scatter(out, parts, group=mesh.spatial_group)
+    BYTES_SENT["gather"] += sum(p.numel() * p.element_size()
+                                for i, p in enumerate(parts)
+                                if i != mesh.spatial_rank)
+    return out
+
+
 class _GatherSlabs(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
         ctx.mesh = mesh
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(mesh.n_spatial)]
-        with _clock("gather"):
-            dist.all_gather(parts, x, group=mesh.spatial_group)
-        BYTES_SENT["gather"] += ((mesh.n_spatial - 1) * x.numel()
-                                 * x.element_size())
-        return torch.cat(parts, dim=2)
+        return all_gather_slabs(x, mesh)
 
     @staticmethod
     def backward(ctx, g):
-        mesh = ctx.mesh
-        parts = [p.contiguous() for p in g.chunk(mesh.n_spatial, dim=2)]
-        out = torch.empty_like(parts[0])
-        with _clock("gather"):
-            dist.reduce_scatter(out, parts, group=mesh.spatial_group)
-        BYTES_SENT["gather"] += sum(p.numel() * p.element_size()
-                                    for i, p in enumerate(parts)
-                                    if i != mesh.spatial_rank)
-        return out, None
+        return reduce_scatter_slabs(g, ctx.mesh), None
 
 
 def gather_slabs(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
@@ -497,3 +532,97 @@ def gather_slabs(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     if not is_spatial(mesh):
         return x
     return _GatherSlabs.apply(x, mesh)
+
+
+# ------------------------------------------- the joint model on slabs
+
+def _spatial_all_reduce(x: torch.Tensor, mesh: Mesh, op) -> torch.Tensor:
+    """``x`` reduced by ``op`` over the spatial group, in a new tensor on
+    ``x``'s device (detached)."""
+    out = _staged(mesh, x.detach().clone().contiguous())
+    with _clock("reduce"):
+        dist.all_reduce(out, op=op, group=mesh.spatial_group)
+    BYTES_SENT["reduce"] += out.numel() * out.element_size()
+    return out.to(x.device)
+
+
+class _SpatialSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _spatial_all_reduce(x, mesh, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _spatial_all_reduce(g, ctx.mesh, dist.ReduceOp.SUM), None
+
+
+def spatial_sum(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The sum of the spatial ranks' ``x`` (each rank's part of a
+    statistic of the whole volume), on every spatial rank; its backward
+    sums the ranks' gradients the same way (the module's convention).
+    ``x`` itself where ``mesh`` does not split the volume."""
+    if not is_spatial(mesh):
+        return x
+    return _SpatialSum.apply(x, mesh)
+
+
+def spatial_max(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The elementwise max of the spatial ranks' ``x``, detached; ``x``
+    where ``mesh`` does not split the volume."""
+    if not is_spatial(mesh):
+        return x
+    return _spatial_all_reduce(x, mesh, dist.ReduceOp.MAX)
+
+
+def gather_rows(x: torch.Tensor, owned: torch.Tensor,
+                mesh: Optional[Mesh]) -> torch.Tensor:
+    """Rows put together from the spatial ranks that own them: ``x`` (B, P,
+    C) holds, at the P positions where ``owned`` (P,) is true, rows of this
+    rank's slab (PatchNCE's samples at ids that fall in its planes), and
+    every position is owned by exactly one spatial rank.  Returns, on every
+    spatial rank, each position's row from its owner, in position order
+    (the ids' order); a sum with zeros, so exact.  The gradient of a row
+    goes to its owner, summed over the ranks (``spatial_sum``)."""
+    if not is_spatial(mesh):
+        return x
+    return spatial_sum(torch.where(owned[None, :, None], x,
+                                   torch.zeros((), dtype=x.dtype,
+                                               device=x.device)), mesh)
+
+
+def slab_rows(rows: int, pad: int, mesh: Mesh):
+    """(offset, total): where this rank's ``rows`` rows lie along the split
+    axis of a map whose slabs carry ``pad`` extra rows at each global end
+    (a reflect pad's output, e.g. netG's tap 0: the two end ranks own its
+    pad's rows), and the map's whole extent."""
+    r, n = mesh.spatial_rank, mesh.n_spatial
+    core = rows - pad if r in (0, n - 1) else rows
+    return (0 if r == 0 else pad + r * core), n * core + 2 * pad
+
+
+def check_joint_slabs(extent: int, n_spatial: int, n_enc: int,
+                      int_downsize: int, level_pads: Sequence[int]) -> None:
+    """Raise unless an image of ``extent`` rows (H at 2-D, D planes at 3-D)
+    splits into ``n_spatial`` slabs that every level of the joint model
+    cuts the same on every rank: ``extent`` must be divisible by n_spatial
+    * lcm(2^n_enc, int_downsize, 2^levels), netR's ``n_enc`` strided
+    levels and netG's ``levels = len(level_pads) - 1`` downsamplings; and
+    each slab must hold more rows than ``level_pads[l]``, the largest
+    reflect or replicate pad at netG's level l (a pad at a global end reads
+    the slab's own rows 1..p)."""
+    levels = len(level_pads) - 1
+    unit = n_spatial * math.lcm(2 ** n_enc, int_downsize, 2 ** levels)
+    if extent % unit:
+        raise ValueError(
+            f"an extent of {extent} does not split over {n_spatial} spatial "
+            f"ranks: it must be divisible by n_spatial * lcm(2^len(vxm_enc),"
+            f" int_downsize, 2^{levels}) = {n_spatial} * lcm({2 ** n_enc}, "
+            f"{int_downsize}, {2 ** levels}) = {unit}")
+    for level, pad in enumerate(level_pads):
+        rows = extent // (n_spatial * 2 ** level)
+        if rows <= pad:
+            raise ValueError(
+                f"slabs of {rows} rows at netG's level {level} (extent "
+                f"{extent} over {n_spatial} spatial ranks) do not hold more "
+                f"rows than its pad of {pad}")

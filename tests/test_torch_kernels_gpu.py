@@ -516,6 +516,60 @@ def test_warp3d_slab_kernels_are_the_whole_volumes_rows(cuda, z0):
         warp_cuda.warp3d_cuda(src, f, 13)
 
 
+@pytest.mark.parametrize("y0", [0, 20, 40])
+def test_warp2d_slab_kernel_is_the_whole_images_rows(cuda, y0):
+    """B1 on a slab of 20 rows from row y0 of a 60-row source: the
+    whole-image launch's rows bit for bit, its plain version with y0
+    within 1e-5, counted under B1's name; the slab Function has no
+    backward (B2's slab form is still to come)."""
+    src, flow, _ = inputs(cuda, (2, 3, 60, 37), 3.0, 0.0)
+    rows = slice(y0, y0 + 20)
+    f = flow[:, :, rows].contiguous()
+    before = dict(warp_cuda.LAUNCHES)
+    out = warp_cuda.warp2d_slab_cuda(src, f, y0)
+    assert warp_cuda.LAUNCHES == dict(before, **{FWD: before[FWD] + 1})
+    assert torch.equal(out, warp_cuda.warp2d_cuda(src, flow)[:, :, rows])
+    assert max_err(out, warp(src, f, impl="torch", z0=y0)) <= 1e-5
+    assert torch.equal(warp(src, f, z0=y0), out)
+    leaf = f.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="B2's slab form"):
+        warp(src, leaf, z0=y0).sum().backward()
+    with pytest.raises(ValueError, match="not a slab"):
+        warp_cuda.warp2d_slab_cuda(src, f, 41)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_warp3d_dsrc_slab_sums_are_the_whole_volumes(cuda, n):
+    """B5 on n slabs of a (2, 3, 18, 14, 16) volume, each in the fixed
+    point of max|g| over the whole cotangent: the slabs' int64 sums add up
+    to the whole-volume B5's integers, so their value equals it bit for
+    bit; each slab's sums equal the plain slab model's, twice the same."""
+    from dfmir_tpu_torch.ops.warp import abs_max_bits, from_fixed
+    _, flow, g = inputs(cuda, (2, 3, 18, 14, 16), 2.5, 0.0)
+    mbits = abs_max_bits(g)
+    d = 18 // n
+    total = 0
+    for r in range(n):
+        rows = slice(r * d, (r + 1) * d)
+        f, gs = flow[:, :, rows].contiguous(), g[:, :, rows].contiguous()
+        before = dict(warp_cuda.LAUNCHES)
+        sums = warp_cuda.warp3d_bwd_dsrc_slab_cuda(f, gs, r * d, 18, mbits)
+        assert warp_cuda.LAUNCHES == dict(before,
+                                          **{DSRC3D: before[DSRC3D] + 1})
+        assert sums.dtype == torch.int64 and sums.shape == g.shape
+        assert torch.equal(sums, warp_cuda.warp3d_bwd_dsrc_slab_cuda(
+            f, gs, r * d, 18, mbits))
+        assert torch.equal(sums, warp3d_dsrc_binned_plain(
+            f, gs, r * d, 18, mbits, sums=True))
+        total = total + sums
+    whole = warp_cuda.warp3d_bwd_dsrc_cuda(flow, g)
+    assert torch.equal(from_fixed(total, mbits, 18 * 14 * 16), whole)
+    with pytest.raises(ValueError, match="0 <= z0"):
+        warp_cuda.warp3d_bwd_dsrc_slab_cuda(flow[:, :, :6].contiguous(),
+                                            g[:, :, :6].contiguous(), 13,
+                                            18, mbits)
+
+
 def test_warp3d_zero_flow_copies_the_source(cuda):
     src, _, _ = inputs(cuda, (1, 2, 20, 24, 28), 0.0, 0.0)
     out = warp_cuda.warp3d_cuda(src, torch.zeros((1, 3, 20, 24, 28),

@@ -49,11 +49,13 @@ def small_spatial(cpu_card, monkeypatch):  # noqa: F811 (the fixture above)
 
 
 def test_spatial3d_phase(small_spatial, capsys):
-    out = chip_smoke.phase_spatial3d(0, "cpu")
+    out, slab_rows = chip_smoke.phase_spatial3d(0, "cpu")
     # the ranks count nothing on the CPU: the totals are zero there, and
     # each one-process run's launches were held to a step's and a call's
     assert out == {"spatial3d_register": chip_smoke.ZERO,
                    "spatial3d_train": chip_smoke.ZERO}
+    # the slab kernels' rows, for the kernels line
+    assert len(slab_rows) == 4
     assert any("one process" in w for w in small_spatial)
     assert sum("rank" in w for w in small_spatial) >= 6 * 3
     got = [json.loads(x) for x in capsys.readouterr().out.splitlines()]

@@ -329,7 +329,8 @@ def test_slab_warp_function_launches_b3_and_b4(monkeypatch):
     out.backward(g[:, :, rows])
     assert calls == [("fwd", 4), ("dflow", 4)]
     assert torch.equal(out, warp(src, flow, impl="torch")[:, :, rows])
-    with pytest.raises(ValueError, match="B5 has no slab form"):
+    with pytest.raises(ValueError, match="takes a gradient only from its "
+                                         "slabs"):
         warp(src.requires_grad_(True), f, impl="cuda", z0=4)
 
 
