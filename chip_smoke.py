@@ -253,8 +253,10 @@ Phases, each printing one JSON line:
               bit-equal to the whole-volume launches' rows and within 1e-5
               of their plain versions with z0; then VxmConfig() at 160^3
               split along D over 2 ranks (1 x 2, B=1) and 4 ranks (2 x 2,
-              global B=2) sharing the card over gloo, in one launch of 4
-              ranks (the 1 x 2 mesh its first two), each against one
+              global B=2; 1 x 4, B=1, netR's fourth encoder level of 10
+              planes gathered, the level printed) sharing the card over
+              gloo, in one launch of 4 ranks (the 1 x 2 mesh its first
+              two), each against one
               process on the whole batch: register's slabs put together
               (y_source, pos_flow) <= 1e-5 max-abs, the metrics of 2 steps
               1e-5 relative, gradients 1e-2 of each tensor's max |g| (the
@@ -269,20 +271,32 @@ Phases, each printing one JSON line:
               its plain version) and B5 on the 64-plane halves of a 128^3
               volume (the slabs' int64 sums, in the fixed point of max|g|
               over the whole cotangent, 0.0 from the whole-volume B5,
-              twice the same, equal to the plain slab sums), each timed
-              beside the whole launch; then RegistrationConfig() at 256^2
-              split along H over 2 and 4 ranks and RegistrationConfig(
-              ndims=3, crop_size=128) along D over 2, in one launch of 4
-              ranks sharing the card (gloo), B=1, against one process
-              run first and freed: register's slabs put together (fake_B,
-              idt_B, y_source, pos_flow) <= 1e-4 max-abs; at 3-D the
-              metrics of 2 steps 1e-5 relative (the second from the one
-              process's state after the first), the first step's
+              twice the same, equal to the plain slab sums), and B2 on
+              the 128-row halves of a 256^2 image at C 1 and 2 (dflow 0.0
+              from the whole image's rows and 1e-5 from its plain version;
+              the slabs' int64 sums, in each item's fixed point of max|g|
+              over the whole cotangent, 0.0 from the whole image's B2
+              dsrc, twice the same, equal to the plain slab sums), each
+              timed beside the whole launch; then RegistrationConfig() at
+              256^2 split along H over 2 and 4 ranks (register and 2
+              steps), the graft's RegistrationConfig(crop_size=64,
+              num_patches=64) over 2 (register and 1 step; netR's sixth
+              level gathered) and RegistrationConfig(ndims=3,
+              crop_size=128) along D over 2 (register and 2 steps), in one
+              launch of 4 ranks sharing the card (gloo), B=1, against one
+              process run first in a launch of its own: register's slabs
+              put together (fake_B, idt_B, y_source, pos_flow) <= 1e-4
+              max-abs; the steps' metrics 1e-5 relative (the second from
+              the one process's state after the first), the first step's
               gradients 1e-2 of each tensor's max |g| (a norm-fed conv
-              bias: its network's) and its update under the first-step
-              sign-flip rule, replicas bit-equal; a rank's launches exact
-              (a register 1 + 1, a step 1 + 2 and 1 + 2 + 1); ms, peak
-              memory, bytes and host seconds in the exchanges, by rank
+              bias: its network's; at 2-D the ranks and the one process
+              in float64 as well, held so tensor by tensor, the float32
+              ones network by network, the float32 one process's own
+              distance from float64 printed) and its update under the
+              first-step sign-flip rule, replicas bit-equal; a rank's
+              launches exact (a register 1 + 1; a 2-D step 1 + 2 and 1 +
+              2, a 3-D step 1 + 2 and 1 + 2 + 1); ms, peak memory, bytes
+              and host seconds in the exchanges, by rank
   dp_cli      train.main through the launcher on [cuda:0, cuda:0] (gloo) on
               phase cli's PNG pairs: 2 steps at B=2, 1 a rank; the one
               set of files a run writes, a loss-log line a print, once;
@@ -331,8 +345,11 @@ cli_zoo_stylegan2_test, cli3d_train, cli3d_eval, joint3d_register,
 joint3d_train, bf16_3d_register, bf16_3d_train, zoo3d_register,
 zoo3d_train, bf16_zoo3d_register, bf16_zoo3d_train (summed over the 3-D
 zoo's runs), dp, dp_fastcut, dp_gan,
-dp_nccl, dp3d, spatial3d_register, spatial3d_train (both meshes'
-ranks), dp_cli, augment2d, augment3d (one call each),
+dp_nccl, dp3d, spatial3d_register, spatial3d_train (the three meshes'
+ranks), spatial_joint_register2d, spatial_joint_register3d,
+spatial_joint_train2d, spatial_joint_train (the 2-D and the graft's
+meshes' ranks; the 3-D mesh's), dp_cli, augment2d, augment3d (one call
+each),
 cli_patient_site, cli_triplet, cli_triplet_test; a dp path's summed over
 its ranks; B5's main path is joint3d_train), and last {"ok": true, "device": {...}}.  A rank that fails
 fails its phase (its traceback in the error); nothing falls back to one
@@ -427,13 +444,16 @@ try:
     from dfmir_tpu_torch.ops import augment as augment_ops
     from dfmir_tpu_torch.ops.affine import affine_warp
     from dfmir_tpu_torch.ops.integrate import vecint, vecint_bwd_plain
-    from dfmir_tpu_torch.ops.warp import (_kernel_takes, identity_grid, warp,
+    from dfmir_tpu_torch.ops.warp import (_kernel_takes, from_fixed,
+                                          identity_grid, item_max_bits, warp,
                                           warp2d_dsrc_fixed_plain,
                                           warp3d_dsrc_binned_plain,
                                           warp_bwd_plain)
     from dfmir_tpu_torch.options import TestOptions, TrainOptions
     from dfmir_tpu_torch.parallel import checks
     from dfmir_tpu_torch.parallel.launch import backend_for, launch
+    from dfmir_tpu_torch.parallel.mesh import (check_joint_slabs,
+                                               first_whole_level)
     from dfmir_tpu_torch.utils.png import read_png, write_png
 except Exception as err:
     fail_line(err)
@@ -4318,7 +4338,9 @@ def phase_dp3d(seed, smi):
 # VxmConfig() at 160^3 split along D over ranks sharing the card (gloo):
 # (n_data, n_spatial) = (1, 2) at B=1 and (2, 2) at global B=2, each
 # against one process on the whole batch
-SPATIAL_MESHES = [(1, 2), (2, 2)]
+# (n_data, n_spatial): 1 x 4 gathers netR's fourth encoder level (10
+# planes do not split over 4)
+SPATIAL_MESHES = [(1, 2), (2, 2), (1, 4)]
 SPATIAL3D_CFG = {}           # fields beside VxmConfig()'s (none on the card)
 SPATIAL_STEPS = 3            # the 2 compared steps, then 1 more timed
 SPATIAL_REG_REPS = 3         # register calls a rank, the median timed
@@ -4413,9 +4435,10 @@ def slabs_together(reports, i):
 
 def phase_spatial3d(seed, smi):
     """VxmConfig() at 160^3 split along D (JAX's spatial mesh axis) over 2
-    ranks (n_spatial 2, B=1) and 4 ranks (2 x 2, global B=2) sharing the
-    card over gloo, in one launch of 4 ranks, each against one process on
-    the whole batch: register
+    ranks (n_spatial 2, B=1) and 4 ranks (2 x 2, global B=2; 1 x 4, B=1,
+    netR's fourth level gathered) sharing the card over gloo, in one
+    launch of 4 ranks, each against one process on the whole batch:
+    register
     (y_source, pos_flow) max-abs <= SPATIAL_TOL, the metrics of 2 steps
     within SPATIAL_TOL relative, netR's gradients within GRAD_ENV of each
     tensor's max |g|; a rank's launches a step and a register call exact;
@@ -4487,6 +4510,8 @@ def phase_spatial3d(seed, smi):
         meshes[name] = {
             "n_data": n_data, "n_spatial": n_spatial,
             "global_batch": n_data, "ranks": n_data * n_spatial,
+            "netR_gathered_from_level": check_joint_slabs(
+                S, n_spatial, len(cfg.enc), cfg.int_downsize),
             "register_max_abs_vs_one_process": {
                 "y_source": reg_errs[0], "pos_flow": reg_errs[1]},
             "steps_rel_vs_one_process": step_errs,
@@ -4538,16 +4563,28 @@ SJ_STEPS = 2                 # both compared with one process, the second timed
 SJ_REG_REPS = 2              # register calls a rank, the median timed
 SJ_TOL = 1e-4                # register max-abs against one process
 SJ_METRIC_TOL = 1e-5         # the steps' metrics, relative
+# the 2-D first step's float32 gradients, the ranks' against one process's,
+# each tensor over its own max |g| (a norm-fed conv bias: its network's):
+# the float32 rounding of the norm-fed convs' weight gradients reaches
+# 2.29e-2 of their own max on an H100 (700 W) at 1 x 4, past GRAD_ENV; the
+# network-wide bar stays GRAD_ENV, the per-tensor one in float64 GRAD_ENV
+SJ_GRAD_F32_TENSOR = 5e-2
 # the slab kernels: B1 on the 128-row halves of a 256^2 source under a
 # +-3 px field; B5 on the 64-plane halves of a 128^3 volume under a field
 # of about a voxel, against the whole-volume launch
 SJ_B1_SHAPE = (1, 1, 256, 256)
 SJ_B1_Y0 = (0, 128)
 SJ_B1_FLOW_PX = 3.0
+SJ_B2_CHANNELS = (1, 2)       # B2 on the B1 case's slabs, at these C
 SJ_B5_SHAPE = (1, 1, 128, 128, 128)
 SJ_B5_Z0 = (0, 64)
 SJ_B5_FLOW_VOX = 1.0
 SJ_REGISTER = {VF: 1, FWD: 1}
+# the graft's configuration (__graft_entry__.py's _tiny_cfg): crop 64 over
+# 1 x 2, netR's sixth level (1 row) gathered; register and one step
+SJ_GRAFT_CFG = dict(crop_size=64, num_patches=64)
+SJ_GRAFT_MESH = (1, 2)
+SJ_GRAFT_STEPS = 1
 
 
 def norm_fed_biases(net):
@@ -4567,29 +4604,47 @@ def norm_fed_biases(net):
     return set(names)
 
 
-def slab_grad_errs(rank0, single, skip, lr, what):
-    """The first step's gradients: each tensor's error over its own max
-    |g| (``skip``'s over its network's), raising past GRAD_ENV; and the
-    parameters after it (``rank0["params_own"]``) under the first-step
-    rule: a component past 1e-5 only where Adam's sign(g) flipped (|dp| <=
-    2.05 lr at a gradient within GRAD_ENV of the scale), < 1% of them.
-    Returns the worst a network, both ways (and its three worst tensors
-    by their own scale), and the share past 1e-5."""
-    out, total, mism = {}, 0, 0
-    for net, gs in single["grads"].items():
+def grad_errs(got, ref, skip, what, per_tensor=True, limit=GRAD_ENV):
+    """Each tensor's gradient error in ``got`` against ``ref`` ({net: {name:
+    grad}}) over its own max |g| (``per_tensor``; ``skip``'s, and every
+    tensor's without it, over its network's), raising past ``limit``
+    (None: a report alone).  Returns the worst a network, both ways, and
+    its three worst tensors by that scale."""
+    out = {}
+    for net, gs in ref.items():
         net_scale = max(float(g.abs().max()) for g in gs.values())
         worst_tensor = worst_net = 0.0
         by_tensor = []
         for k, g in gs.items():
-            err = float((rank0["grads"][net][k] - g).abs().max())
-            scale = max(net_scale if (net, k) in skip
-                        else float(g.abs().max()), 1e-30)
+            err = float((got[net][k].double() - g.double()).abs().max())
+            scale = max(float(g.abs().max()) if per_tensor
+                        and (net, k) not in skip else net_scale, 1e-30)
             worst_tensor = max(worst_tensor, err / scale)
             worst_net = max(worst_net, err / max(net_scale, 1e-30))
             by_tensor.append((err / scale, k, scale / max(net_scale, 1e-30)))
-            if not err <= GRAD_ENV * scale:
+            if limit is not None and not err <= limit * scale:
                 raise AssertionError(f"{what} {net}.{k}: gradient off by "
-                                     f"{err / scale} of max |g| > {GRAD_ENV}")
+                                     f"{err / scale} of max |g| > {limit}")
+        out[net] = {"each_tensor": worst_tensor, "network": worst_net,
+                    "worst": [{"tensor": k, "err": e, "scale_of_net": r}
+                              for e, k, r in sorted(by_tensor)[-3:]]}
+    return out
+
+
+def slab_grad_errs(rank0, single, skip, lr, what, per_tensor=True):
+    """The first step's gradients against the one process's
+    (``grad_errs``), and the parameters after it (``rank0["params_own"]``)
+    under the first-step rule: a component past 1e-5 only where Adam's
+    sign(g) flipped (|dp| <= 2.05 lr at a gradient within GRAD_ENV of its
+    tensor's max |g|), < 1% of them.  Returns grad_errs' report and the
+    share past 1e-5."""
+    out = grad_errs(rank0["grads"], single["grads"], skip, what, per_tensor)
+    total, mism = 0, 0
+    for net, gs in single["grads"].items():
+        net_scale = max(float(g.abs().max()) for g in gs.values())
+        for k, g in gs.items():
+            scale = max(net_scale if (net, k) in skip
+                        else float(g.abs().max()), 1e-30)
             p, q = rank0["params_own"][net][k], single["params"][net][k]
             off = ~torch.isclose(p, q, atol=1e-5, rtol=1e-4)
             total += p.numel()
@@ -4599,13 +4654,114 @@ def slab_grad_errs(rank0, single, skip, lr, what):
                     and float(g[off].abs().max()) <= GRAD_ENV * scale):
                 raise AssertionError(f"{what} {net}.{k}: parameters differ "
                                      f"past a first-step sign flip")
-        out[net] = {"each_tensor": worst_tensor, "network": worst_net,
-                    "worst": [{"tensor": k, "err": e, "scale_of_net": r}
-                              for e, k, r in sorted(by_tensor)[-3:]]}
     if not mism < 0.01 * total:
         raise AssertionError(f"{what}: {mism} of {total} parameters differ "
                              f"past 1e-5")
     return out, mism / total
+
+
+@contextlib.contextmanager
+def expandable_segments():
+    """Spawned processes' allocator growing its segments in place rather
+    than caching more of them (PYTORCH_CUDA_ALLOC_CONF), for the launches
+    in the block."""
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        yield
+    finally:
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+
+
+def b2_slab_rows(channels, gen, dev):
+    """B2 on the SJ_B1_Y0 slabs of a (1, channels, 256, 256) image under
+    a field of about +-3 px, each in its items' fixed point of max|g[b]|
+    over the whole cotangent: dflow 0.0 from the whole image's B2 rows and
+    within KERNEL_TOL of its plain version; the int64 sums twice the same,
+    0 from the plain slab model, and added over the slabs 0.0 (as floats)
+    from the whole image's B2 dsrc.  Timed beside the whole image's B2,
+    its bound (the source rows the slab's targets reach read and the whole
+    source's sums written, beside the slab's flow, g and dflow) and the
+    library's backward of the slab's warp of the whole source."""
+    B, _, H, W = SJ_B1_SHAPE
+    C = channels
+    src = torch.randn((B, C, H, W), generator=gen, device=dev)
+    flow = smooth_field((B, 2, H, W), SJ_B1_FLOW_PX, gen, dev)
+    g = torch.randn((B, C, H, W), generator=gen, device=dev)
+    whole_dsrc, whole_dflow = warp_cuda.warp2d_bwd_cuda(src, flow, g)
+    mbits = item_max_bits(g)
+    h = H // len(SJ_B1_Y0)
+    total, out = 0, []
+    for y0 in SJ_B1_Y0:
+        f = flow[:, :, y0:y0 + h].contiguous()
+        gs = g[:, :, y0:y0 + h].contiguous()
+        call = lambda: warp_cuda.warp2d_bwd_slab_cuda(  # noqa: E731
+            src, f, gs, y0, mbits)
+
+        def plain():
+            return (warp_bwd_plain(src, f, gs, need_dsrc=False, z0=y0)[1],
+                    warp2d_dsrc_fixed_plain(f, gs, y0, H, mbits, sums=True))
+        sums, dflow = call()
+        total = total + sums
+        plain_dflow, plain_sums = plain()
+        locs = identity_grid((h, W), device=dev, z0=y0)[None] + f
+        grid = torch.stack([2 * (locs[:, 1] / (W - 1) - 0.5),
+                            2 * (locs[:, 0] / (H - 1) - 0.5)], dim=-1)
+        px, vals = B * h * W, B * C * h * W
+        # the source rows the slab's targets reach (bilinear: floor(y) and
+        # the row below it), read once; the whole source's int64 sums
+        # written once
+        ys = locs[:, 0].floor()
+        reach = (int((ys.max() + 1).clamp(0, H - 1))
+                 - int(ys.min().clamp(0, H - 1)) + 1)
+        bound_ms, bound_by = bound(
+            4 * (B * C * reach * W + 2 * px + vals + 2 * px)
+            + 8 * B * C * H * W, px * 12 + vals * (14 + 10))
+        row = {"kernel": BWD, "case": f"slab_y0_{y0}_c{C}",
+               "shape": [B, C, h, W], "src_rows": H, "y0": y0,
+               "src_rows_reached": reach,
+               "flow_max_px": float(f.abs().max()),
+               "dflow_vs_whole_max_abs": float(
+                   (dflow - whole_dflow[:, :, y0:y0 + h]).abs().max()),
+               "max_abs_err": float((dflow - plain_dflow).abs().max()),
+               "tol": KERNEL_TOL,
+               "bit_reproducible": torch.equal(sums, call()[0]),
+               "vs_plain_slab_sums_max_abs": int(
+                   (sums - plain_sums).abs().max()),
+               "ms": time_ms(call), "device_us_per_launch": device_us(
+                   call, BWD),
+               "plain_ms": time_ms(plain, reps=3, warmup=1),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": time_ms(
+                   lambda: torch.ops.aten.grid_sampler_2d_backward(
+                       gs, src, grid, 0, 0, True, [True, True])),
+               "whole_ms": time_ms(
+                   lambda: warp_cuda.warp2d_bwd_cuda(src, flow, g)),
+               "whole_device_us_per_launch": device_us(
+                   lambda: warp_cuda.warp2d_bwd_cuda(src, flow, g), BWD)}
+        out.append(row)
+        if not (row["dflow_vs_whole_max_abs"] == 0.0
+                and row["max_abs_err"] <= KERNEL_TOL
+                and row["bit_reproducible"]
+                and row["vs_plain_slab_sums_max_abs"] == 0):
+            raise AssertionError(
+                f"B2 on the slab from row {y0} at C {C}: dflow "
+                f"{row['dflow_vs_whole_max_abs']} from the whole rows, "
+                f"{row['max_abs_err']} from its plain version; sums twice "
+                f"the same {row['bit_reproducible']}, "
+                f"{row['vs_plain_slab_sums_max_abs']} from the plain model")
+    err = float((from_fixed(total, mbits.reshape(-1, 1, 1, 1), H * W)
+                 - whole_dsrc).abs().max())
+    for row in out:
+        row["slabs_vs_whole_max_abs"] = err
+        emit({"phase": "spatial_joint", "slab_kernel": row})
+    if err != 0.0:
+        raise AssertionError(f"B2's slab sums at C {C} differ from the whole "
+                             f"image's B2 by {err}")
+    return out
 
 
 def phase_joint_slab_kernels(seed):
@@ -4614,12 +4770,13 @@ def phase_joint_slab_kernels(seed):
     its plain version; B5's slab sums (each in the fixed point of max|g|
     over the whole cotangent) added over the slabs 0.0 from the
     whole-volume B5, each bitwise the same over two calls and equal to the
-    plain slab model; each timed (CUDA events, device us) beside the
-    whole-image launch, with its bound and the library's call."""
-    from dfmir_tpu_torch.ops.warp import abs_max_bits, from_fixed
+    plain slab model; B2 on B1's slabs at C 1 and 2 (b2_slab_rows); each
+    timed (CUDA events, device us) beside the whole-image launch, with its
+    bound and the library's call."""
+    from dfmir_tpu_torch.ops.warp import abs_max_bits
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(seed + 40)
-    rows = {FWD: [], DSRC3D: []}
+    rows = {FWD: [], BWD: [], DSRC3D: []}
     B, C, H, W = SJ_B1_SHAPE
     src = torch.randn(SJ_B1_SHAPE, generator=gen, device=dev)
     flow = smooth_field((B, 2, H, W), SJ_B1_FLOW_PX, gen, dev)
@@ -4665,6 +4822,8 @@ def phase_joint_slab_kernels(seed):
                                  f"{row['max_abs_err']} > {KERNEL_TOL}")
         rows[FWD].append(row)
     del src, flow, whole
+    for channels in SJ_B2_CHANNELS:
+        rows[BWD] += b2_slab_rows(channels, gen, dev)
 
     B, C, D, H, W = SJ_B5_SHAPE
     flow = smooth_field3d((B, 3, D, H, W), SJ_B5_FLOW_VOX, gen, dev)
@@ -4746,96 +4905,137 @@ def slab_parts(reports, i):
 def phase_spatial_joint(seed, smi):
     """The joint model on slabs (JAX's spatial mesh axis): the slab kernels
     (phase_joint_slab_kernels); RegistrationConfig() at 256^2 split along
-    H over 2 and 4 ranks and RegistrationConfig(ndims=3, crop_size=128)
-    along D over 2, sharing the card over gloo in one launch of 4 ranks, B=1,
-    each against one process on the whole image (run first, alone, and
-    freed): register's slabs put together (fake_B, idt_B, y_source,
-    pos_flow) <= SJ_TOL max-abs; at 3-D the metrics of SJ_STEPS steps
-    within SJ_METRIC_TOL relative and the gradients within GRAD_ENV of
-    each tensor's max |g| (a norm-fed conv bias: its network's), replicas
-    bit-equal; a rank's launches exact (a 2-D register 1 + 1, a 3-D
-    register 1 + 1, a step 1 + 2 and 1 + 2 + 1); ms, peak memory, bytes and
-    host seconds in the exchanges, by rank.  Two 3-D ranks take about 33
-    GB of the card each, so this process first lets go of what earlier
-    phases left (a collection of their reference cycles, then the cache)."""
+    H over 2 and 4 ranks (register and SJ_STEPS steps), the graft's
+    configuration at crop 64 over 2 (register and SJ_GRAFT_STEPS, netR's
+    sixth level gathered) and RegistrationConfig(ndims=3, crop_size=128)
+    along D over 2 (register and SJ_STEPS steps), sharing the card over
+    gloo in one launch of 4 ranks, B=1, each against one process on the
+    whole image (run first, alone, in a process of its own): register's
+    slabs put together (fake_B, idt_B, y_source, pos_flow) <= SJ_TOL
+    max-abs; the
+    steps' metrics within SJ_METRIC_TOL relative and the first step's
+    gradients within GRAD_ENV of each tensor's max |g| (a norm-fed conv
+    bias: its network's; at 2-D so in float64, ranks and one process, and
+    in float32 within GRAD_ENV of each network's and SJ_GRAD_F32_TENSOR of
+    each tensor's), replicas bit-equal; a
+    rank's launches exact (a
+    register 1 + 1, a 2-D step 1 + 2 and 1 + 2, a 3-D step 1 + 2 and 1 + 2
+    + 1); ms, peak memory, bytes and host seconds in the exchanges, by
+    rank.  Two 3-D ranks take about 33 GB of the card each, so this
+    process first lets go of what earlier phases left (a collection of
+    their reference cycles, then the cache)."""
     gc.collect()
     torch.cuda.empty_cache()
     slab_rows = phase_joint_slab_kernels(seed)
     cfg2 = RegistrationConfig(**SJ_2D_CFG)
+    cfgg = RegistrationConfig(**SJ_GRAFT_CFG)
     cfg3 = RegistrationConfig(**JOINT3D)
     A2, B2, _ = (t.cpu() for t in make_pairs(1, 1, cfg2.crop_size,
                                                seed + 41, "cpu")[0])
+    AG, BG, _ = (t.cpu() for t in make_pairs(1, 1, cfgg.crop_size,
+                                               seed + 43, "cpu")[0])
     (A3, B3, _), = [tuple(t.cpu() for t in p) for p in joint3d_pairs(
         1, cfg3.crop_size, seed + 42, "cpu")]
     fit = build_model(cfg3, seed, DEVICE, gain=1.0)
     gain3 = fit_flow_head(fit, A3.to(DEVICE), B3.to(DEVICE), JOINT3D_FIELD)
+    # netG's module tree is the same at 2-D and 3-D (resnet_9blocks)
     skip = {("G", k) for k in norm_fed_biases(fit.netG)}
     del fit
     torch.cuda.empty_cache()
-    job2 = dict(cfg=dict(SJ_2D_CFG), seed=seed, flow_gain=FLOW_GAIN,
-                register=(A2, B2),
-                reg_reps=SJ_REG_REPS)
-    job3 = dict(cfg=dict(JOINT3D), seed=seed, flow_gain=gain3,
-                register=(A3, B3), reg_reps=SJ_REG_REPS,
-                batches=[(A3, B3)] * SJ_STEPS, lr=cfg3.lr)
     state = tempfile.mkdtemp(prefix="chip_smoke_sj_")
-    path = os.path.join(state, "after_step_0.pt")
+    jobs = {
+        "2d": dict(cfg=dict(SJ_2D_CFG), seed=seed, flow_gain=FLOW_GAIN,
+                   register=(A2, B2), reg_reps=SJ_REG_REPS,
+                   batches=[(A2, B2)] * SJ_STEPS, lr=cfg2.lr),
+        "graft": dict(cfg=dict(SJ_GRAFT_CFG), seed=seed, flow_gain=FLOW_GAIN,
+                      register=(AG, BG), reg_reps=SJ_REG_REPS,
+                      batches=[(AG, BG)] * SJ_GRAFT_STEPS, lr=cfgg.lr),
+        "3d": dict(cfg=dict(JOINT3D), seed=seed, flow_gain=gain3,
+                   register=(A3, B3), reg_reps=SJ_REG_REPS,
+                   batches=[(A3, B3)] * SJ_STEPS, lr=cfg3.lr)}
+    extents = {"2d": cfg2, "graft": cfgg, "3d": cfg3}
+    step_launches = {"2d": STEP_LAUNCHES, "graft": STEP_LAUNCHES,
+                     "3d": JOINT3D_STEP}
+    # the one-process references in a process of their own: the whole
+    # image's FFT convs reserve ~18 GB that this process, fragmented by
+    # what it keeps, could not give back before the ranks need the card.
+    # At 2-D the first step's gradients are held tensor by tensor in
+    # float64, the ranks' against one process's: in float32 the whole
+    # image's own gradients of the norm-fed convs' weights are off float64
+    # by up to a tenth of their max |g| (cuDNN's algorithms at these
+    # shapes), which a slab's rounding cannot be held under; float32 is
+    # held network by network, as phases dp and train hold the 2-D step
     t0 = time.perf_counter()
-    single2 = checks.joint_spatial_steps(None, dict(job2, device=DEVICE))
-    single3 = checks.joint_spatial_steps(None, dict(job3, device=DEVICE,
-                                                    save_after=(0, path)))
-    torch.cuda.empty_cache()
+    paths = {kind: os.path.join(state, f"{kind}_after_step_0.pt")
+             for kind in jobs}
+    exact_kinds = ("2d", "graft")
+    ref_cases = [(kind, "one_process", {"fn": "joint_spatial_steps",
+                                        "job": dict(jobs[kind], save_after=(
+                                            0, paths[kind]))})
+                 for kind in ("3d", "2d", "graft")]
+    ref_cases += [(f"{kind}_float64", "one_process", {
+        "fn": "joint_spatial_steps", "job": dict(
+            jobs[kind], dtype="float64", register=None,
+            batches=jobs[kind]["batches"][:1])}) for kind in exact_kinds]
+    with expandable_segments():
+        refs = dp_launch(checks.run_cases, [DP_DEVICES[0]], ref_cases)[0]
+    singles = {kind: refs[kind] for kind in jobs}
+    exact = {kind: refs[f"{kind}_float64"] for kind in exact_kinds}
+    for kind, job in jobs.items():
+        job["load_after"] = (0, paths[kind])
+        check_launches(f"spatial_joint one process {kind} register",
+                       singles[kind]["register_launches"],
+                       dict(ZERO, **(REG3D if kind == "3d"
+                                     else SJ_REGISTER)))
+        dp_ranks_agree([singles[kind]], step_launches[kind],
+                       f"spatial_joint one process {kind}")
     one_process_s = time.perf_counter() - t0
-    job3["load_after"] = (0, path)
-    for r in (single2, single3):
-        check_launches("spatial_joint one process register",
-                       r["register_launches"],
-                       dict(ZERO, **(SJ_REGISTER if r is single2 else REG3D)))
-    dp_ranks_agree([single3], JOINT3D_STEP, "spatial_joint one process")
-    cases = [(f"2d_{n}x{s}", "joint_spatial_steps",
-              {"job": dict(job2, n_data=n, n_spatial=s)})
-             for n, s in SJ_2D_MESHES]
-    cases.append(("3d_{}x{}".format(*SJ_3D_MESH), "joint_spatial_steps",
-                  {"job": dict(job3, n_data=SJ_3D_MESH[0],
-                               n_spatial=SJ_3D_MESH[1])}))
+    meshes_of = [("2d", n, s_) for n, s_ in SJ_2D_MESHES] + [
+        ("graft", *SJ_GRAFT_MESH), ("3d", *SJ_3D_MESH)]
+    cases = [(f"{kind}_{n}x{s_}", "joint_spatial_steps",
+              {"job": dict(jobs[kind], n_data=n, n_spatial=s_)})
+             for kind, n, s_ in meshes_of]
+    cases += [(f"{kind}_{n}x{s_}_float64", "joint_spatial_steps", {
+        "job": dict(jobs[kind], dtype="float64", register=None,
+                    batches=jobs[kind]["batches"][:1], load_after=None,
+                    n_data=n, n_spatial=s_)})
+        for kind, n, s_ in meshes_of if kind in exact_kinds]
     gc.collect()
     torch.cuda.empty_cache()
     main_gb = {"allocated": gb(torch.cuda.memory_allocated()),
                "reserved": gb(torch.cuda.memory_reserved())}
     emit({"phase": "spatial_joint", "this_process_mem_gb": main_gb})
-    # the ranks' allocator grows its segments in place rather than caching
-    # more of them: two 3-D ranks fill most of the card between them
-    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    # two 3-D ranks fill most of the card between them
     t0 = time.perf_counter()
     try:
-        ranks = dp_launch(checks.run_cases, [DP_DEVICES[0]] * max(
-            n * s for n, s in SJ_2D_MESHES + [SJ_3D_MESH]), cases)
+        with expandable_segments():
+            ranks = dp_launch(checks.run_cases, [DP_DEVICES[0]] * max(
+                n * s_ for _, n, s_ in meshes_of), cases)
     finally:
         shutil.rmtree(state, ignore_errors=True)
-        if conf is None:
-            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
     launch_s = time.perf_counter() - t0
     totals = {"spatial_joint_register2d": [], "spatial_joint_register3d": [],
-              "spatial_joint_train": []}
+              "spatial_joint_train2d": [], "spatial_joint_train": []}
     meshes = {}
     names = ("fake_B", "idt_B", "y_source", "pos_flow")
     for name, _, kw in cases:
+        if name.endswith("_float64"):
+            continue
         job = kw["job"]
-        single = single3 if name.startswith("3d") else single2
+        kind = name.split("_")[0]
+        single = singles[kind]
         reports = [r[name] for r in ranks if r[name].get("in_mesh", True)]
         want = job["n_data"] * job["n_spatial"]
         if len(reports) != want:
             raise AssertionError(f"spatial_joint {name}: {len(reports)} "
                                  f"ranks reported, not {want}")
-        reg = SJ_REGISTER if name.startswith("2d") else REG3D
+        reg = REG3D if kind == "3d" else SJ_REGISTER
         for r in reports:
             check_launches(f"spatial_joint {name} register, rank "
                            f"{r['rank']}", r["register_launches"],
                            dict(ZERO, **reg))
-        totals["spatial_joint_register" + name[:2]].append(add_counts(
+        dims = "3d" if kind == "3d" else "2d"
+        totals["spatial_joint_register" + dims].append(add_counts(
             *((1, r["register_launches"]) for r in reports)))
         reg_errs = {k: float((slab_parts(reports, i)
                               - single["register"][i]).abs().max())
@@ -4844,8 +5044,12 @@ def phase_spatial_joint(seed, smi):
             raise AssertionError(f"spatial_joint {name}: register differs "
                                  f"from one process's by {reg_errs} > "
                                  f"{SJ_TOL}")
+        cfg = extents[kind]
         row = {"n_data": job["n_data"], "n_spatial": job["n_spatial"],
-               "ranks": want, "register_max_abs_vs_one_process": reg_errs,
+               "ranks": want, "extent": cfg.crop_size,
+               "netR_gathered_from_level": first_whole_level(
+                   cfg.crop_size, job["n_spatial"], len(cfg.vxm_enc)),
+               "register_max_abs_vs_one_process": reg_errs,
                "pos_flow_max": float(single["register"][3].abs().max()),
                "register_ms_by_rank": [statistics.median(r["register_ms"])
                                        for r in reports],
@@ -4859,36 +5063,53 @@ def phase_spatial_joint(seed, smi):
                    gb(r["register_peak_bytes"]) for r in reports],
                "one_process_register_peak_mem_gb": gb(
                    single["register_peak_bytes"])}
-        if job.get("batches"):
-            totals["spatial_joint_train"].append(dp_ranks_agree(
-                reports, JOINT3D_STEP, f"spatial_joint {name}"))
-            row["steps_rel_vs_one_process"] = [
-                rel_errs(reports[0]["metrics"][i], single["metrics"][i],
-                         SJ_METRIC_TOL, f"spatial_joint {name} step {i}")
-                for i in range(SJ_STEPS)]
-            row["grad_vs_one_process"], row["params_past_1e-5"] = (
-                slab_grad_errs(reports[0], single, skip, job["lr"],
-                               f"spatial_joint {name}"))
-            row.update(
-                flow_gain=gain3,
-                step_ms_by_rank=[r["ms"] for r in reports],
-                ms_per_step_by_rank=[r["ms"][-1] for r in reports],
-                one_process_ms_per_step=single["ms"][-1],
-                peak_mem_gb_by_rank=[gb(r["peak_bytes"]) for r in reports],
-                one_process_peak_mem_gb=gb(single["peak_bytes"]),
-                bytes_sent_per_step_by_rank=[r["bytes_sent"][-1]
-                                             for r in reports],
-                exchange_host_s_per_step_by_rank=[r["exchange_s"][-1]
-                                                  for r in reports])
+        totals["spatial_joint_train" + ("" if kind == "3d" else "2d")].append(
+            dp_ranks_agree(reports, step_launches[kind],
+                           f"spatial_joint {name}"))
+        row["steps_rel_vs_one_process"] = [
+            rel_errs(reports[0]["metrics"][i], single["metrics"][i],
+                     SJ_METRIC_TOL, f"spatial_joint {name} step {i}")
+            for i in range(len(job["batches"]))]
+        row["grad_vs_one_process"], row["params_past_1e-5"] = (
+            slab_grad_errs(reports[0], single, skip, job["lr"],
+                           f"spatial_joint {name}",
+                           per_tensor=kind not in exact))
+        if kind in exact:
+            row["grad_vs_one_process_each_tensor"] = grad_errs(
+                reports[0]["grads"], single["grads"], skip,
+                f"spatial_joint {name} float32 per tensor",
+                limit=SJ_GRAD_F32_TENSOR)
+            rank0_64, = [r[f"{name}_float64"] for r in ranks
+                         if r[f"{name}_float64"].get("rank") == 0]
+            row["grad_float64_vs_one_process_float64"] = grad_errs(
+                rank0_64["grads"], exact[kind]["grads"], skip,
+                f"spatial_joint {name} float64")
+            row["one_process_float32_vs_float64"] = grad_errs(
+                single["grads"], exact[kind]["grads"], skip,
+                f"spatial_joint {name} one process", limit=None)
+        row.update(
+            flow_gain=job["flow_gain"],
+            step_ms_by_rank=[r["ms"] for r in reports],
+            ms_per_step_by_rank=[r["ms"][-1] for r in reports],
+            one_process_ms_per_step=single["ms"][-1],
+            peak_mem_gb_by_rank=[gb(r["peak_bytes"]) for r in reports],
+            one_process_peak_mem_gb=gb(single["peak_bytes"]),
+            bytes_sent_per_step_by_rank=[r["bytes_sent"][-1]
+                                         for r in reports],
+            exchange_host_s_per_step_by_rank=[r["exchange_s"][-1]
+                                              for r in reports])
         meshes[name] = row
         emit({"phase": "spatial_joint", "mesh": name, **row})
     launches = {path: add_counts(*((1, c) for c in counts))
                 for path, counts in totals.items()}
     emit({"phase": "spatial_joint",
           "config": ["RegistrationConfig() (256^2)",
+                     "RegistrationConfig(crop_size=64, num_patches=64)",
                      "RegistrationConfig(ndims=3, crop_size=128)"],
           "backend": backend_for(DP_DEVICES), "steps": SJ_STEPS,
-          "launches": launches, "launches_per_rank_step": JOINT3D_STEP,
+          "launches": launches,
+          "launches_per_rank_step": {"2d": STEP_LAUNCHES,
+                                     "3d": JOINT3D_STEP},
           "launches_per_rank_register": {"2d": SJ_REGISTER, "3d": REG3D},
           "meshes": meshes, "one_process_s": one_process_s,
           "launch_s": launch_s, "this_process_mem_gb": main_gb,
@@ -5767,7 +5988,7 @@ def main(argv=None):
         kernel_row(FWD, f"{tpu}:143", src2d, by_path(FWD), "train",
                    fwd_rows, MAIN_CASE, slab_joint_rows[FWD]),
         kernel_row(BWD, f"{tpu}:972", src2d, by_path(BWD), "train",
-                   bwd_rows, MAIN_BWD_CASE),
+                   bwd_rows, MAIN_BWD_CASE, slab_joint_rows[BWD]),
         kernel_row(VF, f"{tpu}:143", src2d, by_path(VF), "train",
                    chain_rows[VF], MAIN_CHAIN_CASE),
         kernel_row(VB, f"{tpu}:972", src2d, by_path(VB), "train",

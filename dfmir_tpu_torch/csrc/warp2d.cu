@@ -88,6 +88,24 @@
 //   conversion to float, as B3 forms z + z0 (csrc/warp3d.cu), so a slab's
 //   rows are the whole image's rows bit for bit.  The whole image keeps its
 //   own instance of the kernel (kSlab false) and its entry.
+// - B2 on a row slab (dfmir_warp2d_bwd_slab): the same rows of flow and g,
+//   src the whole image.  dflow is the slab's rows, formed as above, so
+//   the whole image's B2 rows bit for bit.  The source gradient is the
+//   slab's terms summed over the whole source, left as int64s: B2's fixed
+//   point is per batch item, and two ranks summing in their own units
+//   could not add their sums, so the scale comes from the caller (each
+//   item's max|g| over the whole image, all-reduced over the ranks: one
+//   uint32 a item on the device) with the whole image's Hs*W terms a sum,
+//   and the wrapper reduce-scatters the integers across the ranks before
+//   the one conversion (ops/warp_cuda.py).  The ranks' dsrc is then the
+//   whole image's B2 bit for bit.  One thread a target pixel over the
+//   card, its four terms a channel added with native 64-bit atomics into
+//   sums the entry zeroes (cudaMemsetAsync): integer adds commute, so the
+//   order is free.  What bounds it: device-memory bytes and L2 atomics,
+//   the whole source's int64 sums zeroed and written (8 B a source pixel
+//   a channel) beside the slab's flow, g and dflow; a few dozen flops a
+//   pixel.  Without a source gradient (a data warp) it is the dflow
+//   kernel's slab instance and bins nothing.
 //
 // THE VECINT CHAIN (vecint2d_fwd, vecint2d_bwd)
 //
@@ -341,12 +359,20 @@ __global__ void warp2d_bilinear_fwd(const float* __restrict__ src,
 }
 
 // B2 without a source gradient (the data warp): dflow alone, a thread a
-// pixel over the whole card.
+// pixel over the whole card.  kSlab: the slab form, flow, g and dflow rows
+// [y0, y0 + H) of an image of Hs rows (a whole image: Hs = H, y0 = 0, not
+// read), and, unless `sums` is null, each pixel's dsrc terms added as
+// int64s into `sums` ((B, C, Hs, W), zeroed) in item b's fixed point of
+// gmax[b] over Hs * W terms.
+template <bool kSlab>
 __global__ void warp2d_bilinear_bwd_dflow(const float* __restrict__ src,
                                           const float* __restrict__ flow,
                                           const float* __restrict__ g,
                                           float* __restrict__ dflow,
-                                          int B, int C, int H, int W) {
+                                          unsigned long long* __restrict__ sums,
+                                          const unsigned* __restrict__ gmax,
+                                          int B, int C, int H, int W, int Hs,
+                                          int y0) {
   const long long hw = (long long)H * W;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)B * hw) return;
@@ -356,13 +382,24 @@ __global__ void warp2d_bilinear_bwd_dflow(const float* __restrict__ src,
   const int x = (int)(p - (long long)y * W);
 
   const float* fb = flow + (long long)b * 2 * hw;
-  const Bilinear t = bilinear_at(y, x, __ldg(fb + p), __ldg(fb + hw + p), H,
-                                 W);
+  const Bilinear t = bilinear_at(kSlab ? y + y0 : y, x, __ldg(fb + p),
+                                 __ldg(fb + hw + p), kSlab ? Hs : H, W);
+  const long long shw = kSlab ? (long long)Hs * W : hw;
   const long long base = (long long)b * C * hw;
+  const long long sbase = (long long)b * C * shw;
+  const bool binned = kSlab && sums != nullptr;
+  Fixed f;
+  if (binned) f = fixed_of(__ldg(gmax + b), (int)shw);
   DflowTerms terms;
   for (int c = 0; c < C; ++c) {
-    terms.add(__ldg(g + base + (long long)c * hw + p),
-              corners<false>(src + base + (long long)c * hw, W, t), t);
+    const float gc = __ldg(g + base + (long long)c * hw + p);
+    terms.add(gc, corners<false>(src + sbase + (long long)c * shw, W, t), t);
+    if (binned) {
+      unsigned long long* sc = sums + sbase + (long long)c * shw;
+      scatter_fixed(gc, t, W, f, [&](int o, long long v) {
+        atomicAdd(sc + o, (unsigned long long)v);
+      });
+    }
   }
   float* db = dflow + (long long)b * 2 * hw;
   db[p] = terms.dy();
@@ -897,9 +934,9 @@ extern "C" int dfmir_warp2d_bwd(const float* src, const float* flow,
   const long long n = (long long)B * H * W;
   if (n == 0) return (int)cudaSuccess;
   if (dsrc == nullptr) {
-    warp2d_bilinear_bwd_dflow<<<blocks_for(n), kThreads, 0,
-                                (cudaStream_t)stream>>>(src, flow, g, dflow,
-                                                        B, C, H, W);
+    warp2d_bilinear_bwd_dflow<false><<<blocks_for(n), kThreads, 0,
+                                       (cudaStream_t)stream>>>(
+        src, flow, g, dflow, nullptr, nullptr, B, C, H, W, H, 0);
     return (int)cudaGetLastError();
   }
   if (scratch == nullptr) return (int)cudaErrorInvalidValue;
@@ -916,6 +953,44 @@ extern "C" int dfmir_warp2d_bwd(const float* src, const float* flow,
                   &B, &C, &H, &W, (void*)&per_item};
   return (int)launch_chain(kernel, b2_resident, 0, groups * per_item, args,
                            stream);
+}
+
+// The int64s of the sums dfmir_warp2d_bwd_slab writes for a source of
+// (B,C,Hs,W): one a source pixel a channel.
+extern "C" long long dfmir_warp2d_bwd_slab_sums(int B, int C, int Hs,
+                                                int W) {
+  return (long long)B * C * Hs * W;
+}
+
+// B2 on a row slab: flow (B,2,H,W) and g (B,C,H,W) are rows [y0, y0 + H)
+// of an image of Hs rows, src (B,C,Hs,W) the whole image; writes dflow
+// (B,2,H,W), the whole image's dflow rows bit for bit, and, unless sums is
+// null, sums (B,C,Hs,W) int64 (dfmir_warp2d_bwd_slab_sums' size, zeroed
+// here): each source pixel's sum of the slab's dsrc terms in item b's
+// fixed point of gmax[b] (a device uint32 a batch item: the bits of
+// max|g[b]| over the whole image's cotangent) and Hs*W terms, unconverted.
+// float32, contiguous, on the device of `stream`; src and flow may alias,
+// dflow and sums alias nothing.  Returns the launch's cudaError_t.
+extern "C" int dfmir_warp2d_bwd_slab(const float* src, const float* flow,
+                                     const float* g, float* dflow,
+                                     unsigned long long* sums,
+                                     const unsigned* gmax, int B, int C,
+                                     int H, int W, int Hs, int y0,
+                                     void* stream) {
+  if (y0 < 0 || y0 + H > Hs) return (int)cudaErrorInvalidValue;
+  if (sums != nullptr && gmax == nullptr) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)B * H * W;
+  if (sums != nullptr) {
+    const cudaError_t err = cudaMemsetAsync(
+        sums, 0, sizeof(unsigned long long) * B * C * (long long)Hs * W,
+        (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (n == 0) return (int)cudaSuccess;
+  warp2d_bilinear_bwd_dflow<true><<<blocks_for(n), kThreads, 0,
+                                      (cudaStream_t)stream>>>(
+      src, flow, g, dflow, sums, gmax, B, C, H, W, Hs, y0);
+  return (int)cudaGetLastError();
 }
 
 // VecInt forward: vec (B,2,H,W) -> out (B,2,H,W), nsteps squarings.  With

@@ -91,14 +91,18 @@ those, its spatial rank's slab along axis 2 (H at 2-D, D at 3-D), and
 every entry point returns this rank's rows of the whole image's results.
 netG runs on the slabs (halos, reflect pads at the global ends only, the
 norms' statistics over the spatial group, ``nets/resnet_gen.py``), netR as
-the 3-D engine's (``nets/vxm.py``), PatchSampleF takes the whole map's ids
-and gathers the samples on every spatial rank (``nets/patch_sample.py``),
-``registered`` warps the gathered fake_B (``ops.warp.warp_slabs``, B5 on
-the slab), and the masked L1s and the smoothness are the whole image's.
-``register`` runs at 2-D and 3-D; the step (``loss_fn``, ``train_step``,
-``eval_step``) at 3-D: the 2-D step waits for B2's slab form.  The image's
-extent must pass ``parallel.mesh.check_joint_slabs``.  On slabs the options
-below have no slab form and raise, each by name (``SLAB_REFUSALS``).
+the 3-D engine's (``nets/vxm.py``: its levels that do not split over the
+spatial ranks run gathered), PatchSampleF takes the whole map's ids and
+gathers the samples on every spatial rank (``nets/patch_sample.py``),
+``registered`` warps the gathered fake_B (``ops.warp.warp_slabs``: B5 on
+the slab at 3-D, B2 at 2-D), and the masked L1s and the smoothness are the
+whole image's.  ``register`` and the step (``loss_fn``, ``train_step``,
+``eval_step``) run at 2-D and 3-D.  The image's extent must pass
+``parallel.mesh.check_joint_slabs``: JAX's ``shard_batch`` splits it and
+the whole-image model takes it, and netG's levels and the SVF split (the
+graft's crop 64 over 2 ranks gathers netR's sixth level).  On slabs the
+options below have no slab form and raise, each by name
+(``SLAB_REFUSALS``).
 
 Refused (NotImplementedError): at ``ndims=3`` the choices the JAX package
 cannot build there (``JAX_2D_ONLY``: ``jax.eval_shape`` of its
@@ -593,7 +597,7 @@ class RegistrationModel:
         batch's loss (its mean over the ranks is the global loss, and its
         gradient, averaged over them, the global gradient).  On slabs
         (train or not): the whole image's and global batch's loss, with
-        this rank's share of its gradient; at 3-D only."""
+        this rank's share of its gradient."""
         return self._loss(real_A, real_B, patch_ids, generator, flip,
                           dropout_generator, train,
                           self.mesh if train else None)
@@ -601,10 +605,6 @@ class RegistrationModel:
     def _step_mesh(self, real_A, mesh):
         """(the losses' mesh, the networks' mesh on slabs or None)."""
         spatial = self._spatial(real_A)
-        if spatial is not None and self.cfg.ndims == 2:
-            raise NotImplementedError(
-                "the 2-D step on slabs (loss_fn, train_step, eval_step) "
-                "waits for B2's slab form; register runs on slabs at 2-D")
         return spatial or mesh, spatial
 
     def _loss(self, real_A, real_B, patch_ids, generator, flip,

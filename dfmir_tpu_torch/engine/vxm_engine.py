@@ -27,9 +27,13 @@ exchanges (``nets/vxm.py``), the losses and statistics are the whole
 volume's (``losses/``, ``ops/jacobian.py``), and every entry point speaks
 for the global batch: ``register`` returns this rank's slabs of
 (y_source, pos_flow), ``train_step``, ``eval_step`` and ``flow_stats``
-the global metrics.  D must be divisible by n_spatial * lcm(2^len(enc),
-int_downsize), so that every level of the UNet and the half-resolution
-SVF split into equal slabs that start on even planes (``check_slabs``).
+the global metrics.  D must be one that JAX's ``shard_batch`` splits
+(n_spatial divides it) and the whole-volume model takes (divisible by
+lcm(2^len(enc), int_downsize)), and the half-resolution SVF's planes must
+split too (``parallel.mesh.check_joint_slabs``).  The UNet's levels that
+n_spatial does not divide run on the gathered map, whole on every spatial rank
+(``nets/vxm.py``): ``VxmConfig()`` at 160^3 over 4 ranks gathers its
+fourth encoder level (10 planes).
 
 When the tensors lie on the card, VecInt's chain runs as one kernel launch
 each way (2-D or 3-D) and the data warp on the single-warp kernels
@@ -39,7 +43,6 @@ each way (2-D or 3-D) and the data warp on the single-warp kernels
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -50,7 +53,8 @@ from dfmir_tpu_torch.losses import grad_loss, mse_loss, ncc_loss
 from dfmir_tpu_torch.nets.vxm import VxmDense, default_unet_features
 from dfmir_tpu_torch.ops.jacobian import field_stats
 from dfmir_tpu_torch.parallel.mesh import (Mesh, all_reduce_grads,
-                                           all_reduce_metrics, is_spatial,
+                                           all_reduce_metrics,
+                                           check_joint_slabs, is_spatial,
                                            replicate, state_tensors)
 
 
@@ -79,19 +83,6 @@ class VxmConfig:
             if key in kwargs and isinstance(kwargs[key], str):
                 kwargs[key] = tuple(int(v) for v in kwargs[key].split(","))
         return cls(**kwargs)
-
-
-def check_slabs(depth: int, n_spatial: int, cfg: "VxmConfig") -> None:
-    """Raise unless a volume of ``depth`` planes splits into ``n_spatial``
-    slabs that every level of netR cuts the same on every rank: D must be
-    divisible by n_spatial * lcm(2^len(enc), int_downsize)."""
-    unit = n_spatial * math.lcm(2 ** len(cfg.enc), cfg.int_downsize)
-    if depth % unit:
-        raise ValueError(
-            f"a depth of {depth} does not split over {n_spatial} spatial "
-            f"ranks: D must be divisible by n_spatial * lcm(2^len(enc), "
-            f"int_downsize) = {n_spatial} * lcm({2 ** len(cfg.enc)}, "
-            f"{cfg.int_downsize}) = {unit}")
 
 
 class VxmEngine:
@@ -130,22 +121,24 @@ class VxmEngine:
         rank holds rank 0's netR and Adam state, then broadcast them from
         rank 0 (JAX's ``replicate``).  A mesh with n_spatial > 1
         (``make_mesh``) splits the volumes along D too: ``cfg.vol_size``
-        must pass ``check_slabs``, and every call takes this rank's
+        must pass ``check_joint_slabs``, and every call takes this rank's
         slabs."""
         if is_spatial(mesh):
             if self.cfg.ndims != 3:
                 raise ValueError("the spatial axis splits 3-D volumes")
-            check_slabs(self.cfg.vol_size, mesh.n_spatial, self.cfg)
+            check_joint_slabs(self.cfg.vol_size, mesh.n_spatial,
+                              len(self.cfg.enc), self.cfg.int_downsize)
         replicate(self.state_tensors(), mesh)
         self.mesh = mesh
 
     def _spatial(self, source) -> Optional[Mesh]:
         """The mesh when it splits the volumes (``source`` then a slab,
-        whose whole depth must pass ``check_slabs``), else None."""
+        whose whole depth must pass ``check_joint_slabs``), else None."""
         if not is_spatial(self.mesh):
             return None
-        check_slabs(source.shape[2] * self.mesh.n_spatial,
-                    self.mesh.n_spatial, self.cfg)
+        check_joint_slabs(source.shape[2] * self.mesh.n_spatial,
+                          self.mesh.n_spatial, len(self.cfg.enc),
+                          self.cfg.int_downsize)
         return self.mesh
 
     def _sim(self, pred, target, mesh):

@@ -29,7 +29,8 @@ from dfmir_tpu_torch.nets.layers import conv_nd, conv_slab, upsample_nearest
 from dfmir_tpu_torch.ops.integrate import (resize_flow_slab,
                                            resize_flow_to_slab, vecint)
 from dfmir_tpu_torch.ops.warp import warp
-from dfmir_tpu_torch.parallel.mesh import gather_slabs, is_spatial
+from dfmir_tpu_torch.parallel.mesh import (first_whole_level, gather_slabs,
+                                           is_spatial, slab_slice)
 
 
 def default_unet_features():
@@ -74,15 +75,34 @@ class VxmUnet(nn.Module):
         self.out_channels = prev
 
     def forward(self, x, mesh=None):
-        """``mesh`` splitting the volume along D: ``x`` is this rank's slab,
-        each conv takes a halo (``conv_slab``), the upsampling and the skip
-        concatenations stay on the slab."""
+        """``mesh`` splitting the image along axis 2 (D at 3-D, H at 2-D):
+        ``x`` is this rank's slab.  A level that splits over the spatial
+        ranks (``parallel.mesh.first_whole_level``: n_spatial divides its
+        rows) runs on the slabs, each conv with a halo (``conv_slab``).  The
+        first level that does not, and every coarser one, runs on the
+        gathered map, whole on every spatial rank: the strided conv into it
+        takes the finer level's map gathered, and on the way up the decoder
+        takes this rank's rows of the upsampled map again, before the skip
+        concat, at the first level that splits."""
+        depth = len(self.downarm)
+        whole = None
+        if is_spatial(mesh):
+            whole = first_whole_level(x.shape[2] * mesh.n_spatial,
+                                      mesh.n_spatial, depth)
+
+        def at(level):
+            return mesh if whole is None or level < whole else None
         x_enc = [x]
-        for layer in self.downarm:
-            x_enc.append(layer(x_enc[-1], mesh))
+        for level, layer in enumerate(self.downarm):
+            h = x_enc[-1]
+            if level + 1 == whole:
+                h = gather_slabs(h, mesh)
+            x_enc.append(layer(h, at(level + 1)))
         h = x_enc.pop()
-        for layer in self.uparm:
-            h = upsample_nearest(layer(h, mesh))
+        for level, layer in zip(range(depth, 0, -1), self.uparm):
+            h = upsample_nearest(layer(h, at(level)))
+            if level == whole:
+                h = slab_slice(h, mesh.spatial_rank, mesh.n_spatial)
             h = torch.cat([h, x_enc.pop()], dim=1)
         for layer in self.extras:
             h = layer(h, mesh)
@@ -124,13 +144,15 @@ class VxmDense(nn.Module):
         """``mesh`` splitting a 3-D volume along D or a 2-D image along H
         (float32): ``source`` and ``target`` are this rank's slabs, and so
         is each field and image of the tuple (the half-resolution SVF its
-        slab of the half-resolution image).  The UNet and the flow head run
-        on the slabs with halos; the SVF is gathered whole on every spatial
-        rank, integrated there by the unchanged chain, and each rank resizes
-        its own rows of the result; the warps sample the gathered source
-        (and target) at the slab's global rows (B3 / B4 with ``z0``, B1 with
-        ``y0``; a 2-D warp on a slab has no backward on the card yet).
-        Without it each of these steps is the whole image's op."""
+        slab of the half-resolution image).  The UNet (its coarse levels
+        gathered where they do not split, ``VxmUnet.forward``) and the flow
+        head run on the slabs with halos; the SVF is gathered whole on every
+        spatial rank, integrated there by the unchanged chain, and each rank
+        resizes its own rows of the result; the warps sample the gathered
+        source (and target) at the slab's global rows, forward and backward
+        (B3 / B4 with ``z0``, B1 / B2 with ``y0``; the data warps' source
+        takes no gradient).  Without it each of these steps is the whole
+        image's op."""
         z0 = None
         if is_spatial(mesh):
             if self.compute_dtype != torch.float32:

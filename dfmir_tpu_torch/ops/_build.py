@@ -36,6 +36,12 @@ SIGNATURES = {
     "dfmir_warp2d_bwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # (B, C, H, W) -> the int64s of dfmir_warp2d_bwd's scratch
     "dfmir_warp2d_bwd_scratch": (_L, [_I, _I, _I, _I]),
+    # (src, flow, g, dflow, sums or NULL, gmax or NULL, B, C, H, W, Hs, y0,
+    #  stream) -> cudaError_t
+    "dfmir_warp2d_bwd_slab": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _P]),
+    # (B, C, Hs, W) -> the int64s of dfmir_warp2d_bwd_slab's sums
+    "dfmir_warp2d_bwd_slab_sums": (_L, [_I, _I, _I, _I]),
     # (vec, steps, out, B, H, W, nsteps, save, cluster, stream)
     #  -> cudaError_t
     "dfmir_vecint2d_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),

@@ -12,12 +12,15 @@
   above 1 scales first and then resizes, with align-corners linear
   interpolation to ``floor(S * factor)``.
 - ``resize_flow_slab`` / ``resize_flow_to_slab``: ``resize_flow`` for a
-  volume split along D over ranks (``parallel/mesh.py``), from this
-  rank's slab or from the whole field, to this rank's slab of the result:
-  each rank computes only its own rows of the D axis's align-corners
-  matrix (an output plane o samples input plane o (n_in - 1) / (n_out -
-  1), so the slabs' edges do not line up between the two sizes), from the
-  input planes those rows reach.
+  field split along its first spatial axis over ranks (D at 3-D, H at
+  2-D; ``parallel/mesh.py``), from this rank's slab or from the whole
+  field, to this rank's slab of the result: each rank computes only its
+  own rows of that axis's align-corners matrix (an output plane o samples
+  input plane o (n_in - 1) / (n_out - 1), so the slabs' edges do not line
+  up between the two sizes), from the input planes those rows reach; the
+  gradient flows back through the halo exchange or, from the whole field
+  (the chain's output, gathered on every rank), to each rank's own rows of
+  it, which ``gather_slabs``' backward sums over the ranks.
 """
 
 from __future__ import annotations

@@ -20,9 +20,10 @@ With ``z0`` a warp takes a slab of an image split along its first spatial
 axis over ranks (``parallel/mesh.py``; H at 2-D, D at 3-D): the output's
 rows or planes from ``z0`` of the whole source, each sampling the source as
 the whole image's rows do.  ``warp_slabs`` warps the source gathered from
-the spatial ranks' slabs, with a gradient for them.  ``from_fixed`` and
-``abs_max_bits`` are the fixed point of B5 on slabs, whose plain model is
-``warp3d_dsrc_binned_plain`` with ``z0``.
+the spatial ranks' slabs, with a gradient for them.  ``from_fixed``,
+``abs_max_bits`` and ``item_max_bits`` are the fixed points of B5 and B2
+on slabs, whose plain models are ``warp3d_dsrc_binned_plain`` with ``z0``
+and ``warp2d_dsrc_fixed_plain`` with ``y0``.
 """
 
 from __future__ import annotations
@@ -145,9 +146,9 @@ def warp(src, flow, mode="bilinear", impl="auto", z0=None):
     impl: 'auto' | 'torch' | 'cuda'.
     z0:   a slab: ``flow`` holds the output's rows (2-D) or planes (3-D)
           ``[z0, z0 + D)`` of the whole source ``src`` (B, C, Ds, ...), row
-          z sampling (z + z0) + flow[:, 0] (``warp_cuda.Warp2dSlabFunction``,
-          forward only; ``Warp3dSlabFunction``, whose source takes no
-          gradient here: ``warp_slabs`` gives it one).
+          z sampling (z + z0) + flow[:, 0] (``warp_cuda.Warp2dSlabFunction``
+          / ``Warp3dSlabFunction``, whose source takes no gradient here:
+          ``warp_slabs`` gives it one).
     """
     if impl == "auto":
         impl = "cuda" if _kernel_takes(src, flow, mode) else "torch"
@@ -174,20 +175,21 @@ def warp_slabs(src, flow, mesh, impl="auto"):
     over the spatial ranks of ``mesh``: ``src`` and ``flow`` are this
     rank's slabs, the source is gathered whole and sampled at the slab's
     global rows, and the output is this rank's slab of the whole warp.
-    ``src``'s gradient is the whole warp's, summed over the ranks: at 3-D
-    on the card B4 and B5 on the slab, B5's int64 sums reduce-scattered as
-    integers (``warp_cuda.Warp3dSlabFunction`` with ``mesh``), so it equals
-    the whole volume's B5 bit for bit; otherwise autograd through
-    ``gather_slabs`` (the plain version; a 2-D slab on the card has no
-    backward yet).  ``warp(src, flow)`` where ``mesh`` does not split."""
+    ``src``'s gradient is the whole warp's, summed over the ranks: on the
+    card B4 and B5 (3-D) or B2 (2-D) on the slab, the source gradient's
+    int64 sums reduce-scattered as integers (``warp_cuda.Warp3dSlabFunction``
+    / ``Warp2dSlabFunction`` with ``mesh``), so it equals the whole image's
+    B5 or B2 bit for bit; otherwise autograd through ``gather_slabs`` (the
+    plain version).  ``warp(src, flow)`` where ``mesh`` does not split."""
     if not is_spatial(mesh):
         return warp(src, flow, impl=impl)
     z0 = mesh.spatial_rank * flow.shape[2]
     if impl == "auto":
         impl = "cuda" if _kernel_takes(src, flow, "bilinear") else "torch"
-    if impl == "cuda" and flow.shape[1] == 3:
-        return warp_cuda.Warp3dSlabFunction.apply(
-            src.contiguous(), flow.contiguous(), z0, mesh)
+    if impl == "cuda":
+        fn = (warp_cuda.Warp2dSlabFunction if flow.shape[1] == 2
+              else warp_cuda.Warp3dSlabFunction)
+        return fn.apply(src.contiguous(), flow.contiguous(), z0, mesh)
     return warp(gather_slabs(src, mesh), flow, impl=impl, z0=z0)
 
 
@@ -224,13 +226,22 @@ def abs_max_bits(g) -> torch.Tensor:
     return g.abs().amax().reshape(1).view(torch.int32) & 0x7FFFFFFF
 
 
+def item_max_bits(g) -> torch.Tensor:
+    """``abs_max_bits`` of each batch item of ``g`` (B, ...) over its
+    channels and pixels: a (B,) int32 tensor on g's device, B2's per-item
+    scale."""
+    return (g.abs().reshape(g.shape[0], -1).amax(dim=1).view(torch.int32)
+            & 0x7FFFFFFF)
+
+
 def from_fixed(sums, mbits, n: int) -> torch.Tensor:
     """The float32 values of int64 fixed-point ``sums`` taken in the
     scale of max|g|'s bits ``mbits`` (a (1,) int32 tensor) over at most
     ``n`` terms a sum (``_fixed_point_exponent``, computed on the sums'
     device, no host sync): sum * 2^-e as the kernels round it (the int64's
     nearest float, then an exact power of two); NaN everywhere when max|g|
-    was not finite."""
+    was not finite.  ``mbits`` of a shape that broadcasts against the sums
+    scales each part by its own bits (B2's per item: (B, 1, 1, 1))."""
     bits = mbits.to(sums.device, torch.int32)
     big_e = torch.clamp(bits >> 23, min=1) - 126
     e = torch.clamp(61 - big_e - int(n).bit_length(), max=100)
@@ -300,7 +311,8 @@ def warp3d_dsrc_binned_plain(flow, g, z0: int = 0, D_src=None, mbits=None,
     return total.to(torch.float32) * 2.0 ** -e
 
 
-def warp2d_dsrc_fixed_plain(flow, g):
+def warp2d_dsrc_fixed_plain(flow, g, y0: int = 0, H_src=None, mbits=None,
+                            sums: bool = False):
     """The 2-D source gradient as B2 (``warp2d_bwd_cuda``) and
     ``vecint2d_bwd`` sum it, in plain PyTorch: the dsrc of ``warp(src,
     flow, impl="torch")`` for the cotangent ``g`` (B, C, H, W), float32.
@@ -309,37 +321,51 @@ def warp2d_dsrc_fixed_plain(flow, g):
     coordinates clamped to [-2, S+1]; item b's terms are scaled by 2^e_b,
     e_b from max|g[b]| over its channels and H*W pixels, rounded to int64
     and summed exactly with ``index_add_``; the sum times 2^-e_b.  A
-    non-finite item gives NaN over that item; a zero one exactly 0."""
+    non-finite item gives NaN over that item; a zero one exactly 0.
+
+    B2 on a slab: ``flow`` and ``g`` are rows ``[y0, y0 + H)`` of an image
+    of ``H_src`` rows, the result is (B, C, H_src, W), e_b is taken from
+    ``mbits[b]`` (``item_max_bits`` of the whole image's cotangent; g's own
+    by default) and H_src * W pixels, and with ``sums`` the int64 sums come
+    back in place of their values (``from_fixed``; a non-finite item's are
+    0), as the slab kernel returns them."""
     B, C, H, W = g.shape
-    hw = H * W
-    grid = identity_grid((H, W), dtype=flow.dtype, device=flow.device)
+    H_src = H if H_src is None else int(H_src)
+    hw, shw = H * W, H_src * W
+    if mbits is None:
+        mbits = item_max_bits(g)
+    m = mbits.reshape(B).to("cpu", torch.int32).view(torch.float32)
+    finite = torch.isfinite(m)
+    e = [_fixed_point_exponent(m[b], shw) if finite[b] else 0
+         for b in range(B)]
+    scale = torch.tensor([2.0 ** x for x in e], dtype=g.dtype,
+                         device=g.device).reshape(B, 1, 1)
+    grid = identity_grid((H, W), dtype=flow.dtype, device=flow.device, z0=y0)
     coords = (grid[None] + flow).reshape(B, 2, hw)
     lo, w = [], []
-    for i, size in enumerate((H, W)):
+    for i, size in enumerate((H_src, W)):
         c = coords[:, i].clamp(-2.0, size + 1.0)
         f = torch.floor(c)
         lo.append(f.long())
         w.append((c - f)[:, None])                      # (B, 1, N)
-    m = g.abs().reshape(B, -1).amax(dim=1)
-    finite = torch.isfinite(m)
-    e = [_fixed_point_exponent(m[b], hw) if finite[b] else 0
-         for b in range(B)]
-    scale = torch.tensor([2.0 ** x for x in e], dtype=g.dtype,
-                         device=g.device).reshape(B, 1, 1)
+    finite = finite.to(g.device)
     gf = g.reshape(B, C, hw)
-    base = torch.arange(B * C, device=g.device).reshape(B, C, 1) * hw
-    total = torch.zeros(B * C * hw, dtype=torch.int64, device=g.device)
+    if sums:
+        gf = torch.where(finite[:, None, None], gf, torch.zeros_like(gf))
+    base = torch.arange(B * C, device=g.device).reshape(B, C, 1) * shw
+    total = torch.zeros(B * C * shw, dtype=torch.int64, device=g.device)
     for dy in (0, 1):
         for dx in (0, 1):
             y, x = lo[0] + dy, lo[1] + dx
-            valid = (y >= 0) & (y < H) & (x >= 0) & (x < W)
+            valid = (y >= 0) & (y < H_src) & (x >= 0) & (x < W)
             fy = w[0] if dy else 1.0 - w[0]
             fx = w[1] if dx else 1.0 - w[1]
             q = torch.round(((gf * fx) * fy) * scale).long()
             at = (base + (y * W + x)[:, None]).expand(B, C, hw)
             sel = valid[:, None].expand(B, C, hw)
             total.index_add_(0, at[sel], q[sel])
-    out = total.reshape(B, C, hw).to(torch.float32) * (1.0 / scale)
+    if sums:
+        return total.reshape(B, C, H_src, W)
+    out = total.reshape(B, C, shw).to(torch.float32) * (1.0 / scale)
     out[~finite] = float("nan")
-    return out.reshape(g.shape)
-
+    return out.reshape(B, C, H_src, W)

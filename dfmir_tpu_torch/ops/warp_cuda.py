@@ -9,7 +9,9 @@ Each launcher replaces a Pallas kernel of ``dfmir_tpu/ops/warp_pallas.py``:
 - ``warp2d_bwd_cuda``: ``_bwd_kernel`` / ``warp2d_banded_bwd`` (both
   gradients, one launch; the source gradient summed in an int64 fixed
   point scaled per batch item, in one cooperative launch, bitwise
-  reproducible);
+  reproducible); ``warp2d_bwd_slab_cuda`` the same for a slab of rows'
+  targets over the whole source, returning its int64 sums in the whole
+  image's per-item scale;
 - ``vecint2d_fwd_cuda``: ``_kernel`` as JAX's ``vecint`` calls it, 7 times
   in a chain: the whole chain in one launch of a thread-block cluster a
   batch item, the field in the cluster's shared memory between steps;
@@ -45,7 +47,8 @@ use; the fixed-point source gradients' plain models are
 ``Warp3dSlabFunction``, ``VecInt2dFunction`` and ``VecInt3dFunction`` tie
 the kernels together for autograd, as the custom VJPs ``_warp2d`` /
 ``_warp3d`` do in the JAX package.  The slab launches count under their
-kernel's name.
+kernel's name.  ``Warp2dSlabFunction`` runs the plain versions of its
+kernels on CPU tensors.
 
 Every launcher checks its tensors with one cheap test and, only when that
 fails, the detailed checks that say what is wrong; then ``_launch`` calls
@@ -225,6 +228,45 @@ def warp2d_bwd_cuda(src: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
             dflow.data_ptr(), scratch.data_ptr() if need_dsrc else None,
             *src.shape)
     return dsrc, dflow
+
+
+@functools.lru_cache(maxsize=64)
+def _sums2d_slab(B, C, Hs, W):
+    return int(_build.load().dfmir_warp2d_bwd_slab_sums(B, C, Hs, W))
+
+
+def warp2d_bwd_slab_cuda(src: torch.Tensor, flow: torch.Tensor,
+                         g: torch.Tensor, y0: int,
+                         mbits: torch.Tensor = None):
+    """B2 on a slab of rows: ``src`` (B, C, Hs, W) the whole image, ``flow``
+    (B, 2, H, W) and ``g`` (B, C, H, W) its rows ``[y0, y0 + H)``.  Returns
+    ``(sums, dflow)``: dflow the whole image's B2's rows bit for bit and,
+    with ``mbits`` ((B,) int32 on the device: the bits of each item's max|g|
+    over the whole image's cotangent, ``ops.warp.item_max_bits`` all-reduced
+    over the ranks), int64 (B, C, Hs, W) ``sums``, each source pixel's sum
+    of this slab's terms in item b's fixed point of ``mbits[b]`` and Hs * W
+    pixels; without it dflow alone (``sums`` None).  The slabs' sums add up
+    to the whole image's B2 integers; ``ops.warp.from_fixed`` gives their
+    values.  Equal to ``ops.warp.warp2d_dsrc_fixed_plain(flow, g, y0, Hs,
+    mbits, sums=True)`` bit for bit, and bitwise the same on every run."""
+    _check(src, flow, "warp2d_bwd_slab_cuda", 2, y0)
+    _check_g(g, src, (*src.shape[:2], *flow.shape[2:]))
+    dflow = torch.empty_like(flow)
+    sums = None
+    if mbits is not None:
+        if not (mbits.device == g.device and mbits.dtype == torch.int32
+                and tuple(mbits.shape) == (g.shape[0],)
+                and mbits.is_contiguous()):
+            raise ValueError(f"mbits must be (B,) = ({g.shape[0]},) int32, "
+                             f"contiguous, on g's device")
+        sums = torch.empty(_sums2d_slab(*src.shape), dtype=torch.int64,
+                           device=g.device).view(src.shape)
+    _launch(BWD, "dfmir_warp2d_bwd_slab", src.get_device(), src.data_ptr(),
+            flow.data_ptr(), g.data_ptr(), dflow.data_ptr(),
+            None if sums is None else sums.data_ptr(),
+            None if mbits is None else mbits.data_ptr(), *g.shape,
+            src.shape[2], y0)
+    return sums, dflow
 
 
 def _check_steps(steps, g, device):
@@ -525,20 +567,60 @@ class VecInt3dFunction(torch.autograd.Function):
 
 
 class Warp2dSlabFunction(torch.autograd.Function):
-    """B1 for a slab of rows: ``apply(src, flow, y0)``, the output the
-    flow's rows from row ``y0`` of the whole image ``src``.  Forward only:
-    its backward raises, as B2 has no slab form yet (the 2-D step on slabs
-    waits for it)."""
+    """B1 and B2 behind autograd for a slab of rows: ``apply(src, flow, y0,
+    mesh=None)``, the output the flow's rows from row ``y0`` of the whole
+    image, as ``Warp3dSlabFunction`` at 3-D.  Without ``mesh``, ``src`` is
+    that whole image and takes no gradient (a source that needs one
+    raises), and the backward bins no dsrc (the data warp).  With ``mesh``
+    (an image split along H over its spatial ranks), ``src`` is this rank's
+    slab, gathered whole here; its gradient is B2 on the slab in each batch
+    item's fixed point of max|g[b]| over every rank's cotangent
+    (all-reduced first), whose int64 sums the ranks reduce-scatter and only
+    then turn into floats: this rank's rows of the whole image's B2, bit
+    for bit.  CPU tensors take the same steps through the kernels' plain
+    versions (``warp`` with ``z0``, ``warp_bwd_plain``,
+    ``warp2d_dsrc_fixed_plain``'s slab sums)."""
 
     @staticmethod
-    def forward(ctx, src, flow, y0):
-        return warp2d_slab_cuda(src, flow, y0)
+    def forward(ctx, src, flow, y0, mesh=None):
+        from dfmir_tpu_torch.ops.warp import warp
+        if mesh is None:
+            if ctx.needs_input_grad[0]:
+                raise ValueError("a slab warp's source takes a gradient only "
+                                 "from its slabs: pass the mesh "
+                                 "(ops.warp.warp_slabs)")
+            whole = src
+        else:
+            whole = dp.all_gather_slabs(src, mesh)
+        ctx.save_for_backward(whole, flow)
+        ctx.y0, ctx.mesh = y0, mesh
+        if whole.is_cuda:
+            return warp2d_slab_cuda(whole, flow, y0)
+        return warp(whole, flow, impl="torch", z0=y0)
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "the 2-D warp on a slab of rows has no backward: B2's slab form "
-            "is still to come")
+        from dfmir_tpu_torch.ops.warp import (from_fixed, item_max_bits,
+                                              warp2d_dsrc_fixed_plain,
+                                              warp_bwd_plain)
+        whole, flow = ctx.saved_tensors
+        need_dsrc, need_dflow = ctx.needs_input_grad[:2]
+        g = grad_out.contiguous()
+        H_src, W = whole.shape[2:]
+        mbits = (dp.spatial_max(item_max_bits(g), ctx.mesh) if need_dsrc
+                 else None)
+        if whole.is_cuda:
+            sums, dflow = warp2d_bwd_slab_cuda(whole, flow, g, ctx.y0, mbits)
+        else:
+            dflow = (warp_bwd_plain(whole, flow, g, need_dsrc=False,
+                                    z0=ctx.y0)[1] if need_dflow else None)
+            sums = (warp2d_dsrc_fixed_plain(flow, g, ctx.y0, H_src, mbits,
+                                            sums=True) if need_dsrc else None)
+        dsrc = None
+        if need_dsrc:
+            dsrc = from_fixed(dp.reduce_scatter_slabs(sums, ctx.mesh),
+                              mbits.reshape(-1, 1, 1, 1), H_src * W)
+        return dsrc, dflow if need_dflow else None, None, None
 
 
 class Warp3dSlabFunction(torch.autograd.Function):

@@ -23,7 +23,9 @@ to compare with one process.
   pads, blurs, convs, netG's taps, the patch sampler), on this rank's
   slab.
 - ``run_cases``: several named cases in one launch (the functions below
-  and the two above), so that a test file starts its ranks once.
+  and the two above), so that a test file starts its ranks once;
+  ``one_process`` runs one of them as the one-process reference in a
+  launch of one rank.
 - ``fail`` and ``hang``: a rank that raises, and a rank whose peer never
   joins its collective.
 
@@ -461,7 +463,14 @@ def joint_slab_pieces(mesh, n_spatial, job, n_data=None):
       input under ``sum(samples * w_sample)`` (each spatial rank's loss
       the whole sum: ``n_spatial`` times the whole gradient's rows);
     - ``smooth``: ``smoothness_loss`` of the slab of ``job["flow"]`` and
-      its gradient (``world`` times this rank's share)."""
+      its gradient (``world`` times this rank's share);
+    - ``unet_<name>`` for each ``job["unets"][name]`` = (a ``VxmUnet``,
+      its global input, w): the UNet on the input's slab (its levels that
+      do not split gathered), the input's gradient and the parameters'
+      (this rank's part: the ranks' add up to the whole image's);
+    - ``warp`` where ``job["warp"]`` = (src, flow, w): ``Warp2dSlabFunction``
+      with the mesh on the slabs of both (B1 and B2's plain versions on the
+      CPU), and the gradients of both."""
     from dfmir_tpu_torch.losses.regularizers import smoothness_loss
     from dfmir_tpu_torch.nets.layers import conv_slab, instance_norm, pad_nd
     from dfmir_tpu_torch.ops.filters import blur_downsample, blur_upsample
@@ -512,6 +521,19 @@ def joint_slab_pieces(mesh, n_spatial, job, n_data=None):
     loss = smoothness_loss(f, mesh)
     loss.backward()
     out["smooth"] = (loss.detach(), f.grad)
+    for name, (unet, x_u, w_u) in job.get("unets", {}).items():
+        unet.zero_grad(set_to_none=True)
+        v = leaf(x_u)
+        y = unet(v, mesh)
+        (y * share(w_u)).sum().backward()
+        out[f"unet_{name}"] = (y.detach(), v.grad, {
+            k: p.grad.clone() for k, p in unet.named_parameters()})
+    if "warp" in job:
+        src, flow, w = job["warp"]
+        s_, f_ = leaf(src), leaf(flow)
+        y = warp_cuda.Warp2dSlabFunction.apply(s_, f_, r * f_.shape[2], mesh)
+        (y * share(w)).sum().backward()
+        out["warp"] = (y.detach(), s_.grad, f_.grad)
     return out
 
 
@@ -698,6 +720,13 @@ def hang(mesh, seconds):
     dp.barrier(mesh)
 
 
+def one_process(mesh, fn, job):
+    """``CASES[fn]`` as one process (``mesh=None``) on this rank's device:
+    the one-process reference, run by a launch of one rank apart from the
+    caller's process, which it leaves holding none of its card memory."""
+    return CASES[fn](None, dict(job, device=str(mesh.device)))
+
+
 def tf32_flags(mesh):
     """The rank's TF32 flags (cuDNN, cuBLAS), as the launch left them."""
     return {"cudnn": torch.backends.cudnn.allow_tf32,
@@ -708,7 +737,7 @@ CASES = {f.__name__: f for f in (registration_steps, vxm_steps,
                                  vxm_spatial_steps, spatial_pieces,
                                  joint_spatial_steps, joint_slab_pieces,
                                  reduce_is_exact, collectives, nce,
-                                 loader, tf32_flags)}
+                                 loader, one_process, tf32_flags)}
 
 
 def run_cases(mesh, cases):

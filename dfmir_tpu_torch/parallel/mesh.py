@@ -43,8 +43,8 @@ XLA inserts the exchanges itself, the port's modules call them:
 - ``gather_slabs(x, mesh)``: the whole volume on every spatial rank (an
   all-gather along D); its backward sums the ranks' gradients and gives
   each its slab (a reduce-scatter).  ``all_gather_slabs`` and
-  ``reduce_scatter_slabs`` are its two halves without autograd (B5 on a
-  slab reduce-scatters int64 sums, ``ops/warp_cuda.py``);
+  ``reduce_scatter_slabs`` are its two halves without autograd (B5 and B2
+  on a slab reduce-scatter int64 sums, ``ops/warp_cuda.py``);
 - ``spatial_sum(x, mesh)``: the sum of the spatial ranks' ``x`` on every
   one of them (an all-reduce), whose backward is the same all-reduce of
   the ranks' gradients: the statistics of a norm over the whole volume
@@ -52,6 +52,14 @@ XLA inserts the exchanges itself, the port's modules call them:
   tensor that each spatial rank owns in part (the rest zeros) put
   together on every one of them (PatchNCE's samples of a tap split over
   the slabs, ``nets/patch_sample.py``).
+
+Which extents split, and where netR stops splitting: an extent of the
+image along the split axis is taken where JAX's ``shard_batch`` takes it
+(n_spatial divides it) and the whole-image model does, as far as netG's
+levels and the half-resolution SVF split too (``check_joint_slabs``, netG
+left out for the 3-D ``VxmEngine``); netR's UNet levels that n_spatial
+does not divide run on the gathered map, whole on every spatial rank
+(``first_whole_level``, ``nets/vxm.py``).
 
 Both run over the spatial group, made on every rank in the same order.  A
 halo's sends and receives go out as one ``batch_isend_irecv``: under NCCL
@@ -499,9 +507,10 @@ def all_gather_slabs(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 
 def reduce_scatter_slabs(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """This rank's slab (its D / n_spatial planes) of the sum over the
-    spatial ranks of their whole-volume ``x``, without a gradient; in
-    ``x``'s dtype (int64 sums add exactly)."""
+    """This rank's slab (its 1 / n_spatial of axis 2: D planes at 3-D, H
+    rows at 2-D) of the sum over the spatial ranks of their whole-image
+    ``x``, without a gradient; in ``x``'s dtype (int64 sums add
+    exactly)."""
     parts = [p.contiguous()
              for p in x.detach().chunk(mesh.n_spatial, dim=2)]
     out = torch.empty_like(parts[0])
@@ -568,8 +577,9 @@ def spatial_sum(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
 
 
 def spatial_max(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """The elementwise max of the spatial ranks' ``x``, detached; ``x``
-    where ``mesh`` does not split the volume."""
+    """The elementwise max of the spatial ranks' ``x``, detached (the bits
+    of max|g| that B5's and, a batch item each, B2's slab forms share);
+    ``x`` where ``mesh`` does not split the volume."""
     if not is_spatial(mesh):
         return x
     return _spatial_all_reduce(x, mesh, dist.ReduceOp.MAX)
@@ -601,28 +611,79 @@ def slab_rows(rows: int, pad: int, mesh: Mesh):
     return (0 if r == 0 else pad + r * core), n * core + 2 * pad
 
 
-def check_joint_slabs(extent: int, n_spatial: int, n_enc: int,
-                      int_downsize: int, level_pads: Sequence[int]) -> None:
-    """Raise unless an image of ``extent`` rows (H at 2-D, D planes at 3-D)
-    splits into ``n_spatial`` slabs that every level of the joint model
-    cuts the same on every rank: ``extent`` must be divisible by n_spatial
-    * lcm(2^n_enc, int_downsize, 2^levels), netR's ``n_enc`` strided
-    levels and netG's ``levels = len(level_pads) - 1`` downsamplings; and
-    each slab must hold more rows than ``level_pads[l]``, the largest
-    reflect or replicate pad at netG's level l (a pad at a global end reads
-    the slab's own rows 1..p)."""
-    levels = len(level_pads) - 1
-    unit = n_spatial * math.lcm(2 ** n_enc, int_downsize, 2 ** levels)
-    if extent % unit:
+def first_whole_level(extent: int, n_spatial: int,
+                      depth: int) -> Optional[int]:
+    """The first level of netR's UNet, ``depth`` strided levels deep, that
+    does not split over ``n_spatial`` spatial ranks: level l holds
+    ``extent / 2^l`` rows (l = 0 the input, l = depth the coarsest), and it
+    splits when ``n_spatial`` divides them, every slab then holding at least
+    one row, the deepest halo a conv of netR takes (a stride-1 3x3 conv: 1
+    row each side; a stride-2 one: 1 below).  That level and every coarser
+    one run on the gathered map, whole on every spatial rank; None when
+    every level splits.  ``extent`` must be divisible by 2^depth."""
+    for level in range(depth + 1):
+        if (extent >> level) % n_spatial:
+            return level
+    return None
+
+
+def _refuse_extent(extent: int, n_spatial: int, unit: int,
+                   what: str) -> None:
+    """JAX's rule (``shard_batch``: n_spatial divides the extent) and the
+    whole-image model's (``unit``, the lcm of ``what`` its levels divide
+    by)."""
+    if extent % n_spatial:
         raise ValueError(
             f"an extent of {extent} does not split over {n_spatial} spatial "
-            f"ranks: it must be divisible by n_spatial * lcm(2^len(vxm_enc),"
-            f" int_downsize, 2^{levels}) = {n_spatial} * lcm({2 ** n_enc}, "
-            f"{int_downsize}, {2 ** levels}) = {unit}")
+            f"ranks: n_spatial must divide it (JAX's shard_batch)")
+    if extent % unit:
+        raise ValueError(
+            f"an extent of {extent} does not go through the whole-image "
+            f"model: it must be divisible by {unit} = lcm({what})")
+
+
+def _refuse_svf(extent: int, n_spatial: int, int_downsize: int) -> None:
+    """The half-resolution SVF's resize runs on slabs: n_spatial must
+    divide its rows."""
+    if (extent // int_downsize) % n_spatial:
+        raise ValueError(
+            f"an extent of {extent} does not split over {n_spatial} spatial "
+            f"ranks at the SVF's int_downsize {int_downsize}: "
+            f"{extent // int_downsize} rows (n_spatial * int_downsize must "
+            f"divide the extent)")
+
+
+def check_joint_slabs(extent: int, n_spatial: int, n_enc: int,
+                      int_downsize: int,
+                      level_pads: Sequence[int] = ()) -> Optional[int]:
+    """Raise unless the joint model takes an image of ``extent`` rows (H
+    at 2-D, D planes at 3-D) split into ``n_spatial`` slabs; return netR's
+    first level that runs gathered (``first_whole_level``).  The rule:
+
+    - ``n_spatial`` divides ``extent`` (JAX's ``shard_batch``), and the
+      whole-image model takes it: ``extent`` divisible by lcm(2^n_enc,
+      int_downsize, 2^levels), netR's ``n_enc`` strided levels and netG's
+      ``levels = len(level_pads) - 1`` downsamplings (no ``level_pads``:
+      netR alone, the 3-D ``VxmEngine``);
+    - netG's levels split: each slab holds ``extent / (n_spatial * 2^l)``
+      rows at netG's level l, more than ``level_pads[l]``, the largest
+      reflect or replicate pad there (a pad at a global end reads the
+      slab's own rows 1..p);
+    - the half-resolution SVF splits (``_refuse_svf``);
+    - netR's levels need nothing more: those that do not split run on the
+      gathered map."""
+    levels = max(len(level_pads) - 1, 0)
+    _refuse_extent(extent, n_spatial,
+                   math.lcm(2 ** n_enc, int_downsize, 2 ** levels),
+                   f"2^len(vxm_enc) {2 ** n_enc}, int_downsize "
+                   f"{int_downsize}" + (f", netG's 2^{levels}"
+                                        if level_pads else ""))
     for level, pad in enumerate(level_pads):
-        rows = extent // (n_spatial * 2 ** level)
-        if rows <= pad:
+        rows = extent / (n_spatial * 2 ** level)
+        if rows != int(rows) or rows <= pad:
             raise ValueError(
-                f"slabs of {rows} rows at netG's level {level} (extent "
-                f"{extent} over {n_spatial} spatial ranks) do not hold more "
-                f"rows than its pad of {pad}")
+                f"slabs of {rows:g} rows at netG's level {level} (extent "
+                f"{extent} over {n_spatial} spatial ranks) do not hold a "
+                f"whole number of rows more than its pad of {pad}")
+    _refuse_svf(extent, n_spatial, int_downsize)
+    return first_whole_level(extent, n_spatial, n_enc)

@@ -520,9 +520,10 @@ def test_warp3d_slab_kernels_are_the_whole_volumes_rows(cuda, z0):
 def test_warp2d_slab_kernel_is_the_whole_images_rows(cuda, y0):
     """B1 on a slab of 20 rows from row y0 of a 60-row source: the
     whole-image launch's rows bit for bit, its plain version with y0
-    within 1e-5, counted under B1's name; the slab Function has no
-    backward (B2's slab form is still to come)."""
-    src, flow, _ = inputs(cuda, (2, 3, 60, 37), 3.0, 0.0)
+    within 1e-5, counted under B1's name; the slab Function's backward (a
+    data warp: its source takes no gradient) launches B2's slab form
+    without sums, its dflow the whole image's B2 rows bit for bit."""
+    src, flow, g = inputs(cuda, (2, 3, 60, 37), 3.0, 0.0)
     rows = slice(y0, y0 + 20)
     f = flow[:, :, rows].contiguous()
     before = dict(warp_cuda.LAUNCHES)
@@ -532,10 +533,63 @@ def test_warp2d_slab_kernel_is_the_whole_images_rows(cuda, y0):
     assert max_err(out, warp(src, f, impl="torch", z0=y0)) <= 1e-5
     assert torch.equal(warp(src, f, z0=y0), out)
     leaf = f.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="B2's slab form"):
-        warp(src, leaf, z0=y0).sum().backward()
+    before = dict(warp_cuda.LAUNCHES)
+    warp(src, leaf, z0=y0).backward(g[:, :, rows])
+    assert warp_cuda.LAUNCHES == dict(before, **{
+        FWD: before[FWD] + 1, BWD: before[BWD] + 1})
+    full = torch.zeros_like(g)
+    full[:, :, rows] = g[:, :, rows]
+    _, whole_dflow = warp_cuda.warp2d_bwd_cuda(src, flow, full,
+                                               need_dsrc=False)
+    assert torch.equal(leaf.grad, whole_dflow[:, :, rows])
     with pytest.raises(ValueError, match="not a slab"):
         warp_cuda.warp2d_slab_cuda(src, f, 41)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("C", [1, 2])
+def test_warp2d_bwd_slab_sums_are_the_whole_images(cuda, n, C):
+    """B2 on n row slabs of a (2, C, 64, 48) image, each in its items'
+    fixed point of max|g[b]| over the whole cotangent (the items a
+    hundredfold apart): every slab's dflow the whole image's B2 rows bit
+    for bit and within 1e-5 of its plain version; its int64 sums twice the
+    same and equal to the plain slab model's; the slabs' sums added up,
+    as floats, the whole image's B2 dsrc bit for bit."""
+    from dfmir_tpu_torch.ops.warp import from_fixed, item_max_bits
+    src, flow, g = inputs(cuda, (2, C, 64, 48), 3.0, 0.0)
+    g[1] *= 100.0
+    whole_dsrc, whole_dflow = warp_cuda.warp2d_bwd_cuda(src, flow, g)
+    mbits = item_max_bits(g)
+    h = 64 // n
+    total = 0
+    for r in range(n):
+        rows = slice(r * h, (r + 1) * h)
+        f, gs = flow[:, :, rows].contiguous(), g[:, :, rows].contiguous()
+        before = dict(warp_cuda.LAUNCHES)
+        sums, dflow = warp_cuda.warp2d_bwd_slab_cuda(src, f, gs, r * h,
+                                                     mbits)
+        assert warp_cuda.LAUNCHES == dict(before, **{BWD: before[BWD] + 1})
+        assert sums.dtype == torch.int64 and sums.shape == src.shape
+        assert torch.equal(dflow, whole_dflow[:, :, rows])
+        assert max_err(dflow, warp_bwd_plain(src, f, gs, need_dsrc=False,
+                                             z0=r * h)[1]) <= 1e-5
+        again, _ = warp_cuda.warp2d_bwd_slab_cuda(src, f, gs, r * h, mbits)
+        assert torch.equal(sums, again)
+        assert torch.equal(sums, warp2d_dsrc_fixed_plain(
+            f, gs, r * h, 64, mbits, sums=True))
+        none, dflow_only = warp_cuda.warp2d_bwd_slab_cuda(src, f, gs, r * h)
+        assert none is None and torch.equal(dflow_only, dflow)
+        total = total + sums
+    assert torch.equal(from_fixed(total, mbits.reshape(-1, 1, 1, 1),
+                                  64 * 48), whole_dsrc)
+    with pytest.raises(ValueError, match="not a slab"):
+        warp_cuda.warp2d_bwd_slab_cuda(src, flow[:, :, :h].contiguous(),
+                                       g[:, :, :h].contiguous(), 64 - h + 1,
+                                       mbits)
+    with pytest.raises(ValueError, match="mbits"):
+        warp_cuda.warp2d_bwd_slab_cuda(src, flow[:, :, :h].contiguous(),
+                                       g[:, :, :h].contiguous(), 0,
+                                       mbits[:1])
 
 
 @pytest.mark.parametrize("n", [2, 3])

@@ -5,13 +5,20 @@ ranks (one launch of 4 ranks: 2-D on 1 x 2 and 1 x 4, 3-D on 1 x 2):
 rank's window of the whole padded image, the halos inside and the pad at
 the global ends), ``blur_downsample`` / ``blur_upsample``, a 2-D and a
 3-D ``conv_slab``, netG's output and taps (tap 0 the pad's, in its padded
-geometry), ``PatchSampleF`` on the slabs' taps, and ``smoothness_loss``.
-In-process: the plain slab forms of B1 (``warp`` with ``y0``) and B5
-(``warp3d_dsrc_binned_plain`` with ``z0``: the slabs' int64 sums add up to
-the whole volume's), ``slab_rows``, ``check_joint_slabs``, and the
-refusals: a spatial mesh given to ``RegistrationModel`` either computes
-the whole image's numbers (``tests/test_torch_spatial_joint.py``) or
-raises, naming the option.
+geometry), ``PatchSampleF`` on the slabs' taps, ``smoothness_loss``,
+``VxmUnet`` with its levels that do not split gathered (the last level
+that splits 1 or 3 rows a rank; 2-D and 3-D) with its input's and
+parameters' gradients, and ``Warp2dSlabFunction`` with the mesh (B1 / B2's
+plain slab forms: output, dflow and the reduce-scattered int64 dsrc bit
+for bit the whole image's).  In-process: the plain slab forms of B1
+(``warp`` with ``y0``), B2 (``warp2d_dsrc_fixed_plain`` with ``y0``: the
+slabs' int64 sums add up to the whole image's) and B5
+(``warp3d_dsrc_binned_plain`` with ``z0``), ``Warp2dSlabFunction``'s data
+warp, ``slab_rows``, ``check_joint_slabs`` and the slab rule against JAX's
+``shard_batch``, and the refusals: a spatial mesh given to
+``RegistrationModel`` either computes the whole image's numbers
+(``tests/test_torch_spatial_joint.py``, ``test_torch_spatial_step2d.py``)
+or raises, naming the option.
 
 Bars: values 1e-5 max-abs (the pads and blurs, copies and the same sums,
 exactly); gradients 1e-5 of their max |g|."""
@@ -23,6 +30,11 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
+from dfmir_tpu.parallel import make_mesh as jax_make_mesh
+from dfmir_tpu.parallel import shard_batch
 from dfmir_tpu_torch.engine.config import RegistrationConfig
 from dfmir_tpu_torch.engine.registration import (SLAB_REFUSALS,
                                                  RegistrationModel)
@@ -31,13 +43,18 @@ from dfmir_tpu_torch.nets.layers import conv_nd, instance_norm, pad_nd
 from dfmir_tpu_torch.nets.patch_sample import PatchSampleF
 from dfmir_tpu_torch.nets.resnet_gen import (ResnetGenerator,
                                              nce_feature_dims)
+from dfmir_tpu_torch.nets.vxm import VxmUnet
+from dfmir_tpu_torch.ops import warp_cuda
 from dfmir_tpu_torch.ops.filters import blur_downsample, blur_upsample
-from dfmir_tpu_torch.ops.warp import (abs_max_bits, from_fixed, warp,
-                                      warp3d_dsrc_binned_plain)
+from dfmir_tpu_torch.ops.warp import (abs_max_bits, from_fixed,
+                                      item_max_bits, warp,
+                                      warp2d_dsrc_fixed_plain,
+                                      warp3d_dsrc_binned_plain,
+                                      warp_bwd_plain)
 from dfmir_tpu_torch.parallel import checks
 from dfmir_tpu_torch.parallel.launch import launch
 from dfmir_tpu_torch.parallel.mesh import (Mesh, check_joint_slabs,
-                                           slab_rows)
+                                           first_whole_level, slab_rows)
 from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 LIMIT = 300.0
@@ -47,6 +64,16 @@ LAYERS = (0, 4, 8, 12, 16)
 CASES = {"2d_1x2": (2, (16, 10), (32, 12)),
          "2d_1x4": (4, (16, 10), (32, 12)),
          "3d_1x2": (2, (8, 6, 5), (16, 8, 8))}
+# VxmUnets a case runs on slabs: name: (input's spatial shape, depth), and
+# the level each gathers first (first_whole_level; None: none); "edge1":
+# the last level
+# that splits holds 1 row a rank, "edge3" 3; "split": none gathered, the
+# coarsest level 1 row a rank and the one above it 2 (a level of 2 rows a
+# rank halves into one of 1, which splits, so a gathered level's finer
+# neighbour holds an odd count a rank)
+UNETS = {"2d_1x2": {"edge1": ((16, 16), 4, 4), "edge3": ((24, 8), 3, 3)},
+         "2d_1x4": {"edge1": ((32, 16), 4, 4), "split": ((16, 8), 2, None)},
+         "3d_1x2": {"edge1": ((8, 8, 8), 3, 3)}}
 
 
 def whole(case, seed=0):
@@ -91,6 +118,22 @@ def whole(case, seed=0):
     loss = smoothness_loss(f)
     loss.backward()
     ref["smooth"] = (loss.detach(), f.grad)
+    job["unets"] = {}
+    for name, (shape, depth, _) in UNETS[case].items():
+        unet = VxmUnet([4] * depth, [4] * (depth + 2), ndims=nd,
+                       generator=gen)
+        u = rand(2, 2, *shape).requires_grad_(True)
+        y = unet(u)
+        w = rand(*y.shape)
+        (y * w).sum().backward()
+        ref[f"unet_{name}"] = (y.detach(), u.grad, {
+            k: p.grad.clone() for k, p in unet.named_parameters()})
+        unet.zero_grad(set_to_none=True)
+        job["unets"][name] = (unet, u.detach(), w)
+    if nd == 2:
+        # a field of about 3 px: targets sample rows of other slabs
+        job["warp"] = (rand(*x.shape), rand(2, 2, *spatial) * 3,
+                       rand(*x.shape))
     return job, ref
 
 
@@ -210,6 +253,96 @@ def test_smoothness_on_slabs(setup, case):
                      float(df.abs().max()))
 
 
+@pytest.mark.parametrize("case,name", [(c, n) for c in CASES
+                                       for n in UNETS[c]])
+def test_vxm_unet_gathers_the_levels_that_do_not_split(setup, case, name):
+    """netR's UNet on slabs, the levels that do not split run on the
+    gathered map: its output and input gradient are the whole image's
+    rows, and the ranks' parameter gradients (each its consumers' part of
+    the gathered levels' cotangent) add up to the whole image's."""
+    ref, reps = ranks_of(setup, case)
+    n = len(reps)
+    shape, depth, level = UNETS[case][name]
+    assert first_whole_level(shape[0], n, depth) == level
+    y, dx, grads = ref[f"unet_{name}"]
+    for r in reps:
+        got_y, got_dx, _ = r[f"unet_{name}"]
+        assert close(got_y, rows(y, r["spatial_rank"], n))
+        assert close(got_dx, rows(dx, r["spatial_rank"], n),
+                     float(dx.abs().max()))
+    scale = max(float(g.abs().max()) for g in grads.values())
+    for k, g in grads.items():
+        assert close(sum(r[f"unet_{name}"][2][k] for r in reps), g, scale), k
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c.startswith("2d")])
+def test_warp2d_slab_function_with_the_mesh(setup, case):
+    """``Warp2dSlabFunction`` with the mesh, on the CPU (B1 / B2's plain
+    slab forms): the output and dflow the whole warp's rows bit for bit;
+    the source gradient, each item's fixed point of max|g| over the ranks'
+    cotangents, int64 sums reduce-scattered, the whole image's fixed-point
+    dsrc bit for bit and within 1e-5 of autograd's."""
+    _, reps = ranks_of(setup, case)
+    n = len(reps)
+    job, _ = whole(case)
+    src, flow, w = job["warp"]
+    y = warp(src, flow, impl="torch")
+    dsrc, dflow = warp_bwd_plain(src, flow, w)
+    fixed = warp2d_dsrc_fixed_plain(flow, w)
+    for r in reps:
+        s = r["spatial_rank"]
+        got_y, got_dsrc, got_dflow = r["warp"]
+        assert torch.equal(got_y, rows(y, s, n))
+        assert torch.equal(got_dflow, rows(dflow, s, n))
+        assert torch.equal(got_dsrc, rows(fixed, s, n))
+        assert close(got_dsrc, rows(dsrc, s, n),
+                     max(1.0, float(dsrc.abs().max())))
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_b2_plain_slab_sums_add_up_to_the_whole(n):
+    """B2's plain slab model: each slab's int64 sums in each item's fixed
+    point of max|g[b]| over the whole cotangent (items of unlike scales);
+    their total, as floats, is the whole image's fixed-point dsrc bit for
+    bit; a non-finite item gives NaN over that item alone."""
+    g = torch.Generator().manual_seed(n)
+    flow = torch.randn((2, 2, 12, 9), generator=g) * 3
+    cot = torch.randn((2, 3, 12, 9), generator=g)
+    cot[1] *= 300.0
+    m = item_max_bits(cot)
+    h = 12 // n
+    total = sum(warp2d_dsrc_fixed_plain(
+        flow[:, :, r * h:(r + 1) * h], cot[:, :, r * h:(r + 1) * h], r * h,
+        12, m, sums=True) for r in range(n))
+    assert total.dtype == torch.int64 and total.shape == cot.shape
+    assert torch.equal(from_fixed(total, m.reshape(-1, 1, 1, 1), 12 * 9),
+                       warp2d_dsrc_fixed_plain(flow, cot))
+    bad = m.clone()
+    bad[0] = abs_max_bits(torch.tensor([float("nan")]))[0]
+    got = from_fixed(total, bad.reshape(-1, 1, 1, 1), 12 * 9)
+    assert torch.isnan(got[0]).all() and not torch.isnan(got[1]).any()
+
+
+def test_warp2d_slab_function_data_warp_on_the_cpu():
+    """Without a mesh the slab Function is a data warp: its source takes
+    no gradient (one that needs it raises), its dflow the whole warp's
+    rows bit for bit."""
+    g = torch.Generator().manual_seed(5)
+    src = torch.randn((2, 3, 18, 11), generator=g)
+    flow = torch.randn((2, 2, 18, 11), generator=g) * 3
+    cot = torch.randn((2, 3, 6, 11), generator=g)
+    f = flow[:, :, 6:12].clone().requires_grad_(True)
+    out = warp_cuda.Warp2dSlabFunction.apply(src, f, 6)
+    assert torch.equal(out, warp(src, flow, impl="torch")[:, :, 6:12])
+    out.backward(cot)
+    full = torch.zeros(2, 3, 18, 11)
+    full[:, :, 6:12] = cot
+    assert torch.equal(f.grad, warp_bwd_plain(src, flow, full,
+                                              need_dsrc=False)[1][:, :, 6:12])
+    with pytest.raises(ValueError, match="takes a gradient only from its"):
+        warp_cuda.Warp2dSlabFunction.apply(src.requires_grad_(True), f, 6)
+
+
 @pytest.mark.parametrize("y0", [0, 6, 12])
 def test_b1_plain_slab_is_the_whole_images_rows(y0):
     g = torch.Generator().manual_seed(y0)
@@ -249,12 +382,64 @@ def test_slab_rows_place_a_pads_tap():
 
 
 def test_check_joint_slabs():
-    check_joint_slabs(256, 4, 6, 2, [3, 1, 1])
-    check_joint_slabs(16, 2, 3, 2, [3, 1, 1])
-    with pytest.raises(ValueError, match="divisible"):
-        check_joint_slabs(16, 2, 4, 2, [3, 1, 1])
+    """The joint model's extents: netR's levels that do not split are
+    gathered (the returned level), netG's levels must split past their
+    pads."""
+    assert check_joint_slabs(256, 4, 6, 2, [3, 1, 1]) is None
+    assert check_joint_slabs(16, 2, 3, 2, [3, 1, 1]) is None
+    assert check_joint_slabs(16, 2, 4, 2, [3, 1, 1]) == 4
     with pytest.raises(ValueError, match="pad of 5"):
         check_joint_slabs(32, 8, 1, 1, [5, 1, 1])
+
+
+# (extent, n_spatial, netR's depth, what the port does): an int, netR's
+# first gathered level (None: every level splits); else the rule that
+# refuses it.  int_downsize 2, netG's pads (3, 1, 1): RegistrationConfig()'s
+# (netR 6 levels deep; at 2 levels a small extent shows netG's pads within
+# the 8 CPU devices)
+RULE_CASES = [(64, 2, 6, 6), (64, 4, 6, 5), (64, 8, 6, 4),
+              (256, 2, 6, None), (256, 4, 6, None), (256, 8, 6, 6),
+              (192, 3, 6, None), (128, 2, 6, None),
+              (63, 2, 6, "shard_batch"), (66, 4, 6, "shard_batch"),
+              (65, 3, 6, "shard_batch"), (66, 2, 6, "whole-image"),
+              (96, 2, 6, "whole-image"), (32, 8, 2, "pad of 1"),
+              (16, 8, 2, "pad of 3")]
+
+
+def jax_splits(extent, n_spatial):
+    """Whether JAX's ``shard_batch(..., shard_spatial=True)`` splits a
+    (1, extent, extent, 1) image over a 1 x n_spatial mesh."""
+    mesh = jax_make_mesh(n_data=1, n_spatial=n_spatial,
+                         devices=jax.devices()[:n_spatial])
+    try:
+        shard_batch(mesh, jnp.zeros((1, extent, extent, 1)),
+                    shard_spatial=True)
+    except ValueError:
+        return False
+    return True
+
+
+@pytest.mark.parametrize("extent,n_spatial,depth,want", RULE_CASES)
+def test_the_slab_rule_against_shard_batch(extent, n_spatial, depth, want):
+    """The port takes every extent that JAX's ``shard_batch`` splits and
+    the whole-image model takes, but for netG's levels past their pads
+    (32 over 8: netG's last level holds 1 row a rank against a pad of 1;
+    16 over 8 its first 2 against a pad of 3); one that JAX refuses it
+    refuses with JAX's reason; the engine's check (netR alone) the
+    same."""
+    assert jax_splits(extent, n_spatial) == (want != "shard_batch")
+    args = (extent, n_spatial, depth, 2)
+    if not isinstance(want, str):
+        assert check_joint_slabs(*args, [3, 1, 1]) == want
+        assert first_whole_level(extent, n_spatial, depth) == want
+    else:
+        with pytest.raises(ValueError, match=want):
+            check_joint_slabs(*args, [3, 1, 1])
+    if want in ("shard_batch", "whole-image"):
+        with pytest.raises(ValueError, match=want):
+            check_joint_slabs(*args)
+    else:
+        assert check_joint_slabs(*args) == first_whole_level(*args[:3])
 
 
 SMALL = dict(crop_size=32, ngf=8, netG="resnet_2blocks", vxm_enc=(8, 16),
@@ -295,16 +480,13 @@ def test_a_spatial_mesh_refuses_an_extent_that_does_not_split():
 
 
 def test_the_2d_step_and_visuals_on_slabs_are_refused():
-    """register runs at 2-D on slabs; the 2-D step waits for B2's slab
-    form, and compute_visuals and registration_metrics gather nothing:
-    each raises by name."""
+    """The 2-D step runs on slabs (its networks and losses take the mesh:
+    ``tests/test_torch_spatial_step2d.py`` holds it to JAX); compute_visuals
+    and registration_metrics gather nothing: each raises by name."""
     model = RegistrationModel(RegistrationConfig(**SMALL), device="cpu")
     model.mesh = fake_mesh()
     a = torch.zeros(1, 1, 16, 32)
-    for call in (model.loss_fn, model.train_step, model.eval_step):
-        kw = {"lr": 1e-4} if call == model.train_step else {}
-        with pytest.raises(NotImplementedError, match="B2's slab form"):
-            call(a, a, **kw)
+    assert model._step_mesh(a, None) == (model.mesh, model.mesh)
     with pytest.raises(NotImplementedError, match="compute_visuals"):
         model.compute_visuals(a, a)
     with pytest.raises(NotImplementedError, match="registration_metrics"):

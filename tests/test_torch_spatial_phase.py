@@ -1,7 +1,8 @@
 """chip_smoke.py's phase spatial3d rehearsed on the CPU: VxmEngine at 32^3
-(a narrow netR) split along D over 2 and 4 ``gloo`` CPU ranks against one
-process, with the slab kernels and the one-process runs on counted plain
-versions (the spawned ranks run the plain path itself, counting nothing):
+(a narrow netR) split along D over 2 and 4 ``gloo`` CPU ranks (1 x 2, 2 x
+2, and 1 x 4 with netR's fourth level gathered) against one process,
+with the slab kernels and the one-process runs on counted plain versions
+(the spawned ranks run the plain path itself, counting nothing):
 every check of the phase runs, and it returns the launches it holds the
 card to."""
 
@@ -57,13 +58,13 @@ def test_spatial3d_phase(small_spatial, capsys):
     # the slab kernels' rows, for the kernels line
     assert len(slab_rows) == 4
     assert any("one process" in w for w in small_spatial)
-    assert sum("rank" in w for w in small_spatial) >= 6 * 3
+    assert sum("rank" in w for w in small_spatial) >= 10 * 3
     got = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
     slabs = [x["slab_kernel"] for x in got if "slab_kernel" in x]
     assert len(slabs) == 4
     assert all(r["vs_whole_max_abs"] == 0.0 for r in slabs)
     meshes = {x["mesh"]: x for x in got if "mesh" in x}
-    assert set(meshes) == {"1x2", "2x2"}
+    assert set(meshes) == {"1x2", "2x2", "1x4"}
     for name, m in meshes.items():
         assert m["ranks"] == m["n_data"] * m["n_spatial"]
         assert len(m["ms_per_step_by_rank"]) == m["ranks"]
@@ -71,6 +72,8 @@ def test_spatial3d_phase(small_spatial, capsys):
         assert m["flow_max_vox"] > 1.0
         for sent in m["bytes_sent_per_step_by_rank"]:
             assert sent["halo"] > 0 and sent["gather"] > 0
+    assert meshes["1x4"]["netR_gathered_from_level"] == 4
+    assert meshes["1x2"]["netR_gathered_from_level"] is None
     last = got[-1]
     assert last["launches_per_rank_step"] == chip_smoke.STEP3D
-    assert set(last["meshes"]) == {"1x2", "2x2"}
+    assert set(last["meshes"]) == {"1x2", "2x2", "1x4"}

@@ -10,7 +10,8 @@ ranks (JAX's ``make_mesh`` over the first devices).  In one process:
 ``slab_slice`` against JAX's ``shard_batch(..., shard_spatial=True)``, a
 halo's sends and receives going out as one batch, the slab warp's plain
 version and its autograd wiring bit-equal to the whole warp's rows, the
-CUDA launchers' refusals, and the refusal of a depth that does not split.
+CUDA launchers' refusals, and the refusal of a depth that does not split
+(netR's levels that do not split run gathered).
 With ``n_spatial=1`` the spatial rank function is the data-parallel
 step (``vxm_steps``), bit for bit."""
 
@@ -26,8 +27,7 @@ import jax.numpy as jnp
 
 from dfmir_tpu.parallel import make_mesh as jax_make_mesh
 from dfmir_tpu.parallel import shard_batch
-from dfmir_tpu_torch.engine.vxm_engine import (VxmConfig, VxmEngine,
-                                               check_slabs)
+from dfmir_tpu_torch.engine.vxm_engine import VxmConfig, VxmEngine
 from dfmir_tpu_torch.losses.regularizers import grad_loss
 from dfmir_tpu_torch.losses.similarity import mse_loss, ncc_loss
 from dfmir_tpu_torch.ops import warp_cuda
@@ -37,7 +37,8 @@ from dfmir_tpu_torch.ops.warp import warp, warp_bwd_plain
 from dfmir_tpu_torch.parallel import checks
 from dfmir_tpu_torch.parallel.launch import launch
 from dfmir_tpu_torch.parallel import mesh as mesh_mod
-from dfmir_tpu_torch.parallel.mesh import (Mesh, batch_slice, halo_exchange,
+from dfmir_tpu_torch.parallel.mesh import (Mesh, batch_slice,
+                                           check_joint_slabs, halo_exchange,
                                            slab_slice)
 from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
@@ -343,23 +344,35 @@ def test_slab_launchers_refuse_what_the_kernels_do_not_take():
         warp_cuda.warp3d_bwd_dflow_cuda(src, slab, g[:, :, rows], 4)
 
 
+def check_vxm(depth, n_spatial, cfg):
+    """The engine's check: ``check_joint_slabs`` for netR alone."""
+    return check_joint_slabs(depth, n_spatial, len(cfg.enc),
+                             cfg.int_downsize)
+
+
 def test_a_depth_that_does_not_split_is_refused():
-    """D must be divisible by n_spatial * lcm(2^len(enc), int_downsize):
-    JAX's test config splits over 4 ranks and VxmConfig() at 160^3 over 2,
-    not over 4; the engine refuses before any collective."""
-    check_slabs(16, 4, VxmConfig(**SMALL))
-    check_slabs(160, 2, VxmConfig())
-    rule = r"n_spatial \* lcm\(2\^len\(enc\), int_downsize\)"
-    with pytest.raises(ValueError, match=rule):
-        check_slabs(160, 4, VxmConfig())
-    eng = VxmEngine(VxmConfig(**dict(SMALL, vol_size=24)), device="cpu")
+    """A depth that JAX's ``shard_batch`` does not split (n_spatial does
+    not divide it) is refused with JAX's reason, and one whose
+    half-resolution SVF does not split with the SVF's; netR's levels that
+    do not split run gathered (the level returned, None where every level
+    splits): JAX's test config over 4 ranks and VxmConfig() at 160^3 over
+    2 split at every level, over 4 its fourth encoder level is gathered
+    (tests/test_torch_spatial_vxm_deep.py runs such a case).  The engine
+    refuses before any collective."""
+    assert check_vxm(16, 4, VxmConfig(**SMALL)) is None
+    assert check_vxm(160, 2, VxmConfig()) is None
+    assert check_vxm(160, 4, VxmConfig()) == 4
+    with pytest.raises(ValueError, match="shard_batch"):
+        check_vxm(162, 4, VxmConfig())
+    eng = VxmEngine(VxmConfig(**dict(SMALL, vol_size=18)), device="cpu")
     fake = Mesh(rank=0, world=4, device=torch.device("cpu"), backend="gloo",
                 n_spatial=4)
-    with pytest.raises(ValueError, match=rule):
+    with pytest.raises(ValueError, match="shard_batch"):
         eng.data_parallel(fake)
     eng.mesh = fake
-    a = torch.rand(1, 1, 6, 16, 16)           # a slab of a 24-plane volume
+    a = torch.rand(1, 1, 5, 16, 16)     # a slab of a 20-plane volume
     for call in (eng.register, eng.eval_step, eng.flow_stats,
                  eng.train_step):
-        with pytest.raises(ValueError, match=rule):
+        with pytest.raises(ValueError, match="SVF's int_downsize 2: 10 "
+                                             "rows"):
             call(a, a)
