@@ -76,8 +76,8 @@ Phases, each printing one JSON line:
               tilestylegan2 (lambda_GAN 1). Each run: one register call
               counted (1 chain forward + 1 B1), for the netG and netR runs
               against the same weights on the CPU (fake_B, y_source,
-              pos_flow max-abs <= 1e-3); register ms (CUDA events, median
-              of 3); 1 warm-up + 1 timed step counted (the CUT step's
+              pos_flow max-abs <= 1e-3); register ms (CUDA events, one
+              call); 1 warm-up + 1 timed step counted (the CUT step's
               launches), every parameter moved but the noise weights no
               loss reaches, peak memory; one train step at the narrow width
               (crop 64, ngf 8; unet_256 at crop 256, resnet_cat at ngf 32)
@@ -87,7 +87,8 @@ Phases, each printing one JSON line:
               summary line
   bf16_zoo    each of zoo's 13 choices in bfloat16 at the same full width
               (the flow head scaled to about 0.1 px): a register call
-              counted (1 + 1), register ms (CUDA events, median of 3), 1
+              counted (1 + 1), register ms (CUDA events, one call after a
+              warm-up), 1
               warm-up + 1 timed step counted (the CUT step's launches),
               every master parameter and Adam moment float32 (netD's too),
               peak memory, each beside the float32 zoo run of this run; the
@@ -168,7 +169,7 @@ Phases, each printing one JSON line:
               in JAX, 1e7-scale ones here): 2 register_pair_outputs
               calls with a label volume
               counted (1 chain forward + 1 B3 each), register ms (CUDA
-              events, median of 3), 1 warm-up + 2 timed steps counted (1
+              events, one call), 1 warm-up + 1 timed step counted (1
               chain forward + 2 B3, 1 chain backward + 2 B4 + 1 B5:
               `registered`'s source gradient into netG), every parameter
               moved, peak memory, one step traced (device time by kernel,
@@ -189,9 +190,9 @@ Phases, each printing one JSON line:
               about 27,000 locations a tap, do not fit beside the step at
               128^3), netR vxm_dual, netD basic and pixel (lambda_GAN 1, a
               two-phase step); each in float32 (the flow head fitted to
-              0.8 voxel; 1 + 2 steps) and bf16 (0.05 voxel; 1 + 1 steps):
+              0.8 voxel; 1 + 1 steps) and bf16 (0.05 voxel; 1 + 1 steps):
               a register_pair_outputs call counted (1 chain forward + 1
-              B3), register ms (CUDA events, median of 3), the steps
+              B3), register ms (CUDA events, one call), the steps
               counted (1 + 2 forward, 1 chain backward + 2 B4 + 1 B5; the
               D phase none), every parameter moved (netD's too; a tap of
               one location leaves its MLP a zero gradient, checked), master
@@ -297,6 +298,26 @@ Phases, each printing one JSON line:
               launches exact (a register 1 + 1; a 2-D step 1 + 2 and 1 +
               2, a 3-D step 1 + 2 and 1 + 2 + 1); ms, peak memory, bytes
               and host seconds in the exchanges, by rank
+  spatial_options (run right after spatial_joint) the paper model's
+              training options on slabs at RegistrationConfig()'s full
+              width, B=1 a data rank: over 2 ranks each alone (bfloat16
+              with register, FastCUT at each coin, dropout, the GAN phase
+              with netD basic, no_antialias_up), all-negatives PatchNCE
+              over 2 x 2 (global B=2), bfloat16 + FastCUT + dropout + the
+              GAN phase over 1 x 4, and the 3-D joint model in bfloat16
+              at 128^3 over 1 x 2 (register and 2 steps), in one launch
+              of 4 ranks sharing the card (gloo), against one process run
+              first in a launch of its own: register within the bf16 bars;
+              the steps' metrics 1e-5 relative (bfloat16 1e-2; with the
+              GAN phase D, D_fake, D_real and G_GAN too), the float32
+              first step's gradients 1e-2 of each network's and 5e-2 of
+              each tensor's max |g| (netD's too) and its update under the
+              sign-flip rule, every rank's parameters and Adam states
+              (netD's too) bit-equal; a rank's launches exact (a 2-D step
+              1 + 2 and 1 + 2 with any option, the D phase none; a 3-D
+              step 1 + 2 and 1 + 2 + 1); ms a step and netD's forward and
+              backward alone, peak memory, bytes and host seconds in the
+              exchanges, by rank
   dp_cli      train.main through the launcher on [cuda:0, cuda:0] (gloo) on
               phase cli's PNG pairs: 2 steps at B=2, 1 a rank; the one
               set of files a run writes, a loss-log line a print, once;
@@ -348,8 +369,10 @@ zoo's runs), dp, dp_fastcut, dp_gan,
 dp_nccl, dp3d, spatial3d_register, spatial3d_train (the three meshes'
 ranks), spatial_joint_register2d, spatial_joint_register3d,
 spatial_joint_train2d, spatial_joint_train (the 2-D and the graft's
-meshes' ranks; the 3-D mesh's), dp_cli, augment2d, augment3d (one call
-each),
+meshes' ranks; the 3-D mesh's), spatial_options_register2d,
+spatial_options_register3d, spatial_options_train2d,
+spatial_options_train3d (the runs' ranks), dp_cli, augment2d, augment3d
+(one call each),
 cli_patient_site, cli_triplet, cli_triplet_test; a dp path's summed over
 its ranks; B5's main path is joint3d_train), and last {"ok": true, "device": {...}}.  A rank that fails
 fails its phase (its traceback in the error); nothing falls back to one
@@ -2175,7 +2198,7 @@ ZOO_CPU_REGISTER = ("netG", "netR")  # runs whose full-width register is
 # near their time with phases joint3d, bf16_3d, bf16_zoo and zoo3d beside
 # them
 ZOO_STEPS = 1                        # timed, after 1 warm-up
-ZOO_REGISTER_REPS = 3
+ZOO_REGISTER_REPS = 1          # (3 before spatial_options)
 # the card-vs-CPU step: the CPU tests' narrow width, but unet_256 needs a
 # side of 2^8, and resnet_cat's tap 0 is a ReLU's output, which at 8
 # channels is all zero at some location: the JAX package's gradients are
@@ -3572,8 +3595,9 @@ JOINT3D_NARROW = dict(ndims=3, crop_size=32, netG="resnet_4blocks", ngf=8,
                       num_patches=16)
 # the convergence check's config: the narrow width at 64^3
 JOINT3D_CONVERGE = dict(JOINT3D_NARROW, crop_size=64)
-JOINT3D_STEPS = 2              # timed, after 1 warm-up (3 before zoo3d)
-JOINT3D_REGISTER_REPS = 3      # (10 before zoo3d)
+JOINT3D_STEPS = 1              # timed, after 1 warm-up (2 before
+                               # spatial_options, 3 before zoo3d)
+JOINT3D_REGISTER_REPS = 1      # (3 before spatial_options, 10 before zoo3d)
 JOINT3D_CONVERGE_LR = 1e-3
 # a 3-D register call: the chain and the y_source warp; a 3-D joint step:
 # the chain, the stacked data warp and `registered` forward; backward the
@@ -4342,8 +4366,10 @@ def phase_dp3d(seed, smi):
 # planes do not split over 4)
 SPATIAL_MESHES = [(1, 2), (2, 2), (1, 4)]
 SPATIAL3D_CFG = {}           # fields beside VxmConfig()'s (none on the card)
-SPATIAL_STEPS = 3            # the 2 compared steps, then 1 more timed
-SPATIAL_REG_REPS = 3         # register calls a rank, the median timed
+SPATIAL_STEPS = 2            # both compared, the second timed (a third
+                             # timed before spatial_options)
+SPATIAL_REG_REPS = 1         # register calls a rank (3 before
+                             # spatial_options)
 SPATIAL_TOL = 1e-5           # register max-abs, the steps' metrics relative
 # the slab kernels: B3 and B4 on the half volumes from planes SLAB_Z0 of a
 # 160^3 source, against the whole-volume launches' rows (bit for bit)
@@ -4560,7 +4586,8 @@ SJ_STEPS = 2                 # both compared with one process, the second timed
 # second step's loss then parts by ~1e-4 between any two float32 runs,
 # one-process runs on 1 and 2 CPU threads too; the update itself is held
 # to that first-step rule)
-SJ_REG_REPS = 2              # register calls a rank, the median timed
+SJ_REG_REPS = 1              # register calls a rank (2 before
+                             # spatial_options)
 SJ_TOL = 1e-4                # register max-abs against one process
 SJ_METRIC_TOL = 1e-5         # the steps' metrics, relative
 # the 2-D first step's float32 gradients, the ranks' against one process's,
@@ -5115,6 +5142,250 @@ def phase_spatial_joint(seed, smi):
           "launch_s": launch_s, "this_process_mem_gb": main_gb,
           "card": smi})
     return launches, slab_rows
+
+
+# phase spatial_options: the paper model's training options on slabs, at
+# RegistrationConfig()'s full width (256^2), B=1 a data rank, each against
+# one process of the port on the whole batch.  run: (the options, (n_data,
+# n_spatial), FastCUT's coin or None)
+SO_RUNS = {
+    "bf16_1x2": (BF16, (1, 2), None),
+    "fastcut_heads_1x2": (FASTCUT, (1, 2), False),
+    "fastcut_tails_1x2": (FASTCUT, (1, 2), True),
+    "dropout_1x2": (DROPOUT, (1, 2), None),
+    "gan_1x2": (GAN, (1, 2), None),
+    "no_antialias_up_1x2": (dict(no_antialias_up=True), (1, 2), None),
+    "all_negatives_2x2": (dict(nce_includes_all_negatives_from_minibatch=True),
+                          (2, 2), None),
+    "mixed_1x4": (dict(**BF16, **FASTCUT, **DROPOUT, **GAN), (1, 4), True)}
+# the 3-D joint model (JOINT3D) in bfloat16 at 128^3 (its flow head
+# fitted to BF16_3D_FIELD), register and SO_STEPS steps on this mesh
+SO_3D_MESH = (1, 2)
+SO_STEPS = 2                 # the second from the one process's state, timed
+SO_DROPOUT_SEED = 11         # the dropout masks' seed, one process and ranks
+SO_NETD_REPS = 3             # netD's forward and backward alone, timed
+SO_REG_REPS = 1              # register calls a rank (bfloat16 runs)
+# bfloat16's gradients are rounding-bound: this run's one process runs
+# twice (cuDNN's spread at one shape) and once in float32 (bfloat16's own
+# distance from float32), both printed beside the ranks' distance from it
+SO_AGAIN = "bf16_1x2"
+
+
+def so_job(cfg, seed, gain, pair, coin, mesh_shape, register):
+    """joint_spatial_steps' job for one spatial_options run."""
+    n_data, n_spatial = mesh_shape
+    return dict(cfg=cfg, seed=seed, flow_gain=gain,
+                register=pair if register else None, reg_reps=SO_REG_REPS,
+                batches=[pair] * SO_STEPS, lr=RegistrationConfig().lr,
+                flip=[coin] * SO_STEPS, dropout_seed=SO_DROPOUT_SEED,
+                netD_reps=SO_NETD_REPS, n_data=n_data, n_spatial=n_spatial)
+
+
+def so_norm_fed_biases(cfg):
+    """(net, name) of every conv bias an instance norm follows in netG and
+    netD of ``cfg`` (dropout shifts a ResnetBlock's indices): the names of
+    a narrow twin's (ngf, ndf 2)."""
+    twin = RegistrationModel(RegistrationConfig(**dict(cfg, ngf=2, ndf=2)),
+                             device="cpu")
+    nets = {"G": twin.netG, "D": twin.netD}
+    return {(k, name) for k, net in nets.items() if net is not None
+            for name in norm_fed_biases(net)}
+
+
+def so_pair(batch, size, seed):
+    """A global (A, B) of ``batch`` 2-D pairs on the host."""
+    pairs = [tuple(t.cpu() for t in p[:2])
+             for p in make_pairs(batch, 1, size, seed, "cpu")]
+    return tuple(torch.cat(x) for x in zip(*pairs))
+
+
+def phase_spatial_options(seed, smi):
+    """The paper model's training options on slabs (A12c's item 2.2): at
+    RegistrationConfig()'s full width over 2 ranks each alone (bfloat16
+    with register, FastCUT at each coin, dropout, the GAN phase with netD
+    basic, no_antialias_up), all-negatives PatchNCE over 2 x 2 (global
+    B=2) and bfloat16 + FastCUT + dropout + the GAN phase over 1 x 4, in
+    one launch of 4 ranks sharing the card (gloo) with the 3-D joint model
+    in bfloat16 at 128^3 over 1 x 2 (register and SO_STEPS steps), B=1 a
+    data rank, each against one process on the whole batch run first in a
+    launch of its own: register's slabs put together within BF16_BARS; the
+    steps' metrics (with the GAN phase D, D_fake, D_real and G_GAN)
+    SJ_METRIC_TOL relative, BF16_METRIC_TOL in bfloat16 (the second step
+    from the one process's state after the first); the float32 first
+    step's gradients within GRAD_ENV of each network's max |g| and
+    SJ_GRAD_F32_TENSOR of each tensor's (a norm-fed conv bias: its
+    network's), netD's too, and the update under the first-step sign-flip
+    rule (bfloat16's printed); every rank's parameters and Adam states
+    (netD's too) bit-equal after each step; a rank's launches exact (a 2-D
+    step STEP_LAUNCHES with any option, the GAN's D phase none; a 3-D step
+    JOINT3D_STEP; a register 1 + 1); ms a step and netD's forward and
+    backward alone, peak memory, bytes and host seconds in the exchanges,
+    by rank."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg2 = RegistrationConfig(**SJ_2D_CFG)
+    pair1 = so_pair(1, cfg2.crop_size, seed + 51)
+    pair2 = so_pair(2, cfg2.crop_size, seed + 52)
+    name3, opts3 = "bf16_3d_1x2", dict(**JOINT3D, **BF16)
+    cfg3 = RegistrationConfig(**opts3)
+    (A3, B3, _), = [tuple(t.cpu() for t in p) for p in joint3d_pairs(
+        1, cfg3.crop_size, seed + 53, "cpu")]
+    fit = build_model(cfg3, seed, DEVICE, gain=1.0)
+    gain3 = fit_flow_head(fit, A3.to(DEVICE), B3.to(DEVICE), BF16_3D_FIELD)
+    del fit
+    gc.collect()
+    torch.cuda.empty_cache()
+    jobs = {}
+    for name, (opts, mesh_shape, coin) in SO_RUNS.items():
+        bf16 = opts.get("compute_dtype") == "bfloat16"
+        jobs[name] = so_job(dict(SJ_2D_CFG, **opts), seed, BF16_GAIN if bf16
+                            else FLOW_GAIN, pair2 if mesh_shape[0] > 1
+                            else pair1, coin, mesh_shape, bf16)
+    jobs[name3] = so_job(opts3, seed, gain3, (A3, B3), None, SO_3D_MESH,
+                         True)
+    state = tempfile.mkdtemp(prefix="chip_smoke_so_")
+    paths = {name: os.path.join(state, f"{name}_after_step_0.pt")
+             for name in jobs}
+    # the one-process references first, in a launch of their own
+    t0 = time.perf_counter()
+    try:
+        with expandable_segments():
+            singles = dp_launch(checks.run_cases, [DP_DEVICES[0]], [
+                (name, "one_process", {"fn": "joint_spatial_steps",
+                                       "job": dict(job, save_after=(
+                                           0, paths[name]))})
+                for name, job in jobs.items()] + [
+                (f"{SO_AGAIN}_again", "one_process", {
+                    "fn": "joint_spatial_steps", "job": dict(
+                        jobs[SO_AGAIN], register=None,
+                        batches=jobs[SO_AGAIN]["batches"][:1])}),
+                (f"{SO_AGAIN}_float32", "one_process", {
+                    "fn": "joint_spatial_steps", "job": dict(
+                        jobs[SO_AGAIN], register=None,
+                        cfg=dict(jobs[SO_AGAIN]["cfg"],
+                                 compute_dtype="float32"),
+                        batches=jobs[SO_AGAIN]["batches"][:1])})])[0]
+        one_process_s = time.perf_counter() - t0
+        for name, job in jobs.items():
+            job["load_after"] = (0, paths[name])
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        # the 3-D run first: its two ranks take most of the card
+        order = [name3] + list(SO_RUNS)
+        with expandable_segments():
+            ranks = dp_launch(checks.run_cases, [DP_DEVICES[0]] * 4, [
+                (name, "joint_spatial_steps", {"job": jobs[name]})
+                for name in order])
+        launch_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(state, ignore_errors=True)
+    totals = {"spatial_options_train2d": [], "spatial_options_train3d": [],
+              "spatial_options_register2d": [],
+              "spatial_options_register3d": []}
+    runs = {}
+    for name in order:
+        job, single = jobs[name], singles[name]
+        dims = "3d" if name == name3 else "2d"
+        per_step = JOINT3D_STEP if dims == "3d" else STEP_LAUNCHES
+        reg = REG3D if dims == "3d" else SJ_REGISTER
+        bf16 = job["cfg"].get("compute_dtype") == "bfloat16"
+        reports = [r[name] for r in ranks if r[name].get("in_mesh", True)]
+        want = job["n_data"] * job["n_spatial"]
+        if len(reports) != want:
+            raise AssertionError(f"spatial_options {name}: {len(reports)} "
+                                 f"ranks reported, not {want}")
+        what = f"spatial_options {name}"
+        dp_ranks_agree([single], per_step, f"{what} one process")
+        row = {"options": {k: v for k, v in job["cfg"].items()},
+               "n_data": job["n_data"], "n_spatial": job["n_spatial"],
+               "ranks": want, "flip": job["flip"][0],
+               "flow_gain": job["flow_gain"]}
+        if job["register"] is not None:
+            check_launches(f"{what} one process register",
+                           single["register_launches"], dict(ZERO, **reg))
+            for r in reports:
+                check_launches(f"{what} register, rank {r['rank']}",
+                               r["register_launches"], dict(ZERO, **reg))
+            totals[f"spatial_options_register{dims}"].append(add_counts(
+                *((1, r["register_launches"]) for r in reports)))
+            errs = {k: float((slab_parts(reports, i)
+                              - single["register"][i]).abs().max())
+                    for i, k in enumerate(BF16_BARS)}
+            bad = {k: e for k, e in errs.items() if not e <= BF16_BARS[k]}
+            if bad:
+                raise AssertionError(f"{what}: register differs from one "
+                                     f"process's by {bad}, past BF16_BARS")
+            row.update(
+                register_max_abs_vs_one_process=errs,
+                pos_flow_max=float(single["register"][3].abs().max()),
+                register_ms_by_rank=[statistics.median(r["register_ms"])
+                                     for r in reports],
+                one_process_register_ms=statistics.median(
+                    single["register_ms"]))
+        totals[f"spatial_options_train{dims}"].append(
+            dp_ranks_agree(reports, per_step, what))
+        tol = BF16_METRIC_TOL if bf16 else SJ_METRIC_TOL
+        row["steps_rel_vs_one_process"] = [
+            rel_errs(reports[0]["metrics"][i], single["metrics"][i], tol,
+                     f"{what} step {i}") for i in range(SO_STEPS)]
+        rank0, = [r for r in reports if r["rank"] == 0]
+        skip = so_norm_fed_biases(job["cfg"])
+        if bf16:
+            row["grad_vs_one_process"] = grad_errs(
+                rank0["grads"], single["grads"], skip, f"{what} bfloat16",
+                limit=None)
+            if name == SO_AGAIN:
+                f32 = singles[f"{name}_float32"]["grads"]
+                row.update(
+                    one_process_grad_run_to_run=grad_errs(
+                        singles[f"{name}_again"]["grads"], single["grads"],
+                        skip, f"{what} one process twice", limit=None),
+                    one_process_bf16_vs_float32=grad_errs(
+                        single["grads"], f32, skip,
+                        f"{what} one process against float32", limit=None),
+                    grad_vs_one_process_float32=grad_errs(
+                        rank0["grads"], f32, skip,
+                        f"{what} against float32", limit=None))
+        else:
+            row["grad_vs_one_process"], row["params_past_1e-5"] = (
+                slab_grad_errs(rank0, single, skip, job["lr"], what,
+                               per_tensor=False))
+            row["grad_vs_one_process_each_tensor"] = grad_errs(
+                rank0["grads"], single["grads"], skip,
+                f"{what} float32 per tensor", limit=SJ_GRAD_F32_TENSOR)
+        if "netD_ms" in single:
+            row.update(netD_ms_by_rank=[statistics.median(r["netD_ms"])
+                                        for r in reports],
+                       one_process_netD_ms=statistics.median(
+                           single["netD_ms"]),
+                       netD_bytes_by_rank=[r["netD_bytes"] for r in reports])
+        row.update(
+            metrics_by_step=reports[0]["metrics"],
+            step_ms_by_rank=[r["ms"] for r in reports],
+            ms_per_step_by_rank=[r["ms"][-1] for r in reports],
+            one_process_ms_per_step=single["ms"][-1],
+            peak_mem_gb_by_rank=[gb(r["peak_bytes"]) for r in reports],
+            one_process_peak_mem_gb=gb(single["peak_bytes"]),
+            bytes_sent_per_step_by_rank=[r["bytes_sent"][-1]
+                                         for r in reports],
+            exchange_host_s_per_step_by_rank=[r["exchange_s"][-1]
+                                              for r in reports])
+        runs[name] = row
+        emit({"phase": "spatial_options", "run": name, **row})
+    launches = {path: add_counts(*((1, c) for c in counts))
+                for path, counts in totals.items()}
+    emit({"phase": "spatial_options",
+          "config": ["RegistrationConfig() (256^2) with each option",
+                     "RegistrationConfig(ndims=3, crop_size=128, "
+                     "compute_dtype='bfloat16')"],
+          "backend": backend_for(DP_DEVICES), "steps": SO_STEPS,
+          "launches": launches,
+          "launches_per_rank_step": {"2d": STEP_LAUNCHES,
+                                     "3d": JOINT3D_STEP},
+          "runs": list(runs), "one_process_s": one_process_s,
+          "launch_s": launch_s, "card": smi})
+    return launches
 
 
 def phase_dp_cli(seed, smi):
@@ -5907,6 +6178,9 @@ def main(argv=None):
     spatial_joint_launches, slab_joint_rows = run(
         "spatial_joint", phase_spatial_joint, args.seed, smi)
     torch.cuda.empty_cache()
+    spatial_options_launches = run("spatial_options", phase_spatial_options,
+                                   args.seed, smi)
+    torch.cuda.empty_cache()
     model, reg_launches, reg_ms = run("register", phase_register, args.seed,
                                       smi)
     if args.profile:
@@ -5976,6 +6250,7 @@ def main(argv=None):
              **bf16_3d_launches, **zoo3d_launches, **dp_launches,
              "dp_nccl": dp_nccl_launches, "dp3d": dp3d_launches,
              **spatial3d_launches, **spatial_joint_launches,
+             **spatial_options_launches,
              **dp_cli_launches, **augment_launches, **modes_launches}
 
     def by_path(name):

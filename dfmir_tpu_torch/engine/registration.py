@@ -60,7 +60,7 @@ images are the negatives; the other terms are each rank's own mean.  The
 gradients of netG, netF and netR (and netD's in ``d_step``) are averaged
 over the ranks before Adam, and ``train_step``'s metrics too.  The patch
 ids and FastCUT's coin come from ``patch_generator``, equal on every rank
-(one seed); the dropout masks are each rank's own.  ``eval_step`` and
+(one seed); the dropout masks are each data rank's own.  ``eval_step`` and
 ``compute_visuals`` score the batch they are given.
 
 The networks come from the factories (``nets/factory.py``), as in JAX:
@@ -100,9 +100,23 @@ whole image's.  ``register`` and the step (``loss_fn``, ``train_step``,
 ``eval_step``) run at 2-D and 3-D.  The image's extent must pass
 ``parallel.mesh.check_joint_slabs``: JAX's ``shard_batch`` splits it and
 the whole-image model takes it, and netG's levels and the SVF split (the
-graft's crop 64 over 2 ranks gathers netR's sixth level).  On slabs the
-options below have no slab form and raise, each by name
-(``SLAB_REFUSALS``).
+graft's crop 64 over 2 ranks gathers netR's sixth level).
+
+The training options on slabs, each the whole image's computation:
+bfloat16 (netG and netR in bfloat16 on the slabs, their halos and
+gathered levels carrying bfloat16, ``parallel/mesh.py``; fake_B and the
+flow reach ``warp_slabs`` in float32); FastCUT (its flip is along W at
+2-D and H at 3-D, an axis every slab holds whole, so it is local, and the
+patch ids stay the whole map's); dropout (the spatial ranks of a data rank
+share one generator stream and each keeps its rows of the whole mask,
+``nets/resnet_gen.py::Dropout``; the data ranks have streams of their
+own); ``no_antialias_up`` (``nets/layers.py::conv_transpose_slab``);
+all-negatives PatchNCE (the keys gathered over the data ranks alone,
+``losses/nce.py``); the GAN phase (``nets/discriminators.py::
+discriminate``: the pixel netD on the slab, every other on the gathered
+fake_B, whole on every spatial rank; the losses the whole map's, netD's
+gradient and Adam state the same on every rank).  The choices in
+``SLAB_REFUSALS`` have no slab form and raise, each by name.
 
 Refused (NotImplementedError): at ``ndims=3`` the choices the JAX package
 cannot build there (``JAX_2D_ONLY``: ``jax.eval_shape`` of its
@@ -121,6 +135,7 @@ from dfmir_tpu_torch.device import resolve_device
 from dfmir_tpu_torch.engine.config import RegistrationConfig
 from dfmir_tpu_torch.losses import (gan_loss, masked_l1, patch_nce_loss,
                                     smoothness_loss)
+from dfmir_tpu_torch.nets.discriminators import discriminate
 from dfmir_tpu_torch.nets.factory import (define_D, define_F, define_G,
                                           g_family, resnet_blocks)
 from dfmir_tpu_torch.nets.feature_nets import channels_last_rows
@@ -147,22 +162,15 @@ JAX_2D_ONLY = {"netG": ("resnet_cat", "stylegan2", "smallstylegan2"),
                         "tilestylegan2", "patch")}
 
 
-# the options that have no slab form (a spatial mesh refuses each by name):
-# (option, the test on the config)
+# the choices that have no slab form (a spatial mesh refuses each by name):
+# (choice, the test on the config)
 SLAB_REFUSALS = (
-    ("lambda_GAN > 0 (netD and the GAN phase)", lambda c: c.lambda_GAN > 0),
-    ("flip_equivariance (FastCUT)", lambda c: c.flip_equivariance),
-    ("no_dropout=False (dropout)", lambda c: not c.no_dropout),
-    ("compute_dtype='bfloat16'", lambda c: c.compute_dtype != "float32"),
     ("netG other than resnet_<n>blocks",
      lambda c: g_family(c.netG) != "resnet"),
     ("netF other than mlp_sample / sample",
      lambda c: c.netF not in ("mlp_sample", "sample")),
     ("netR other than vxm (the transformer netRs)",
      lambda c: c.netR != "vxm"),
-    ("no_antialias_up (the transposed convs)", lambda c: c.no_antialias_up),
-    ("nce_includes_all_negatives_from_minibatch",
-     lambda c: c.nce_includes_all_negatives_from_minibatch),
     ("num_patches=0 (every location)", lambda c: c.num_patches <= 0),
 )
 
@@ -298,17 +306,20 @@ class RegistrationModel:
         rank holds rank 0's parameters and Adam state (one seed, or one
         checkpoint), broadcast them from rank 0 (JAX's ``replicate``), and
         draw this rank's dropout masks from a generator of its own, seeded
-        from a draw of the model's and the rank.  A mesh with n_spatial > 1
-        (``make_mesh``) splits the images along axis 2 too: the config must
-        have a slab form (``SLAB_REFUSALS``) and ``cfg.crop_size`` pass
-        ``check_joint_slabs``, and every call takes this rank's slabs."""
+        from a draw of the model's and the data rank (the spatial ranks of
+        one data rank share it, each keeping its rows of the same masks;
+        without a spatial axis the data rank is the rank).  A mesh with
+        n_spatial > 1 (``make_mesh``) splits the images along axis 2 too:
+        the config must have a slab form (``SLAB_REFUSALS``) and
+        ``cfg.crop_size`` pass ``check_joint_slabs``, and every call takes
+        this rank's slabs."""
         if is_spatial(mesh):
             self._check_slabs(self.cfg.crop_size, mesh)
         replicate(self.state_tensors(), mesh)
         base = int(torch.randint(2 ** 62, (1,),
                                  generator=self.dropout_generator,
                                  device=self.dropout_generator.device))
-        seed = np.random.SeedSequence([base, mesh.rank]).generate_state(
+        seed = np.random.SeedSequence([base, mesh.data_rank]).generate_state(
             1, np.uint64)[0]
         self.dropout_generator.manual_seed(int(seed))
         self.mesh = mesh
@@ -467,7 +478,7 @@ class RegistrationModel:
         layers = tuple(cfg.nce_layers)
         feats_fwd = None
         if cfg.flip_equivariance:
-            fake = self._G(real, dropout)
+            fake = self._G(real, dropout, mesh)
         else:
             fake, feats_fwd = self._G(real, dropout, mesh, layers=layers)
         fake_B, idt_B = fake[:B], fake[B:]
@@ -506,8 +517,9 @@ class RegistrationModel:
             keys = [real_A] + ([real_B] if use_idt else []) + [real_B]
             stacked = torch.cat([x for q, k in zip(queries, keys)
                                  for x in (q, k)], dim=0)
-            feats = self._G(stacked, dropout, layers=layers,
-                            encode_only=True)
+            feats = self._G(stacked, dropout,
+                            mesh if is_spatial(mesh) else None,
+                            layers=layers, encode_only=True)
             chunks = [[f[i * B:(i + 1) * B] for f in feats]
                       for i in range(2 * len(queries))]
             q_chunks, k_chunks = chunks[0::2], chunks[1::2]
@@ -537,10 +549,8 @@ class RegistrationModel:
         loss_G_GAN = torch.zeros((), device=real_B.device)
         if with_D and self.netD is not None:
             frozen = {n: p.detach() for n, p in self.netD.named_parameters()}
-            pred_fake = torch.func.functional_call(self.netD, frozen,
-                                                   (fake_B,))
-            loss_G_GAN = gan_loss(pred_fake, True,
-                                  cfg.gan_mode) * cfg.lambda_GAN
+            loss_G_GAN = self._gan_loss(fake_B, True, mesh,
+                                        frozen) * cfg.lambda_GAN
         loss_G = loss_G + loss_G_GAN
 
         # R losses; the masks are ORs of foreground tests
@@ -653,13 +663,22 @@ class RegistrationModel:
         return all_reduce_metrics({k: v.detach() for k, v in metrics.items()},
                                   self.mesh)
 
+    def _gan_loss(self, x, target_is_real: bool, mesh=None, params=None):
+        """``gan_loss`` of netD's prediction on ``x`` (on slabs, when
+        ``mesh`` splits the images: this rank's slab, and the loss the
+        whole map's, ``nets.discriminators.discriminate``)."""
+        pred, split = discriminate(self.netD, x,
+                                   mesh if is_spatial(mesh) else None, params)
+        return gan_loss(pred, target_is_real, self.cfg.gan_mode, mesh=split)
+
     def d_step(self, fake_B, real_B, lr: float) -> Dict[str, torch.Tensor]:
         """netD's update (phase 1 of a GAN step): (D(fake) loss + D(real)
-        loss) / 2, one Adam step at ``lr``.  Returns D, D_fake, D_real."""
-        gan_mode = self.cfg.gan_mode
+        loss) / 2, one Adam step at ``lr``.  Returns D, D_fake, D_real.
+        On slabs ``fake_B`` and ``real_B`` are this rank's slabs and the
+        losses the whole images'."""
         self.optimizer_D.zero_grad(set_to_none=True)
-        l_fake = gan_loss(self.netD(fake_B), False, gan_mode)
-        l_real = gan_loss(self.netD(real_B), True, gan_mode)
+        l_fake = self._gan_loss(fake_B, False, self.mesh)
+        l_real = self._gan_loss(real_B, True, self.mesh)
         loss_D = (l_fake + l_real) * 0.5
         loss_D.backward()
         all_reduce_grads(self.netD.parameters(), self.mesh)

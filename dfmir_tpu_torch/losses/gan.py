@@ -2,6 +2,12 @@
 GANLoss): lsgan, vanilla, wgangp and nonsaturating, and the WGAN-GP
 gradient penalty.  The paper model runs with ``lambda_GAN`` 0; these serve
 ``--lambda_GAN > 0`` and the discriminators of ``nets/discriminators.py``.
+
+On slabs (``mesh`` splitting axis 2, ``parallel/mesh.py``) a prediction
+map that is itself split (the pixel discriminator's, run on the slab)
+takes its means over the whole map: the ranks' sums added with
+``spatial_sum``, so every spatial rank holds the whole map's loss and,
+under the module's convention, its share of the gradient.
 """
 
 from __future__ import annotations
@@ -11,27 +17,43 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from dfmir_tpu_torch.parallel.mesh import is_spatial, spatial_sum
+
 GAN_MODES = ("lsgan", "vanilla", "wgangp", "nonsaturating")
+
+
+def _mean(x, per_sample: bool = False, mesh=None):
+    """The mean of ``x`` over every element (``per_sample``: over all but
+    the batch axis), of the whole map where ``mesh`` splits axis 2."""
+    if per_sample:
+        x = x.reshape(x.shape[0], -1)
+    if not is_spatial(mesh):
+        return x.mean(dim=1) if per_sample else x.mean()
+    total = x.sum(dim=1) if per_sample else x.sum()
+    count = (x.shape[1] if per_sample else x.numel()) * mesh.n_spatial
+    return spatial_sum(total, mesh) / count
 
 
 def gan_loss(prediction, target_is_real: bool, gan_mode: str = "lsgan",
              target_real_label: float = 1.0,
-             target_fake_label: float = 0.0):
+             target_fake_label: float = 0.0, mesh=None):
     """The loss of D's ``prediction`` against a real or fake target: a
     scalar, or for ``nonsaturating`` one mean a sample, (B,), unreduced
-    over the batch as in the JAX package."""
+    over the batch as in the JAX package.  ``mesh``: ``prediction`` is
+    this rank's slab of the map, and the means are the whole map's."""
     if gan_mode in ("lsgan", "vanilla"):
         target = target_real_label if target_is_real else target_fake_label
         if gan_mode == "lsgan":
-            return (prediction - target).square().mean()
+            return _mean((prediction - target).square(), mesh=mesh)
         # BCE with logits in its stable form
-        return (prediction.clamp(min=0) - prediction * target
-                + torch.log1p(torch.exp(-prediction.abs()))).mean()
+        return _mean(prediction.clamp(min=0) - prediction * target
+                     + torch.log1p(torch.exp(-prediction.abs())), mesh=mesh)
     if gan_mode == "wgangp":
-        return -prediction.mean() if target_is_real else prediction.mean()
+        mean = _mean(prediction, mesh=mesh)
+        return -mean if target_is_real else mean
     if gan_mode == "nonsaturating":
         x = -prediction if target_is_real else prediction
-        return F.softplus(x).reshape(prediction.shape[0], -1).mean(dim=1)
+        return _mean(F.softplus(x), per_sample=True, mesh=mesh)
     raise NotImplementedError(f"gan mode {gan_mode} not implemented")
 
 

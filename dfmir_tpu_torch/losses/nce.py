@@ -15,14 +15,18 @@ image of the global batch: the keys are all-gathered (they carry no
 gradient), this rank's queries meet all B * P of them, and the masked
 diagonal sits at the rank's offset.  The mean over the ranks of the mean
 of the returned losses is then the global batch's.  Without it each
-image's negatives are its own, and the mesh changes nothing.
+image's negatives are its own, and the mesh changes nothing.  On slabs
+(a mesh with a spatial axis) every spatial rank of a data rank holds that
+data rank's whole samples (``nets/patch_sample.py``), so the keys are
+gathered over the data ranks alone (``all_gather_data``), and the offset
+is the data rank's.
 """
 
 from __future__ import annotations
 
 import torch
 
-from dfmir_tpu_torch.parallel.mesh import all_gather
+from dfmir_tpu_torch.parallel.mesh import all_gather_data
 
 
 def patch_nce_loss(feat_q, feat_k, nce_T: float = 0.07, batch_size: int = 1,
@@ -36,8 +40,8 @@ def patch_nce_loss(feat_q, feat_k, nce_T: float = 0.07, batch_size: int = 1,
     q = feat_q.reshape(b, -1, dim)
     offset = 0
     if all_negatives_from_minibatch and mesh is not None:
-        feat_k = all_gather(feat_k, mesh)
-        offset = q.shape[1] * mesh.rank
+        feat_k = all_gather_data(feat_k, mesh)
+        offset = q.shape[1] * mesh.data_rank
     k = feat_k.reshape(b, -1, dim)
     l_neg = torch.bmm(q, k.transpose(1, 2))                    # (b, P, K)
     eye = torch.eye(q.shape[1], k.shape[1], dtype=torch.bool,

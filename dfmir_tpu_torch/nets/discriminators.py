@@ -18,6 +18,19 @@ none), as in the JAX package.  Layout NCHW; ``ndims=3`` builds the
 NLayer and pixel discriminators for NCDHW volumes (3-D convs and blur),
 as JAX's ``ConvND`` and ``blur_downsample`` take the rank from their
 input.  The patch discriminator is 2-D only: JAX's unpacks four dims.
+
+On slabs (``discriminate`` with a ``mesh`` splitting axis 2,
+``parallel/mesh.py``): the pixel discriminator, all 1x1 convs, runs on
+this rank's slab, its instance norm over the whole map
+(``InstanceNorm``'s mesh), and its prediction map is split as its input
+is.  Every other one runs on the gathered image
+(``parallel.mesh.gather_slabs``), whole and alike on every spatial rank:
+NLayer's 4x4 convs with padding 1 take a row off each map (256 -> 255
+-> blur 128 -> 127 ...), so its maps do not split into equal slabs.  The
+gather's backward adds the spatial ranks' input gradients and hands each
+its rows (the module's convention: each rank's consumer, the whole loss,
+gives the whole cotangent), and netD's parameter gradient on every
+spatial rank is its data rank's whole gradient.
 """
 
 from __future__ import annotations
@@ -25,7 +38,9 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from dfmir_tpu_torch.nets.layers import BlurDown, conv_nd, norm_layer
+from dfmir_tpu_torch.nets.layers import (BlurDown, InstanceNorm, conv_nd,
+                                         norm_layer)
+from dfmir_tpu_torch.parallel.mesh import gather_slabs, is_spatial
 
 
 def _lrelu():
@@ -76,8 +91,12 @@ class PixelDiscriminator(nn.Module):
             conv_nd(ndf, ndf * 2, 1, 1, 0, True, **init), norm_layer(norm),
             _lrelu(), conv_nd(ndf * 2, 1, 1, 1, 0, True, **init))
 
-    def forward(self, x):
-        return self.net(x)
+    def forward(self, x, mesh=None):
+        """``mesh`` splitting axis 2: ``x`` and the prediction are this
+        rank's slabs, the norm's statistics the whole map's."""
+        for op in self.net:
+            x = op(x, mesh) if isinstance(op, InstanceNorm) else op(x)
+        return x
 
 
 class PatchDiscriminator(NLayerDiscriminator):
@@ -97,3 +116,21 @@ class PatchDiscriminator(NLayerDiscriminator):
         Y, X = H // s, W // s
         x = x.reshape(B, C, Y, s, X, s).permute(0, 2, 4, 1, 3, 5)
         return super().forward(x.reshape(B * Y * X, C, s, s))
+
+
+def discriminate(netD: nn.Module, x, mesh=None, params=None):
+    """``netD(x)`` on this rank's slab ``x`` of an image split along axis 2
+    over ``mesh``'s spatial ranks: (prediction, the mesh the prediction is
+    split over, or None where it is whole).  The pixel discriminator runs
+    on the slab; every other one on the gathered image.  ``params``: the
+    parameters to call it with (``torch.func.functional_call``), else its
+    own.  Where ``mesh`` does not split the image: (netD(x), None)."""
+    def call(inp, **kw):
+        if params is None:
+            return netD(inp, **kw)
+        return torch.func.functional_call(netD, params, (inp,), kw)
+    if not is_spatial(mesh):
+        return call(x), None
+    if isinstance(netD, PixelDiscriminator):
+        return call(x, mesh=mesh), mesh
+    return call(gather_slabs(x, mesh)), None

@@ -12,7 +12,9 @@
   compute dtype (the JAX engine's ``_cast_params``).
 - ``conv_slab``: a zero-padded conv on this rank's slab of a volume split
   along D, or of an image split along H (``parallel/mesh.py``): a halo of
-  the neighbours' rows in place of the padding along that axis.
+  the neighbours' rows in place of the padding along that axis;
+  ``conv_transpose_slab`` the same for ``no_antialias_up``'s transposed
+  conv (one row of halo above, two rows of output cut off).
 
 On slabs (``mesh`` splitting the first spatial axis) ``instance_norm``
 takes the whole image's statistics (``parallel.mesh.spatial_sum``),
@@ -68,11 +70,12 @@ def call_in(dtype: torch.dtype, net: nn.Module, *args,
             round_only: bool = False, **kwargs):
     """``net(*args, **kwargs)`` with its float32 parameters cast to
     ``dtype`` for this call alone: the master parameters stay float32, and
-    their gradients come back through the cast.  Buffers are not cast
-    (the blur filters follow their input's dtype).  ``round_only``: the
-    parameters are rounded to ``dtype`` and computed in float32, what
-    flax's dtype promotion does with float32 inputs and low-precision
-    kernels."""
+    their gradients come back through the cast.  ``kwargs`` reach ``net``
+    as they are (``mesh``: netG and netR in bfloat16 on slabs).  Buffers
+    are not cast (the blur filters follow their input's dtype).
+    ``round_only``: the parameters are rounded to ``dtype`` and computed
+    in float32, what flax's dtype promotion does with float32 inputs and
+    low-precision kernels."""
     if dtype == torch.float32:
         return net(*args, **kwargs)
     params = {name: p.to(dtype).float() if round_only else p.to(dtype)
@@ -160,6 +163,28 @@ def conv_transpose_nd(in_ch, out_ch, kernel=3, stride=2, padding=1,
                      bias=bias)
     init_conv_(conv, init_type, init_gain, generator)
     return conv
+
+
+def conv_transpose_slab(conv: nn.Module, x, mesh=None):
+    """``conv(x)`` of a transposed conv (``no_antialias_up``'s: kernel 3,
+    stride 2, padding 1, output padding 1, so output rows 2y and 2y + 1
+    read input rows y and y + 1) for this rank's slab ``x`` of a map split
+    along axis 2: this slab's rows of the whole output, twice its own.
+    The slab takes one row of halo above (zeros past the global end, where
+    the whole conv reads nothing), the conv runs as it is on it, and the
+    two rows past the slab's output, which would need the row after the
+    halo, are cut off.  ``conv(x)`` itself where ``mesh`` does not split
+    the map."""
+    if not is_spatial(mesh):
+        return conv(x)
+    (k, *_), (s, *_), (p, *_), (op, *_) = (conv.kernel_size, conv.stride,
+                                           conv.padding, conv.output_padding)
+    if (k, s, p, op) != (3, 2, 1, 1):
+        raise NotImplementedError(
+            f"a transposed conv on slabs takes kernel 3, stride 2, padding "
+            f"1, output padding 1 (no_antialias_up's), not {(k, s, p, op)}")
+    rows = x.shape[2]
+    return conv(halo_exchange(x, 0, 1, mesh)).narrow(2, 0, 2 * rows)
 
 
 class BlurDown(nn.Module):

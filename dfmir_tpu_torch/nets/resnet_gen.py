@@ -31,8 +31,12 @@ unpadded conv after it runs as it is; a zero-padded conv takes a halo
 their halos.  A tap of a pad's output (tap 0) is cut to the rows this
 rank owns: its slab's, and at a global end the pad's rows too, so that
 the ranks' taps lie end to end along the split axis
-(``parallel.mesh.slab_rows``).  Dropout and the transposed convs
-(``no_antialias_up``) have no slab form.
+(``parallel.mesh.slab_rows``).  A transposed conv (``no_antialias_up``)
+takes one row of halo above and cuts its output to the slab's rows
+(``conv_transpose_slab``).  Dropout draws the whole map's mask from the
+generator on every spatial rank, which keeps its own rows: the ranks of
+one data rank, each given the same generator state, hold one process's
+masks bit for bit.
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ import torch.nn as nn
 
 from dfmir_tpu_torch.nets.layers import (BlurDown, BlurUp, InstanceNorm, Pad,
                                          conv_nd, conv_slab,
-                                         conv_transpose_nd, norm_layer)
+                                         conv_transpose_nd,
+                                         conv_transpose_slab, norm_layer)
 from dfmir_tpu_torch.parallel.mesh import is_spatial
 
 
@@ -111,9 +116,7 @@ def _on_slab(op: nn.Module, h, mesh):
         # an unpadded conv follows a pad, which took its halo
         return conv_slab(op, h, mesh) if op.padding[0] else op(h)
     if isinstance(op, (nn.ConvTranspose2d, nn.ConvTranspose3d)):
-        raise NotImplementedError(
-            f"{type(op).__name__} has no slab form (no_antialias_up's "
-            f"transposed convs)")
+        return conv_transpose_slab(op, h, mesh)
     return op(h)
 
 
@@ -129,17 +132,25 @@ class Dropout(nn.Module):
     each element is kept with probability 1 - rate and scaled by
     1 / (1 - rate) (exactly 2 at the reference's 0.5), as flax's
     ``nn.Dropout`` does.  Parameterless, so it keeps the reference's
-    Sequential indices."""
+    Sequential indices.  On slabs (``mesh`` splitting axis 2) ``x`` is
+    this rank's slab, and the mask is the whole map's, drawn as one process
+    draws it, cut to the slab's rows."""
 
     def __init__(self, rate: float = 0.5):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                mesh=None):
         if generator is None:
             return x
-        keep = torch.rand(x.shape, generator=generator, device=x.device,
+        shape = list(x.shape)
+        if is_spatial(mesh):
+            shape[2] *= mesh.n_spatial
+        keep = torch.rand(shape, generator=generator, device=x.device,
                           dtype=torch.float32) >= self.rate
+        if is_spatial(mesh):
+            keep = keep.narrow(2, mesh.spatial_rank * x.shape[2], x.shape[2])
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
@@ -175,10 +186,10 @@ class ResnetBlock(nn.Module):
         dropout.  ``mesh``: ``x`` is this rank's slab."""
         h = x
         for op in self.conv_block:
-            if is_spatial(mesh):
-                h = _on_slab(op, h, mesh)
+            if isinstance(op, Dropout):
+                h = op(h, generator, mesh)
             else:
-                h = op(h, generator) if isinstance(op, Dropout) else op(h)
+                h = _on_slab(op, h, mesh) if is_spatial(mesh) else op(h)
         return x + h
 
 
@@ -291,8 +302,6 @@ class ResnetGenerator(nn.Module):
                 f"({n} sequential ops); the reference silently drops such "
                 f"taps — here that is a loud error")
         spatial = is_spatial(mesh)
-        if spatial and generator is not None:
-            raise NotImplementedError("dropout has no slab form")
         feats = []
         h = x
         for i, op in enumerate(self.model):

@@ -141,8 +141,8 @@ class VxmDense(nn.Module):
 
     def forward(self, source, target, registration: bool = False,
                 return_preint: bool = False, mesh=None):
-        """``mesh`` splitting a 3-D volume along D or a 2-D image along H
-        (float32): ``source`` and ``target`` are this rank's slabs, and so
+        """``mesh`` splitting a 3-D volume along D or a 2-D image along H:
+        ``source`` and ``target`` are this rank's slabs, and so
         is each field and image of the tuple (the half-resolution SVF its
         slab of the half-resolution image).  The UNet (its coarse levels
         gathered where they do not split, ``VxmUnet.forward``) and the flow
@@ -152,11 +152,12 @@ class VxmDense(nn.Module):
         source (and target) at the slab's global rows, forward and backward
         (B3 / B4 with ``z0``, B1 / B2 with ``y0``; the data warps' source
         takes no gradient).  Without it each of these steps is the whole
-        image's op."""
+        image's op.  In bfloat16 the UNet, its halos and its gathered
+        levels carry bfloat16 (``parallel/mesh.py`` sends their bits), and
+        the flow head's output comes back to float32 before the SVF is
+        gathered, as on the whole image."""
         z0 = None
         if is_spatial(mesh):
-            if self.compute_dtype != torch.float32:
-                raise ValueError("an image split over ranks runs in float32")
             z0 = mesh.spatial_rank * source.shape[2]
         x = torch.cat([source, target], dim=1)
         low = self.compute_dtype != torch.float32

@@ -21,7 +21,9 @@ to compare with one process.
   one ``loss_fn`` with its gradients, ``eval_step``, and train steps.
 - ``joint_slab_pieces``: the joint model's slab forms alone (the norms,
   pads, blurs, convs, netG's taps, the patch sampler), on this rank's
-  slab.
+  slab; ``option_slab_pieces`` the training options' (the transposed
+  conv, dropout's masks, the discriminators, the all-negatives keys, the
+  bfloat16 exchanges).
 - ``run_cases``: several named cases in one launch (the functions below
   and the two above), so that a test file starts its ranks once;
   ``one_process`` runs one of them as the one-process reference in a
@@ -351,12 +353,22 @@ def joint_spatial_steps(mesh, job):
       the global ones);
     - ``eval``: ``eval_step`` with ``loss_ids`` (the global metrics);
     - ``batches``: ``train_step``s as ``registration_steps``'s (``lr``,
-      ``patch_ids`` one a step), with the same report.  ``save_after`` (i,
-      path): after step i, save the networks and Adam's state to ``path``
-      (rank 0); ``load_after`` (i, path): after step i, report the
-      parameters (rank 0, ``params_own``) and load that state, so that the
-      next step starts where the run that saved it stood.
+      ``patch_ids`` and ``flip`` one a step), with the same report (with
+      ``lambda_GAN > 0`` netD's gradients and parameters too).
+      ``save_after`` (i, path): after step i, save the networks and the
+      Adam states to ``path`` (rank 0); ``load_after`` (i, path): after
+      step i, report the parameters (rank 0, ``params_own``) and load that
+      state, so that the next step starts where the run that saved it
+      stood;
+    - ``netD_reps`` (with ``lambda_GAN > 0``): netD's GAN loss on this
+      rank's share of the first batch's real_B and its backward, timed
+      (``netD_ms``; on slabs netD runs on the gathered image, the pixel
+      netD on the slab), with its bytes.
 
+    The options come with ``cfg``; ``loss_flip`` is FastCUT's coin for
+    ``loss`` and ``eval``; ``dropout_seed`` s seeds the dropout masks'
+    generator after ``data_parallel`` with s + d at data rank d, so that
+    the ranks of data rank 0 draw what one process seeded with s draws.
     With ``mesh=None``: one process on the whole batch (``job["device"]``),
     the reference.  TF32 is off throughout."""
     rank = mesh.rank if mesh is not None else 0
@@ -367,6 +379,11 @@ def joint_spatial_steps(mesh, job):
     model, nets = _registration_model(None, dict(job, device=dev))
     if mesh is not None:
         model.data_parallel(mesh)
+    if job.get("dropout_seed") is not None:
+        model.dropout_generator.manual_seed(
+            job["dropout_seed"] + (0 if mesh is None else mesh.data_rank))
+    flip = job.get("loss_flip")
+    dtype = getattr(torch, job.get("dtype", "float32"))
     out = {}
     if mesh is not None:
         out.update(data_rank=mesh.data_rank, spatial_rank=mesh.spatial_rank)
@@ -376,7 +393,7 @@ def joint_spatial_steps(mesh, job):
         torch.cuda.reset_peak_memory_stats(dev)
     with _float32(dev):
         if job.get("register") is not None:
-            a, b = (share(x).to(dev) for x in job["register"])
+            a, b = (share(x).to(dev, dtype) for x in job["register"])
             res, ms, launches = _timed(dev, lambda: model.register(a, b),
                                        job.get("reg_reps", 1))
             out.update(register=_host(res), register_ms=ms,
@@ -386,12 +403,13 @@ def joint_spatial_steps(mesh, job):
                        register_peak_bytes=peak(dev))
             del res
         if job.get("loss") is not None:
-            a, b = (share(x).to(dev) for x in job["loss"])
+            a, b = (share(x).to(dev, dtype) for x in job["loss"])
             ids = job.get("loss_ids")
 
             def loss():
                 model.optimizer.zero_grad(set_to_none=True)
-                total, metrics, _ = model.loss_fn(a, b, patch_ids=ids)
+                total, metrics, _ = model.loss_fn(a, b, patch_ids=ids,
+                                                  flip=flip)
                 total.backward()
                 for net in nets.values():
                     dp.all_reduce_grads(net.parameters(), mesh)
@@ -404,37 +422,54 @@ def joint_spatial_steps(mesh, job):
                 out["loss_grads"] = _named(nets, "grad")
             model.optimizer.zero_grad(set_to_none=True)
         if job.get("eval"):
-            a, b = (share(x).to(dev) for x in job["loss"])
+            a, b = (share(x).to(dev, dtype) for x in job["loss"])
             (metrics, _), ms, launches = _timed(dev, lambda: model.eval_step(
-                a, b, patch_ids=job.get("loss_ids")))
+                a, b, patch_ids=job.get("loss_ids"), flip=flip))
             out.update(eval={k: float(v) for k, v in metrics.items()},
                        eval_ms=ms, eval_launches=launches)
         if job.get("batches"):
             n = len(job["batches"])
             ids = job.get("patch_ids") or [None] * n
+            flips = job.get("flip") or [None] * n
 
             save = job.get("save_after") or (None, None)
             load = job.get("load_after") or (None, None)
             extra = {}
 
+            opts = {"optimizer": model.optimizer,
+                    "optimizer_D": model.optimizer_D}
+            opts = {k: o for k, o in opts.items() if o is not None}
+
             def step(i, a, b):
-                metrics = model.train_step(a, b, job["lr"], patch_ids=ids[i])
+                metrics = model.train_step(a, b, job["lr"], patch_ids=ids[i],
+                                           flip=flips[i])
                 if i == save[0] and rank == 0:
                     torch.save({"nets": {k: n.state_dict()
                                          for k, n in nets.items()},
-                                "optimizer": model.optimizer.state_dict()},
-                               save[1])
+                                **{k: o.state_dict()
+                                   for k, o in opts.items()}}, save[1])
                 if i == load[0]:
                     if rank == 0:
                         extra["params_own"] = _named(nets, "data")
                     state = torch.load(load[1], map_location=dev)
                     for k, n in nets.items():
                         n.load_state_dict(state["nets"][k])
-                    model.optimizer.load_state_dict(state["optimizer"])
+                    for k, o in opts.items():
+                        o.load_state_dict(state[k])
                 return metrics
             out = _steps(mesh, model, nets, step, dict(job, device=dev),
                          share, out)
             out.update(extra)
+        if job.get("netD_reps") and model.netD is not None:
+            b = share(job["batches"][0][1]).to(dev, dtype)
+
+            def d_call():
+                model.optimizer_D.zero_grad(set_to_none=True)
+                model._gan_loss(b, True, mesh).backward()
+            _, ms, _ = _timed(dev, d_call, job["netD_reps"])
+            model.optimizer_D.zero_grad(set_to_none=True)
+            out.update(netD_ms=ms, netD_bytes=dict(dp.BYTES_SENT),
+                       netD_exchange_s=dict(dp.EXCHANGE_S))
     out.setdefault("rank", rank)
     out.setdefault("peak_bytes", peak(dev))
     del model, nets
@@ -534,6 +569,88 @@ def joint_slab_pieces(mesh, n_spatial, job, n_data=None):
         y = warp_cuda.Warp2dSlabFunction.apply(s_, f_, r * f_.shape[2], mesh)
         (y * share(w)).sum().backward()
         out["warp"] = (y.detach(), s_.grad, f_.grad)
+    return out
+
+
+def option_slab_pieces(mesh, n_spatial, job, n_data=None):
+    """The training options' slab forms alone, each on this rank's share
+    (its data rank's items, its spatial rank's slab) of ``job``'s global
+    tensors (``make_mesh`` of the first ``n_data`` * ``n_spatial`` ranks; a
+    rank past the mesh reports ``{"in_mesh": False}``), for the tests to
+    hold against the whole-tensor ops:
+
+    - ``convT_<name>`` for each ``job["convT"][name]`` = (a transposed
+      conv, its global input, w): ``conv_transpose_slab`` on the input's
+      slab, with the input's and the parameters' gradients under
+      ``sum(out * w)``;
+    - ``dropout``: ``Dropout`` on the slab of ``job["x_drop"]``, its masks
+      from a CPU generator seeded ``job["dropout_seed"]``;
+    - ``netD_<name>`` for each ``job["netD"][name]`` = (a discriminator,
+      its global input): ``discriminate`` and ``gan_loss`` (the G phase's
+      real target) on the slab, the loss, the slab's gradient and netD's
+      gradients averaged over the mesh's ranks (``all_reduce_grads``);
+    - ``keys``: ``all_gather_data`` of the data rank's items of
+      ``job["keys"]`` (B, P, C), and ``patch_nce_loss`` with all
+      negatives of its queries ``job["queries"]`` against them;
+    - ``bf16``: the slab of ``job["x_bf16"]`` (bfloat16) with a halo of
+      (1, 1), gathered (``gather_slabs``), and summed over the spatial
+      ranks (``spatial_sum``), without gradients;
+    - ``unet_bf16`` where ``job["unet_bf16"]`` = (a bfloat16 ``VxmUnet``,
+      its global input, w): the UNet on the slab (its levels that do not
+      split gathered, in bfloat16), and the input's gradient under
+      ``sum(out * w)``."""
+    from dfmir_tpu_torch.losses.gan import gan_loss
+    from dfmir_tpu_torch.nets.discriminators import discriminate
+    from dfmir_tpu_torch.nets.layers import conv_transpose_slab
+    mesh = dp.make_mesh(mesh, n_data, n_spatial)
+    if mesh is None:
+        return {"in_mesh": False}
+
+    def items(t):
+        return dp.batch_slice(t, mesh.data_rank, mesh.n_data)
+
+    def share(t):
+        return dp.slab_slice(items(t), mesh.spatial_rank,
+                             mesh.n_spatial).clone()
+
+    out = {"data_rank": mesh.data_rank, "spatial_rank": mesh.spatial_rank}
+    for name, (conv, x, w) in job.get("convT", {}).items():
+        conv.zero_grad(set_to_none=True)
+        v = share(x).requires_grad_(True)
+        y = conv_transpose_slab(conv, v, mesh)
+        (y * share(w)).sum().backward()
+        out[f"convT_{name}"] = (y.detach(), v.grad, {
+            k: p.grad.clone() for k, p in conv.named_parameters()})
+    if "x_drop" in job:
+        gen = torch.Generator().manual_seed(job["dropout_seed"])
+        out["dropout"] = Dropout()(share(job["x_drop"]), gen, mesh)
+    for name, (netD, x) in job.get("netD", {}).items():
+        netD.zero_grad(set_to_none=True)
+        v = share(x).requires_grad_(True)
+        pred, split = discriminate(netD, v, mesh)
+        loss = gan_loss(pred, True, mesh=split)
+        loss.backward()
+        dp.all_reduce_grads(netD.parameters(), mesh)
+        out[f"netD_{name}"] = (loss.detach(), v.grad, {
+            k: p.grad.clone() for k, p in netD.named_parameters()})
+    if "keys" in job:
+        keys = items(job["keys"])
+        q = items(job["queries"])
+        out["keys"] = (dp.all_gather_data(keys, mesh), patch_nce_loss(
+            q.reshape(-1, q.shape[-1]), keys.reshape(-1, keys.shape[-1]),
+            batch_size=q.shape[0], all_negatives_from_minibatch=True,
+            mesh=mesh))
+    if "x_bf16" in job:
+        x = share(job["x_bf16"])
+        out["bf16"] = (dp.halo_exchange(x, 1, 1, mesh),
+                       dp.gather_slabs(x, mesh), dp.spatial_sum(x, mesh))
+    if "unet_bf16" in job:
+        unet, x, w = job["unet_bf16"]
+        unet.zero_grad(set_to_none=True)
+        v = share(x).requires_grad_(True)
+        y = unet(v, mesh)
+        (y * share(w)).sum().backward()
+        out["unet_bf16"] = (y.detach(), v.grad)
     return out
 
 
@@ -736,8 +853,9 @@ def tf32_flags(mesh):
 CASES = {f.__name__: f for f in (registration_steps, vxm_steps,
                                  vxm_spatial_steps, spatial_pieces,
                                  joint_spatial_steps, joint_slab_pieces,
-                                 reduce_is_exact, collectives, nce,
-                                 loader, one_process, tf32_flags)}
+                                 option_slab_pieces, reduce_is_exact,
+                                 collectives, nce, loader, one_process,
+                                 tf32_flags)}
 
 
 def run_cases(mesh, cases):

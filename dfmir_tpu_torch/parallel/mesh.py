@@ -22,9 +22,9 @@ batch's.  The JAX names map so:
 - ``batch_sharding`` / ``replicated``: no counterpart, a rank's tensors
   live on its own device;
 - new: ``all_reduce_grads`` (the mean), ``all_reduce_metrics`` (the mean),
-  ``all_reduce_max``, ``all_gather`` (of a detached tensor) and
-  ``global_mean`` (a statistic of the global batch with this rank's
-  gradient).
+  ``all_reduce_max``, ``all_gather`` (of a detached tensor; on slabs
+  ``all_gather_data``) and ``global_mean`` (a statistic of the global
+  batch with this rank's gradient).
 
 **The spatial axis** (JAX's ``make_mesh(n_data, n_spatial)`` with
 ``shard_batch(..., shard_spatial=True)``, which shards the leading spatial
@@ -61,8 +61,14 @@ left out for the 3-D ``VxmEngine``); netR's UNet levels that n_spatial
 does not divide run on the gathered map, whole on every spatial rank
 (``first_whole_level``, ``nets/vxm.py``).
 
-Both run over the spatial group, made on every rank in the same order.  A
-halo's sends and receives go out as one ``batch_isend_irecv``: under NCCL
+The collectives run over the spatial group (the n_spatial ranks of one
+data rank), and ``all_gather_data`` over the data group (the n_data ranks
+of one spatial rank: the all-negatives keys, which every spatial rank of
+a data rank holds whole), both made on every rank in the same order.  A
+16-bit float (bfloat16 netG and netR) crosses as its bytes, so a halo or
+a gathered slab arrives bit for bit; a sum of 16-bit floats adds in
+float32 and rounds once.  A halo's sends and receives go out as one
+``batch_isend_irecv``: under NCCL
 (ranks on distinct cards) a rank's receives posted one by one ahead of its
 sends would wait on sends queued behind them.  With ``n_spatial=1`` and
 every rank of the launch ``make_mesh`` returns the mesh it was given: every
@@ -154,6 +160,8 @@ class Mesh:
     group: Any = None            # the mesh's ranks, where fewer than the
                                  # launch's (None: the default group)
     spatial_group: Any = None    # the n_spatial ranks of this data rank
+    data_group: Any = None       # the n_data ranks of this spatial rank
+                                 # (None: n_data or n_spatial is 1)
 
     @property
     def n_data(self) -> int:
@@ -187,11 +195,15 @@ def make_mesh(mesh: Mesh, n_data: Optional[int] = None,
     group = dist.new_group(list(range(size))) if size < mesh.world else None
     spatial = [dist.new_group([d * n_spatial + s for s in range(n_spatial)])
                for d in range(n_data)] if n_spatial > 1 else [None] * n_data
+    data = [dist.new_group([d * n_spatial + s for d in range(n_data)])
+            for s in range(n_spatial)] if n_spatial > 1 and n_data > 1 else [
+                None] * n_spatial
     if mesh.rank >= size:
         return None
     return dataclasses.replace(mesh, world=size, n_spatial=n_spatial,
                                group=group,
-                               spatial_group=spatial[mesh.rank // n_spatial])
+                               spatial_group=spatial[mesh.rank // n_spatial],
+                               data_group=data[mesh.rank % n_spatial])
 
 
 def is_spatial(mesh: Optional[Mesh]) -> bool:
@@ -306,6 +318,23 @@ def all_gather(x: torch.Tensor, mesh: Mesh = None) -> torch.Tensor:
     return torch.cat(parts).to(x.device)
 
 
+def all_gather_data(x: torch.Tensor, mesh: Mesh = None) -> torch.Tensor:
+    """``all_gather`` over the data ranks alone: on slabs the ranks that
+    share this spatial rank (``Mesh.data_group``), one a data rank, in
+    data-rank order, where every spatial rank of a data rank holds the same
+    ``x`` (the gathered patch samples' keys); over every rank without a
+    spatial axis."""
+    if not is_spatial(mesh):
+        return all_gather(x, mesh)
+    x = x.detach().contiguous()
+    if mesh.n_data == 1:
+        return x
+    local = _staged(mesh, x)
+    parts = [torch.empty_like(local) for _ in range(mesh.n_data)]
+    dist.all_gather(parts, local, group=mesh.data_group)
+    return torch.cat(parts).to(x.device)
+
+
 def global_mean(x: torch.Tensor, mesh: Mesh = None) -> torch.Tensor:
     """The mean of ``x`` over the ranks, with the gradient of this rank's
     own ``x``: once the ranks' gradients are averaged
@@ -416,6 +445,21 @@ def _clock(kind: str):
         EXCHANGE_S[kind] += time.perf_counter() - t0
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """What goes on the wire for ``t`` (contiguous): a 16-bit float as its
+    bytes (a uint8 view; gloo refuses int16), so that a halo or a gathered
+    slab of bfloat16 arrives bit for bit whatever float dtypes the backend
+    takes; other dtypes as they are."""
+    return t.view(torch.uint8) if t.element_size() == 2 and (
+        t.is_floating_point()) else t
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """A sum's operand: a 16-bit float widened to float32, so that the ranks'
+    parts add in float32 and the sum rounds once, back in ``t``'s dtype."""
+    return t.float() if t.element_size() == 2 and t.is_floating_point() else t
+
+
 def _spatial_peer(mesh: Mesh, step: int) -> Optional[int]:
     """The global rank ``step`` spatial ranks away from this one, or None
     past either end of the volume."""
@@ -436,7 +480,7 @@ def _p2p(mesh: Mesh, to_prev: torch.Tensor, to_next: torch.Tensor):
     host = mesh.backend == "gloo" and to_prev.is_cuda
 
     def wire(t):
-        return (t.detach().cpu() if host else t.detach()).contiguous()
+        return _bits((t.detach().cpu() if host else t.detach()).contiguous())
     with _clock("halo"):
         ops, got = [], []
         for t, peer, tag in ((from_prev, prev, 1), (from_next, nxt, 2)):
@@ -454,7 +498,7 @@ def _p2p(mesh: Mesh, to_prev: torch.Tensor, to_next: torch.Tensor):
         for w in dist.batch_isend_irecv(ops) if ops else ():
             w.wait()
         for t, buf in got:
-            t.copy_(buf)
+            t.copy_(buf.view(t.dtype))
     return from_prev, from_next
 
 
@@ -500,7 +544,8 @@ def all_gather_slabs(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     x = x.detach().contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.n_spatial)]
     with _clock("gather"):
-        dist.all_gather(parts, x, group=mesh.spatial_group)
+        dist.all_gather([_bits(p) for p in parts], _bits(x),
+                        group=mesh.spatial_group)
     BYTES_SENT["gather"] += ((mesh.n_spatial - 1) * x.numel()
                              * x.element_size())
     return torch.cat(parts, dim=2)
@@ -510,8 +555,8 @@ def reduce_scatter_slabs(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """This rank's slab (its 1 / n_spatial of axis 2: D planes at 3-D, H
     rows at 2-D) of the sum over the spatial ranks of their whole-image
     ``x``, without a gradient; in ``x``'s dtype (int64 sums add
-    exactly)."""
-    parts = [p.contiguous()
+    exactly; a bfloat16 one adds in float32, ``_wide``)."""
+    parts = [_wide(p).contiguous()
              for p in x.detach().chunk(mesh.n_spatial, dim=2)]
     out = torch.empty_like(parts[0])
     with _clock("gather"):
@@ -519,7 +564,7 @@ def reduce_scatter_slabs(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     BYTES_SENT["gather"] += sum(p.numel() * p.element_size()
                                 for i, p in enumerate(parts)
                                 if i != mesh.spatial_rank)
-    return out
+    return out.to(x.dtype)
 
 
 class _GatherSlabs(torch.autograd.Function):
@@ -547,12 +592,13 @@ def gather_slabs(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
 
 def _spatial_all_reduce(x: torch.Tensor, mesh: Mesh, op) -> torch.Tensor:
     """``x`` reduced by ``op`` over the spatial group, in a new tensor on
-    ``x``'s device (detached)."""
-    out = _staged(mesh, x.detach().clone().contiguous())
+    ``x``'s device and dtype (detached; a bfloat16 ``x`` reduced in
+    float32, ``_wide``)."""
+    out = _staged(mesh, _wide(x.detach()).clone().contiguous())
     with _clock("reduce"):
         dist.all_reduce(out, op=op, group=mesh.spatial_group)
     BYTES_SENT["reduce"] += out.numel() * out.element_size()
-    return out.to(x.device)
+    return out.to(x.device, x.dtype)
 
 
 class _SpatialSum(torch.autograd.Function):
