@@ -318,6 +318,24 @@ Phases, each printing one JSON line:
               step 1 + 2 and 1 + 2 + 1); ms a step and netD's forward and
               backward alone, peak memory, bytes and host seconds in the
               exchanges, by rank
+  spatial_zoo (run right after spatial_options) the 2-D-only generators
+              on slabs at RegistrationConfig()'s full width with the netG
+              named, B=1 a data rank, register and 2 steps each: netG
+              resnet_cat (taps 0,1,2,3) over 1 x 2 and 1 x 4; stylegan2
+              (taps 1,2,3) with the GAN phase and netD stylegan2 over 1 x
+              2, smallstylegan2 with netD tilestylegan2 over 1 x 4,
+              stylegan2 with netD patchstylegan2 over 2 x 2 (global B=2),
+              stylegan2 in bfloat16 over 1 x 2; in one launch of 4 ranks
+              sharing the card (gloo), against one process run first in a
+              launch of its own, at spatial_options' bars (register 1e-4
+              max-abs in float32, the bf16 bars in bfloat16; G_GAN and
+              D_fake 3e-4 relative with netD stylegan2 or tilestylegan2,
+              whose one linear unit an image or tile carries float32's
+              spread: the one process's own, each GAN run twice, printed
+              beside it); a rank's
+              launches exact (a step 1 + 2 and 1 + 2, a register 1 + 1);
+              ms a step and netD's forward and backward alone, peak
+              memory, bytes and host seconds in the exchanges, by rank
   dp_cli      train.main through the launcher on [cuda:0, cuda:0] (gloo) on
               phase cli's PNG pairs: 2 steps at B=2, 1 a rank; the one
               set of files a run writes, a loss-log line a print, once;
@@ -371,7 +389,8 @@ ranks), spatial_joint_register2d, spatial_joint_register3d,
 spatial_joint_train2d, spatial_joint_train (the 2-D and the graft's
 meshes' ranks; the 3-D mesh's), spatial_options_register2d,
 spatial_options_register3d, spatial_options_train2d,
-spatial_options_train3d (the runs' ranks), dp_cli, augment2d, augment3d
+spatial_options_train3d, spatial_zoo_register, spatial_zoo_train (the
+runs' ranks), dp_cli, augment2d, augment3d
 (one call each),
 cli_patient_site, cli_triplet, cli_triplet_test; a dp path's summed over
 its ranks; B5's main path is joint3d_train), and last {"ok": true, "device": {...}}.  A rank that fails
@@ -1741,13 +1760,15 @@ def patch_gen(seed):
     return torch.Generator().manual_seed(seed)
 
 
-def rel_errs(card, cpu, tol, what):
-    """Relative difference of each metric; raises past ``tol``."""
+def rel_errs(card, cpu, tol, what, tols=None):
+    """Relative difference of each metric; raises past ``tol`` (past
+    ``tols[k]`` for a metric k that ``tols`` names)."""
     errs = {k: abs(card[k] - v) / max(abs(v), 1e-12) for k, v in cpu.items()}
-    bad = {k: e for k, e in errs.items() if not e <= tol}
+    bad = {k: e for k, e in errs.items()
+           if not e <= (tols or {}).get(k, tol)}
     if bad:
         raise AssertionError(f"{what}: card vs CPU metrics differ by {bad} "
-                             f"(relative) > {tol}")
+                             f"(relative) > {tol} ({tols or {}})")
     return errs
 
 
@@ -4620,8 +4641,11 @@ def norm_fed_biases(net):
     what a run computes for them is rounding, which the bars measure
     against the network's max |g|, not their own."""
     from dfmir_tpu_torch.nets.layers import InstanceNorm
+    from dfmir_tpu_torch.nets.munit import Conv2dBlock
     names = []
     for prefix, mod in net.named_modules():
+        if isinstance(mod, Conv2dBlock) and mod.norm in ("instance", "in"):
+            names.append(f"{prefix}.Conv_0.bias".lstrip("."))
         if isinstance(mod, torch.nn.Sequential):
             kids = list(mod.named_children())
             names += [f"{prefix}.{a}.bias".lstrip(".")
@@ -5199,6 +5223,95 @@ def so_pair(batch, size, seed):
     return tuple(torch.cat(x) for x in zip(*pairs))
 
 
+def slab_run(what, job, single, reports, per_step, reg, register_bars,
+             metric_tols=None):
+    """One run of a phase on slabs (``joint_spatial_steps``' job) against
+    its one process on the whole batch: ``reports`` are the launch's (a
+    rank past the mesh dropped), each rank's launches ``per_step`` a step
+    and ``reg`` a register call, every rank's parameters and Adam states
+    bit-equal after each step; register's slabs put together within
+    ``register_bars`` ({output: max-abs}); the steps' metrics SJ_METRIC_TOL
+    relative (bfloat16 BF16_METRIC_TOL; with the GAN phase D, D_fake,
+    D_real and G_GAN too); the float32 first step's gradients within
+    GRAD_ENV of each network's and SJ_GRAD_F32_TENSOR of each tensor's max
+    |g| (a norm-fed conv bias: its network's), netD's too, and the update
+    under the sign-flip rule (bfloat16's printed); ms a step and netD's
+    forward and backward alone, peak memory, bytes and host seconds in the
+    exchanges, by rank.  ``metric_tols``: {metric: relative bar} in place
+    of the float32 bar for those metrics.  Returns (its line's fields, the
+    steps' launches summed over the ranks, the register calls' or
+    None)."""
+    bf16 = job["cfg"].get("compute_dtype") == "bfloat16"
+    reports = [r for r in reports if r.get("in_mesh", True)]
+    want = job["n_data"] * job["n_spatial"]
+    if len(reports) != want:
+        raise AssertionError(f"{what}: {len(reports)} ranks reported, not "
+                             f"{want}")
+    dp_ranks_agree([single], per_step, f"{what} one process")
+    row = {"options": {k: v for k, v in job["cfg"].items()},
+           "n_data": job["n_data"], "n_spatial": job["n_spatial"],
+           "ranks": want, "flip": (job.get("flip") or [None])[0],
+           "flow_gain": job["flow_gain"]}
+    register = None
+    if job["register"] is not None:
+        check_launches(f"{what} one process register",
+                       single["register_launches"], dict(ZERO, **reg))
+        for r in reports:
+            check_launches(f"{what} register, rank {r['rank']}",
+                           r["register_launches"], dict(ZERO, **reg))
+        register = add_counts(*((1, r["register_launches"])
+                                for r in reports))
+        errs = {k: float((slab_parts(reports, i)
+                          - single["register"][i]).abs().max())
+                for i, k in enumerate(register_bars)}
+        bad = {k: e for k, e in errs.items() if not e <= register_bars[k]}
+        if bad:
+            raise AssertionError(f"{what}: register differs from one "
+                                 f"process's by {bad}, past {register_bars}")
+        row.update(
+            register_max_abs_vs_one_process=errs,
+            pos_flow_max=float(single["register"][3].abs().max()),
+            register_ms_by_rank=[statistics.median(r["register_ms"])
+                                 for r in reports],
+            one_process_register_ms=statistics.median(
+                single["register_ms"]))
+    train = dp_ranks_agree(reports, per_step, what)
+    tol = BF16_METRIC_TOL if bf16 else SJ_METRIC_TOL
+    row["steps_rel_vs_one_process"] = [
+        rel_errs(reports[0]["metrics"][i], single["metrics"][i], tol,
+                 f"{what} step {i}", None if bf16 else metric_tols)
+        for i in range(len(job["batches"]))]
+    rank0, = [r for r in reports if r["rank"] == 0]
+    skip = so_norm_fed_biases(job["cfg"])
+    if bf16:
+        row["grad_vs_one_process"] = grad_errs(
+            rank0["grads"], single["grads"], skip, f"{what} bfloat16",
+            limit=None)
+    else:
+        row["grad_vs_one_process"], row["params_past_1e-5"] = (
+            slab_grad_errs(rank0, single, skip, job["lr"], what,
+                           per_tensor=False))
+        row["grad_vs_one_process_each_tensor"] = grad_errs(
+            rank0["grads"], single["grads"], skip,
+            f"{what} float32 per tensor", limit=SJ_GRAD_F32_TENSOR)
+    if "netD_ms" in single:
+        row.update(netD_ms_by_rank=[statistics.median(r["netD_ms"])
+                                    for r in reports],
+                   one_process_netD_ms=statistics.median(single["netD_ms"]),
+                   netD_bytes_by_rank=[r["netD_bytes"] for r in reports])
+    row.update(
+        metrics_by_step=reports[0]["metrics"],
+        step_ms_by_rank=[r["ms"] for r in reports],
+        ms_per_step_by_rank=[r["ms"][-1] for r in reports],
+        one_process_ms_per_step=single["ms"][-1],
+        peak_mem_gb_by_rank=[gb(r["peak_bytes"]) for r in reports],
+        one_process_peak_mem_gb=gb(single["peak_bytes"]),
+        bytes_sent_per_step_by_rank=[r["bytes_sent"][-1] for r in reports],
+        exchange_host_s_per_step_by_rank=[r["exchange_s"][-1]
+                                          for r in reports])
+    return row, train, register
+
+
 def phase_spatial_options(seed, smi):
     """The paper model's training options on slabs (A12c's item 2.2): at
     RegistrationConfig()'s full width over 2 ranks each alone (bfloat16
@@ -5287,90 +5400,28 @@ def phase_spatial_options(seed, smi):
     for name in order:
         job, single = jobs[name], singles[name]
         dims = "3d" if name == name3 else "2d"
-        per_step = JOINT3D_STEP if dims == "3d" else STEP_LAUNCHES
-        reg = REG3D if dims == "3d" else SJ_REGISTER
-        bf16 = job["cfg"].get("compute_dtype") == "bfloat16"
-        reports = [r[name] for r in ranks if r[name].get("in_mesh", True)]
-        want = job["n_data"] * job["n_spatial"]
-        if len(reports) != want:
-            raise AssertionError(f"spatial_options {name}: {len(reports)} "
-                                 f"ranks reported, not {want}")
         what = f"spatial_options {name}"
-        dp_ranks_agree([single], per_step, f"{what} one process")
-        row = {"options": {k: v for k, v in job["cfg"].items()},
-               "n_data": job["n_data"], "n_spatial": job["n_spatial"],
-               "ranks": want, "flip": job["flip"][0],
-               "flow_gain": job["flow_gain"]}
-        if job["register"] is not None:
-            check_launches(f"{what} one process register",
-                           single["register_launches"], dict(ZERO, **reg))
-            for r in reports:
-                check_launches(f"{what} register, rank {r['rank']}",
-                               r["register_launches"], dict(ZERO, **reg))
-            totals[f"spatial_options_register{dims}"].append(add_counts(
-                *((1, r["register_launches"]) for r in reports)))
-            errs = {k: float((slab_parts(reports, i)
-                              - single["register"][i]).abs().max())
-                    for i, k in enumerate(BF16_BARS)}
-            bad = {k: e for k, e in errs.items() if not e <= BF16_BARS[k]}
-            if bad:
-                raise AssertionError(f"{what}: register differs from one "
-                                     f"process's by {bad}, past BF16_BARS")
+        row, train, register = slab_run(
+            what, job, single, [r[name] for r in ranks],
+            JOINT3D_STEP if dims == "3d" else STEP_LAUNCHES,
+            REG3D if dims == "3d" else SJ_REGISTER, BF16_BARS)
+        totals[f"spatial_options_train{dims}"].append(train)
+        if register is not None:
+            totals[f"spatial_options_register{dims}"].append(register)
+        if name == SO_AGAIN:
+            skip = so_norm_fed_biases(job["cfg"])
+            rank0, = [r[name] for r in ranks if r[name].get("rank") == 0]
+            f32 = singles[f"{name}_float32"]["grads"]
             row.update(
-                register_max_abs_vs_one_process=errs,
-                pos_flow_max=float(single["register"][3].abs().max()),
-                register_ms_by_rank=[statistics.median(r["register_ms"])
-                                     for r in reports],
-                one_process_register_ms=statistics.median(
-                    single["register_ms"]))
-        totals[f"spatial_options_train{dims}"].append(
-            dp_ranks_agree(reports, per_step, what))
-        tol = BF16_METRIC_TOL if bf16 else SJ_METRIC_TOL
-        row["steps_rel_vs_one_process"] = [
-            rel_errs(reports[0]["metrics"][i], single["metrics"][i], tol,
-                     f"{what} step {i}") for i in range(SO_STEPS)]
-        rank0, = [r for r in reports if r["rank"] == 0]
-        skip = so_norm_fed_biases(job["cfg"])
-        if bf16:
-            row["grad_vs_one_process"] = grad_errs(
-                rank0["grads"], single["grads"], skip, f"{what} bfloat16",
-                limit=None)
-            if name == SO_AGAIN:
-                f32 = singles[f"{name}_float32"]["grads"]
-                row.update(
-                    one_process_grad_run_to_run=grad_errs(
-                        singles[f"{name}_again"]["grads"], single["grads"],
-                        skip, f"{what} one process twice", limit=None),
-                    one_process_bf16_vs_float32=grad_errs(
-                        single["grads"], f32, skip,
-                        f"{what} one process against float32", limit=None),
-                    grad_vs_one_process_float32=grad_errs(
-                        rank0["grads"], f32, skip,
-                        f"{what} against float32", limit=None))
-        else:
-            row["grad_vs_one_process"], row["params_past_1e-5"] = (
-                slab_grad_errs(rank0, single, skip, job["lr"], what,
-                               per_tensor=False))
-            row["grad_vs_one_process_each_tensor"] = grad_errs(
-                rank0["grads"], single["grads"], skip,
-                f"{what} float32 per tensor", limit=SJ_GRAD_F32_TENSOR)
-        if "netD_ms" in single:
-            row.update(netD_ms_by_rank=[statistics.median(r["netD_ms"])
-                                        for r in reports],
-                       one_process_netD_ms=statistics.median(
-                           single["netD_ms"]),
-                       netD_bytes_by_rank=[r["netD_bytes"] for r in reports])
-        row.update(
-            metrics_by_step=reports[0]["metrics"],
-            step_ms_by_rank=[r["ms"] for r in reports],
-            ms_per_step_by_rank=[r["ms"][-1] for r in reports],
-            one_process_ms_per_step=single["ms"][-1],
-            peak_mem_gb_by_rank=[gb(r["peak_bytes"]) for r in reports],
-            one_process_peak_mem_gb=gb(single["peak_bytes"]),
-            bytes_sent_per_step_by_rank=[r["bytes_sent"][-1]
-                                         for r in reports],
-            exchange_host_s_per_step_by_rank=[r["exchange_s"][-1]
-                                              for r in reports])
+                one_process_grad_run_to_run=grad_errs(
+                    singles[f"{name}_again"]["grads"], single["grads"],
+                    skip, f"{what} one process twice", limit=None),
+                one_process_bf16_vs_float32=grad_errs(
+                    single["grads"], f32, skip,
+                    f"{what} one process against float32", limit=None),
+                grad_vs_one_process_float32=grad_errs(
+                    rank0["grads"], f32, skip, f"{what} against float32",
+                    limit=None))
         runs[name] = row
         emit({"phase": "spatial_options", "run": name, **row})
     launches = {path: add_counts(*((1, c) for c in counts))
@@ -5384,6 +5435,140 @@ def phase_spatial_options(seed, smi):
           "launches_per_rank_step": {"2d": STEP_LAUNCHES,
                                      "3d": JOINT3D_STEP},
           "runs": list(runs), "one_process_s": one_process_s,
+          "launch_s": launch_s, "card": smi})
+    return launches
+
+
+# phase spatial_zoo: the 2-D-only generators on slabs (A12c item 2.2.1's
+# second half), at RegistrationConfig()'s full width with the netG named
+# (256^2, ngf 64), B=1 a data rank, each against one process of the port
+# on the whole batch.  run: (the config's fields, (n_data, n_spatial))
+SZ_CAT = dict(netG="resnet_cat", nce_layers=(0, 1, 2, 3))
+SZ_SG = dict(netG="stylegan2", nce_layers=(1, 2, 3))
+SZ_GAN = dict(lambda_GAN=1.0)
+SZ_RUNS = {
+    "resnet_cat_1x2": (SZ_CAT, (1, 2)),
+    "resnet_cat_1x4": (SZ_CAT, (1, 4)),
+    "stylegan2_gan_1x2": (dict(SZ_SG, **SZ_GAN, netD="stylegan2"), (1, 2)),
+    "smallstylegan2_tile_1x4": (dict(SZ_SG, **SZ_GAN, netG="smallstylegan2",
+                                     netD="tilestylegan2"), (1, 4)),
+    "stylegan2_patch_2x2": (dict(SZ_SG, **SZ_GAN, netD="patchstylegan2"),
+                            (2, 2)),
+    "stylegan2_bf16_1x2": (dict(SZ_SG, **BF16), (1, 2))}
+SZ_REGISTER_TOL = 1e-4       # register max-abs against one process (float32)
+# the StyleGAN2 generators' float32 fields about a third of a pixel: one of
+# a pixel or more samples past the image's ends, so y_source holds exact
+# zeros, and from_rgb's 1x1 conv (zero bias) maps such a pixel to a zero
+# tap, whose PatchNCE sample gets the L2 norm's 1/eps derivative
+SZ_SG_GAIN = 1e4
+# the netDs whose head is one linear unit an image (or a 64-pixel tile):
+# D_fake and G_GAN square that one prediction, with no patch map to
+# average float32's spread out, and G_GAN reads netD after its Adam step
+# (lr * sign(g) first).  On an H100 (700 W) the one process's own second
+# step, run twice from one state, moves G_GAN by 1.35e-5 relative (netD
+# stylegan2), past SJ_METRIC_TOL, and the ranks part from the one process
+# there by up to 8.1e-5 (G_GAN, tilestylegan2, step 0) and 3.4e-5 (D_fake,
+# 0.039); netD patchstylegan2's patch map: <= 1e-6.  Those two metrics of
+# these runs are held at SZ_SCALAR_D_TOL, every other at SJ_METRIC_TOL
+SZ_SCALAR_NETDS = ("stylegan2", "tilestylegan2")
+SZ_SCALAR_D_TOL = 3e-4
+
+
+def phase_spatial_zoo(seed, smi):
+    """The 2-D-only generators on slabs (A12c item 2.2.1): at
+    RegistrationConfig()'s full width with netG resnet_cat (taps 0,1,2,3;
+    1 x 2 and 1 x 4), stylegan2 (taps 1,2,3) with the GAN phase and netD
+    stylegan2 (1 x 2) or patchstylegan2 (2 x 2, global B=2), smallstylegan2
+    with netD tilestylegan2 (1 x 4), and stylegan2 in bfloat16 (1 x 2), in
+    one launch of 4 ranks sharing the card (gloo), B=1 a data rank, each
+    with register and SO_STEPS steps against one process on the whole
+    batch run first in a launch of its own (``slab_run``): register's
+    slabs put together within SZ_REGISTER_TOL max-abs (bfloat16
+    BF16_BARS), the steps' metrics SJ_METRIC_TOL relative (BF16_METRIC_TOL),
+    G_GAN and D_fake SZ_SCALAR_D_TOL with a scalar-head netD (beside the
+    one process's own spread, each GAN run's steps run twice), the float32
+    first step's gradients within GRAD_ENV of each network's and
+    SJ_GRAD_F32_TENSOR of each tensor's max |g| (netD's too) and its
+    update under the sign-flip rule, every rank's parameters and Adam
+    states bit-equal; a rank's launches exact (a step STEP_LAUNCHES, a
+    register 1 + 1); ms a step and netD's forward and backward alone, peak
+    memory, bytes and host seconds in the exchanges, by rank."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    size = RegistrationConfig(**SJ_2D_CFG).crop_size
+    pair1 = so_pair(1, size, seed + 61)
+    pair2 = so_pair(2, size, seed + 62)
+    jobs = {}
+    for name, (opts, mesh_shape) in SZ_RUNS.items():
+        cfg = dict(SJ_2D_CFG, **opts)
+        gain = (BF16_GAIN if cfg.get("compute_dtype") == "bfloat16"
+                else FLOW_GAIN if cfg["netG"] == "resnet_cat" else SZ_SG_GAIN)
+        jobs[name] = so_job(cfg, seed, gain, pair2 if mesh_shape[0] > 1
+                            else pair1, None, mesh_shape, True)
+    state = tempfile.mkdtemp(prefix="chip_smoke_sz_")
+    paths = {name: os.path.join(state, f"{name}_after_step_0.pt")
+             for name in jobs}
+    gan = [name for name, job in jobs.items()
+           if job["cfg"].get("lambda_GAN", 0) > 0]
+    t0 = time.perf_counter()
+    try:
+        # each GAN run's steps once more (the first from the seed, the
+        # second from the saved state): the one process's own spread
+        with expandable_segments():
+            singles = dp_launch(checks.run_cases, [DP_DEVICES[0]], [
+                (name, "one_process", {"fn": "joint_spatial_steps",
+                                       "job": dict(job, save_after=(
+                                           0, paths[name]))})
+                for name, job in jobs.items()] + [
+                (f"{name}_again", "one_process", {
+                    "fn": "joint_spatial_steps", "job": dict(
+                        jobs[name], register=None, netD_reps=None,
+                        load_after=(0, paths[name]))}) for name in gan])[0]
+        one_process_s = time.perf_counter() - t0
+        for name, job in jobs.items():
+            job["load_after"] = (0, paths[name])
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with expandable_segments():
+            ranks = dp_launch(checks.run_cases, [DP_DEVICES[0]] * 4, [
+                (name, "joint_spatial_steps", {"job": job})
+                for name, job in jobs.items()])
+        launch_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(state, ignore_errors=True)
+    train, register = [], []
+    for name, job in jobs.items():
+        bf16 = job["cfg"].get("compute_dtype") == "bfloat16"
+        single = singles[name]
+        row = {}
+        if name in gan:
+            # step 0 from the seed, step 1 from the saved state, again
+            row["one_process_run_to_run_by_step"] = [
+                {k: abs(again[k] - v) / max(abs(v), 1e-12)
+                 for k, v in first.items()}
+                for first, again in zip(single["metrics"],
+                                        singles[f"{name}_again"]["metrics"])]
+        scalar = job["cfg"].get("netD") in SZ_SCALAR_NETDS and name in gan
+        fields, steps, reg = slab_run(
+            f"spatial_zoo {name}", job, single, [r[name] for r in ranks],
+            STEP_LAUNCHES, SJ_REGISTER,
+            BF16_BARS if bf16 else dict.fromkeys(BF16_BARS, SZ_REGISTER_TOL),
+            dict.fromkeys(("G_GAN", "D_fake"), SZ_SCALAR_D_TOL) if scalar
+            else None)
+        train.append(steps)
+        register.append(reg)
+        emit({"phase": "spatial_zoo", "run": name, **fields, **row})
+    launches = {"spatial_zoo_train": add_counts(*((1, c) for c in train)),
+                "spatial_zoo_register": add_counts(*((1, c)
+                                                     for c in register))}
+    emit({"phase": "spatial_zoo",
+          "config": "RegistrationConfig() (256^2) with each run's netG",
+          "backend": backend_for(DP_DEVICES), "steps": SO_STEPS,
+          "launches": launches,
+          "launches_per_rank_step": STEP_LAUNCHES,
+          "launches_per_rank_register": SJ_REGISTER,
+          "runs": list(jobs), "one_process_s": one_process_s,
           "launch_s": launch_s, "card": smi})
     return launches
 
@@ -6181,6 +6366,9 @@ def main(argv=None):
     spatial_options_launches = run("spatial_options", phase_spatial_options,
                                    args.seed, smi)
     torch.cuda.empty_cache()
+    spatial_zoo_launches = run("spatial_zoo", phase_spatial_zoo, args.seed,
+                               smi)
+    torch.cuda.empty_cache()
     model, reg_launches, reg_ms = run("register", phase_register, args.seed,
                                       smi)
     if args.profile:
@@ -6250,7 +6438,7 @@ def main(argv=None):
              **bf16_3d_launches, **zoo3d_launches, **dp_launches,
              "dp_nccl": dp_nccl_launches, "dp3d": dp3d_launches,
              **spatial3d_launches, **spatial_joint_launches,
-             **spatial_options_launches,
+             **spatial_options_launches, **spatial_zoo_launches,
              **dp_cli_launches, **augment_launches, **modes_launches}
 
     def by_path(name):

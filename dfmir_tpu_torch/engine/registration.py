@@ -90,7 +90,10 @@ shard_spatial=True)``): each rank holds its data rank's items and, of
 those, its spatial rank's slab along axis 2 (H at 2-D, D at 3-D), and
 every entry point returns this rank's rows of the whole image's results.
 netG runs on the slabs (halos, reflect pads at the global ends only, the
-norms' statistics over the spatial group, ``nets/resnet_gen.py``), netR as
+norms' statistics over the spatial group: ``nets/resnet_gen.py``, and at
+2-D ``resnet_cat``'s ``nets/munit.py``; zero-padded halos, FIR blurs and
+the upsampling's transposed conv cut to the slab's rows:
+``stylegan2`` / ``smallstylegan2``'s ``nets/stylegan2.py``), netR as
 the 3-D engine's (``nets/vxm.py``: its levels that do not split over the
 spatial ranks run gathered), PatchSampleF takes the whole map's ids and
 gathers the samples on every spatial rank (``nets/patch_sample.py``),
@@ -114,9 +117,11 @@ own); ``no_antialias_up`` (``nets/layers.py::conv_transpose_slab``);
 all-negatives PatchNCE (the keys gathered over the data ranks alone,
 ``losses/nce.py``); the GAN phase (``nets/discriminators.py::
 discriminate``: the pixel netD on the slab, every other on the gathered
-fake_B, whole on every spatial rank; the losses the whole map's, netD's
-gradient and Adam state the same on every rank).  The choices in
-``SLAB_REFUSALS`` have no slab form and raise, each by name.
+fake_B, whole on every spatial rank, the StyleGAN2 netDs and ``patch``
+too; the losses the whole map's, netD's gradient and Adam state the same
+on every rank).  The choices in ``SLAB_REFUSALS`` (netG ``unet_*``, the
+netF heads, the transformer netRs, ``num_patches=0``) have no slab form
+and raise, each by name.
 
 Refused (NotImplementedError): at ``ndims=3`` the choices the JAX package
 cannot build there (``JAX_2D_ONLY``: ``jax.eval_shape`` of its
@@ -165,8 +170,7 @@ JAX_2D_ONLY = {"netG": ("resnet_cat", "stylegan2", "smallstylegan2"),
 # the choices that have no slab form (a spatial mesh refuses each by name):
 # (choice, the test on the config)
 SLAB_REFUSALS = (
-    ("netG other than resnet_<n>blocks",
-     lambda c: g_family(c.netG) != "resnet"),
+    ("netG unet_128 / unet_256", lambda c: g_family(c.netG) == "unet"),
     ("netF other than mlp_sample / sample",
      lambda c: c.netF not in ("mlp_sample", "sample")),
     ("netR other than vxm (the transformer netRs)",

@@ -9,11 +9,23 @@ norm over (C, H, W).  Convs and linear layers start from flax's default
 init (LeCun normal, zero bias).  Module names are flax's, auto-generated
 ones included (``Conv2dBlock_0``, ``Conv_0``, ``LayerNorm_0``), so a JAX
 tree converts by name (``compat/convert.py``).
+
+On slabs (``mesh`` splitting H over ranks, ``parallel/mesh.py``) the
+content encoder and the decoder run on this rank's rows: a block's pad
+takes a halo and pads at the image's ends alone (``nets/layers.py::
+pad_nd``), which leaves each rank the window of the padded map that its
+VALID conv reads for its own output rows (k - stride = 2 * pad for every
+block of ``resnet_cat``: the 7x7, 3x3 and 5x5 convs at stride 1, the 4x4
+ones at stride 2); the instance norms take the whole map's statistics
+(``instance_norm``'s mesh); the channel LayerNorm, the activations and
+the nearest upsampling are per pixel and run on the slab as they are,
+and so does the decoder's fold of a style vector (``nz > 0``: one vector
+an image, a 1x1 block).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -22,6 +34,7 @@ from torch.nn.utils import skip_init
 
 from dfmir_tpu_torch.nets.inits import lecun_normal_
 from dfmir_tpu_torch.nets.layers import instance_norm, pad_nd, upsample_nearest
+from dfmir_tpu_torch.parallel.mesh import is_spatial
 
 ACTS = {"none": lambda x: x, None: lambda x: x, "relu": F.relu,
         "lrelu": lambda x: F.leaky_relu(x, 0.2), "tanh": torch.tanh}
@@ -76,14 +89,27 @@ class Conv2dBlock(nn.Module):
         if norm in ("ln", "layer"):
             self.LayerNorm_0 = ChannelLayerNorm(features)
 
-    def forward(self, x):
+    @property
+    def stride(self) -> int:
+        return self.Conv_0.stride[0]
+
+    def forward(self, x, mesh=None):
+        """``mesh`` splitting H: ``x`` is this rank's slab, and the output
+        its rows of the whole map's."""
+        if is_spatial(mesh):
+            k = self.Conv_0.kernel_size[0]
+            if k - self.stride != 2 * self.padding:
+                raise NotImplementedError(
+                    f"Conv2dBlock on slabs: a {k}x{k} conv at stride "
+                    f"{self.stride} after a pad of {self.padding} does not "
+                    f"keep the slab's rows (k - stride != 2 * pad)")
         if self.padding:
-            x = pad_nd(x, self.padding, self.pad_type)
+            x = pad_nd(x, self.padding, self.pad_type, mesh)
         x = self.Conv_0(x)
         if self.norm in ("ln", "layer"):
             x = self.LayerNorm_0(x)
         elif self.norm in ("instance", "in"):
-            x = instance_norm(x)
+            x = instance_norm(x, mesh=mesh)
         return ACTS[self.activation](x)
 
 
@@ -97,8 +123,11 @@ class MunitResBlock(nn.Module):
         self.Conv2dBlock_1 = Conv2dBlock(dim, dim, 3, 1, 1, norm, "none",
                                          pad_type, generator=generator)
 
-    def forward(self, x):
-        return x + self.Conv2dBlock_1(self.Conv2dBlock_0(x))
+    def forward(self, x, mesh=None):
+        return x + self.Conv2dBlock_1(self.Conv2dBlock_0(x, mesh), mesh)
+
+    def blocks(self) -> List[Conv2dBlock]:
+        return [self.Conv2dBlock_0, self.Conv2dBlock_1]
 
 
 class ContentEncoder(nn.Module):
@@ -126,7 +155,7 @@ class ContentEncoder(nn.Module):
         self.out_channels = dim
 
     def forward(self, x, nce_layers: Sequence[int] = (),
-                encode_only: bool = False):
+                encode_only: bool = False, mesh=None):
         n_ops = len(self.names)
         if nce_layers and (min(nce_layers) < 0 or max(nce_layers) >= n_ops):
             raise ValueError(
@@ -136,7 +165,7 @@ class ContentEncoder(nn.Module):
         feats = []
         h = x
         for i, name in enumerate(self.names):
-            h = getattr(self, name)(h)
+            h = getattr(self, name)(h, mesh)
             if i in nce_layers:
                 feats.append(h)
             if encode_only and nce_layers and i == max(nce_layers):
@@ -165,16 +194,16 @@ class Decoder(nn.Module):
         self.out_conv = Conv2dBlock(dim, output_nc, 7, 1, 3, "none", "tanh",
                                     "reflect", **g)
 
-    def forward(self, x, style=None):
+    def forward(self, x, style=None, mesh=None):
         h = x
         if style is not None:
             s = style[:, :, None, None].expand(-1, -1, *h.shape[2:])
-            h = self.style_fold(torch.cat([h, s], dim=1))
+            h = self.style_fold(torch.cat([h, s], dim=1), mesh)
         for i in range(self.n_res):
-            h = getattr(self, f"res_{i}")(h)
+            h = getattr(self, f"res_{i}")(h, mesh)
         for i in range(self.n_up):
-            h = getattr(self, f"up_{i}")(upsample_nearest(h))
-        return self.out_conv(h)
+            h = getattr(self, f"up_{i}")(upsample_nearest(h), mesh)
+        return self.out_conv(h, mesh)
 
 
 class StyleEncoder(nn.Module):
@@ -241,10 +270,43 @@ class GResnet(nn.Module):
 
     def forward(self, image, style=None, layers: Sequence[int] = (),
                 encode_only: bool = False, train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, mesh=None):
+        """``mesh`` splitting H: ``image``, the output and each tap are
+        this rank's rows of the whole image's."""
         layers = tuple(layers)
-        content, feats = self.enc_content(image, layers, encode_only)
+        content, feats = self.enc_content(image, layers, encode_only, mesh)
         if encode_only:
             return feats
-        out = self.dec(content, style if self.nz else None)
+        out = self.dec(content, style if self.nz else None, mesh)
         return (out, feats) if layers else out
+
+    def slab_level_pads(self) -> List[int]:
+        """The largest reflect pad at each level of the generator (level
+        l: after l stride-2 convs), the rows a slab must exceed there
+        (``parallel.mesh.check_joint_slabs``)."""
+        pads: Dict[int, int] = {}
+        level = 0
+
+        def take(*blocks):
+            for b in blocks:
+                pads[level] = max(pads.get(level, 0), b.padding)
+        enc, dec = self.enc_content, self.dec
+        for name in enc.names:
+            block = getattr(enc, name)
+            if isinstance(block, MunitResBlock):
+                take(*block.blocks())
+            else:
+                take(block)
+                level += block.stride == 2
+        for i in range(dec.n_res):
+            take(*getattr(dec, f"res_{i}").blocks())
+        for i in range(dec.n_up):
+            level -= 1
+            take(getattr(dec, f"up_{i}"))
+        take(dec.out_conv)
+        return [pads[level] for level in range(max(pads) + 1)]
+
+    def tap_pads(self, layers: Sequence[int]) -> List[int]:
+        """0 for every tap: each is a block's output, whose rows on a
+        slab are the slab's own."""
+        return [0] * len(layers)

@@ -22,17 +22,44 @@ Parameters keep the JAX names (``from_rgb.conv.weight``, ``act_bias``,
 ``modulation``, ...), in torch layouts: a conv weight (out, in, k, k), a
 linear weight (out, in).  Each module with its own parameters converts a
 JAX subtree with ``flax_state`` (``compat/convert.py``).
+
+On slabs (``mesh`` splitting H over ranks, ``parallel/mesh.py``) the
+generator's ops run on this rank's rows, every pad being zeros (a halo,
+zeros past the image's ends: ``halo_exchange``), each op's halo derived
+from its own pads (``halo``):
+
+- ``upfirdn2d``: ``pad0 // up`` input rows of halo below and
+  ``ceil(pad1 / up)`` above stand in for the pad along H; the FIR then
+  runs on the slab's window and gives the whole output's rows from
+  ``y0 * up / down`` on: its slab where the op maps H to H * up / down,
+  and one row more for ConvLayer's x4 blur before a valid stride-2 conv
+  (pads (2, 2): H + 1 rows), the rows that conv reads;
+- a stride-1 conv with zero padding p: a halo of (p, k - 1 - p) rows;
+  the downsampling ConvLayer: the blur's halo, then its valid stride-2
+  conv on the blur's window;
+- ModulatedConv's upsampling (the stride-2 transposed conv, 2H + 1 rows,
+  then the x4 blur): ``(pad0 + k - 1) // 2`` input rows below and
+  ``(K - pad0) // 2`` above (1 and 1 for the 3x3 conv and 4-tap blur),
+  the transposed conv's rows cut to those the blur reads for the slab's
+  own 2 * rows;
+- demodulation reads the style alone (ones without one): a per-channel
+  constant, the same on every rank.
+
+The StyleGAN2 discriminators have no slab form: the engine runs them on
+the gathered image (``nets/discriminators.py::discriminate``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from dfmir_tpu_torch.parallel.mesh import halo_exchange, is_spatial
 
 SQRT2 = math.sqrt(2.0)
 
@@ -44,21 +71,75 @@ def make_kernel(k) -> torch.Tensor:
     return torch.from_numpy(k / k.sum())
 
 
-def upfirdn2d(x, kernel: torch.Tensor, up: int = 1, down: int = 1,
-              pad: Tuple[int, int] = (0, 0)):
-    """(B, C, H, W) up-fir-down: zero-insert by ``up``, pad both axes by
-    ``pad`` (low, high), correlate with the flipped kernel, take every
-    ``down``-th sample."""
+def _zero_insert(x, up: int):
+    """(B, C, H, W) -> (B, C, H * up, W * up), x at every ``up``-th sample
+    (``up - 1`` trailing zeros an axis)."""
+    if up == 1:
+        return x
     B, C, H, W = x.shape
-    if up > 1:
-        z = x.new_zeros(B, C, H * up, W * up)
-        z[:, :, ::up, ::up] = x
-        x = z
-    p0, p1 = pad
-    x = F.pad(x, (p0, p1, p0, p1))
+    z = x.new_zeros(B, C, H * up, W * up)
+    z[:, :, ::up, ::up] = x
+    return z
+
+
+def _fir(x, kernel: torch.Tensor, down: int, rows: Tuple[int, int],
+         cols: Tuple[int, int]):
+    """The depthwise FIR of (B, C, H, W) zero-padded by ``rows`` (low,
+    high) along H and ``cols`` along W, every ``down``-th sample."""
+    C = x.shape[1]
+    x = F.pad(x, (*cols, *rows))
     w = kernel.flip(0, 1).to(x.device, x.dtype)
     w = w[None, None].expand(C, 1, *kernel.shape)
     return F.conv2d(x, w, stride=down, groups=C)
+
+
+def fir_halo(up: int, pad: Tuple[int, int]) -> Tuple[int, int]:
+    """The input rows (below, above) that ``upfirdn2d`` on a slab takes
+    from its neighbours in place of the pad along H."""
+    return pad[0] // up, -(-pad[1] // up)
+
+
+def upfirdn2d(x, kernel: torch.Tensor, up: int = 1, down: int = 1,
+              pad: Tuple[int, int] = (0, 0), mesh=None):
+    """(B, C, H, W) up-fir-down: zero-insert by ``up``, pad both axes by
+    ``pad`` (low, high), correlate with the flipped kernel, take every
+    ``down``-th sample.
+
+    ``mesh`` splitting H: ``x`` is this rank's slab of R rows starting at
+    y0 (``down`` dividing ``y0 * up``), and the result the whole output's
+    rows from ``y0 * up / down`` on, ``(R * up + pad0 + pad1 - K) // down
+    + 1`` of them (K the kernel's taps): the slab's window of the padded
+    input, with ``fir_halo`` rows of the neighbours' (zeros past the
+    image's ends) in place of the pad along H."""
+    if not is_spatial(mesh):
+        return _fir(_zero_insert(x, up), kernel, down, pad, pad)
+    lo, hi = fir_halo(up, pad)
+    rows = x.shape[2]
+    x = _zero_insert(halo_exchange(x, lo, hi, mesh), up)
+    x = x.narrow(2, lo * up - pad[0], rows * up + pad[0] + pad[1])
+    return _fir(x, kernel, down, (0, 0), pad)
+
+
+def _conv(x, w, bias, stride: int, padding: int, mesh=None):
+    """``F.conv2d`` zero-padded by ``padding``; ``mesh`` splitting H: on
+    this rank's slab, a halo of (p, k - stride - p) rows in place of the
+    padding along H (``conv_halo``).  A conv without padding runs on its
+    input as it is (on a slab: the window an ``upfirdn2d`` left it)."""
+    if not (is_spatial(mesh) and padding):
+        return F.conv2d(x, w, bias, stride, padding)
+    x = halo_exchange(x, *conv_halo(w.shape[2], stride, padding), mesh)
+    return F.conv2d(x, w, bias, stride, (0, padding))
+
+
+def conv_halo(kernel: int, stride: int, padding: int) -> Tuple[int, int]:
+    """The rows (below, above) a zero-padded conv takes on a slab."""
+    return (padding, kernel - stride - padding) if padding else (0, 0)
+
+
+def _widest(modules) -> Tuple[int, int]:
+    """The largest halo below and above of ``modules`` (each ``halo()``)."""
+    halos = [m.halo() for m in modules]
+    return max(h[0] for h in halos), max(h[1] for h in halos)
 
 
 def fused_leaky_relu(x, bias=None, negative_slope: float = 0.2,
@@ -108,9 +189,12 @@ class EqualConv(nn.Module):
         self.weight = _normal((out_ch, in_ch, kernel, kernel), 1.0, generator)
         self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
 
-    def forward(self, x):
-        return F.conv2d(x, self.weight * self.scale, self.bias,
-                        stride=self.stride, padding=self.padding)
+    def forward(self, x, mesh=None):
+        return _conv(x, self.weight * self.scale, self.bias, self.stride,
+                     self.padding, mesh)
+
+    def halo(self) -> Tuple[int, int]:
+        return conv_halo(self.weight.shape[2], self.stride, self.padding)
 
     @staticmethod
     def flax_state(node):
@@ -170,15 +254,20 @@ class ConvLayer(nn.Module):
         self.act_bias = (nn.Parameter(torch.zeros(out_ch))
                          if activate and use_bias else None)
 
-    def forward(self, x):
+    def forward(self, x, mesh=None):
         if self.downsample:
-            x = upfirdn2d(x, self.blur, pad=self.pad)
-        x = self.conv(x)
+            x = upfirdn2d(x, self.blur, pad=self.pad, mesh=mesh)
+        x = self.conv(x, mesh)
         if self.activate:
             if self.act_bias is not None:
                 return fused_leaky_relu(x, self.act_bias)
             return F.leaky_relu(x, 0.2) * SQRT2
         return x
+
+    def halo(self) -> Tuple[int, int]:
+        """The blur's halo before a downsampling conv, which then runs on
+        the blur's window; the conv's own otherwise."""
+        return fir_halo(1, self.pad) if self.downsample else self.conv.halo()
 
 
 class ResBlock(nn.Module):
@@ -197,11 +286,15 @@ class ResBlock(nn.Module):
                                   activate=False, use_bias=False,
                                   generator=generator)
 
-    def forward(self, x):
-        h = self.conv2(self.conv1(x))
-        skip = x if self.skip is None else self.skip(x)
+    def forward(self, x, mesh=None):
+        h = self.conv2(self.conv1(x, mesh), mesh)
+        skip = x if self.skip is None else self.skip(x, mesh)
         return (h * self.skip_gain + skip) / math.sqrt(
             self.skip_gain ** 2 + 1.0)
+
+    def halo(self) -> Tuple[int, int]:
+        return _widest([self.conv1, self.conv2]
+                       + ([] if self.skip is None else [self.skip]))
 
 
 class ModulatedConv(nn.Module):
@@ -223,7 +316,36 @@ class ModulatedConv(nn.Module):
             self.register_buffer("blur", k, persistent=False)
             self.pad = blur_pad(len(blur_kernel), 2, kernel, upsample)
 
-    def forward(self, x, style=None):
+    def halo(self) -> Tuple[int, int]:
+        """The rows (below, above) a slab takes: the upsampling's from the
+        transposed conv's kernel and the blur's pads, the blur's before a
+        downsampling conv, a plain conv's own."""
+        if self.upsample:
+            taps = self.blur.shape[0]
+            return ((self.pad[0] + self.kernel - 1) // 2,
+                    (taps - self.pad[0]) // 2)
+        if self.downsample:
+            return fir_halo(1, self.pad)
+        return conv_halo(self.kernel, 1, self.kernel // 2)
+
+    def _upsample(self, x, w, mesh):
+        """The stride-2 transposed conv (2H + 1 rows) and the x4 blur (2H);
+        on a slab of R rows: the transposed conv of the slab and its halo,
+        cut to the 2R + K - 1 rows that the blur reads for the slab's own
+        2R rows, the blur then padded along W alone."""
+        wt = w.transpose(0, 1)
+        if not is_spatial(mesh):
+            out = F.conv_transpose2d(x, wt, stride=2)
+            return upfirdn2d(out, self.blur, pad=self.pad)
+        lo, hi = self.halo()
+        rows = x.shape[2]
+        out = F.conv_transpose2d(halo_exchange(x, lo, hi, mesh), wt,
+                                 stride=2)
+        out = out.narrow(2, 2 * lo - self.pad[0],
+                         2 * rows + self.blur.shape[0] - 1)
+        return _fir(out, self.blur, 1, (0, 0), self.pad)
+
+    def forward(self, x, style=None, mesh=None):
         B, C = x.shape[:2]
         w = self.weight * self.scale
         if style is not None and self.modulation is not None:
@@ -232,13 +354,12 @@ class ModulatedConv(nn.Module):
             s = x.new_ones(B, C)
         x = x * s[:, :, None, None]
         if self.upsample:
-            out = F.conv_transpose2d(x, w.transpose(0, 1), stride=2)
-            out = upfirdn2d(out, self.blur, pad=self.pad)
+            out = self._upsample(x, w, mesh)
         elif self.downsample:
-            out = F.conv2d(upfirdn2d(x, self.blur, pad=self.pad), w,
-                           stride=2)
+            out = F.conv2d(upfirdn2d(x, self.blur, pad=self.pad, mesh=mesh),
+                           w, stride=2)
         else:
-            out = F.conv2d(x, w, padding=self.kernel // 2)
+            out = _conv(x, w, None, 1, self.kernel // 2, mesh)
         if self.demodulate:
             w2 = w.square().sum(dim=(2, 3))                  # (out, in)
             demod = torch.rsqrt(s.square() @ w2.T + 1e-8)    # (B, out)
@@ -277,11 +398,14 @@ class StyledConv(nn.Module):
         self.noise = NoiseInjection() if inject_noise else None
         self.act_bias = nn.Parameter(torch.zeros(out_ch))
 
-    def forward(self, x, style=None, noise=None):
-        out = self.conv(x, style)
+    def forward(self, x, style=None, noise=None, mesh=None):
+        out = self.conv(x, style, mesh)
         if self.noise is not None:
             out = self.noise(out, noise)
         return fused_leaky_relu(out, self.act_bias)
+
+    def halo(self) -> Tuple[int, int]:
+        return self.conv.halo()
 
 
 class ToRGB(nn.Module):
@@ -350,9 +474,11 @@ class StyleGAN2Encoder(nn.Module):
                 + [getattr(self, f"res_{i}") for i in range(self.n_res)])
 
     def forward(self, x, layers: Sequence[int] = (),
-                get_features: bool = False, encode_only: bool = False):
+                get_features: bool = False, encode_only: bool = False,
+                mesh=None):
         """``encode_only`` stops after the last tap and returns the taps
-        (what a full pass would tap: later ops never feed them)."""
+        (what a full pass would tap: later ops never feed them).
+        ``mesh`` splitting H: ``x`` and the taps are this rank's rows."""
         ops = self.ops()
         layers = list(layers)
         if -1 in layers:
@@ -360,7 +486,7 @@ class StyleGAN2Encoder(nn.Module):
         feats = []
         h = x
         for i, op in enumerate(ops):
-            h = op(h)
+            h = op(h) if isinstance(op, nn.Identity) else op(h, mesh)
             if i in layers:
                 feats.append(h)
             if encode_only and layers and i == max(layers):
@@ -389,13 +515,13 @@ class StyleGAN2Decoder(nn.Module):
             cur *= 2
         self.to_rgb = ConvLayer(ch[cur], output_nc, 1, generator=generator)
 
-    def forward(self, x):
+    def forward(self, x, mesh=None):
         h = x
         for i in range(self.n_res):
-            h = getattr(self, f"res_{i}")(h)
+            h = getattr(self, f"res_{i}")(h, mesh)
         for i in range(self.n_up):
-            h = getattr(self, f"up_{i}")(h)
-        return self.to_rgb(h)
+            h = getattr(self, f"up_{i}")(h, mesh=mesh)
+        return self.to_rgb(h, mesh)
 
 
 class StyleGAN2Generator(nn.Module):
@@ -418,12 +544,43 @@ class StyleGAN2Generator(nn.Module):
 
     def forward(self, x, layers: Sequence[int] = (),
                 encode_only: bool = False, train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, mesh=None):
+        """``mesh`` splitting H: ``x``, the output and each tap are this
+        rank's rows of the whole image's."""
         if encode_only:
-            return self.encoder(x, layers, encode_only=True)
-        feat, feats = self.encoder(x, layers, get_features=True)
-        fake = self.decoder(feat)
+            return self.encoder(x, layers, encode_only=True, mesh=mesh)
+        feat, feats = self.encoder(x, layers, get_features=True, mesh=mesh)
+        fake = self.decoder(feat, mesh)
         return (fake, feats) if layers else fake
+
+    def slab_level_pads(self) -> List[int]:
+        """The largest halo (below or above) of an op at each level of the
+        generator (level l: after l downsamplings), from each op's pads:
+        the rows a slab must hold there
+        (``parallel.mesh.check_joint_slabs``)."""
+        enc, dec = self.encoder, self.decoder
+        pads = [0] * (enc.n_down + 1)
+        level = 0
+
+        def take(module):
+            pads[level] = max(pads[level], *module.halo())
+        take(enc.from_rgb)
+        for i in range(enc.n_down):
+            take(getattr(enc, f"down_{i}"))
+            level += 1
+        for block in ([getattr(enc, f"res_{i}") for i in range(enc.n_res)]
+                      + [getattr(dec, f"res_{i}") for i in range(dec.n_res)]):
+            take(block)
+        for i in range(dec.n_up):
+            take(getattr(dec, f"up_{i}"))
+            level -= 1
+        take(dec.to_rgb)
+        return pads
+
+    def tap_pads(self, layers: Sequence[int]) -> List[int]:
+        """0 for every tap: each is an op's output (op 0 the input), whose
+        rows on a slab are the slab's own."""
+        return [0] * len(layers)
 
 
 def _disc_out_size(n: int, blocks: int) -> int:

@@ -23,7 +23,9 @@ to compare with one process.
   pads, blurs, convs, netG's taps, the patch sampler), on this rank's
   slab; ``option_slab_pieces`` the training options' (the transposed
   conv, dropout's masks, the discriminators, the all-negatives keys, the
-  bfloat16 exchanges).
+  bfloat16 exchanges); ``zoo_slab_pieces`` the 2-D-only generators' (the
+  StyleGAN2 FIR, convs and upsampling, MUNIT's blocks, both generators
+  whole).
 - ``run_cases``: several named cases in one launch (the functions below
   and the two above), so that a test file starts its ranks once;
   ``one_process`` runs one of them as the one-process reference in a
@@ -654,6 +656,55 @@ def option_slab_pieces(mesh, n_spatial, job, n_data=None):
     return out
 
 
+def zoo_slab_pieces(mesh, n_spatial, job, n_data=None):
+    """The 2-D-only generators' slab forms alone (``nets/stylegan2.py``,
+    ``nets/munit.py``), each on this rank's share of ``job``'s global
+    tensors (``make_mesh`` of the first ``n_data`` * ``n_spatial`` ranks;
+    a rank past the mesh reports ``{"in_mesh": False}``), for the tests to
+    hold against the whole-tensor ops; each value with its input's
+    gradient under ``sum(out * w)``, w this rank's slab of a global w:
+
+    - ``fir_<name>`` for each ``job["fir"][name]`` = (kernel, up, down,
+      pad, x, w): ``upfirdn2d`` with the mesh;
+    - ``module_<name>`` for each ``job["modules"][name]`` = (a module
+      taking ``mesh=``, x, w): its output, the input's gradient and the
+      parameters' (this rank's part: the ranks' add up to the whole
+      image's);
+    - ``netG_<name>`` for each ``job["netGs"][name]`` = (a generator, x,
+      layers, w): its output and taps on the slab, and the input's
+      gradient under ``sum(out * w)``."""
+    from dfmir_tpu_torch.nets.stylegan2 import upfirdn2d
+    mesh = dp.make_mesh(mesh, n_data, n_spatial)
+    if mesh is None:
+        return {"in_mesh": False}
+
+    def share(t):
+        return dp.slab_slice(dp.batch_slice(t, mesh.data_rank, mesh.n_data),
+                             mesh.spatial_rank, mesh.n_spatial).clone()
+
+    out = {"data_rank": mesh.data_rank, "spatial_rank": mesh.spatial_rank}
+    for name, (kernel, up, down, pad, x, w) in job.get("fir", {}).items():
+        v = share(x).requires_grad_(True)
+        y = upfirdn2d(v, kernel, up, down, pad, mesh)
+        (y * share(w)).sum().backward()
+        out[f"fir_{name}"] = (y.detach(), v.grad)
+    for name, (module, x, w) in job.get("modules", {}).items():
+        module.zero_grad(set_to_none=True)
+        v = share(x).requires_grad_(True)
+        y = module(v, mesh=mesh)
+        (y * share(w)).sum().backward()
+        out[f"module_{name}"] = (y.detach(), v.grad, {
+            k: p.grad.clone() for k, p in module.named_parameters()
+            if p.grad is not None})
+    for name, (netG, x, layers, w) in job.get("netGs", {}).items():
+        v = share(x).requires_grad_(True)
+        y, feats = netG(v, layers=tuple(layers), mesh=mesh)
+        (y * share(w)).sum().backward()
+        out[f"netG_{name}"] = (y.detach(), [f.detach() for f in feats],
+                               v.grad)
+    return out
+
+
 def reduce_is_exact(mesh, job):
     """One backward of the job's first global batch (this rank's slice),
     then the step's all-reduce of the gradients: whether every gradient
@@ -853,7 +904,8 @@ def tf32_flags(mesh):
 CASES = {f.__name__: f for f in (registration_steps, vxm_steps,
                                  vxm_spatial_steps, spatial_pieces,
                                  joint_spatial_steps, joint_slab_pieces,
-                                 option_slab_pieces, reduce_is_exact,
+                                 option_slab_pieces, zoo_slab_pieces,
+                                 reduce_is_exact,
                                  collectives, nce, loader, one_process,
                                  tf32_flags)}
 

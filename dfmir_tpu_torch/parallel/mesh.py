@@ -714,7 +714,10 @@ def check_joint_slabs(extent: int, n_spatial: int, n_enc: int,
     - netG's levels split: each slab holds ``extent / (n_spatial * 2^l)``
       rows at netG's level l, more than ``level_pads[l]``, the largest
       reflect or replicate pad there (a pad at a global end reads the
-      slab's own rows 1..p);
+      slab's own rows 1..p) or, for the zero-padded StyleGAN2 generators,
+      the largest halo (a halo of h rows reads h rows of a neighbour's
+      slab: the same rule asks one row more than that needs, so zero
+      pads add no rule of their own);
     - the half-resolution SVF splits (``_refuse_svf``);
     - netR's levels need nothing more: those that do not split run on the
       gathered map."""

@@ -445,7 +445,7 @@ def test_the_slab_rule_against_shard_batch(extent, n_spatial, depth, want):
 SMALL = dict(crop_size=32, ngf=8, netG="resnet_2blocks", vxm_enc=(8, 16),
              vxm_dec=(16, 16, 8), netF_nc=16, num_patches=16)
 # a config that shows each refusal of SLAB_REFUSALS, in its order
-REFUSED = [dict(netG="resnet_cat", nce_layers=(0, 1, 2, 3)),
+REFUSED = [dict(netG="unet_128", nce_layers=(0, 2, 4, 6), crop_size=128),
            dict(netF="global_pool"), dict(netR="vxm_dual"),
            dict(num_patches=0)]
 
