@@ -336,6 +336,17 @@ Phases, each printing one JSON line:
               launches exact (a step 1 + 2 and 1 + 2, a register 1 + 1);
               ms a step and netD's forward and backward alone, peak
               memory, bytes and host seconds in the exchanges, by rank
+  spatial_unet (right after spatial_zoo) netG unet_128 / unet_256 on
+              slabs at RegistrationConfig()'s full width (taps 0,2,4,6),
+              B=1 a data rank, register and 2 steps each: unet_256 over
+              1 x 2 and 1 x 4 (levels 7-8 gathered, tap 6 whole), in
+              bfloat16 over 1 x 2, unet_128 with dropout and the GAN
+              phase (netD basic) over 2 x 2, unet_128 at 128^3 split
+              along D over 1 x 2 (level 7 gathered); one launch of 4
+              ranks, against one process run first in a launch of its
+              own (the dropout run against its data ranks on whole
+              images), at spatial_zoo's bars; launches exact; ms a step,
+              peak memory, bytes and host seconds by rank
   dp_cli      train.main through the launcher on [cuda:0, cuda:0] (gloo) on
               phase cli's PNG pairs: 2 steps at B=2, 1 a rank; the one
               set of files a run writes, a loss-log line a print, once;
@@ -389,9 +400,9 @@ ranks), spatial_joint_register2d, spatial_joint_register3d,
 spatial_joint_train2d, spatial_joint_train (the 2-D and the graft's
 meshes' ranks; the 3-D mesh's), spatial_options_register2d,
 spatial_options_register3d, spatial_options_train2d,
-spatial_options_train3d, spatial_zoo_register, spatial_zoo_train (the
-runs' ranks), dp_cli, augment2d, augment3d
-(one call each),
+spatial_options_train3d, spatial_zoo_register, spatial_zoo_train,
+spatial_unet_register, spatial_unet_train (the runs' ranks), dp_cli,
+augment2d, augment3d (one call each),
 cli_patient_site, cli_triplet, cli_triplet_test; a dp path's summed over
 its ranks; B5's main path is joint3d_train), and last {"ok": true, "device": {...}}.  A rank that fails
 fails its phase (its traceback in the error); nothing falls back to one
@@ -4642,10 +4653,18 @@ def norm_fed_biases(net):
     against the network's max |g|, not their own."""
     from dfmir_tpu_torch.nets.layers import InstanceNorm
     from dfmir_tpu_torch.nets.munit import Conv2dBlock
+    from dfmir_tpu_torch.nets.unet_gen import UnetGenerator
     names = []
     for prefix, mod in net.named_modules():
         if isinstance(mod, Conv2dBlock) and mod.norm in ("instance", "in"):
             names.append(f"{prefix}.Conv_0.bias".lstrip("."))
+        if isinstance(mod, UnetGenerator) and isinstance(mod.norm,
+                                                         InstanceNorm):
+            n = mod.num_downs
+            names += [f"{prefix}.{kind}_{i}.bias".lstrip(".")
+                      for kind, levels in (("down", range(1, n - 1)),
+                                           ("up", range(1, n)))
+                      for i in levels]
         if isinstance(mod, torch.nn.Sequential):
             kids = list(mod.named_children())
             names += [f"{prefix}.{a}.bias".lstrip(".")
@@ -5224,7 +5243,7 @@ def so_pair(batch, size, seed):
 
 
 def slab_run(what, job, single, reports, per_step, reg, register_bars,
-             metric_tols=None):
+             metric_tols=None, skip=None, exact=None):
     """One run of a phase on slabs (``joint_spatial_steps``' job) against
     its one process on the whole batch: ``reports`` are the launch's (a
     rank past the mesh dropped), each rank's launches ``per_step`` a step
@@ -5234,13 +5253,16 @@ def slab_run(what, job, single, reports, per_step, reg, register_bars,
     relative (bfloat16 BF16_METRIC_TOL; with the GAN phase D, D_fake,
     D_real and G_GAN too); the float32 first step's gradients within
     GRAD_ENV of each network's and SJ_GRAD_F32_TENSOR of each tensor's max
-    |g| (a norm-fed conv bias: its network's), netD's too, and the update
-    under the sign-flip rule (bfloat16's printed); ms a step and netD's
-    forward and backward alone, peak memory, bytes and host seconds in the
-    exchanges, by rank.  ``metric_tols``: {metric: relative bar} in place
-    of the float32 bar for those metrics.  Returns (its line's fields, the
-    steps' launches summed over the ranks, the register calls' or
-    None)."""
+    |g| (a norm-fed conv bias: its network's; ``skip``, {(net, name)}: the
+    tensors measured so, ``so_norm_fed_biases`` by default), netD's too,
+    and the update under the sign-flip rule (bfloat16's printed); with
+    ``exact`` (rank 0's and the one process's float64 first step) those
+    gradients also within GRAD_ENV of each tensor's max |g| in float64; ms
+    a step and netD's forward and backward alone, peak memory, bytes and
+    host seconds in the exchanges, by rank.  ``metric_tols``: {metric:
+    relative bar} in place of the float32 bar for those metrics.  Returns
+    (its line's fields, the steps' launches summed over the ranks, the
+    register calls' or None)."""
     bf16 = job["cfg"].get("compute_dtype") == "bfloat16"
     reports = [r for r in reports if r.get("in_mesh", True)]
     want = job["n_data"] * job["n_spatial"]
@@ -5282,7 +5304,8 @@ def slab_run(what, job, single, reports, per_step, reg, register_bars,
                  f"{what} step {i}", None if bf16 else metric_tols)
         for i in range(len(job["batches"]))]
     rank0, = [r for r in reports if r["rank"] == 0]
-    skip = so_norm_fed_biases(job["cfg"])
+    if skip is None:
+        skip = so_norm_fed_biases(job["cfg"])
     if bf16:
         row["grad_vs_one_process"] = grad_errs(
             rank0["grads"], single["grads"], skip, f"{what} bfloat16",
@@ -5294,6 +5317,14 @@ def slab_run(what, job, single, reports, per_step, reg, register_bars,
         row["grad_vs_one_process_each_tensor"] = grad_errs(
             rank0["grads"], single["grads"], skip,
             f"{what} float32 per tensor", limit=SJ_GRAD_F32_TENSOR)
+    if exact is not None:
+        rank0_64, single64 = exact
+        row["grad_float64_vs_one_process_float64"] = grad_errs(
+            rank0_64["grads"], single64["grads"], so_norm_fed_biases(
+                job["cfg"]), f"{what} float64")
+        row["one_process_float32_vs_float64"] = grad_errs(
+            single["grads"], single64["grads"], so_norm_fed_biases(
+                job["cfg"]), f"{what} one process", limit=None)
     if "netD_ms" in single:
         row.update(netD_ms_by_rank=[statistics.median(r["netD_ms"])
                                     for r in reports],
@@ -5570,6 +5601,178 @@ def phase_spatial_zoo(seed, smi):
           "launches_per_rank_register": SJ_REGISTER,
           "runs": list(jobs), "one_process_s": one_process_s,
           "launch_s": launch_s, "card": smi})
+    return launches
+
+
+# phase spatial_unet: netG unet_128 / unet_256 on slabs (A12c item
+# 2.2.1, the UNet generators), at RegistrationConfig()'s full width with
+# the netG named (256^2, ngf 64, taps 0,2,4,6; the 3-D run at 128^3), B=1
+# a data rank.  run: (the config's fields, (n_data, n_spatial))
+SU_TAPS = dict(nce_layers=(0, 2, 4, 6))
+SU_RUNS = {
+    "unet_256_1x2": (dict(SU_TAPS, netG="unet_256"), (1, 2)),
+    # levels 7-8 (2 and 1 rows) gathered, tap 6 whole
+    "unet_256_1x4": (dict(SU_TAPS, netG="unet_256"), (1, 4)),
+    "unet_128_dropout_gan_2x2": (dict(SU_TAPS, netG="unet_128", **DROPOUT,
+                                      lambda_GAN=1.0, netD="basic"), (2, 2)),
+    "unet_256_bf16_1x2": (dict(SU_TAPS, netG="unet_256", **BF16), (1, 2)),
+    # split along D, level 7 (1 plane) gathered
+    "unet_128_3d_1x2": (dict(SU_TAPS, **JOINT3D, netG="unet_128"), (1, 2))}
+# the dropout run's data ranks draw their own masks (SO_DROPOUT_SEED + d),
+# which one process on the whole batch cannot: it is held to the same
+# data ranks on whole images (n_spatial 1), run first in the ranks' launch
+SU_DROPOUT_REF = "unet_128_dropout_gan_2x2"
+# the runs whose first step's gradients are also held tensor by tensor in
+# float64 (ranks and one process): the UNet decoder's norm-fed transposed
+# convs' weight gradients carry float32's rounding, up to 0.142 of their
+# own max |g| between the ranks and one process on an H100 (700 W; up_4
+# at 128^3, 0.110 for unet_256's up_3 at 256^2), so in float32 they are
+# measured against netG's max, as the norm-fed biases are; 1 x 4 is the
+# run whose gathered levels (7-8) every rank computes whole
+SU_EXACT = ("unet_256_1x4",)
+
+
+def su_norm_fed(cfg):
+    """``so_norm_fed_biases`` and netG's conv weights they belong to: what
+    the float32 per-tensor bars measure against netG's max |g|."""
+    biases = so_norm_fed_biases(cfg)
+    return biases | {(net, k[:-len("bias")] + "weight")
+                     for net, k in biases if net == "G"}
+
+
+def phase_spatial_unet(seed, smi):
+    """netG unet_128 / unet_256 on slabs (A12c item 2.2.1): at
+    RegistrationConfig()'s full width with netG unet_256 (taps 0,2,4,6)
+    over 1 x 2 and 1 x 4 (levels 7 and 8 gathered, tap 6 whole), in
+    bfloat16 over 1 x 2, unet_128 with dropout and the GAN phase (netD
+    basic) over 2 x 2 (global B=2), and unet_128 at 128^3 split along D
+    over 1 x 2 (level 7 gathered), in one launch of 4 ranks sharing the
+    card (gloo), B=1 a data rank, each with register and SO_STEPS steps
+    against one process on the whole batch run first in a launch of its
+    own (the dropout run: its two data ranks on whole images, whose masks
+    it draws, run first in the ranks' launch) (``slab_run``): register's
+    slabs put together within SZ_REGISTER_TOL max-abs
+    (bfloat16 BF16_BARS), the steps' metrics SJ_METRIC_TOL relative
+    (BF16_METRIC_TOL), the float32 first step's gradients within GRAD_ENV
+    of each network's and SJ_GRAD_F32_TENSOR of each tensor's max |g|
+    (netD's too; a norm-fed conv, weight and bias: its network's,
+    ``su_norm_fed``) and its update under the sign-flip rule, and for
+    SU_EXACT's runs the first step's gradients in float64, ranks and one
+    process, within GRAD_ENV of each tensor's max |g|; every rank's
+    parameters and Adam states bit-equal; a rank's launches exact (a 2-D
+    step STEP_LAUNCHES, a 3-D step JOINT3D_STEP, the GAN's D phase none; a
+    register 1 + 1); ms a step, peak memory, bytes and host seconds in the
+    exchanges, by rank."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    name3 = "unet_128_3d_1x2"
+    cfg3 = RegistrationConfig(**SU_RUNS[name3][0])
+    (A3, B3, _), = [tuple(t.cpu() for t in p) for p in joint3d_pairs(
+        1, cfg3.crop_size, seed + 73, "cpu")]
+    jobs = {}
+    for name, (opts, mesh_shape) in SU_RUNS.items():
+        cfg = dict(SJ_2D_CFG, **opts)
+        bf16 = cfg.get("compute_dtype") == "bfloat16"
+        gain = BF16_GAIN if bf16 else FLOW_GAIN
+        pair = ((A3, B3) if name == name3 else so_pair(
+            mesh_shape[0], RegistrationConfig(**cfg).crop_size,
+            seed + 70 + mesh_shape[0]))
+        jobs[name] = so_job(cfg, seed, gain, pair, None, mesh_shape, True)
+    ref_name = f"{SU_DROPOUT_REF}_whole"
+    ref_job = dict(jobs[SU_DROPOUT_REF], n_spatial=1)
+    # the first step alone, in float64
+    exact = {name: dict(jobs[name], dtype="float64", register=None,
+                        batches=jobs[name]["batches"][:1], netD_reps=None)
+             for name in SU_EXACT}
+    state = tempfile.mkdtemp(prefix="chip_smoke_su_")
+    paths = {name: os.path.join(state, f"{name}_after_step_0.pt")
+             for name in jobs}
+    t0 = time.perf_counter()
+    try:
+        with expandable_segments():
+            refs = dp_launch(checks.run_cases, [DP_DEVICES[0]], [
+                (name, "one_process", {"fn": "joint_spatial_steps",
+                                       "job": dict(job, save_after=(
+                                           0, paths[name]))})
+                for name, job in jobs.items() if name != SU_DROPOUT_REF] + [
+                (f"{name}_float64", "one_process", {
+                    "fn": "joint_spatial_steps", "job": job})
+                for name, job in exact.items()])[0]
+        one_process_s = time.perf_counter() - t0
+        for name, job in jobs.items():
+            job["load_after"] = (0, paths[name])
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        order = [name3] + [name for name in jobs if name != name3]
+        # the dropout run's reference first (it saves the state the run
+        # loads after its first step)
+        with expandable_segments():
+            ranks = dp_launch(checks.run_cases, [DP_DEVICES[0]] * 4, [
+                (ref_name, "joint_spatial_steps", {"job": dict(
+                    ref_job, save_after=(0, paths[SU_DROPOUT_REF]))})] + [
+                (name, "joint_spatial_steps", {"job": jobs[name]})
+                for name in order] + [
+                (f"{name}_float64", "joint_spatial_steps", {"job": job})
+                for name, job in exact.items()])
+        launch_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(state, ignore_errors=True)
+    singles = {name: refs[name] for name in jobs if name != SU_DROPOUT_REF}
+    whole = sorted((r[ref_name] for r in ranks
+                    if r[ref_name].get("in_mesh", True)),
+                   key=lambda r: r["data_rank"])
+    dp_ranks_agree(whole, STEP_LAUNCHES, f"spatial_unet {ref_name}")
+    # its report as one process's on the whole batch: rank 0's metrics and
+    # gradients (the global batch's), both data ranks' register
+    singles[SU_DROPOUT_REF] = dict(
+        whole[0], register=[torch.cat(x) for x in zip(
+            *(r["register"] for r in whole))])
+    t0 = time.perf_counter()
+    train, register = [], []
+    for name in order:
+        job = jobs[name]
+        bf16 = job["cfg"].get("compute_dtype") == "bfloat16"
+        three = name == name3
+        twins = None
+        if name in exact:
+            twins = ([r[f"{name}_float64"] for r in ranks
+                      if r[f"{name}_float64"].get("rank") == 0][0],
+                     refs[f"{name}_float64"])
+        fields, steps, reg = slab_run(
+            f"spatial_unet {name}", job, singles[name],
+            [r[name] for r in ranks], JOINT3D_STEP if three
+            else STEP_LAUNCHES, REG3D if three else SJ_REGISTER,
+            BF16_BARS if bf16 else dict.fromkeys(BF16_BARS,
+                                                 SZ_REGISTER_TOL),
+            skip=su_norm_fed(job["cfg"]), exact=twins)
+        train.append(steps)
+        register.append(reg)
+        extent = RegistrationConfig(**job["cfg"]).crop_size
+        downs = job.get("unet_downs") or {"unet_256": 8, "unet_128": 7}[
+            job["cfg"]["netG"]]
+        emit({"phase": "spatial_unet", "run": name, **fields,
+              "held_to": (f"{ref_name} (n_data 2, n_spatial 1)"
+                          if name == SU_DROPOUT_REF else "one process"),
+              "netG_gathered_from_level": first_whole_level(
+                  extent, job["n_spatial"], downs)})
+    launches = {"spatial_unet_train": add_counts(*((1, c) for c in train)),
+                "spatial_unet_register": add_counts(*((1, c)
+                                                      for c in register))}
+    emit({"phase": "spatial_unet",
+          "config": ["RegistrationConfig() (256^2) with each run's netG",
+                     "RegistrationConfig(ndims=3, crop_size=128, "
+                     "netG='unet_128')"],
+          "backend": backend_for(DP_DEVICES), "steps": SO_STEPS,
+          "launches": launches,
+          "launches_per_rank_step": {"2d": STEP_LAUNCHES,
+                                     "3d": JOINT3D_STEP},
+          "launches_per_rank_register": {"2d": SJ_REGISTER, "3d": REG3D},
+          "runs": order, "float64_runs": list(exact),
+          "one_process_s": one_process_s, "launch_s": launch_s,
+          "checks_s": time.perf_counter() - t0,
+          "wall_s": time.perf_counter() - t_phase, "card": smi})
     return launches
 
 
@@ -6369,6 +6572,9 @@ def main(argv=None):
     spatial_zoo_launches = run("spatial_zoo", phase_spatial_zoo, args.seed,
                                smi)
     torch.cuda.empty_cache()
+    spatial_unet_launches = run("spatial_unet", phase_spatial_unet,
+                                args.seed, smi)
+    torch.cuda.empty_cache()
     model, reg_launches, reg_ms = run("register", phase_register, args.seed,
                                       smi)
     if args.profile:
@@ -6439,6 +6645,7 @@ def main(argv=None):
              "dp_nccl": dp_nccl_launches, "dp3d": dp3d_launches,
              **spatial3d_launches, **spatial_joint_launches,
              **spatial_options_launches, **spatial_zoo_launches,
+             **spatial_unet_launches,
              **dp_cli_launches, **augment_launches, **modes_launches}
 
     def by_path(name):

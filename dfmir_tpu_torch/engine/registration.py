@@ -93,17 +93,21 @@ netG runs on the slabs (halos, reflect pads at the global ends only, the
 norms' statistics over the spatial group: ``nets/resnet_gen.py``, and at
 2-D ``resnet_cat``'s ``nets/munit.py``; zero-padded halos, FIR blurs and
 the upsampling's transposed conv cut to the slab's rows:
-``stylegan2`` / ``smallstylegan2``'s ``nets/stylegan2.py``), netR as
-the 3-D engine's (``nets/vxm.py``: its levels that do not split over the
-spatial ranks run gathered), PatchSampleF takes the whole map's ids and
-gathers the samples on every spatial rank (``nets/patch_sample.py``),
+``stylegan2`` / ``smallstylegan2``'s ``nets/stylegan2.py``; ``unet_128``
+/ ``unet_256``'s levels that do not split over the spatial ranks run
+gathered, ``nets/unet_gen.py``), netR as the 3-D engine's
+(``nets/vxm.py``: its levels that do not split run gathered too),
+PatchSampleF takes the whole map's ids and gathers the samples on every
+spatial rank, or at a gathered level's tap takes them from the whole map
+there (``nets/patch_sample.py``),
 ``registered`` warps the gathered fake_B (``ops.warp.warp_slabs``: B5 on
 the slab at 3-D, B2 at 2-D), and the masked L1s and the smoothness are the
 whole image's.  ``register`` and the step (``loss_fn``, ``train_step``,
 ``eval_step``) run at 2-D and 3-D.  The image's extent must pass
 ``parallel.mesh.check_joint_slabs``: JAX's ``shard_batch`` splits it and
-the whole-image model takes it, and netG's levels and the SVF split (the
-graft's crop 64 over 2 ranks gathers netR's sixth level).
+the whole-image model takes it, and netG's levels (a UNet's down to its
+first gathered level) and the SVF split (the graft's crop 64 over 2 ranks
+gathers netR's sixth level).
 
 The training options on slabs, each the whole image's computation:
 bfloat16 (netG and netR in bfloat16 on the slabs, their halos and
@@ -119,9 +123,9 @@ all-negatives PatchNCE (the keys gathered over the data ranks alone,
 discriminate``: the pixel netD on the slab, every other on the gathered
 fake_B, whole on every spatial rank, the StyleGAN2 netDs and ``patch``
 too; the losses the whole map's, netD's gradient and Adam state the same
-on every rank).  The choices in ``SLAB_REFUSALS`` (netG ``unet_*``, the
-netF heads, the transformer netRs, ``num_patches=0``) have no slab form
-and raise, each by name.
+on every rank).  The choices in ``SLAB_REFUSALS`` (the netF heads, the
+transformer netRs, ``num_patches=0``) have no slab form and raise, each
+by name.
 
 Refused (NotImplementedError): at ``ndims=3`` the choices the JAX package
 cannot build there (``JAX_2D_ONLY``: ``jax.eval_shape`` of its
@@ -170,7 +174,6 @@ JAX_2D_ONLY = {"netG": ("resnet_cat", "stylegan2", "smallstylegan2"),
 # the choices that have no slab form (a spatial mesh refuses each by name):
 # (choice, the test on the config)
 SLAB_REFUSALS = (
-    ("netG unet_128 / unet_256", lambda c: g_family(c.netG) == "unet"),
     ("netF other than mlp_sample / sample",
      lambda c: c.netF not in ("mlp_sample", "sample")),
     ("netR other than vxm (the transformer netRs)",
@@ -338,7 +341,8 @@ class RegistrationModel:
                 f"{', '.join(refused)}: no slab form, so a mesh that splits "
                 f"the images (n_spatial {mesh.n_spatial}) refuses it")
         check_joint_slabs(extent, mesh.n_spatial, len(cfg.vxm_enc),
-                          cfg.int_downsize, self.netG.slab_level_pads())
+                          cfg.int_downsize, self.netG.slab_level_pads(),
+                          gathered=g_family(cfg.netG) == "unet")
 
     def _spatial(self, x) -> Optional[Mesh]:
         """The mesh when it splits the images (``x`` then a slab, whose
@@ -427,32 +431,38 @@ class RegistrationModel:
 
     # ------------------------------------------------------------- training
 
-    def _F(self, feats, patch_ids, generator=None, mesh=None):
+    def _F(self, feats, patch_ids, generator=None, mesh=None, extent=None):
         """netF on a list of tapped maps: (list of (B * P, C) embeddings,
         the patch ids; None for the heads that sample no patches).
-        ``mesh``: the maps are this rank's rows (netG's taps on slabs)."""
+        ``mesh``: the maps are this rank's rows (netG's taps on slabs) of
+        an image of ``extent`` rows, or at netG ``unet_*``'s gathered
+        levels the whole map."""
         cfg = self.cfg
         if cfg.netF in ("sample", "mlp_sample"):
             kw = {} if mesh is None else {
                 "mesh": mesh, "tap_pads": self.netG.tap_pads(cfg.nce_layers)}
+            if mesh is not None and g_family(cfg.netG) == "unet":
+                kw["whole_taps"] = self.netG.whole_taps(
+                    cfg.nce_layers, extent, mesh.n_spatial)
             return self.netF(feats, cfg.num_patches, patch_ids,
                              generator=generator, **kw)
         if cfg.netF == "strided_conv":
             return [channels_last_rows(o) for o in self.netF(feats)], None
         return [self.netF(f) for f in feats], None
 
-    def _nce(self, feat_q, feat_k, patch_ids, generator, flip: bool, mesh):
+    def _nce(self, feat_q, feat_k, patch_ids, generator, flip: bool, mesh,
+             extent=None):
         """The NCE loss of one (query, key) pair of tapped feature lists,
         averaged over the layers; ``flip`` flips the queries back along
-        W first.  On slabs (``mesh`` splitting the images) the samples are
-        gathered on every spatial rank, and so the loss is the data rank's
-        on each of them."""
+        W first.  On slabs (``mesh`` splitting images of ``extent`` rows)
+        the samples are gathered on every spatial rank, and so the loss is
+        the data rank's on each of them."""
         cfg = self.cfg
         if flip:
             feat_q = [f.flip(3) for f in feat_q]
         spatial = mesh if is_spatial(mesh) else None
-        k_pool, ids = self._F(feat_k, patch_ids, generator, spatial)
-        q_pool, _ = self._F(feat_q, ids, mesh=spatial)
+        k_pool, ids = self._F(feat_k, patch_ids, generator, spatial, extent)
+        q_pool, _ = self._F(feat_q, ids, mesh=spatial, extent=extent)
         total = 0.0
         for f_q, f_k in zip(q_pool, k_pool):
             per_patch = patch_nce_loss(
@@ -532,7 +542,9 @@ class RegistrationModel:
         if len(patch_ids) != len(queries):
             raise ValueError(f"patch_ids holds {len(patch_ids)} lists, the "
                              f"step makes {len(queries)} NCE calls")
-        return [self._nce(q, k, ids, generator, fwd["flip"], mesh)
+        extent = real_A.shape[2] * (mesh.n_spatial if is_spatial(mesh)
+                                    else 1)
+        return [self._nce(q, k, ids, generator, fwd["flip"], mesh, extent)
                 for q, k, ids in zip(q_chunks, k_chunks, patch_ids)]
 
     def _losses(self, fwd, nce_vals, real_B, with_D: bool, mesh):

@@ -14,7 +14,8 @@
   along D, or of an image split along H (``parallel/mesh.py``): a halo of
   the neighbours' rows in place of the padding along that axis;
   ``conv_transpose_slab`` the same for ``no_antialias_up``'s transposed
-  conv (one row of halo above, two rows of output cut off).
+  conv (one row of halo above) and the UNet's (one row each side), the
+  output cut to the slab's rows.
 
 On slabs (``mesh`` splitting the first spatial axis) ``instance_norm``
 takes the whole image's statistics (``parallel.mesh.spatial_sum``),
@@ -165,26 +166,38 @@ def conv_transpose_nd(in_ch, out_ch, kernel=3, stride=2, padding=1,
     return conv
 
 
+# the transposed convs that run on slabs: (kernel, stride, padding, output
+# padding) -> the halo (below, above) that output rows 2y and 2y + 1 read
+_CONV_T_HALOS = {
+    (3, 2, 1, 1): (0, 1),    # no_antialias_up's: input rows y and y + 1
+    (4, 2, 1, 0): (1, 1),    # the UNet's up_<i>: input rows y - 1 .. y + 1
+}
+
+
 def conv_transpose_slab(conv: nn.Module, x, mesh=None):
-    """``conv(x)`` of a transposed conv (``no_antialias_up``'s: kernel 3,
-    stride 2, padding 1, output padding 1, so output rows 2y and 2y + 1
-    read input rows y and y + 1) for this rank's slab ``x`` of a map split
-    along axis 2: this slab's rows of the whole output, twice its own.
-    The slab takes one row of halo above (zeros past the global end, where
-    the whole conv reads nothing), the conv runs as it is on it, and the
-    two rows past the slab's output, which would need the row after the
-    halo, are cut off.  ``conv(x)`` itself where ``mesh`` does not split
-    the map."""
+    """``conv(x)`` of a stride-2 transposed conv for this rank's slab ``x``
+    of a map split along axis 2: this slab's rows of the whole output,
+    twice its own.  Two geometries (``_CONV_T_HALOS``): ``no_antialias_up``'s
+    (kernel 3, padding 1, output padding 1), whose output rows 2y and
+    2y + 1 read input rows y and y + 1, and the UNet's (kernel 4, padding
+    1), whose read y - 1, y and y + 1.  The slab takes that halo (zeros
+    past the global ends, where the whole conv reads nothing), the conv
+    runs as it is on it, and the output is cut to the slab's own rows: the
+    halo below's 2 rows off the front, the rows past the slab's output,
+    which would need a row past the halo, off the end.  ``conv(x)`` itself
+    where ``mesh`` does not split the map."""
     if not is_spatial(mesh):
         return conv(x)
     (k, *_), (s, *_), (p, *_), (op, *_) = (conv.kernel_size, conv.stride,
                                            conv.padding, conv.output_padding)
-    if (k, s, p, op) != (3, 2, 1, 1):
+    if (k, s, p, op) not in _CONV_T_HALOS:
         raise NotImplementedError(
-            f"a transposed conv on slabs takes kernel 3, stride 2, padding "
-            f"1, output padding 1 (no_antialias_up's), not {(k, s, p, op)}")
+            f"a transposed conv on slabs takes (kernel, stride, padding, "
+            f"output padding) {' or '.join(map(str, _CONV_T_HALOS))} "
+            f"(no_antialias_up's, the UNet's), not {(k, s, p, op)}")
+    lo, hi = _CONV_T_HALOS[(k, s, p, op)]
     rows = x.shape[2]
-    return conv(halo_exchange(x, 0, 1, mesh)).narrow(2, 0, 2 * rows)
+    return conv(halo_exchange(x, lo, hi, mesh)).narrow(2, 2 * lo, 2 * rows)
 
 
 class BlurDown(nn.Module):

@@ -20,7 +20,13 @@ locations (one generator seed, or the ids given), takes the samples at
 the ids that fall in its rows, and the samples are put together in id
 order on every spatial rank (``parallel.mesh.gather_rows``); the MLP and
 ``l2_normalize`` then run on them there, so every spatial rank holds the
-whole batch item's samples.
+whole batch item's samples.  A tap of a level that runs gathered (netG
+``unet_*``'s coarse levels, ``whole_taps``) is the whole map on every
+spatial rank: its samples are taken there as in one process, with no
+exchange.  Its gradient then reaches every spatial rank's copy of the
+map whole, as a gathered sample's reaches every rank through
+``gather_rows``' backward: the module's convention for what every
+spatial rank holds whole (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -63,14 +69,17 @@ class PatchSampleF(nn.Module):
     def forward(self, feats: Sequence[torch.Tensor], num_patches: int = 256,
                 patch_ids: Optional[Sequence[torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None, mesh=None,
-                tap_pads: Optional[Sequence[int]] = None):
+                tap_pads: Optional[Sequence[int]] = None,
+                whole_taps: Optional[Sequence[bool]] = None):
         """feats: list of (B, C, *spatial).  Returns (samples, ids):
         samples[i] is (B * P, nc), L2-normalised ((B * HW, nc) when
         ``num_patches`` is 0); ids[i] the (P,) locations taken, drawn from
         ``generator`` (a CPU generator) unless ``patch_ids`` gives them.
         ``mesh`` splitting the maps: feats[i] is this rank's rows, with
         ``tap_pads[i]`` rows past each global end (0 by default); the ids
-        are over the whole map, and the samples the whole map's."""
+        are over the whole map, and the samples the whole map's;
+        ``whole_taps[i]`` true: feats[i] is the whole map on every spatial
+        rank (no rank's rows)."""
         if len(feats) != self.n_layers:
             raise ValueError(f"{len(feats)} feature maps for "
                              f"{self.n_layers} layers")
@@ -84,7 +93,8 @@ class PatchSampleF(nn.Module):
             B, C = feat.shape[:2]
             flat = feat.reshape(B, C, -1).transpose(1, 2)       # (B, HW, C)
             n_loc, offset = flat.shape[1], 0
-            if spatial:
+            slab = spatial and not (whole_taps and whole_taps[i])
+            if slab:
                 plane = flat.shape[1] // feat.shape[2]
                 first, total = slab_rows(feat.shape[2],
                                          tap_pads[i] if tap_pads else 0,
@@ -100,7 +110,7 @@ class PatchSampleF(nn.Module):
                     patch_id = torch.randperm(n_loc, generator=generator)[
                         :min(num_patches, n_loc)]
                 patch_id = patch_id.to(feat.device)
-                if spatial:
+                if slab:
                     local = patch_id - offset
                     owned = (local >= 0) & (local < flat.shape[1])
                     x = gather_rows(

@@ -25,7 +25,8 @@ to compare with one process.
   conv, dropout's masks, the discriminators, the all-negatives keys, the
   bfloat16 exchanges); ``zoo_slab_pieces`` the 2-D-only generators' (the
   StyleGAN2 FIR, convs and upsampling, MUNIT's blocks, both generators
-  whole).
+  whole); ``unet_slab_pieces`` netG ``unet_*``'s (its levels that split
+  and those gathered, PatchSampleF on its slab and whole taps).
 - ``run_cases``: several named cases in one launch (the functions below
   and the two above), so that a test file starts its ranks once;
   ``one_process`` runs one of them as the one-process reference in a
@@ -142,14 +143,42 @@ def _steps(mesh, model, nets, step_fn, job, share=None, out=None):
     return out
 
 
+@contextlib.contextmanager
+def _unet_depth(downs):
+    """While open, ``RegistrationModel`` builds a ``unet_*`` netG ``downs``
+    levels deep (a shallow UNet for small images, which no option names:
+    the tests' jobs give it); nothing changes when ``downs`` is None."""
+    if downs is None:
+        yield
+        return
+    from dfmir_tpu_torch.engine import registration
+    from dfmir_tpu_torch.nets.unet_gen import UnetGenerator
+    real = registration.define_G
+
+    def define_G(**kw):
+        if not kw["netG"].startswith("unet"):
+            return real(**kw)
+        return UnetGenerator(
+            kw["input_nc"], kw["output_nc"], downs, kw["ngf"], kw["norm"],
+            kw["use_dropout"], kw["init_type"], kw["init_gain"],
+            ndims=kw["ndims"], generator=kw["generator"])
+    registration.define_G = define_G
+    try:
+        yield
+    finally:
+        registration.define_G = real
+
+
 def _registration_model(mesh, job):
     """(model, {net name: module}) as ``registration_steps`` builds it,
-    data parallel on ``mesh``."""
+    data parallel on ``mesh``; ``job["unet_downs"]``: a ``unet_*`` netG
+    that many levels deep (``_unet_depth``)."""
     dev, _, _ = _where(mesh, job)
     cfg = RegistrationConfig(**job["cfg"])
-    model = RegistrationModel(
-        cfg, device=dev, generator=torch.Generator().manual_seed(
-            job.get("seed", 0)))
+    with _unet_depth(job.get("unet_downs")):
+        model = RegistrationModel(
+            cfg, device=dev, generator=torch.Generator().manual_seed(
+                job.get("seed", 0)))
     nets = {"G": model.netG, "F": model.netF, "R": model.netR}
     if model.netD is not None:
         nets["D"] = model.netD
@@ -345,7 +374,8 @@ def joint_spatial_steps(mesh, job):
     launch's first ``job["n_data"]`` * ``job["n_spatial"]`` ranks; a rank
     past the mesh reports ``{"rank": r, "in_mesh": False}``.  The model as
     ``registration_steps`` builds it (``cfg``, ``seed``, ``state``,
-    ``flow_gain``), then, each on this rank's share of a global (A, B):
+    ``flow_gain``, ``unet_downs``), then, each on this rank's share of a
+    global (A, B):
 
     - ``register`` (``reg_reps`` calls timed): this rank's slabs of
       (fake_B, idt_B, y_source, pos_flow), with ms, launches and bytes;
@@ -705,6 +735,67 @@ def zoo_slab_pieces(mesh, n_spatial, job, n_data=None):
     return out
 
 
+def unet_slab_pieces(mesh, n_spatial, job, n_data=None):
+    """netG ``unet_*`` on slabs alone (``nets/unet_gen.py``, with
+    PatchSampleF on its taps), on this rank's share of ``job``'s global
+    tensors (``make_mesh`` of the first ``n_data`` * ``n_spatial`` ranks; a
+    rank past the mesh reports ``{"in_mesh": False}``), for the tests to
+    hold against one process: for each ``job["unets"][name]``, a dict of
+    ``netG`` (a ``UnetGenerator``), ``x``, ``layers``, ``w`` (the output's
+    weight), ``w_taps`` (each tap's), and optionally ``netF`` (a
+    ``PatchSampleF``), ``ids`` (its patch ids) and ``w_samples`` (each
+    tap's samples' weight), ``unet_<name>`` holds the output (this rank's
+    slab), the taps (its rows, or the whole map at a gathered level), the
+    samples (the whole image's on every spatial rank), which taps are
+    whole, and the gradients of the input's slab and of netG's and netF's
+    parameters (this rank's part: the ranks' add up to the whole image's)
+    under sum(out * w) + the taps' sum(tap * w_tap) + the samples'
+    sum(samples * w_sample), each term counted once over the spatial ranks
+    (a whole tap's and the samples' divided by n_spatial)."""
+    mesh = dp.make_mesh(mesh, n_data, n_spatial)
+    if mesh is None:
+        return {"in_mesh": False}
+    n = mesh.n_spatial
+
+    def items(t):
+        return dp.batch_slice(t, mesh.data_rank, mesh.n_data)
+
+    def share(t):
+        return dp.slab_slice(items(t), mesh.spatial_rank, n).clone()
+
+    out = {"data_rank": mesh.data_rank, "spatial_rank": mesh.spatial_rank}
+    for name, case in job.get("unets", {}).items():
+        netG, netF = case["netG"], case.get("netF")
+        nets = [m for m in (netG, netF) if m is not None]
+        for m in nets:
+            m.zero_grad(set_to_none=True)
+        v = share(case["x"]).requires_grad_(True)
+        whole = netG.whole_taps(case["layers"], case["x"].shape[2], n)
+        y, feats = netG(v, layers=tuple(case["layers"]), mesh=mesh)
+        loss = (y * share(case["w"])).sum()
+        for f, w, is_whole in zip(feats, case["w_taps"], whole):
+            loss = loss + ((f * items(w)).sum() / n if is_whole
+                           else (f * share(w)).sum())
+        samples = None
+        if netF is not None:
+            samples, _ = netF(feats, len(case["ids"][0]), case["ids"],
+                              mesh=mesh, tap_pads=netG.tap_pads(
+                                  case["layers"]), whole_taps=whole)
+            for smp, w in zip(samples, case["w_samples"]):
+                loss = loss + (smp * items(w)).sum() / n
+        loss.backward()
+        out[f"unet_{name}"] = {
+            "y": y.detach(), "feats": [f.detach() for f in feats],
+            "whole": whole, "x_grad": v.grad,
+            "samples": (None if samples is None
+                        else [smp.detach() for smp in samples]),
+            "grads": {k: {p_name: p.grad.clone()
+                          for p_name, p in m.named_parameters()
+                          if p.grad is not None}
+                      for k, m in zip("GF", nets)}}
+    return out
+
+
 def reduce_is_exact(mesh, job):
     """One backward of the job's first global batch (this rank's slice),
     then the step's all-reduce of the gradients: whether every gradient
@@ -905,7 +996,7 @@ CASES = {f.__name__: f for f in (registration_steps, vxm_steps,
                                  vxm_spatial_steps, spatial_pieces,
                                  joint_spatial_steps, joint_slab_pieces,
                                  option_slab_pieces, zoo_slab_pieces,
-                                 reduce_is_exact,
+                                 unet_slab_pieces, reduce_is_exact,
                                  collectives, nce, loader, one_process,
                                  tf32_flags)}
 

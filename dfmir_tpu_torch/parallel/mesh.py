@@ -59,7 +59,8 @@ image along the split axis is taken where JAX's ``shard_batch`` takes it
 levels and the half-resolution SVF split too (``check_joint_slabs``, netG
 left out for the 3-D ``VxmEngine``); netR's UNet levels that n_spatial
 does not divide run on the gathered map, whole on every spatial rank
-(``first_whole_level``, ``nets/vxm.py``).
+(``first_whole_level``, ``nets/vxm.py``), and so do netG's ``unet_*``
+levels (``nets/unet_gen.py``).
 
 The collectives run over the spatial group (the n_spatial ranks of one
 data rank), and ``all_gather_data`` over the data group (the n_data ranks
@@ -659,14 +660,16 @@ def slab_rows(rows: int, pad: int, mesh: Mesh):
 
 def first_whole_level(extent: int, n_spatial: int,
                       depth: int) -> Optional[int]:
-    """The first level of netR's UNet, ``depth`` strided levels deep, that
-    does not split over ``n_spatial`` spatial ranks: level l holds
-    ``extent / 2^l`` rows (l = 0 the input, l = depth the coarsest), and it
-    splits when ``n_spatial`` divides them, every slab then holding at least
-    one row, the deepest halo a conv of netR takes (a stride-1 3x3 conv: 1
-    row each side; a stride-2 one: 1 below).  That level and every coarser
-    one run on the gathered map, whole on every spatial rank; None when
-    every level splits.  ``extent`` must be divisible by 2^depth."""
+    """The first level of a UNet ``depth`` strided levels deep (netR's,
+    and netG's ``unet_*``) that does not split over ``n_spatial`` spatial
+    ranks: level l holds ``extent / 2^l`` rows (l = 0 the input, l = depth
+    the coarsest), and it splits when ``n_spatial`` divides them, every slab
+    then holding at least one row, the deepest halo a conv of either UNet
+    takes (netR's stride-1 3x3 conv: 1 row each side, its stride-2 one: 1
+    below; netG's 4x4 stride-2 conv and transposed conv: 1 each side).
+    That level and every coarser one run on the gathered map, whole on
+    every spatial rank; None when every level splits.  ``extent`` must be
+    divisible by 2^depth."""
     for level in range(depth + 1):
         if (extent >> level) % n_spatial:
             return level
@@ -700,8 +703,8 @@ def _refuse_svf(extent: int, n_spatial: int, int_downsize: int) -> None:
 
 
 def check_joint_slabs(extent: int, n_spatial: int, n_enc: int,
-                      int_downsize: int,
-                      level_pads: Sequence[int] = ()) -> Optional[int]:
+                      int_downsize: int, level_pads: Sequence[int] = (),
+                      gathered: bool = False) -> Optional[int]:
     """Raise unless the joint model takes an image of ``extent`` rows (H
     at 2-D, D planes at 3-D) split into ``n_spatial`` slabs; return netR's
     first level that runs gathered (``first_whole_level``).  The rule:
@@ -717,7 +720,10 @@ def check_joint_slabs(extent: int, n_spatial: int, n_enc: int,
       slab's own rows 1..p) or, for the zero-padded StyleGAN2 generators,
       the largest halo (a halo of h rows reads h rows of a neighbour's
       slab: the same rule asks one row more than that needs, so zero
-      pads add no rule of their own);
+      pads add no rule of their own).  ``gathered`` (netG ``unet_*``):
+      only netG's levels before its first whole level
+      (``first_whole_level`` of its ``levels``) split, and that level and
+      the coarser ones run gathered, as netR's do;
     - the half-resolution SVF splits (``_refuse_svf``);
     - netR's levels need nothing more: those that do not split run on the
       gathered map."""
@@ -727,6 +733,9 @@ def check_joint_slabs(extent: int, n_spatial: int, n_enc: int,
                    f"2^len(vxm_enc) {2 ** n_enc}, int_downsize "
                    f"{int_downsize}" + (f", netG's 2^{levels}"
                                         if level_pads else ""))
+    if gathered:
+        level_pads = level_pads[:first_whole_level(extent, n_spatial,
+                                                   levels)]
     for level, pad in enumerate(level_pads):
         rows = extent / (n_spatial * 2 ** level)
         if rows != int(rows) or rows <= pad:

@@ -35,6 +35,7 @@ import jax.numpy as jnp
 
 from dfmir_tpu.parallel import make_mesh as jax_make_mesh
 from dfmir_tpu.parallel import shard_batch
+from dfmir_tpu_torch.engine import registration
 from dfmir_tpu_torch.engine.config import RegistrationConfig
 from dfmir_tpu_torch.engine.registration import (SLAB_REFUSALS,
                                                  RegistrationModel)
@@ -445,9 +446,11 @@ def test_the_slab_rule_against_shard_batch(extent, n_spatial, depth, want):
 SMALL = dict(crop_size=32, ngf=8, netG="resnet_2blocks", vxm_enc=(8, 16),
              vxm_dec=(16, 16, 8), netF_nc=16, num_patches=16)
 # a config that shows each refusal of SLAB_REFUSALS, in its order
-REFUSED = [dict(netG="unet_128", nce_layers=(0, 2, 4, 6), crop_size=128),
-           dict(netF="global_pool"), dict(netR="vxm_dual"),
+REFUSED = [dict(netF="global_pool"), dict(netR="vxm_dual"),
            dict(num_patches=0)]
+# netG unet_128, which SLAB_REFUSALS named first until its levels could
+# run gathered
+UNET = dict(netG="unet_128", nce_layers=(0, 2, 4, 6), crop_size=128)
 
 
 def fake_mesh(n_spatial=2):
@@ -467,6 +470,19 @@ def test_a_spatial_mesh_refuses_each_option_by_name(i):
         model.data_parallel(fake_mesh())
     assert name in str(err.value)
     assert model.mesh is None
+
+
+def test_a_spatial_mesh_takes_the_unet(monkeypatch):
+    """No refusal names netG unet_128, and ``data_parallel`` takes it on a
+    1 x 2 mesh (the check it makes before any collective: ``replicate``,
+    a broadcast, needs ranks, which ``tests/test_torch_spatial_unet.py``
+    starts)."""
+    cfg = RegistrationConfig(**dict(SMALL, **UNET))
+    assert not any(test(cfg) for _, test in SLAB_REFUSALS)
+    model = RegistrationModel(cfg, device="cpu")
+    monkeypatch.setattr(registration, "replicate", lambda *a: None)
+    model.data_parallel(fake_mesh())
+    assert model.mesh is not None and model.mesh.n_spatial == 2
 
 
 def test_a_spatial_mesh_refuses_an_extent_that_does_not_split():

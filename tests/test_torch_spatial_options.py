@@ -1,9 +1,10 @@
 """The joint model's training options on slabs at 2-D (images split along
 H over ``gloo`` ranks on the CPU), against the JAX RegistrationModel's
 whole-image ``train_step`` with the same option, from the same weights
-(JAX's ``init_state``, loaded into the port by ``load_jax_params``; the
-flow head times ``FLOW_GAIN``, ``BF16_GAIN`` in bfloat16), on JAX's patch
-ids and FastCUT coin:
+(the port's initial weights carried to JAX by
+``tests/test_torch_zoo3d_train.py``'s ``jax_params``, so that no JAX init
+is compiled; the flow head times ``FLOW_GAIN``, ``BF16_GAIN32`` in
+bfloat16), on JAX's patch ids and FastCUT coin:
 
 - on 1 x 2: bfloat16 (``register`` too), FastCUT at each coin, and the
   GAN phase with netD ``pixel`` and ``no_antialias_up``;
@@ -51,7 +52,7 @@ import jax.numpy as jnp
 from dfmir_tpu.engine import TrainState
 from dfmir_tpu.engine.config import RegistrationConfig as JaxConfig
 from dfmir_tpu.engine.registration import RegistrationModel as JaxModel
-from dfmir_tpu_torch.compat.convert import load_jax_params, to_nchw, to_nhwc
+from dfmir_tpu_torch.compat.convert import to_nchw, to_nhwc
 from dfmir_tpu_torch.engine.config import RegistrationConfig
 from dfmir_tpu_torch.engine.registration import RegistrationModel
 from dfmir_tpu_torch.parallel import checks
@@ -60,23 +61,37 @@ from test_torch_fastcut import key_with_coin
 from test_torch_joint3d import tap_locations3d
 from test_torch_train import (GRAD_ENV, KEY, LR, jax_pair_patch_ids,
                               jax_patch_ids)
+from test_torch_zoo3d_train import jax_params
 from test_torch_zoo_train import port_tree
 from torch_threads import few_threads  # noqa: F401 (autouse fixture)
 
 LIMIT = 400.0
 FLOW_GAIN = 1e5      # the flow head N(0, 1e-5) -> about a pixel
-# a field of about 0.1 px at this config (0.2 at 1e4), the premise of the
-# bfloat16 pos_flow bar: one bf16 ulp of the flow head's output there is
-# under 1e-3 (tests/test_torch_bf16.py)
+# a field of about 0.1 px (0.2 at 1e4) at the JAX init's weights, the
+# premise of the bfloat16 pos_flow bar: one bf16 ulp of the flow head's
+# output there is under 1e-3 (tests/test_torch_bf16.py)
 BF16_GAIN = 5e3
+# the same premise at CFG32 from the port's initial weights (0.157 px at
+# 5e3)
+BF16_GAIN32 = 3.2e3
 METRIC_TOL = 1e-4
 BF16_METRIC_TOL = 1e-2
 BF16_GRAD_ENV = 1e-1
 DROPOUT_METRIC_TOL = 1e-5
 REGISTER_BARS = {"fake_B": 0.1, "idt_B": 0.1, "y_source": 1e-2,
                  "pos_flow": 1e-3}
+# JAX's float32 steps compiled with LLVM at -O0: XLA's own passes as they
+# are, a third less CPU to compile a step (most of these files' time), the
+# step's metrics within 5e-7 relative of the default's at CFG32's GAN
+# config.  Not under jax.enable_x64: JAX's float64 step keeps float32
+# casts (netG's output and taps), whose rounding the level changes, and
+# resnet_cat's first conv, which a norm follows, then moves by 7.7e-3 of
+# netG's max |g| (tests/test_torch_spatial_zoo.py holds 1e-3)
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
+# 2 integration steps: JAX's step compiles in half the time of 7 (the
+# 7-step chain on slabs is held by tests/test_torch_spatial_step2d.py)
 CFG32 = dict(crop_size=32, ngf=8, netG="resnet_2blocks", vxm_enc=(8, 16),
-             vxm_dec=(16, 16, 8), netF_nc=16, num_patches=16)
+             vxm_dec=(16, 16, 8), netF_nc=16, num_patches=16, int_steps=2)
 FASTCUT = dict(flip_equivariance=True, nce_idt=False, lambda_NCE=10.0)
 GAN = dict(lambda_GAN=1.0, ndf=8)
 ALL_NEG = dict(nce_includes_all_negatives_from_minibatch=True)
@@ -110,22 +125,28 @@ def cached(key, make):
     return _JAX[key]
 
 
-def jax_and_port(cfg, gain):
-    """JAX's model and its init_state weights (numpy, the flow head times
-    ``gain``), and the port's state dicts of the same weights.  One JAX
-    model a config (its jitted step compiles once) and one init a set of
-    networks."""
-    jm = cached(repr(sorted(cfg.items())), lambda: JaxModel(JaxConfig(**cfg)))
-    nets = (cfg["ndims"] if "ndims" in cfg else 2,
-            cfg.get("no_antialias_up", False),
-            cfg.get("netD", "basic") if cfg.get("lambda_GAN", 0) > 0
-            else None)
-    params = jax.tree.map(np.copy, cached(nets, lambda: jax.tree.map(
-        lambda a: np.array(a, dtype=np.float32),
-        jm.init_state(jax.random.PRNGKey(0)).params)))
-    params["R"]["flow"]["kernel"] *= gain
+def jax_and_port(cfg, gain, with_jax=True):
+    """JAX's model and the port's initial weights (the flow head times
+    ``gain``) as JAX's params (numpy, ``tests/test_torch_zoo3d_train.py``'s
+    ``jax_params``: no JAX init is run, its shapes traced alone), the
+    port's model, and its state dicts; without ``with_jax`` (the dropout
+    runs, held to the port's one process) no JAX model and params (None).
+    One JAX model a config (its jitted step compiles once) and one trace
+    of its init a set of networks."""
     tm = RegistrationModel(RegistrationConfig(**cfg), device="cpu")
-    load_jax_params(tm, params)
+    with torch.no_grad():
+        tm.netR.flow.weight.mul_(gain)
+    jm = params = None
+    if with_jax:
+        jm = cached(repr(sorted(cfg.items())),
+                    lambda: JaxModel(JaxConfig(**cfg)))
+        nets = (cfg["ndims"] if "ndims" in cfg else 2,
+                cfg.get("no_antialias_up", False),
+                cfg.get("netD", "basic") if cfg.get("lambda_GAN", 0) > 0
+                else None)
+        shapes = cached(nets, lambda: jax.eval_shape(
+            jm.init_state, jax.random.PRNGKey(0)).params)
+        params = jax_params(cfg, tm, shapes)
     nets = {"G": tm.netG, "F": tm.netF, "R": tm.netR, "D": tm.netD}
     # copies: a launch moves the tensors it sends into shared memory
     state = {k: {n: v.clone() for n, v in net.state_dict().items()}
@@ -133,18 +154,27 @@ def jax_and_port(cfg, gain):
     return jm, tm, params, state
 
 
-def jax_train_step(jm, params, a, b, key):
+def jax_train_step(jm, params, a, b, key, fast=None):
     """JAX's train_step: its metrics and gradients ({net: tree}, g = 2 mu:
-    G, F and R's from the main update, D's from netD's)."""
+    G, F and R's from the main update, D's from netD's).  ``fast``:
+    compiled at FAST_COMPILE (by default only outside jax.enable_x64)."""
+    if fast is None:
+        fast = not jax.config.jax_enable_x64
     assert jm.cfg.beta1 == 0.5
     jp = jax.tree.map(jnp.asarray, params)
     if "D" in jp:
         opt = (jm.tx.init({k: jp[k] for k in "GFR"}), jm.tx_d.init(jp["D"]))
     else:
         opt = jm.tx.init(jp)
-    new, metrics = jm.train_step(
-        TrainState(params=jp, opt_state=opt, step=jnp.zeros((), jnp.int32)),
-        jnp.asarray(a), jnp.asarray(b), key, jnp.float32(LR))
+    args = (TrainState(params=jp, opt_state=opt,
+                       step=jnp.zeros((), jnp.int32)),
+            jnp.asarray(a), jnp.asarray(b), key, jnp.float32(LR))
+    # one compile a model, input layout and level
+    step = cached(("step", id(jm), fast, repr(jax.tree.map(
+        lambda x: (x.shape, x.dtype), args))), lambda: type(
+            jm).train_step.lower(jm, *args).compile(
+                FAST_COMPILE if fast else None))
+    new, metrics = step(*args)
     mu = (dict(new.opt_state[0].mu, D=new.opt_state[1].mu) if "D" in jp
           else dict(new.opt_state.mu))
     return ({k: float(v) for k, v in metrics.items()},
@@ -173,10 +203,11 @@ def step_job(cfg, state, A, Bt, ids, coin, mesh_shape, register=False):
                 n_spatial=n_spatial, register=(A, Bt) if register else None)
 
 
-def build(cases, base, seed, bf16_gain=BF16_GAIN, x64=False):
+def build(cases, base, seed, bf16_gain=BF16_GAIN, x64=False,
+          with_jax=True):
     """The ranks' jobs and the JAX models' inputs for ``cases`` (the
     options added to ``base``), images (2-D) or volumes (``base``'s
-    ``ndims`` 3) of ``seed``."""
+    ``ndims`` 3) of ``seed``; without ``with_jax`` no JAX model."""
     side = (base["crop_size"],) * base.get("ndims", 2)
     a, b = images(seed, (2,) + side + (1,))
     A, Bt = (torch.from_numpy(to_nchw(x)) for x in (a, b))
@@ -185,7 +216,7 @@ def build(cases, base, seed, bf16_gain=BF16_GAIN, x64=False):
         cfg = dict(base, **opts)
         bf16 = cfg.get("compute_dtype") == "bfloat16"
         jm, tm, params, state = jax_and_port(cfg, bf16_gain if bf16
-                                             else FLOW_GAIN)
+                                             else FLOW_GAIN, with_jax)
         # the coin and the ids as JAX's step draws them: under x64 its
         # uniform draws differ
         with jax.enable_x64(x64 and not bf16):
@@ -207,7 +238,7 @@ def start(cases, dropout, base, seed, bf16_gain=BF16_GAIN, x64=False,
     gradients' reference.  ``n_ranks``: the launch's, the largest mesh's.
     Returns (the setup dict, the thread pool)."""
     jobs, jax_in = build(cases, base, seed, bf16_gain, x64)
-    drop, _ = build(dropout, base, seed + 1, bf16_gain)
+    drop, _ = build(dropout, base, seed + 1, bf16_gain, with_jax=False)
     for job in drop.values():
         job["dropout_seed"] = DROPOUT_SEED
     twins = {f"{name}_float64": dict(job, dtype="float64", register=None)
@@ -240,7 +271,7 @@ def start(cases, dropout, base, seed, bf16_gain=BF16_GAIN, x64=False,
 
 @pytest.fixture(scope="module")
 def setup():
-    out, pool = start(CASES, DROPOUT, CFG32, 3)
+    out, pool = start(CASES, DROPOUT, CFG32, 3, BF16_GAIN32)
     yield out
     pool.shutdown(wait=True)
 

@@ -27,13 +27,15 @@ of its max |g|).
 In-process: ``check_joint_slabs`` on both families' ``slab_level_pads``
 (an extent it takes, one it refuses, and the smallest it takes), and
 ``SLAB_REFUSALS``' refusal by name of every choice still without a slab
-form; the three netGs of this file pass it."""
+form; the three netGs of this file pass it, and so do the UNet
+generators (``tests/test_torch_spatial_unet*.py``)."""
 
 import concurrent.futures
 
 import pytest
 import torch
 
+from dfmir_tpu_torch.engine import registration
 from dfmir_tpu_torch.engine.config import RegistrationConfig
 from dfmir_tpu_torch.engine.registration import (SLAB_REFUSALS,
                                                  RegistrationModel)
@@ -62,17 +64,19 @@ ZOO = {"resnet_cat": dict(netG="resnet_cat", nce_layers=(0, 1, 2, 3)),
 # every choice still without a slab form: (its SLAB_REFUSALS entry, the
 # config that shows it)
 STILL_REFUSED = {
-    "unet_128": (0, dict(netG="unet_128", nce_layers=(0, 2, 4, 6),
-                         crop_size=128)),
-    "unet_256": (0, dict(netG="unet_256", nce_layers=(0, 2, 4, 6),
-                         crop_size=256)),
-    "global_pool": (1, dict(netF="global_pool")),
-    "reshape": (1, dict(netF="reshape")),
-    "strided_conv": (1, dict(netF="strided_conv")),
-    "vxm_transformer": (2, dict(netR="vxm_transformer",
+    "global_pool": (0, dict(netF="global_pool")),
+    "reshape": (0, dict(netF="reshape")),
+    "strided_conv": (0, dict(netF="strided_conv")),
+    "vxm_transformer": (1, dict(netR="vxm_transformer",
                                 vxm_dec=(16, 16, 8, 8))),
-    "vxm_dual": (2, dict(netR="vxm_dual", vxm_dec=(16, 16, 8, 8))),
-    "num_patches_0": (3, dict(num_patches=0))}
+    "vxm_dual": (1, dict(netR="vxm_dual", vxm_dec=(16, 16, 8, 8))),
+    "num_patches_0": (2, dict(num_patches=0))}
+# the UNet generators, which SLAB_REFUSALS named until their coarse levels
+# could run gathered
+UNETS = {"unet_128": dict(netG="unet_128", nce_layers=(0, 2, 4, 6),
+                          crop_size=128, ngf=2),
+         "unet_256": dict(netG="unet_256", nce_layers=(0, 2, 4, 6),
+                          crop_size=256, ngf=2)}
 
 
 def rand(gen, *shape):
@@ -272,6 +276,23 @@ def test_a_spatial_mesh_takes_the_2d_only_generators(netG):
     model = RegistrationModel(cfg, device="cpu")
     model._check_slabs(cfg.crop_size, fake_mesh(2))
     model._check_slabs(cfg.crop_size, fake_mesh(4))
+
+
+@pytest.mark.parametrize("netG", UNETS)
+def test_a_spatial_mesh_takes_the_unet_generators(netG, monkeypatch):
+    """No refusal names the UNet, and ``data_parallel`` takes it on a 1 x
+    4 mesh (the check it makes before any collective: ``replicate``, a
+    broadcast, needs ranks, which ``tests/test_torch_spatial_unet.py``
+    starts); its tap 6 (level 7: 2 rows of 256, 1 of 128) runs gathered
+    there."""
+    cfg = RegistrationConfig(**dict(SMALL, **UNETS[netG]))
+    assert not any(test(cfg) for _, test in SLAB_REFUSALS)
+    model = RegistrationModel(cfg, device="cpu")
+    monkeypatch.setattr(registration, "replicate", lambda *a: None)
+    model.data_parallel(fake_mesh(4))
+    assert model.mesh is not None and model.mesh.n_spatial == 4
+    assert model.netG.whole_taps(cfg.nce_layers, cfg.crop_size, 4) == [
+        False, False, False, True]
 
 
 @pytest.mark.parametrize("choice", STILL_REFUSED)
